@@ -6,6 +6,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running (subprocess dry-run)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips (inside the test) without one")
     _register_hypothesis_profiles()
 
 def _register_hypothesis_profiles():
