@@ -15,7 +15,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    16 x 32 = 512 times, and the same model with the plain torch Alg. 1
    (``int``) must give bitwise equal tokens and last logits; then the smoke
    config on the card against the same weights on the CPU;
-5. a ``kernels`` JSON line per ported kernel, the card line, and the result
+5. K2 (the fused paged decode) against its plain PyTorch version at the
+   serve path's decode shape and the reference's paged-kernel matrix: the
+   plain Alg. 1 on K2's own scores gives its probabilities bitwise; scores
+   and outputs within stated bounds; times and bounds as for K1;
+6. the serve path: full-width olmo-1b through ``Engine.serve`` (paged pool,
+   prefix sharing, ``kernel="pallas"``) on a 32-request shared-prefix
+   trace. K2 must launch 16 x steps times and K1 16 x 32; greedy tokens
+   equal ``kernel="jnp"`` and per-request eager but at near ties; every
+   served logit within a stated limit of a teacher-forced prefill of the
+   served tokens; warm timings of both kernels;
+7. a ``kernels`` JSON line per ported kernel, the card line, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -30,6 +40,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -171,6 +182,240 @@ def phase3_k1(rate):
     return recs
 
 
+# ----------------------------------------------------------------- phase 5
+
+
+# Bounds of K2 against its plain version (tier (b)). The kernel sums the
+# D products of a score in f32 in its own order, cuBLAS in another: each sum
+# is within D * 2^-24 * sum|q_i k_i| of the exact dot (the f32 summation
+# bound), and rounding it to the compute dtype adds at most half an ulp. So
+# a score may be one compute-dtype ulp (at the dot's magnitude) plus that
+# summation bound from the exactly rounded product, and one ulp plus twice
+# it from the plain version's; a score rounded to bf16 after scaling adds
+# one bf16 ulp of the score. Near zero the summation bound is many ulps of
+# the tiny dot.
+# Outputs: the kernel sums p * v in f32 position by position (one rounding
+# per fmaf) and rounds once to the compute dtype, so its output is within
+# 2^-24 * sum_i |partial sum i| plus half an ulp of the f64 sum over its own
+# compute-dtype probabilities (the PV check). Against the plain version's
+# output it may differ by sum_j |p_j - p'_j| |v_j| (the two sides'
+# probabilities differ only where a score moved an Alg.-1 code), both
+# summation bounds (cuBLAS's, in an order not known here, is n * 2^-24 *
+# sum |p'| |v| over the n valid keys) and one ulp for the two roundings.
+MANTISSA = {torch.bfloat16: 7, torch.float32: 23}
+
+
+def _ulp(x, dtype):
+    """The compute-dtype ulp at magnitude |x| (f64)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - MANTISSA[dtype])
+
+
+def _pv_sums(probs, vg, dtype):
+    """probs [S, KV, ROWS, L] f32, vg [S, L, KV, Dv] f64 -> the exact f64
+    sum over the compute-dtype probabilities, the bound of the kernel's
+    position-by-position f32 sum, and sum |p| |v|; each [S, KV, ROWS, Dv]."""
+    exact, recursive, mass = [], [], []
+    for s in range(probs.shape[0]):        # one slot at a time: [KV, ROWS, L, Dv]
+        terms = probs[s].to(dtype).double()[..., None] * vg[s].permute(1, 0, 2)[:, None]
+        part = torch.cumsum(terms, dim=2)
+        exact.append(part[:, :, -1])
+        recursive.append(2.0 ** -24 * (1 + 2.0 ** -8) * part.abs().sum(dim=2))
+        mass.append(terms.abs().sum(dim=2))
+    return torch.stack(exact), torch.stack(recursive), torch.stack(mass)
+
+
+def _k2_inputs(gen, *, S, KV, group, T, D, BS, NLOG, NB, dtype, qpos,
+               parked=(), extra_pages=2):
+    """Random q and pools; each slot owns distinct random blocks through the
+    page of its last query position plus ``extra_pages`` (capped at NLOG),
+    sentinels after them; a parked slot sits at position NLOG * BS with an
+    all-sentinel row."""
+    dev = torch.device("cuda")
+    rows = T * group
+    q = torch.randn((S, KV, rows, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((NB, BS, KV, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((NB, BS, KV, D), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(NB, generator=gen, device=dev).cpu().numpy()
+    table = np.full((S, NLOG), NB, np.int32)
+    positions = np.zeros((S, T), np.int32)
+    used = 0
+    for s in range(S):
+        if s in parked:
+            positions[s] = NLOG * BS
+            continue
+        positions[s] = qpos[s] + np.arange(T)
+        n = min(NLOG, int(positions[s].max()) // BS + 1 + extra_pages)
+        table[s, :n] = perm[used:used + n]
+        used += n
+    assert used <= NB
+    return (q, k, v, torch.as_tensor(table, device=dev),
+            torch.as_tensor(positions, device=dev))
+
+
+def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
+            NB=None, dtype=torch.bfloat16, window=0, qpos=None, parked=(),
+            scores_dtype=torch.float32):
+    """K2 against its plain version on one input: (a) the plain Alg. 1 on
+    K2's own scores gives K2's probabilities bitwise; (b) scores within the
+    bounds above of the exactly rounded product and of the plain version;
+    outputs within the bounds above of the exact sum over K2's own
+    probabilities and of the plain version. Returns its record."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.int_softmax.ref import int_softmax_ref
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.attention import paged_gather
+
+    NB = NB or S * NLOG + 4
+    l_full = NLOG * BS
+    rng = np.random.default_rng(zlib.crc32(label.encode()))
+    if qpos is None:
+        qpos = rng.integers(l_full // 2, l_full - T + 1, size=S)
+    q, k, v, table, pos = _k2_inputs(gen, S=S, KV=KV, group=group, T=T, D=D, BS=BS,
+                                     NLOG=NLOG, NB=NB, dtype=dtype, qpos=qpos,
+                                     parked=parked)
+    rows = T * group
+    scale = D ** -0.5
+    kw = dict(scale=scale, window=window, scores_dtype=scores_dtype)
+    sc = torch.zeros((S, KV, rows, l_full), device="cuda")
+    pr = torch.zeros_like(sc)
+    out = ops.paged_attention_rows(q, k, v, table, pos, BEST, scores_out=sc,
+                                   probs_out=pr, **kw)
+    want, want_sc, want_pr = paged_attention_ref(q, k, v, table, pos, BEST,
+                                                 return_rows=True, **kw)
+    torch.cuda.synchronize()
+    # (a) the Alg.-1 step, bitwise, on the kernel's own scores
+    kpos = torch.arange(l_full, device="cuda")
+    qp = pos.repeat_interleave(group, dim=1)[:, None, :, None]      # [S,1,ROWS,1]
+    valid = kpos <= qp
+    if window:
+        valid &= kpos > qp - window
+    valid = valid.expand(S, KV, rows, l_full).reshape(-1, l_full)
+    again = int_softmax_ref(sc.reshape(-1, l_full), BEST, valid).reshape(sc.shape)
+    check(torch.equal(again, pr), f"K2 {label}: plain Alg. 1 on the kernel's "
+          "scores != the kernel's probabilities")
+    # (b) bounded: scores against the exactly rounded product (the f64 dot
+    # rounded to the compute dtype, then scaled as both sides scale it) and
+    # against the plain version, in units of the bound above
+    live = valid.reshape(sc.shape)
+    kg = paged_gather(k, table).double()                           # [S, L, KV, D]
+    dot = torch.einsum("skrd,slkd->skrl", q.double(), kg)
+    exact = (dot.to(dtype).to(scores_dtype) * scale).float()
+    summed = D * 2.0 ** -24 * torch.einsum("skrd,slkd->skrl", q.double().abs(), kg.abs())
+
+    def units(x, ref, n_sums):
+        mag = torch.maximum(ref.abs(), x.abs()) / scale * (1 + 1e-6)
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - MANTISSA[dtype])
+        tol = (ulp + n_sums * summed) * scale
+        if scores_dtype == torch.bfloat16:
+            tol = tol + torch.exp2(torch.floor(torch.log2(
+                torch.maximum(ref.abs(), x.abs()).clamp_min(1e-30))) - 7)
+        return ((x - ref).abs() / (tol * 1.001))[live]
+
+    worst = {"vs_exact": float(units(sc, exact, 1).max()),
+             "vs_plain": float(units(sc, want_sc, 2).max()),
+             "plain_vs_exact": float(units(want_sc, exact, 1).max())}
+    n_sc = int(((sc != want_sc) & live).sum())
+    check(worst["vs_exact"] <= 1, f"K2 {label}: a score is outside the bound of the "
+          f"exactly rounded product ({worst}, in units of the bound)")
+    check(worst["vs_plain"] <= 1, f"K2 {label}: a score is outside the bound of the "
+          f"plain version's ({worst}, in units of the bound)")
+    # outputs: against the exact sum over the kernel's own probabilities
+    # (the PV step) and against the plain version, in units of the bounds
+    check(bool(torch.isfinite(out).all()), f"K2 {label}: non-finite output")
+    del dot, summed, kg
+    vg = paged_gather(v, table).double()                           # [S, L, KV, Dv]
+    o, w = out.double(), want.double()
+    e_k, rec_k, _ = _pv_sums(pr, vg, dtype)
+    _, _, mass_p = _pv_sums(want_pr, vg, dtype)
+    dp = torch.einsum("skrl,slkd->skrd", (pr.to(dtype).double()
+                                          - want_pr.to(dtype).double()).abs(), vg.abs())
+    n_valid = live.sum(-1, keepdim=True).double()
+    tol_pv = rec_k + 0.5 * _ulp(torch.maximum(o.abs(), e_k.abs() + rec_k), dtype)
+    tol_out = (dp + rec_k + n_valid * 2.0 ** -24 * mass_p
+               + _ulp(torch.maximum(o.abs(), w.abs()), dtype))
+    out_units = {"pv_vs_exact": float(((o - e_k).abs() / tol_pv).max()),
+                 "vs_plain": float(((o - w).abs() / tol_out).max())}
+    err = float((o - w).abs().max())
+    rms = float(w.pow(2).mean().sqrt())
+    n_out = int((out != want).sum())
+    check(out_units["pv_vs_exact"] <= 1, f"K2 {label}: an output is outside the bound of "
+          f"the exact sum over its own probabilities ({out_units}, in units of the bound)")
+    check(out_units["vs_plain"] <= 1, f"K2 {label}: an output is outside the bound of "
+          f"the plain version's ({out_units}, in units of the bound; max abs err {err})")
+    # bound: the K and V rows the function needs (keys at or below some
+    # row's position, inside its window, on a live page), q, out, table and
+    # positions, each once; operations: the dot and the PV per needed key
+    # and row (f32 FMAs outside the tensor cores) and Alg. 1 per score
+    esz = torch.finfo(dtype).bits // 8
+    tab, ps = table.cpu().numpy(), pos.cpu().numpy()
+    kp = np.arange(l_full)
+    need = kp <= ps[:, :, None]                                    # [S, T, L]
+    if window:
+        need &= kp > ps[:, :, None] - window
+    need &= ((tab >= 0) & (tab < NB))[:, kp // BS][:, None, :]
+    keys_read = int(need.any(axis=1).sum())           # a slot's rows share their keys
+    row_keys = int(need.sum()) * group
+    dv = v.shape[-1]
+    nbytes = (keys_read * KV * (D + dv) * esz + (q.numel() + out.numel()) * esz
+              + table.numel() * 4 + pos.numel() * 4)
+    nops = row_keys * KV * (2 * D + 2 * dv + K1_OPS_PER_ELEMENT)
+    bytes_ms, ops_ms = nbytes / rate * 1e3, nops / ALU_RATE * 1e3
+    kernel = lambda: ops.paged_attention_rows(q, k, v, table, pos, BEST, **kw)  # noqa: E731
+    plain = lambda: paged_attention_ref(q, k, v, table, pos, BEST, **kw)  # noqa: E731
+    rec = {"shape": label, "S": S, "KV": KV, "rows": rows, "D": D, "BS": BS,
+           "NLOG": NLOG, "window": window, "dtype": str(dtype).split(".")[-1],
+           "scores_dtype": str(scores_dtype).split(".")[-1],
+           "keys_read": keys_read,
+           "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
+           "scores_differing": n_sc, "outputs_differing": n_out,
+           "score_bound_units": worst, "output_bound_units": out_units,
+           "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+           "call_ms": call_ms(kernel, 20), "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"K2 {label:<34} S={S} KV={KV} rows={rows} D={D} BS={BS} NLOG={NLOG} "
+          f"w={window} {rec['dtype']}: Alg. 1 on own scores bitwise; scores differing "
+          f"{n_sc} (worst, in units of the bound: {worst}), outputs differing {n_out} "
+          f"(worst, in units of the bound: {out_units}), max abs err {err:.3e} = "
+          f"{err / rms:.3e} of the output's RMS {rms:.3e}; keys read {keys_read}; "
+          f"device ms: kernel {rec['ms']:.4f}, plain "
+          f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}, "
+          f"{rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); eager call {rec['call_ms']:.4f}",
+          flush=True)
+    return rec
+
+
+def phase5_k2(rate):
+    """K2 against its plain version at the main path's decode shape and the
+    matrix of the reference's paged-kernel tests (no int8)."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    # the plain version's products in f32 accumulation throughout
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    main = dict(S=8, KV=16, group=1, D=128, BS=16, NLOG=36, NB=324)
+    # positions as the serve run has them: prefix 384 + suffix 16..128,
+    # then up to 64 new tokens
+    qpos = np.random.default_rng(1).integers(400, 576, size=8)
+    recs = [k2_case("decode (main path)", gen, rate, qpos=qpos, **main)]
+    recs.append(k2_case("GQA group 4 (H 32, KV 8)", gen, rate, **{**main, "KV": 8, "group": 4}))
+    recs.append(k2_case("GQA group 8 (H 32, KV 4)", gen, rate, **{**main, "KV": 4, "group": 8}))
+    recs.append(k2_case("window 256", gen, rate, window=256, **main))
+    recs.append(k2_case("block size 8", gen, rate, **{**main, "BS": 8, "NLOG": 72, "NB": 648}))
+    recs.append(k2_case("block size 64", gen, rate, **{**main, "BS": 64, "NLOG": 9, "NB": 81}))
+    recs.append(k2_case("4096-token rows", gen, rate, S=4, KV=16, group=1, NLOG=256,
+                        qpos=np.array([4095, 4000, 3000, 2049])))
+    recs.append(k2_case("sentinel tails + parked slot", gen, rate, qpos=qpos,
+                        parked=(0, 5), **main))
+    recs.append(k2_case("T 3 (verify rows)", gen, rate, T=3, **main))
+    recs.append(k2_case("f32 compute", gen, rate, dtype=torch.float32, **main))
+    recs.append(k2_case("bf16 scores", gen, rate, scores_dtype=torch.bfloat16, **main))
+    recs.append(k2_case("32768-token row, rows 1", gen, rate, S=1, KV=16, group=1,
+                        NLOG=2048, qpos=np.array([32767])))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    return recs
+
+
 # ----------------------------------------------------------------- phase 4
 
 
@@ -274,6 +519,236 @@ def phase4_main_path():
     return launches
 
 
+# ----------------------------------------------------------------- phase 6
+
+# A greedy divergence between two runs of the full-width model is accepted
+# only where the reference run's top-2 logit margin at the first divergent
+# step is below NEAR_TIE. The logits are bf16 values (one ulp is 2^-6 at a
+# magnitude of 2-4, where the top logits of the seeded model lie), and K2
+# and cuBLAS differ by tier-(b) roundings that can move an Alg.-1 code and
+# add up over 16 layers: on the H100 the divergences seen fell at margins
+# of 0 to 3 ulps (0.047). NEAR_TIE is 8 ulps.
+NEAR_TIE = 0.125
+
+
+# Served logits against a teacher-forced pass, per request and step: the
+# served tokens fed back through one causal forward (Model.train_logits)
+# give the logits each step should have seen, with no KV cache, paged pool, prefix
+# sharing, tail prefill or K2 in the way, and no sampling. Both sides are
+# bf16 with different GEMM shapes (a step of 8 slots, a tail prefill, one
+# whole-sequence forward), so their logits differ by roundings that add up
+# over 16 layers; per-request eager generate against the same forward
+# measures that floor without the serve machinery (on the H100: max 0.082,
+# RMS 0.0150; the serve runs read max 0.109 and RMS 0.0153). A served logit
+# may be LOGIT_TOL (16 bf16 ulps at the top logits' magnitude of 2-4) from
+# the teacher-forced one, and the RMS of the differences over a run
+# LOGIT_RMS_TOL (1.3 times that floor: an extra error of RMS 0.013 fails).
+LOGIT_TOL = 0.25
+LOGIT_RMS_TOL = 0.02
+
+
+class _LogitRecorder:
+    """Greedy sampler that keeps every logits row it samples, by the seed
+    of the request's generator (one generator per request)."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def __call__(self, logits, generator):
+        self.rows.setdefault(generator.initial_seed(), []).append(logits[0].clone())
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def teacher_forced(label, model, params, reqs, tokens, rows):
+    """Per run: the largest |served - teacher-forced| logit at the first
+    step (the prefill or tail prefill) and at the decode steps, and the RMS
+    of the differences over every logit of every step. ``tokens``: the
+    served token row of each request; ``rows``: the recorder's rows."""
+    first = decode = sq = 0.0
+    n = 0
+    for r, toks in zip(reqs, tokens):
+        got = rows[r.seed]
+        check(len(got) == r.max_new, f"{label}, request {r.rid}: {len(got)} sampled rows")
+        seq = torch.as_tensor(np.asarray(toks[:-1])[None], dtype=torch.long,
+                              device="cuda")
+        ref = model.train_logits(params, {"tokens": seq})[0, r.prompt_len - 1:]
+        d = (torch.stack(got).float() - ref.float()).abs()
+        first = max(first, float(d[0].max()))
+        if len(d) > 1:
+            decode = max(decode, float(d[1:].max()))
+        sq += float(d.double().pow(2).sum())
+        n += d.numel()
+    stats = {"run": label, "requests": len(reqs), "first_step_max": first,
+             "decode_max": decode, "rms": (sq / n) ** 0.5}
+    print(f"  teacher-forced logits, {label}: max |diff| {first:.4g} at the first step "
+          f"(prefill or tail prefill), {decode:.4g} at decode steps, RMS {stats['rms']:.4g} "
+          f"(limits {LOGIT_TOL}, RMS {LOGIT_RMS_TOL})", flush=True)
+    return stats
+
+
+def _margin(model, params, tokens):
+    """Top logit and top-2 margin of the next-token logits after ``tokens``,
+    by a teacher-forced prefill of the reference's own tokens."""
+    batch = {"tokens": torch.as_tensor(np.asarray(tokens)[None], dtype=torch.long,
+                                       device="cuda")}
+    logits, _ = model.prefill(params, batch, cache_len=len(tokens))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0]), float(top[0] - top[1])
+
+
+def compare_tokens(label, got, want, prompt_len, model, params, ties):
+    """Equal token rows, or a first divergence at a near tie of ``want``."""
+    diff = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+    if diff.size == 0:
+        return
+    k = int(diff[0])
+    check(k >= prompt_len, f"{label}: prompt differs")
+    top, margin = _margin(model, params, want[:k])
+    print(f"  divergence {label}: generated step {k - prompt_len}, reference top-2 "
+          f"logit margin {margin:.4g} at top logit {top:.4g} (near-tie bound "
+          f"{NEAR_TIE})", flush=True)
+    check(margin < NEAR_TIE, f"{label}: greedy tokens diverge at step "
+          f"{k - prompt_len} with margin {margin} >= {NEAR_TIE}")
+    ties.append({"run": label, "step": k - prompt_len, "margin": margin, "top": top})
+
+
+def phase6_serve():
+    """The new main path: full-width olmo-1b served through Engine.serve
+    with the paged pool, prefix sharing and the fused paged decode K2."""
+    import dataclasses
+
+    from repro_torch.backends import ZERO_COST
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.kernels.int_softmax import ops as k1
+    from repro_torch.kernels.paged_attention import ops as k2
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"))
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    reqs = shared_prefix_trace(32, cfg.vocab, prefix_len=384, suffix_lens=(16, 64, 128),
+                               max_new_range=(16, 64), seed=0, arrival_spacing=2.0)
+    opts = ServeOptions(slots=8, paged=True, block_size=16, prefix_share=True,
+                        kernel="pallas", report_cost=True)
+    eng = Engine(model, params, max_new=64)
+    gen_tokens = sum(r.max_new for r in reqs)
+    print(f"serve path: {cfg.name} full width, bf16 seeded weights, softmax int_pallas; "
+          f"{len(reqs)} requests (shared prefix 384 + suffix 16/64/128, max_new 16-64, "
+          f"{gen_tokens} tokens), slots 8, paged bs 16, prefix_share, kernel pallas",
+          flush=True)
+
+    # the checked runs sample through a recorder (greedy, per slot) that
+    # keeps every logits row; the timed runs below use ``eng``
+    rec = _LogitRecorder()
+    eng_r = Engine(model, params, max_new=64, sampler=rec)
+    k1.int_softmax_rows.launches = 0
+    k2.paged_attention_rows.launches = 0
+    rep = eng_r.serve(reqs, opts)
+    torch.cuda.synchronize()
+    n1, n2 = k1.int_softmax_rows.launches, k2.paged_attention_rows.launches
+    rows_pallas, rec.rows = rec.rows, {}
+    print(f"K2 launches in one serve: {n2} (expected {cfg.n_layers} layers x {rep.steps} "
+          f"steps = {cfg.n_layers * rep.steps}); K1 launches: {n1} (expected "
+          f"{cfg.n_layers} x {len(reqs)} prefills = {cfg.n_layers * len(reqs)})", flush=True)
+    check(n2 == cfg.n_layers * rep.steps, f"K2 launched {n2} times")
+    check(n1 == cfg.n_layers * len(reqs), f"K1 launched {n1} times")
+    check(len(rep.results) == len(reqs), "not every request completed")
+    for r, res in zip(reqs, rep.results):
+        check(res.rid == r.rid and res.tokens.shape == (r.prompt_len + r.max_new,),
+              f"request {r.rid}: token shape")
+        check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+              f"request {r.rid}: token range")
+    check(rep.shared_prefill_tokens > 0, "no prefix was shared")
+    check(rep.leaked_blocks == 0, f"{rep.leaked_blocks} pool blocks leaked")
+    summed = ZERO_COST
+    for res in rep.results:
+        summed = summed + res.cost
+    for f in ("vectors", "cycles", "latency_s", "energy_j"):
+        a, b = float(getattr(summed, f)), float(getattr(rep.cost, f))
+        check(abs(a - b) <= 1e-9 * abs(b), f"cost shares do not sum to the batch: {f}")
+    print(f"served: {rep.steps} decode steps, cache_len {rep.cache_len}, prefill "
+          f"{rep.prefill_tokens} tokens + shared {rep.shared_prefill_tokens}, cow copies "
+          f"{rep.cow_copies}, evictions {rep.evictions}, leaked blocks {rep.leaked_blocks}; "
+          f"per-request cost shares sum to the batch meter (rel 1e-9): "
+          f"{rep.cost.describe()}", flush=True)
+
+    ties = []
+    rep_j = eng_r.serve(reqs, dataclasses.replace(opts, kernel="jnp", report_cost=False))
+    rows_jnp, rec.rows = rec.rows, {}
+    for a, b in zip(rep.results, rep_j.results):
+        compare_tokens(f"pallas vs jnp, request {a.rid}", a.tokens, b.tokens,
+                       a.prompt_len, model, params, ties)
+    eager = []
+    for r, res in list(zip(reqs, rep.results))[:4]:
+        ref = eng_r.generate(r.prompt[None],
+                             generator=torch.Generator("cuda").manual_seed(r.seed),
+                             mode="eager", max_new=r.max_new, cache_len=rep.cache_len)
+        eager.append(ref)
+        compare_tokens(f"serve vs eager, request {r.rid}", res.tokens, ref.tokens[0],
+                       r.prompt_len, model, params, ties)
+    print(f"greedy tokens: pallas == jnp for {len(reqs)} requests and serve == eager for "
+          f"the first 4, {len(ties)} near-tie divergence(s)", flush=True)
+    logit_checks = [
+        teacher_forced("serve kernel=pallas", model, params, reqs,
+                       [res.tokens for res in rep.results], rows_pallas),
+        teacher_forced("serve kernel=jnp", model, params, reqs,
+                       [res.tokens for res in rep_j.results], rows_jnp),
+        teacher_forced("eager generate, first 4 requests (floor)", model, params, reqs[:4],
+                       [e.tokens[0] for e in eager], rec.rows)]
+    for c in logit_checks:
+        check(max(c["first_step_max"], c["decode_max"]) <= LOGIT_TOL and
+              c["rms"] <= LOGIT_RMS_TOL, f"{c['run']}: served logits differ from the "
+              f"teacher-forced prefill's beyond the limits: {c}")
+    del rec, eng_r, rows_pallas, rows_jnp
+
+    # warm runs, in turns, median of 3 per kernel
+    runs = {"pallas": [], "jnp": []}
+    for _ in range(3):
+        for kernel in ("pallas", "jnp"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r_k = eng.serve(reqs, dataclasses.replace(opts, kernel=kernel, report_cost=False))
+            torch.cuda.synchronize()
+            runs[kernel].append((time.perf_counter() - t0, r_k,
+                                 torch.cuda.max_memory_allocated()))
+    timing = {}
+    for kernel, rs in runs.items():
+        wall = statistics.median(dt for dt, _, _ in rs)
+        r_k = rs[0][1]
+        timing[kernel] = {"wall_ms": wall * 1e3, "tok_s": gen_tokens / wall,
+                          "steps": r_k.steps, "ms_per_step": wall * 1e3 / r_k.steps,
+                          "prefill_tokens": r_k.prefill_tokens,
+                          "shared_tokens": r_k.shared_prefill_tokens,
+                          "cow_copies": r_k.cow_copies,
+                          "peak_gib": max(m for _, _, m in rs) / 2**30,
+                          "wall_ms_runs": [dt * 1e3 for dt, _, _ in rs]}
+        t = timing[kernel]
+        print(f"serve kernel={kernel} (3 warm runs): median wall {t['wall_ms']:.1f} ms "
+              f"{[round(x, 1) for x in t['wall_ms_runs']]}, {t['tok_s']:.1f} generated tok/s, "
+              f"{t['steps']} decode steps, {t['ms_per_step']:.2f} ms per step (wall / "
+              f"steps, prefills included), prefill {t['prefill_tokens']} tokens vs "
+              f"shared {t['shared_tokens']}, cow copies {t['cow_copies']}, peak device "
+              f"memory {t['peak_gib']:.2f} GiB", flush=True)
+    # what a step asks of the host: aten ops dispatched over one serve
+    # (prefills included), per decode step; K1 and K2 go through ctypes
+    for kernel in ("pallas", "jnp"):
+        counter = _OpCount()
+        with counter:
+            r_k = eng.serve(reqs, dataclasses.replace(opts, kernel=kernel, report_cost=False))
+        timing[kernel]["aten_ops_per_step"] = counter.n / r_k.steps
+        print(f"host work, kernel={kernel}: {counter.n} aten ops in one serve = "
+              f"{counter.n / r_k.steps:.0f} per decode step (prefills included) -> "
+              f"{timing[kernel]['ms_per_step'] / (counter.n / r_k.steps) * 1e3:.1f} us "
+              "of step time per op", flush=True)
+    return {"k1_launches": n1, "k2_launches": n2, "steps": rep.steps, "ties": ties,
+            "teacher_forced_logits": logit_checks, "timing": timing}
+
+
 class _OpCount(TorchDispatchMode):
     """Counts the aten ops dispatched while active."""
 
@@ -312,9 +787,9 @@ def main():
     print(card, flush=True)
     rate = hbm_rate(name)
 
-    # phase 2: build every kernel of the path, all nvcc processes at once
+    # phase 2: build every kernel of the paths, all nvcc processes at once
     t0 = time.perf_counter()
-    logs = build.build(["int_softmax"])
+    logs = build.build(["int_softmax", "paged_attention"])
     print(f"build: {sorted(logs) or 'already built'} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for log in logs.values():
@@ -322,24 +797,43 @@ def main():
             if "registers" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
 
-    # phase 3
-    recs = phase3_k1(rate)
-    # phase 4
-    launches = phase4_main_path()
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
 
-    # phase 5
+    recs = timed("phase 3 (K1 against its plain version)", phase3_k1, rate)
+    launches = timed("phase 4 (generate path)", phase4_main_path)
+    k2_recs = timed("phase 5 (K2 against its plain version)", phase5_k2, rate)
+    served = timed("phase 6 (serve path)", phase6_serve)
+
+    # phase 7
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
+    k2_main = next(r for r in k2_recs if r["shape"] == "decode (main path)")
     kernels = [{
         "name": "int_softmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_softmax.cu",
         "replaces": "src/repro/kernels/int_softmax/kernel.py:43",
-        "launches": launches,
+        "launches": launches + served["k1_launches"],
+        "launches_by_path": {"generate": launches, "serve": served["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None,   # no PyTorch call computes Alg. 1
         "shapes": recs,
+    }, {
+        "name": "paged_attention_dense", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:145",
+        "launches": served["k2_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2_recs),
+        "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
+        "library_ms": None,   # no PyTorch call computes Alg. 1 attention
+        "shapes": k2_recs,
     }]
+    print(json.dumps({"serve": served}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -66,7 +66,7 @@ def _load_builtins(strict: bool) -> bool:
         return False
     _LOADING = True
     try:
-        from repro_torch.backends import torch_backends  # noqa: F401
+        from repro_torch.backends import paged_kernel, torch_backends  # noqa: F401
         return True
     except ImportError:
         if strict:

@@ -1,11 +1,16 @@
 """Serving launcher of the port: build a model from seeded weights, then run
-batched generation through ``Engine.generate`` with any ported softmax
-backend, and report throughput and the batch's AP softmax cost (port of the
-default, non-continuous route of ``src/repro/launch/serve.py``, same flags).
+batched generation through ``Engine.generate`` — or, with ``--continuous``,
+serve a seeded trace of requests through ``Engine.serve`` (``--paged``,
+``--prefix-share``, ``--kernel pallas`` for the fused paged decode K2) —
+with any ported softmax backend, and report throughput and the AP softmax
+cost (port of ``src/repro/launch/serve.py``, same flags).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --softmax int_pallas --warm-steps 0 --no-smoke --batch 4 \\
         --prompt-len 512 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --smoke --continuous --paged --prefix-share --kernel pallas \\
+        --softmax int_pallas --warm-steps 0 --device cpu
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path. Flags of
 later slices are accepted and raise with the ROADMAP.md item that ports them.
@@ -14,8 +19,10 @@ later slices are accepted and raise with the ROADMAP.md item that ports them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.backends import get_backend
@@ -26,19 +33,17 @@ from repro_torch.core.softmax_variants import SoftmaxSpec
 from repro_torch.data.synthetic import SyntheticCorpus
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.options import ServeOptions
 from repro_torch.serving.sampler import available_samplers
+from repro_torch.serving.scheduler import random_trace
 
 # flag -> (value that means "unset", ROADMAP.md item of the slice that ports it)
 LATER_SLICES = {
-    "continuous": (False, "Queue 1 item 6 (continuous batching)"),
     "serve_softmax": (None, "Queue 1 item 12 (softmax-variant zoo)"),
     "ckpt_dir": (None, "Queue 1 item 13 (training and checkpoints)"),
     "warm_steps": (0, "Queue 1 item 13 (training: warm steps); pass "
                       "--warm-steps 0 to serve seeded weights"),
-    "paged": (False, "Queue 1 item 7 (paged KV)"),
-    "prefix_share": (False, "Queue 1 item 7 (prefix sharing)"),
     "speculative": (False, "Queue 1 item 10 (speculative decoding)"),
-    "kernel": ("jnp", "Queue 2 K2 (fused paged decode)"),
     "shards": (0, "Queue 1 item 14 (tensor-parallel serving)"),
     "prefill_chunk": (None, "Queue 1 item 9 (chunked prefill)"),
     "preemption": (False, "Queue 1 item 9 (preemption)"),
@@ -97,6 +102,15 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to repro_torch yet: "
                 f"ROADMAP.md {item}")
+    # cross-field serve constraints (--prefix-share and --kernel pallas
+    # require --paged, ...) fail here, before a model is built
+    try:
+        serve_options = ServeOptions(
+            slots=args.slots, policy=args.policy, paged=args.paged,
+            block_size=args.block_size, prefix_share=args.prefix_share,
+            kernel=args.kernel)
+    except ValueError as e:
+        ap.error(str(e))
 
     metered = get_backend(args.softmax).metered
     spec = (SoftmaxSpec(args.softmax, PrecisionConfig(M=args.M, N=args.N))
@@ -115,6 +129,8 @@ def main(argv=None):
         sampler_kw = {"p": args.top_p, "temp": args.temp}
     eng = Engine(model, params, max_new=args.max_new, sampler=args.sampler,
                  eos_id=args.eos_id, **sampler_kw)
+    if args.continuous:
+        return serve_trace(eng, args, serve_options)
     corpus = SyntheticCorpus(cfg.vocab, seed=1234)
     prompts = corpus.sample(args.batch, args.prompt_len, seed=777)[:, :args.prompt_len]
     mode = "eager" if args.eager else "fused"
@@ -133,6 +149,35 @@ def main(argv=None):
     else:
         print("softmax AP cost: n/a (unmetered fp backend)")
     return res
+
+
+def serve_trace(eng: Engine, args, serve_options: ServeOptions):
+    """The ``--continuous`` route: a seeded mixed-length trace through
+    ``Engine.serve``, once to warm up (kernel build, meters) and once
+    reported."""
+    reqs = random_trace(args.requests, eng.model.cfg.vocab, seed=777,
+                        prompt_lens=(4, args.prompt_len, 2 * args.prompt_len),
+                        max_new_range=(max(args.max_new // 4, 1), args.max_new))
+    eng.serve(reqs, options=serve_options)
+    rep = eng.serve(reqs, options=dataclasses.replace(serve_options,
+                                                      report_cost=True))
+    gen = sum(r.max_new for r in reqs)
+    lat = [r.latency_s for r in rep.results]
+    paged_note = (f", paged bs={rep.block_size} (prefill {rep.prefill_tokens} "
+                  f"tok, shared {rep.shared_prefill_tokens})" if rep.paged else "")
+    print(f"{args.policy} serving: {len(reqs)} requests / {args.slots} slots, "
+          f"{gen} tokens in {rep.steps} decode steps, {rep.wall_s * 1e3:.1f} ms "
+          f"({gen / rep.wall_s:.0f} tok/s){paged_note}")
+    print(f"request latency p50={np.percentile(lat, 50) * 1e3:.1f} ms "
+          f"p99={np.percentile(lat, 99) * 1e3:.1f} ms")
+    for r in rep.results[:3]:
+        cost = (f"  cost: {r.cost.describe()}"
+                if r.cost is not None and r.cost.cycles else "")
+        print(f"  rid={r.rid} P={r.prompt_len} new={len(r.tokens) - r.prompt_len} "
+              f"lat={r.latency_s * 1e3:.1f} ms{cost}")
+    if rep.cost is not None and rep.cost.cycles:
+        print(f"batch softmax AP cost: {rep.cost.describe()}")
+    return rep
 
 
 if __name__ == "__main__":

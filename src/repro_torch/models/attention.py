@@ -1,10 +1,12 @@
 """GQA attention with a pluggable softmax — where SoftmAP enters the model
-(port of the contiguous path of ``src/repro/models/attention.py``).
+(port of the dense paths of ``src/repro/models/attention.py``).
 
-Causal, sliding-window or full masking, query-chunked prefill and
-single-token decode against a contiguous cache. The int8 KV cache and the
-paged cache (with the fused paged kernel K2) are later slices: ROADMAP.md
-Queue 1 items 7 and 8.
+Causal, sliding-window or full masking, query-chunked prefill, tail-only
+prefill against a shared prefix, and single-token decode against a
+contiguous or a paged cache. Paged decode gathers the logical cache and
+attends, or — for a backend with ``fused_paged_decode`` — runs the fused
+paged kernel K2 (``kernels/paged_attention``). Caches are written in place.
+The int8 KV cache is a later slice: ROADMAP.md Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -129,14 +131,146 @@ def valid_upto(l_max: int, cache_pos, window: int = 0, device=None):
     return valid
 
 
+def paged_gather(pool, table):
+    """The contiguous per-row view of a paged pool: ``pool`` [NB, BS, ...],
+    ``table`` [B, n_logical] -> [B, n_logical * BS, ...]. A table entry
+    outside ``[0, NB)`` (the ``NB`` sentinel, or anything stale) yields an
+    all-zero block, as the reference's and K2's."""
+    nb, bs = pool.shape[:2]
+    b, n = table.shape
+    pages = pool[table.clamp(0, nb - 1).long()]          # [B, n, BS, ...]
+    dead = (table < 0) | (table >= nb)
+    pages = torch.where(dead.reshape((b, n) + (1,) * (pages.ndim - 2)),
+                        torch.zeros((), dtype=pool.dtype, device=pool.device),
+                        pages)
+    return pages.reshape((b, n * bs) + tuple(pool.shape[2:]))
+
+
+def _write_target(table, cache_pos, nb: int, bs: int):
+    """Where one-entry-per-row writes through ``table`` land: the flat pool
+    row ``pb * bs + off`` of each batch row and whether it lands. A row whose
+    position is past the table (a parked slot at ``cache_len``) or whose
+    entry is a sentinel does not land."""
+    b, n_log = table.shape
+    if isinstance(cache_pos, int):
+        pos = torch.full((b,), cache_pos, dtype=torch.long, device=table.device)
+    else:
+        pos = cache_pos.to(torch.long).expand(b)
+    lb, off = pos // bs, pos % bs
+    pb = table.gather(1, lb.clamp(0, n_log - 1)[:, None])[:, 0].to(torch.long)
+    lands = (lb >= 0) & (lb < n_log) & (pb >= 0) & (pb < nb)
+    return pb * bs + off, lands
+
+
+def _put(pool, target, lands, new):
+    """Write ``new`` [B, ...] at flat pool rows ``target`` where ``lands``.
+    A row that does not land repeats the first landing row's write (same
+    index, same value — so the duplicate is harmless), or rewrites flat row
+    0 with its own value when none lands: the reference's dropped writes
+    without a data-dependent shape or a host sync."""
+    nb, bs = pool.shape[:2]
+    flat = pool.view((nb * bs,) + tuple(pool.shape[2:]))
+    new = new.to(pool.dtype)
+    # first landing row, else 0 (index_select: a tensor index would sync)
+    first = torch.argmax(lands.to(torch.int32), dim=0, keepdim=True)
+    any_lands = lands.index_select(0, first)
+    idx = torch.where(lands, target,
+                      torch.where(any_lands, target.index_select(0, first), 0))
+    bcast = (1,) * (new.ndim - 1)
+    fill = torch.where(any_lands.reshape((1,) + bcast),
+                       new.index_select(0, first), flat[:1])
+    keep = lands.reshape((-1,) + bcast)
+    flat.index_put_((idx,), torch.where(keep, new, fill))
+    return pool
+
+
+def paged_write(pool, table, new, cache_pos):
+    """Write one entry per batch row into ``pool`` [NB, BS, ...] at
+    ``cache_pos`` (an int or a [B] tensor) through ``table`` [B, n_log], in
+    place. Rows past the table or on a sentinel entry are dropped."""
+    target, lands = _write_target(table, cache_pos, *pool.shape[:2])
+    return _put(pool, target, lands, new)
+
+
+def _attend_paged_fused(p, q, cache, positions, cfg, ctx: Ctx, kind, backend):
+    """Attend straight against the paged pools with K2 (no dense gather).
+    ``positions`` [B, T] absolute query positions."""
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    b, t, h, dh = q.shape
+    table = cache["table"]
+    kvh = cache["k"].shape[2]
+    l_max = table.shape[1] * cache["k"].shape[1]
+    # the score shape the gather path meters: metering does not depend on
+    # the substrate
+    telemetry.record_softmax(backend, (b, kvh, h // kvh, t, l_max),
+                             heads=kvh * (h // kvh))
+    out = paged_ops.paged_attend_dense(
+        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), table, positions,
+        backend.cfg, scale=dh ** -0.5,
+        window=cfg.window if kind == "window" else 0,
+        scores_dtype=_SCORE_DTYPES[cfg.scores_dtype])
+    return dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
+
+
+def _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind):
+    """Paged single-token decode: write the new K/V through the block table
+    (in place), then attend — gathering the whole logical cache, or with K2
+    when the backend sets ``fused_paged_decode``."""
+    b, s, _ = x.shape  # s == 1
+    q, k_new, v_new = project_qkv(p, x, cfg, ctx, positions)
+    table = cache["table"]
+    target, lands = _write_target(table, cache_pos, *cache["k"].shape[:2])
+    _put(cache["k"], target, lands, k_new[:, 0])
+    _put(cache["v"], target, lands, v_new[:, 0])
+    backend = spec_backend(cfg.softmax)
+    if getattr(backend, "fused_paged_decode", False):
+        if isinstance(cache_pos, int):
+            pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
+        else:
+            pos = cache_pos.to(torch.int32).expand(b)[:, None]
+        return _attend_paged_fused(p, q, cache, pos, cfg, ctx, kind,
+                                   backend), cache
+    k = paged_gather(cache["k"], table)
+    v = paged_gather(cache["v"], table)
+    l_max = k.shape[1]
+    valid = valid_upto(l_max, cache_pos, cfg.window if kind == "window" else 0,
+                       device=x.device)
+    mask = valid[:, None, :].expand(b, 1, l_max)
+    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx)
+    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx), cache
+
+
+def attn_prefill_tail(p, x, prefix_k, prefix_v, cfg, ctx: Ctx, positions,
+                      prefix_len: int):
+    """Prefill the unshared prompt tail against shared-prefix K/V.
+
+    ``x`` embeds tokens[prefix_len:]; ``prefix_k``/``prefix_v`` [B, s, KV, D]
+    hold the exact values a whole prefill cached for those positions, so the
+    tail's attention rows and its own K/V equal the whole prefill's. Returns
+    (y, {"k","v"} tail cache [B, T, ...])."""
+    b, t, _ = x.shape
+    q, k_t, v_t = project_qkv(p, x, cfg, ctx, positions)
+    k = torch.cat([ctx.cast(prefix_k), k_t], dim=1)
+    v = torch.cat([ctx.cast(prefix_v), v_t], dim=1)
+    kv_pos = torch.arange(prefix_len + t, dtype=torch.int32,
+                          device=x.device)[None, :]
+    out = attend_chunked(q, k, v, positions, kv_pos, "causal", cfg, ctx)
+    y = dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
+    return y, {"k": k_t, "v": v_t}
+
+
 def attn_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
                 kind: str = "causal"):
     """Single-token decode against a contiguous cache {"k","v"} [B, L, KV, D]
-    (written in place). ``cache_pos``: int or per-row [B] tensor."""
-    if "table" in cache or "k_scale" in cache:
+    or a paged one ({"table"} present: pools [NB, BS, KV, D]), written in
+    place. ``cache_pos``: int or per-row [B] tensor."""
+    if "k_scale" in cache:
         raise NotImplementedError(
-            "paged / int8 KV caches are not ported: ROADMAP.md Queue 1 "
-            "items 7 and 8")
+            "int8 KV caches are not ported: ROADMAP.md Queue 1 item 8")
+    if "table" in cache:
+        return _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx, positions,
+                                  kind)
     b, s, _ = x.shape  # s == 1
     q, k_new, v_new = project_qkv(p, x, cfg, ctx, positions)
     k = cache_write(cache["k"], k_new, cache_pos)

@@ -1,23 +1,108 @@
 """Decode-cache structure (port of the dense family of
 ``src/repro/models/kv_cache.py``).
 
-Layout: {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``. Paged and int8
-layouts and the other families come with ROADMAP.md Queue 1 items 7, 8
-and 11.
+Layouts, as the reference's:
+  contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``
+  paged      : {"k","v": [L, NB, BS, KV, Dh]} pools of NB blocks of BS
+               tokens, plus {"table": [L, S, C // BS]} int32 mapping each
+               slot's logical block to a physical one. ``NB`` is the
+               sentinel of an empty table entry. The table keeps the
+               reference's one identical copy per layer, so every cache
+               leaf slices by layer the same way.
+
+Unlike the reference (pure functions returning new buffers), the pool
+operations here write the cache IN PLACE and return it: one pool exists per
+serve, and copying it per admission would double its memory traffic. int8
+pools and the other families come with ROADMAP.md Queue 1 items 8 and 11.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 KV_DTYPE = torch.bfloat16
 
 
-def cache_zeros(cfg, batch: int, cache_len: int, device=None):
+def _dense_only(cfg):
     if cfg.family != "dense" or cfg.attention != "gqa" or cfg.kv_quant:
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} (kv_quant={cfg.kv_quant}) caches "
             "are not ported: ROADMAP.md Queue 1 items 8 and 11")
+
+
+def cache_zeros(cfg, batch: int, cache_len: int, device=None):
+    _dense_only(cfg)
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
             "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
+
+
+def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
+                      num_blocks: int, device=None):
+    """Zeroed pools and an all-sentinel table (``device="meta"`` gives the
+    shapes alone, for the cost meter)."""
+    _dense_only(cfg)
+    if cache_len % block_size != 0:
+        raise ValueError(f"cache_len {cache_len} not a multiple of "
+                         f"block_size {block_size}")
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=KV_DTYPE, device=device),
+            "table": torch.full((cfg.n_layers, slots, cache_len // block_size),
+                                num_blocks, dtype=torch.int32, device=device)}
+
+
+def _pools(cache):
+    return [k for k in cache if k != "table"]
+
+
+def paged_scatter(cache, values, slot: int, table_row, pb, offs, t0: int,
+                  t1: int):
+    """Install one request's prefilled entries into the paged cache, in
+    place: positions ``[t0, t1)`` of ``values`` ({"k","v": [L, 1, T, ...]},
+    the prefill output) land at physical coordinates ``(pb[i], offs[i])``,
+    and the slot's table row becomes ``table_row``. ``pb``, ``offs`` and
+    ``table_row`` are host integer arrays; a coordinate outside the pool is
+    dropped, as the reference's scatter drops it (filtered here on the host:
+    an out-of-range index on the card is a device-side assert)."""
+    table = cache["table"]
+    nb, bs = cache["k"].shape[1:3]
+    pb, offs = np.asarray(pb), np.asarray(offs)
+    keep = (pb >= 0) & (pb < nb) & (offs >= 0) & (offs < bs)
+    rows = np.nonzero(keep)[0]
+    dev = table.device
+    table[:, slot, :] = torch.as_tensor(np.asarray(table_row, np.int32),
+                                        device=dev)
+    if rows.size:
+        ib = torch.as_tensor(pb[rows], dtype=torch.long, device=dev)
+        io = torch.as_tensor(offs[rows], dtype=torch.long, device=dev)
+        ir = torch.as_tensor(rows, dtype=torch.long, device=dev)
+        for k in _pools(cache):
+            vals = values[k][:, 0, t0:t1].index_select(1, ir)
+            cache[k][:, ib, io] = vals.to(cache[k].dtype)
+    return cache
+
+
+def paged_copy_block(cache, src: int, dst: int):
+    """Copy pool block ``src`` to ``dst`` on every pool leaf, in place (the
+    device half of the allocator's copy-on-write handshake)."""
+    for k in _pools(cache):
+        cache[k][:, dst].copy_(cache[k][:, src])
+    return cache
+
+
+def paged_prefix_view(cache, ids, s: int):
+    """The shared-prefix entries ``{"k","v": [L, 1, s, ...]}`` gathered from
+    pool blocks ``ids`` (host ints): the tail-only prefill input. A copy,
+    not a view of the pool, so later writes to those blocks cannot change
+    what the tail prefill reads."""
+    out = {}
+    for k in _pools(cache):
+        leaf = cache[k]
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=leaf.device)
+        pages = leaf.index_select(1, idx)                  # [L, n, bs, ...]
+        flat = pages.reshape((leaf.shape[0], idx.shape[0] * leaf.shape[2])
+                             + tuple(leaf.shape[3:]))
+        out[k] = flat[:, None, :s]
+    return out

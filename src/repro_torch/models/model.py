@@ -3,6 +3,7 @@
   init(generator)                          -> params (nested dict of tensors)
   train_logits(params, batch)              -> logits [B, S, V]
   prefill(params, batch, cache_len)        -> (last_logits [B, 1, V], cache)
+  prefill_tail(params, batch, prefix, s)   -> (last_logits [B, 1, V], tail cache)
   decode_step(params, cache, batch, pos)   -> (logits [B, 1, V], cache)
 
 Batches hold int token tensors on the model's device: {"tokens": [B, S]}
@@ -122,10 +123,26 @@ class Model:
                                      self.ctx, positions, cache_len)
         return self._head(p, x[:, -1:]), cache
 
+    def prefill_tail(self, p, batch, prefix, prefix_len: int):
+        """Prefill only the unshared tail of a prompt whose first
+        ``prefix_len`` positions are resident in shared cache blocks.
+        ``batch["tokens"]`` holds tokens[prefix_len:] ([B, T]); ``prefix`` is
+        {"k","v": [L, B, s, KV, Dh]} gathered from the pool
+        (``kv_cache.paged_prefix_view``). Returns (last_logits, tail cache
+        [L, B, T, ...]) — equal to the tail slice of a whole prefill."""
+        tokens = batch["tokens"]
+        x = self._embed(p, tokens)
+        positions = positions_for(tokens.shape, device=tokens.device) + prefix_len
+        x, cache = tfm.stack_prefill_tail(p["stack"]["layers"], prefix, x,
+                                          self.cfg, self.ctx, positions,
+                                          prefix_len)
+        return self._head(p, x[:, -1:]), cache
+
     def decode_step(self, p, cache, batch, cache_pos):
         """``cache_pos``: the filled length — an int (uniform batch) or a [B]
-        int tensor (per-row positions). The cache is written in place and
-        returned."""
+        int tensor (per-row positions: each serving slot decodes at its own
+        offset). The cache — contiguous, or paged pools with their block
+        table — is written in place and returned."""
         token = batch["token"]
         b = token.shape[0]
         if torch.is_tensor(cache_pos) and cache_pos.ndim == 0:

@@ -16,6 +16,7 @@ from repro_torch.models.attention import (
     attend_chunked,
     attn_apply,
     attn_decode,
+    attn_prefill_tail,
     project_qkv,
 )
 from repro_torch.models.layers import Ctx, dense_apply, mlp_apply, norm_apply
@@ -75,6 +76,19 @@ def block_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
 
 
+def block_prefill_tail(p, x, cfg, ctx: Ctx, positions, prefix,
+                       prefix_len: int):
+    """Prefill the unshared prompt tail of one block against the layer's
+    shared-prefix entries ``prefix`` ({"k","v"} [B, s, KV, D]). Returns
+    (x, tail cache) — entries for the tail positions only."""
+    h = norm_apply(p["norm1"], x, cfg.norm, ctx)
+    a, c = attn_prefill_tail(p["attn"], h, prefix["k"], prefix["v"], cfg, ctx,
+                             positions, prefix_len)
+    x = x + a
+    h = norm_apply(p["norm2"], x, cfg.norm, ctx)
+    return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
+
+
 def block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
     """Single-token decode step. Returns (x, cache) — the cache updated in
     place."""
@@ -104,9 +118,23 @@ def stack_prefill(params, x, cfg, ctx: Ctx, positions, cache_len: int):
     return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
+def stack_prefill_tail(params, prefix, x, cfg, ctx: Ctx, positions,
+                       prefix_len: int):
+    """Tail prefill through every layer; ``prefix`` leaves are stacked
+    [L, B, s, ...]. Returns (x, tail cache [L, B, T, ...])."""
+    caches = []
+    for i in telemetry.scan_range(n_stacked(params)):
+        x, c = block_prefill_tail(layer_params(params, i), x, cfg, ctx,
+                                  positions, layer_params(prefix, i),
+                                  prefix_len)
+        caches.append(c)
+    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
 def stack_decode(params, caches, x, cache_pos, cfg, ctx: Ctx, positions):
     """One decode step through every layer; each layer writes its slice of
-    the stacked cache in place, so the returned cache is ``caches``."""
+    the stacked cache (contiguous, or paged pools and table) in place, so
+    the returned cache is ``caches``."""
     for i in telemetry.scan_range(n_stacked(params)):
         x, _ = block_decode(layer_params(params, i), x,
                             layer_params(caches, i), cache_pos, cfg, ctx,

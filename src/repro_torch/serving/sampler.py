@@ -6,8 +6,10 @@ Gumbel-max draw over the transformed logits (what ``jax.random.categorical``
 computes). Random numbers come from an explicit ``torch.Generator`` on the
 logits' device; they differ from JAX's threefry streams, so stochastic
 parity is checked inside the port and greedy decoding is the
-cross-framework gate. Speculative verification is a later slice (ROADMAP.md
-Queue 1 item 10).
+cross-framework gate. Serving samples per slot (:func:`sample_slots`): one
+generator per request, consumed exactly as a batch-1 eager generation
+consumes it. Speculative verification is a later slice (ROADMAP.md Queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ NEG_INF = -1e30  # large-negative mask value (finite: avoids nan in softmax)
 def greedy(logits, generator=None):
     """Argmax; ties go to the lowest index, as ``jnp.argmax``."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+greedy.draws = False  # uses no random numbers: rows may be sampled together
 
 
 def _categorical(logits, generator):
@@ -102,4 +107,22 @@ def make_sampler(kind="greedy", **kw) -> Callable:
                          f"available: {available_samplers()}")
     fn = _SAMPLERS[kind]
     _validate_kwargs(kind, fn, kw)
-    return lambda logits, generator: fn(logits, generator, **kw)
+    sampler = lambda logits, generator: fn(logits, generator, **kw)  # noqa: E731
+    sampler.draws = getattr(fn, "draws", True)
+    return sampler
+
+
+def sample_slots(sample: Callable, logits, generators):
+    """Sample one token per serving slot: logits [S, V]; ``generators`` has
+    one ``torch.Generator`` per slot, or None for a slot not decoding (its
+    token is 0 and ignored). A sampler that draws no random numbers (greedy)
+    takes one batched call; any other is called on each live slot's [1, V]
+    row with that slot's generator — the reference's vmapped per-slot PRNG
+    keys — so a request consumes its generator exactly as
+    ``Engine.generate(mode="eager")`` does for it alone. -> int32 [S]."""
+    if not getattr(sample, "draws", True):
+        return sample(logits, None)
+    rows = [sample(logits[i:i + 1], g) if g is not None
+            else torch.zeros((1,), dtype=torch.int32, device=logits.device)
+            for i, g in enumerate(generators)]
+    return torch.cat(rows)

@@ -21,8 +21,9 @@ from repro_torch.core.softmax_variants import SoftmaxSpec, get_softmax
 
 torch.set_num_threads(2)
 
-PORTED = ["fp", "fp_lowp", "clipped_fp", "int", "int_jax", "int_ste", "int_pallas"]
-INT_KINDS = ["int", "int_jax", "int_ste", "int_pallas"]
+PORTED = ["fp", "fp_lowp", "clipped_fp", "int", "int_jax", "int_ste", "int_pallas",
+          "int_pallas_paged"]
+INT_KINDS = ["int", "int_jax", "int_ste", "int_pallas", "int_pallas_paged"]
 
 
 def test_ported_kinds_registered():

@@ -30,6 +30,9 @@ def test_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.launch.serve, repro_torch.convert\n"
             "import repro_torch.kernels.int_softmax.ops\n"
+            "import repro_torch.kernels.paged_attention.ops, repro_torch.backends.paged_kernel\n"
+            "import repro_torch.serving.engine, repro_torch.serving.options\n"
+            "import repro_torch.serving.scheduler, repro_torch.models.kv_cache\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src")}, timeout=120)
@@ -47,8 +50,12 @@ def test_entry_points_default_to_the_card():
         serve.main(["--arch", "olmo-1b", "--warm-steps", "0"])
 
 
-@pytest.mark.parametrize("flag", [["--continuous"], ["--warm-steps", "5"],
-                                  ["--ckpt-dir", "x"], ["--shards", "2"]])
+@pytest.mark.parametrize("flag", [["--continuous", "--speculative"], ["--warm-steps", "5"],
+                                  ["--ckpt-dir", "x"], ["--shards", "2"],
+                                  ["--continuous", "--paged", "--prefill-chunk", "8"],
+                                  ["--continuous", "--paged", "--preemption"],
+                                  ["--continuous", "--paged", "--kv-quant"],
+                                  ["--serve-softmax", "fp"]])
 def test_later_slice_flags_name_roadmap_item(flag):
     args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu"] + flag
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
