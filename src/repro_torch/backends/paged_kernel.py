@@ -6,8 +6,9 @@ reference's name).
 plain version on a CPU or meta tensor. K1 is bitwise equal to the plain
 Alg. 1 the reference's ``apply`` runs, so prefill and every non-paged site
 give the same values under either name. What the name changes is paged
-decode: ``models/attention.py`` probes ``fused_paged_decode`` and runs K2
-(``kernels/paged_attention``) instead of gather-then-attend. The meter is
+decode: ``models/attention.py`` and ``models/mla.py`` probe
+``fused_paged_decode`` and run K2 or K4 (``kernels/paged_attention``)
+instead of gather-then-attend. The meter is
 the shared Table-II meter, so CostReports compare across substrates.
 """
 
@@ -20,7 +21,7 @@ from repro_torch.backends.torch_backends import IntPallasBackend
 @register_backend("int_pallas_paged")
 class IntPallasPagedBackend(IntPallasBackend):
     """Integer softmax whose paged-decode sites run the fused block-table
-    kernel K2 (one CTA per (slot, kv-head); no dense gather)."""
+    kernels K2 (GQA) and K4 (MLA): no dense gather."""
 
     name = "int_pallas_paged"
     fused_paged_decode = True

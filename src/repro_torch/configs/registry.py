@@ -14,17 +14,19 @@ from repro_torch.core.softmax_variants import SoftmaxSpec
 
 ARCHS = {
     "olmo-1b": "olmo_1b",
+    "minicpm3-4b": "minicpm3_4b",
 }
 
 # reference architectures not ported yet -> the ROADMAP.md item that ports them
 NOT_PORTED = {
     "qwen2.5-32b": "Queue 1 item 14 (tensor-parallel serving: 32B does not "
                    "fit one card)",
-    "deepseek-7b": "Queue 1 item 11 (MoE)",
-    "minicpm3-4b": "Queue 1 item 11 (MLA, with K4)",
+    "deepseek-7b": "Queue 1 item 15 (a config copy and its parity test: "
+                   "the dense llama-arch MHA family it runs is ported)",
     "mamba2-780m": "Queue 1 item 11 (SSM)",
     "dbrx-132b": "Queue 1 item 11 (MoE)",
-    "deepseek-v2-236b": "Queue 1 item 11 (MLA + MoE, with K4)",
+    "deepseek-v2-236b": "Queue 1 items 11 (MoE) and 14 (tensor-parallel "
+                        "serving: 236B does not fit one card)",
     "hymba-1.5b": "Queue 1 item 11 (hybrid)",
     "whisper-base": "Queue 1 item 11 (encdec)",
     "qwen2-vl-7b": "Queue 1 item 11 (M-RoPE)",
@@ -51,8 +53,8 @@ def get_config(name: str, softmax: Optional[SoftmaxSpec] = None,
 
 def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfig:
     """Reduced config of the same family: small widths/layers/vocab,
-    runnable on CPU. The reference's shrink rules for the dense family (the
-    only one ported)."""
+    runnable on CPU. The reference's shrink rules for the ported families
+    (dense GQA and dense MLA)."""
     full = get_config(name)
     shrink: Dict = dict(
         n_layers=min(full.n_layers, 3),
@@ -61,6 +63,10 @@ def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfi
         n_kv_heads=min(4, max(1, full.n_kv_heads * 4 // full.n_heads)),
         d_ff=256,
     )
+    if full.attention == "mla":
+        shrink.update(q_lora_rank=(64 if full.q_lora_rank else 0),
+                      kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
+                      v_head_dim=32, d_head=48)
     cfg = dataclasses.replace(full, name=full.name + "-smoke", **shrink)
     if softmax is not None:
         cfg = cfg.with_softmax(softmax)

@@ -1,9 +1,9 @@
 // SoftmAP Algorithm 1 — the one CUDA __device__ body of the port.
 //
 // Counterpart of src/repro/core/alg1.py:int_softmax_block, the body every
-// Pallas kernel of the reference traces. K1 (int_softmax.cu) and K2
-// (paged_attention.cu) include it; K3 and K4 will when they are ported, as
-// all Pallas kernels share int_softmax_block.
+// Pallas kernel of the reference traces. K1 (int_softmax.cu), K2
+// (paged_attention.cu) and K4 (paged_attention_mla.cu) include it; K3 will
+// when it is ported, as all Pallas kernels share int_softmax_block.
 //
 // Per element, given the row's fp max and, later, the row's integer max and
 // saturating sum:

@@ -1,26 +1,33 @@
-"""Wrapper of K2, the CUDA fused paged decode (``csrc/paged_attention.cu``).
+"""Wrappers of K2 and K4, the CUDA fused paged decodes
+(``csrc/paged_attention.cu``, ``csrc/paged_attention_mla.cu``).
 
-Port of ``src/repro/kernels/paged_attention/ops.py:paged_attend_dense``
-(the model-to-kernel reshapes: rows are ``t * group + g``) and
-``kernel.py:paged_attention_dense`` (the ``[S, KV, ROWS, D]`` launch). A
-CPU or meta tensor takes the plain version (``ref.py``) — the cost meter
-runs the model on ``meta`` — and a CUDA tensor launches the kernel or
-raises: there is no fallback. ``paged_attention_rows.launches`` counts
-kernel launches.
+Port of ``src/repro/kernels/paged_attention/ops.py``: ``paged_attend_dense``
+(the model-to-kernel reshapes: rows are ``t * group + g``) over
+``kernel.py:paged_attention_dense`` (the ``[S, KV, ROWS, D]`` launch), and
+``paged_attend_mla`` (rows ``t * H + h``) over
+``kernel.py:paged_attention_mla`` (the ``[S, ROWS, R]`` launch). A CPU or
+meta tensor takes the plain version (``ref.py``) — the cost meter runs the
+model on ``meta`` — and a CUDA tensor launches the kernel or raises: there
+is no fallback. ``paged_attention_rows.launches`` and
+``paged_attention_mla_rows.launches`` count kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.int_softmax.ops import Alg1Consts, alg1_consts
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_mla_ref, paged_attention_ref,
+)
 
 MAX_D = 256
+MAX_R, MAX_DR, MAX_ROW_TILE = 512, 64, 16
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _SCORE_DTYPES = (torch.float32, torch.bfloat16)
@@ -34,33 +41,108 @@ class PagedShape(ctypes.Structure):
         "window", "scores_bf16")] + [("scale", ctypes.c_float)]
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("paged_attention")
-    fn = lib.paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, PagedShape, Alg1Consts,
-                                           ctypes.c_void_p]
+class MlaShape(ctypes.Structure):
+    """Mirror of ``struct MlaShape`` in ``csrc/paged_attention_mla.cu``."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "S", "rows", "heads", "T", "R", "DR", "NB", "BS", "NLOG", "row_tile")] + [
+        ("scale", ctypes.c_float)]
+
+
+# library -> (pointer arguments of ``<library>_launch``, its shape struct)
+_LAUNCH = {"paged_attention": (8, PagedShape), "paged_attention_mla": (9, MlaShape)}
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` loaded, with ``<name>_launch`` (the pointers, the
+    dtype code, the shape, the Alg.-1 constants, the stream) and
+    ``<name>_smem_limit`` typed once."""
+    lib = build.load(name)
+    n_ptrs, shape_type = _LAUNCH[name]
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int, shape_type, Alg1Consts,
+                                                ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lim = lib.paged_attention_smem_limit
+    lim = getattr(lib, f"{name}_smem_limit")
     lim.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lim.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_limit(name: str, device: int, dtype) -> int:
+    """The dynamic shared memory a CTA of ``name`` may take on card
+    ``device``, as the library computes it (the opt-in limit less its
+    static scratch)."""
+    limit = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(_library(name), f"{name}_smem_limit")(_DTYPES[dtype],
+                                                           ctypes.byref(limit))
+    if rc != 0:
+        raise RuntimeError(f"{name} shared-memory query failed: CUDA error {rc}")
+    return limit.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def mla_smem_limit(dtype) -> int:
+    """K4's shared-memory limit per CTA on the current card."""
+    return _smem_limit("paged_attention_mla", torch.cuda.current_device(), dtype)
+
+
+def _plain(ref, args, kw, scores_out, probs_out):
+    """The plain version for CPU and meta tensors, filling the optional
+    debug rows as the kernel does."""
+    debug = scores_out is not None or probs_out is not None
+    res = ref(*args, return_rows=debug, **kw)
+    if not debug:
+        return res
+    out, scores, probs = res
+    for dst, src in ((scores_out, scores), (probs_out, probs)):
+        if dst is not None:
+            dst.copy_(src)
+    return out
+
+
+def _check_inputs(name, tensors, floats, ints, debug, debug_shape, layout):
+    """Contiguous tensors on one card; ``floats`` share bf16 or f32;
+    ``ints`` are int32; the debug rows f32 ``debug_shape``."""
+    dev = tensors[0].device
+    if any(not x.is_cuda or x.device != dev or not x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} takes contiguous tensors on one card")
+    if floats[0].dtype not in _DTYPES or any(x.dtype != floats[0].dtype for x in floats):
+        raise ValueError(f"{name}: queries and pools must share bf16 or f32, got "
+                         f"{[x.dtype for x in floats]}")
+    if any(x.dtype != torch.int32 for x in ints):
+        raise ValueError(f"{name}: table and positions must be int32")
+    for dbg in debug:
+        if dbg is not None and (dbg.shape != debug_shape or dbg.dtype != torch.float32
+                                or dbg.device != dev or not dbg.is_contiguous()):
+            raise ValueError(f"scores_out / probs_out must be contiguous f32 {layout} "
+                             "on the queries' card")
+
+
+def _launch(name, tensors, out, debug, shape, cfg: PrecisionConfig):
+    ptr = [x.data_ptr() for x in tensors] + [out.data_ptr()]
+    ptr += [None if x is None else x.data_ptr() for x in debug]
+    rc = getattr(_library(name), f"{name}_launch")(
+        *ptr, _DTYPES[out.dtype], shape, alg1_consts(cfg),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+# ------------------------------------------------------------- K2 (dense / GQA)
+
+
 def smem_bytes(rows: int, l_full: int, d: int) -> int:
-    """Dynamic shared memory of one CTA: the scores of all rows over the
+    """Dynamic shared memory of one K2 CTA: the scores of all rows over the
     whole logical row, plus q, as f32."""
     return 4 * rows * (l_full + d)
-
-
-def smem_limit(dtype) -> int:
-    """The dynamic shared memory a CTA may take on the current card, as
-    the kernel library computes it (the opt-in limit less its static
-    scratch)."""
-    limit = ctypes.c_int(0)
-    rc = _library().paged_attention_smem_limit(_DTYPES[dtype], ctypes.byref(limit))
-    if rc != 0:
-        raise RuntimeError(f"paged_attention shared-memory query failed: CUDA error {rc}")
-    return limit.value
 
 
 def paged_attention_rows(q, k_pool, v_pool, table, positions,
@@ -72,31 +154,17 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
     ``scores_out`` / ``probs_out``: optional f32 [S, KV, ROWS, NLOG * BS]
     tensors the kernel fills with the scores and Alg.-1 probabilities of
     the pages it visits (zero them first; the chip smoke test's check)."""
+    tensors = (q, k_pool, v_pool, table, positions)
+    debug = (scores_out, probs_out)
     if q.device.type != "cuda":
-        debug = scores_out is not None or probs_out is not None
-        res = paged_attention_ref(
-            q, k_pool, v_pool, table, positions, cfg, scale=scale,
-            window=window, scores_dtype=scores_dtype, return_rows=debug)
-        if not debug:
-            return res
-        out, scores, probs = res
-        for dst, src in ((scores_out, scores), (probs_out, probs)):
-            if dst is not None:
-                dst.copy_(src)
-        return out
+        return _plain(paged_attention_ref, tensors + (cfg,),
+                      dict(scale=scale, window=window, scores_dtype=scores_dtype), *debug)
     s_, kvh, rows, d = q.shape
     nb, bs = k_pool.shape[:2]
     nlog, t = table.shape[1], positions.shape[1]
     dv = v_pool.shape[-1]
-    tensors = (q, k_pool, v_pool, table, positions)
-    if any(not x.is_cuda or x.device != q.device or not x.is_contiguous()
-           for x in tensors):
-        raise ValueError("paged_attention_rows takes contiguous tensors on one card")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"q and pools must share bf16 or f32, got {q.dtype}, "
-                         f"{k_pool.dtype}, {v_pool.dtype}")
-    if table.dtype != torch.int32 or positions.dtype != torch.int32:
-        raise ValueError("table and positions must be int32")
+    _check_inputs("paged_attention_rows", tensors, (q, k_pool, v_pool), (table, positions),
+                  debug, (s_, kvh, rows, nlog * bs), "[S, KV, ROWS, NLOG * BS]")
     if scores_dtype not in _SCORE_DTYPES:
         raise ValueError(f"scores dtype {scores_dtype} is not f32 or bf16")
     if (k_pool.shape != (nb, bs, kvh, d) or v_pool.shape[:3] != (nb, bs, kvh)
@@ -107,31 +175,19 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
             f"{tuple(positions.shape)}")
     if d > MAX_D:
         raise ValueError(f"head dim {d} > {MAX_D}")
-    need, limit = smem_bytes(rows, nlog * bs, d), smem_limit(q.dtype)
+    need = smem_bytes(rows, nlog * bs, d)
+    limit = _smem_limit("paged_attention", q.device.index, q.dtype)
     if need > limit:
         raise ValueError(
             f"paged decode of {rows} rows over {nlog * bs} positions needs "
             f"{need} B of shared memory > {limit} B; shorten the cache "
             "or the verify width")
-    for dbg in (scores_out, probs_out):
-        if dbg is not None and (dbg.shape != (s_, kvh, rows, nlog * bs)
-                                or dbg.dtype != torch.float32
-                                or dbg.device != q.device
-                                or not dbg.is_contiguous()):
-            raise ValueError("scores_out / probs_out must be contiguous f32 "
-                             "[S, KV, ROWS, NLOG * BS] on q's card")
     out = torch.empty((s_, kvh, rows, dv), dtype=q.dtype, device=q.device)
     shape = PagedShape(S=s_, KV=kvh, rows=rows, group=rows // t, T=t, D=d, Dv=dv,
                        NB=nb, BS=bs, NLOG=nlog, window=window,
                        scores_bf16=int(scores_dtype == torch.bfloat16),
                        scale=scale)
-    ptr = [x.data_ptr() for x in tensors] + [out.data_ptr()]
-    ptr += [None if x is None else x.data_ptr() for x in (scores_out, probs_out)]
-    rc = _library().paged_attention_launch(
-        *ptr, _DTYPES[q.dtype], shape, alg1_consts(cfg),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
+    _launch("paged_attention", tensors, out, debug, shape, cfg)
     paged_attention_rows.launches += 1
     return out
 
@@ -161,3 +217,81 @@ def paged_attend_dense(q, k_pool, v_pool, table, positions,
                                scores_dtype=scores_dtype)
     out = out.reshape(b, kvh, t, group, dv).permute(0, 2, 1, 3, 4)
     return out.reshape(b, t, h, dv)
+
+
+# ------------------------------------------------------------------ K4 (MLA)
+
+
+def mla_row_tile(rows: int, slots: int, l_full: int, r: int, dr: int, limit: int,
+                 sms: int) -> int:
+    """Query rows per K4 CTA, a power of two (the kernel's template
+    parameter): the largest that still lets the grid (slots x row tiles)
+    cover the ``sms`` SMs, at most ``MAX_ROW_TILE``, and at most what fits
+    ``limit`` bytes of shared memory (each row keeps its f32 scores over
+    ``l_full`` positions and its f32 query). Raises when one row does not
+    fit."""
+    per_row = 4 * (l_full + r + dr)
+    most = min(MAX_ROW_TILE, limit // per_row, rows, -(-rows * slots // sms))
+    if limit < per_row:
+        raise ValueError(
+            f"absorbed-MLA paged decode over {l_full} positions needs {per_row} B of "
+            f"shared memory for one query row > {limit} B; shorten the cache")
+    return 1 << (max(most, 1).bit_length() - 1)
+
+
+def paged_attention_mla_rows(q_lat, q_rope, c_pool, kr_pool, table, positions,
+                             cfg: PrecisionConfig, *, scale: float, scores_out=None,
+                             probs_out=None):
+    """q_lat [S, ROWS, R], q_rope [S, ROWS, DR] (row ``t * H + h``); pools c
+    [NB, BS, R] and kr [NB, BS, DR] in q's dtype (bf16 or f32); table [S,
+    NLOG] int32; positions [S, T] int32 -> o_lat [S, ROWS, R].
+    ``scores_out`` / ``probs_out``: optional f32 [S, ROWS, NLOG * BS]
+    tensors the kernel fills with the scores and Alg.-1 probabilities of
+    the pages it visits (zero them first; the chip smoke test's check)."""
+    tensors = (q_lat, q_rope, c_pool, kr_pool, table, positions)
+    debug = (scores_out, probs_out)
+    if q_lat.device.type != "cuda":
+        return _plain(paged_attention_mla_ref, tensors + (cfg,), dict(scale=scale), *debug)
+    s_, rows, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    nb, bs = c_pool.shape[:2]
+    nlog, t = table.shape[1], positions.shape[1]
+    _check_inputs("paged_attention_mla_rows", tensors, (q_lat, q_rope, c_pool, kr_pool),
+                  (table, positions), debug, (s_, rows, nlog * bs), "[S, ROWS, NLOG * BS]")
+    if (q_rope.shape[:2] != (s_, rows) or c_pool.shape != (nb, bs, r)
+            or kr_pool.shape != (nb, bs, dr) or table.shape[0] != s_
+            or positions.shape[0] != s_ or rows % t):
+        raise ValueError(
+            f"shapes do not match: q_lat {tuple(q_lat.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, c {tuple(c_pool.shape)}, kr {tuple(kr_pool.shape)}, "
+            f"table {tuple(table.shape)}, positions {tuple(positions.shape)}")
+    if r > MAX_R or dr > MAX_DR or r % 8 or dr % 8:
+        raise ValueError(f"latent rank {r} and rope dim {dr} must be multiples of 8 "
+                         f"within {MAX_R} and {MAX_DR}")
+    if c_pool.data_ptr() % 16 or kr_pool.data_ptr() % 16:
+        raise ValueError("the latent pools must be 16-byte aligned")
+    dev = q_lat.device.index
+    tile = mla_row_tile(rows, s_, nlog * bs, r, dr,
+                        _smem_limit("paged_attention_mla", dev, q_lat.dtype), _sm_count(dev))
+    out = torch.empty((s_, rows, r), dtype=q_lat.dtype, device=q_lat.device)
+    shape = MlaShape(S=s_, rows=rows, heads=rows // t, T=t, R=r, DR=dr, NB=nb, BS=bs,
+                     NLOG=nlog, row_tile=tile, scale=scale)
+    _launch("paged_attention_mla", tensors, out, debug, shape, cfg)
+    paged_attention_mla_rows.launches += 1
+    return out
+
+
+paged_attention_mla_rows.launches = 0
+
+
+def paged_attend_mla(q_lat, q_rope, c_pool, kr_pool, table, positions,
+                     pcfg: PrecisionConfig, *, scale: float):
+    """q_lat [B, T, H, R], q_rope [B, T, H, DR] (model layout) -> o_lat [B, T,
+    H, R]. ``W_uv`` and the output projection stay with the caller, shared
+    with the gather path."""
+    b, t, h, r = q_lat.shape
+    out = paged_attention_mla_rows(
+        q_lat.reshape(b, t * h, r).contiguous(),
+        q_rope.reshape(b, t * h, q_rope.shape[-1]).contiguous(), c_pool, kr_pool, table,
+        positions.to(torch.int32).contiguous(), pcfg, scale=scale)
+    return out.reshape(b, t, h, r)

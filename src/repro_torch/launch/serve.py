@@ -1,7 +1,8 @@
 """Serving launcher of the port: build a model from seeded weights, then run
 batched generation through ``Engine.generate`` — or, with ``--continuous``,
 serve a seeded trace of requests through ``Engine.serve`` (``--paged``,
-``--prefix-share``, ``--kernel pallas`` for the fused paged decode K2) —
+``--prefix-share``, ``--kernel pallas`` for the fused paged decode K2, or
+K4 for an MLA architecture such as ``--arch minicpm3-4b``) —
 with any ported softmax backend, and report throughput and the AP softmax
 cost (port of ``src/repro/launch/serve.py``, same flags).
 

@@ -50,8 +50,10 @@ def _mask(q_pos, kv_pos, kind: str, window: int):
     return m
 
 
-def attend(q, k, v, mask, cfg, ctx: Ctx):
-    """q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D]. mask [B?,Sq,Skv] or None.
+def attend(q, k, v, mask, cfg, ctx: Ctx, scale=None):
+    """q [B,Sq,H,D], k [B,Skv,KV,D], v [B,Skv,KV,Dv] -> [B,Sq,H,Dv]. mask
+    [B?,Sq,Skv] or None; ``scale`` defaults to D^-1/2 (MLA passes
+    (dn + dr)^-1/2 with a V narrower than Q).
 
     Scores round like the reference's: the einsum of compute-dtype operands
     yields the compute dtype, which is cast to ``cfg.scores_dtype`` and then
@@ -60,7 +62,7 @@ def attend(q, k, v, mask, cfg, ctx: Ctx):
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     group = h // kvh
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     qg = q.reshape(b, sq, kvh, group, dh)
     # scores: [B, KV, G, Sq, Skv]
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(
@@ -74,18 +76,19 @@ def attend(q, k, v, mask, cfg, ctx: Ctx):
     return out.reshape(b, sq, h, v.shape[-1])
 
 
-def attend_chunked(q, k, v, q_pos, kv_pos, kind, cfg, ctx: Ctx):
+def attend_chunked(q, k, v, q_pos, kv_pos, kind, cfg, ctx: Ctx, scale=None):
     """Query-chunked attention: bounds live score memory to
     [B, H, chunk, Skv]. Exact (full rows per chunk)."""
     b, sq, h, dh = q.shape
     chunk = cfg.attn_chunk
     if chunk <= 0 or sq <= chunk or sq % chunk != 0:
-        return attend(q, k, v, _mask(q_pos, kv_pos, kind, cfg.window), cfg, ctx)
+        return attend(q, k, v, _mask(q_pos, kv_pos, kind, cfg.window), cfg, ctx,
+                      scale)
     outs = []
     for i in telemetry.scan_range(sq // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         mask = _mask(q_pos[:, sl], kv_pos, kind, cfg.window)
-        outs.append(attend(q[:, sl], k, v, mask, cfg, ctx))
+        outs.append(attend(q[:, sl], k, v, mask, cfg, ctx, scale))
     return torch.cat(outs, dim=1)
 
 

@@ -1,19 +1,23 @@
-"""Decode-cache structure (port of the dense family of
+"""Decode-cache structure (port of the dense GQA and MLA families of
 ``src/repro/models/kv_cache.py``).
 
 Layouts, as the reference's:
-  contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``
+  contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``; MLA
+               {"c_kv": [L, B, C, r], "k_rope": [L, B, C, dr]}
   paged      : {"k","v": [L, NB, BS, KV, Dh]} pools of NB blocks of BS
-               tokens, plus {"table": [L, S, C // BS]} int32 mapping each
+               tokens (MLA: {"c_kv": [L, NB, BS, r], "k_rope": [L, NB, BS,
+               dr]}), plus {"table": [L, S, C // BS]} int32 mapping each
                slot's logical block to a physical one. ``NB`` is the
                sentinel of an empty table entry. The table keeps the
                reference's one identical copy per layer, so every cache
                leaf slices by layer the same way.
 
-Unlike the reference (pure functions returning new buffers), the pool
-operations here write the cache IN PLACE and return it: one pool exists per
-serve, and copying it per admission would double its memory traffic. int8
-pools and the other families come with ROADMAP.md Queue 1 items 8 and 11.
+The pool operations treat every leaf but the table alike, so scatter,
+copy-on-write and the prefix view serve both families. Unlike the
+reference (pure functions returning new buffers), they write the cache IN
+PLACE and return it: one pool exists per serve, and copying it per
+admission would double its memory traffic. int8 pools and the other
+families come with ROADMAP.md Queue 1 items 8 and 11.
 """
 
 from __future__ import annotations
@@ -25,17 +29,24 @@ KV_DTYPE = torch.bfloat16
 
 
 def _dense_only(cfg):
-    if cfg.family != "dense" or cfg.attention != "gqa" or cfg.kv_quant:
+    if cfg.family != "dense" or cfg.attention not in ("gqa", "mla") or cfg.kv_quant:
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} (kv_quant={cfg.kv_quant}) caches "
             "are not ported: ROADMAP.md Queue 1 items 8 and 11")
 
 
+def _leaf_widths(cfg):
+    """Per-token trailing shape of each cache leaf."""
+    if cfg.attention == "mla":
+        return {"c_kv": (cfg.kv_lora_rank,), "k_rope": (cfg.qk_rope_dim,)}
+    return {"k": (cfg.n_kv_heads, cfg.d_head), "v": (cfg.n_kv_heads, cfg.d_head)}
+
+
 def cache_zeros(cfg, batch: int, cache_len: int, device=None):
     _dense_only(cfg)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-            "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
+    return {k: torch.zeros((cfg.n_layers, batch, cache_len) + w, dtype=KV_DTYPE,
+                           device=device)
+            for k, w in _leaf_widths(cfg).items()}
 
 
 def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
@@ -46,11 +57,12 @@ def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
     if cache_len % block_size != 0:
         raise ValueError(f"cache_len {cache_len} not a multiple of "
                          f"block_size {block_size}")
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-            "v": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-            "table": torch.full((cfg.n_layers, slots, cache_len // block_size),
-                                num_blocks, dtype=torch.int32, device=device)}
+    cache = {k: torch.zeros((cfg.n_layers, num_blocks, block_size) + w,
+                            dtype=KV_DTYPE, device=device)
+             for k, w in _leaf_widths(cfg).items()}
+    cache["table"] = torch.full((cfg.n_layers, slots, cache_len // block_size),
+                                num_blocks, dtype=torch.int32, device=device)
+    return cache
 
 
 def _pools(cache):
@@ -60,14 +72,14 @@ def _pools(cache):
 def paged_scatter(cache, values, slot: int, table_row, pb, offs, t0: int,
                   t1: int):
     """Install one request's prefilled entries into the paged cache, in
-    place: positions ``[t0, t1)`` of ``values`` ({"k","v": [L, 1, T, ...]},
-    the prefill output) land at physical coordinates ``(pb[i], offs[i])``,
+    place: positions ``[t0, t1)`` of ``values`` (each pool leaf [L, 1, T,
+    ...], the prefill output) land at physical coordinates ``(pb[i], offs[i])``,
     and the slot's table row becomes ``table_row``. ``pb``, ``offs`` and
     ``table_row`` are host integer arrays; a coordinate outside the pool is
     dropped, as the reference's scatter drops it (filtered here on the host:
     an out-of-range index on the card is a device-side assert)."""
     table = cache["table"]
-    nb, bs = cache["k"].shape[1:3]
+    nb, bs = cache[_pools(cache)[0]].shape[1:3]
     pb, offs = np.asarray(pb), np.asarray(offs)
     keep = (pb >= 0) & (pb < nb) & (offs >= 0) & (offs < bs)
     rows = np.nonzero(keep)[0]
@@ -93,7 +105,7 @@ def paged_copy_block(cache, src: int, dst: int):
 
 
 def paged_prefix_view(cache, ids, s: int):
-    """The shared-prefix entries ``{"k","v": [L, 1, s, ...]}`` gathered from
+    """The shared-prefix entries (each pool leaf as [L, 1, s, ...]) gathered from
     pool blocks ``ids`` (host ints): the tail-only prefill input. A copy,
     not a view of the pool, so later writes to those blocks cannot change
     what the tail prefill reads."""

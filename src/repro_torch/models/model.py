@@ -1,4 +1,5 @@
-"""Model facade for the dense family (port of ``src/repro/models/model.py``).
+"""Model facade for the dense family, GQA or MLA attention (port of
+``src/repro/models/model.py``).
 
   init(generator)                          -> params (nested dict of tensors)
   train_logits(params, batch)              -> logits [B, S, V]
@@ -8,7 +9,7 @@
 
 Batches hold int token tensors on the model's device: {"tokens": [B, S]}
 for prefill, {"token": [B, 1]} for a decode step. The cache is updated in
-place. Other families (MoE, MLA, SSM, hybrid, encdec, M-RoPE) are later
+place. Other families (MoE, SSM, hybrid, encdec, M-RoPE) are later
 slices: ROADMAP.md Queue 1 item 11.
 """
 
@@ -25,6 +26,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     Ctx, dense_apply, embed_apply, embed_logits, norm_apply, positions_for,
 )
+from repro_torch.models.mla import mla_dense_shapes
 
 _LOGIT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -32,11 +34,11 @@ _LOGIT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device=None):
-        if (cfg.family != "dense" or cfg.attention != "gqa"
+        if (cfg.family != "dense" or cfg.attention not in ("gqa", "mla")
                 or cfg.rope_type not in ("rope", "none") or cfg.kv_quant):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense GQA family with plain rope and a "
-                "bf16 cache is ported; the others follow ROADMAP.md Queue 1 "
+                f"{cfg.name}: only the dense family (GQA or MLA) with plain rope "
+                "and a bf16 cache is ported; the others follow ROADMAP.md Queue 1 "
                 "items 8 and 11")
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
@@ -66,12 +68,12 @@ class Model:
                 p["b"] = torch.zeros((cfg.n_layers, d_out), dtype=dt, device=dev)
             return p
 
-        def norm(layers):
+        def norm(layers, width=cfg.d_model, kind=cfg.norm):
             lead = (layers,) if layers else ()
-            ones = torch.ones(lead + (cfg.d_model,), device=dev)
-            if cfg.norm == "layernorm_np":
+            ones = torch.ones(lead + (width,), device=dev)
+            if kind == "layernorm_np":
                 return {}
-            if cfg.norm == "layernorm":
+            if kind == "layernorm":
                 return {"scale": ones, "bias": torch.zeros_like(ones)}
             return {"scale": ones}
 
@@ -80,12 +82,19 @@ class Model:
              "final_norm": norm(0)}
         if not cfg.tie_embeddings:
             p["head"] = {"w": normal((d, cfg.vocab), 1.0 / math.sqrt(d))}
+        if cfg.attention == "mla":
+            attn = {k: dense(*shape) for k, shape in mla_dense_shapes(cfg).items()}
+            if cfg.q_lora_rank:
+                attn["q_norm"] = norm(cfg.n_layers, cfg.q_lora_rank, "rmsnorm")
+            attn["kv_norm"] = norm(cfg.n_layers, cfg.kv_lora_rank, "rmsnorm")
+        else:
+            attn = {"wq": dense(d, h * dh, cfg.qkv_bias),
+                    "wk": dense(d, kv * dh, cfg.qkv_bias),
+                    "wv": dense(d, kv * dh, cfg.qkv_bias),
+                    "wo": dense(h * dh, d)}
         p["stack"] = {"layers": {
             "norm1": norm(cfg.n_layers), "norm2": norm(cfg.n_layers),
-            "attn": {"wq": dense(d, h * dh, cfg.qkv_bias),
-                     "wk": dense(d, kv * dh, cfg.qkv_bias),
-                     "wv": dense(d, kv * dh, cfg.qkv_bias),
-                     "wo": dense(h * dh, d)},
+            "attn": attn,
             "ffn": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
                     "down": dense(cfg.d_ff, d)},
         }}
@@ -127,7 +136,8 @@ class Model:
         """Prefill only the unshared tail of a prompt whose first
         ``prefix_len`` positions are resident in shared cache blocks.
         ``batch["tokens"]`` holds tokens[prefix_len:] ([B, T]); ``prefix`` is
-        {"k","v": [L, B, s, KV, Dh]} gathered from the pool
+        {"k","v": [L, B, s, KV, Dh]} (MLA: {"c_kv": [L, B, s, r], "k_rope":
+        [L, B, s, dr]}) gathered from the pool
         (``kv_cache.paged_prefix_view``). Returns (last_logits, tail cache
         [L, B, T, ...]) — equal to the tail slice of a whole prefill."""
         tokens = batch["tokens"]

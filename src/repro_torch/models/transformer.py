@@ -1,5 +1,5 @@
-"""Dense transformer blocks and the layer loops (port of the dense path of
-``src/repro/models/transformer.py``).
+"""Dense transformer blocks and the layer loops (port of the dense GQA and
+MLA paths of ``src/repro/models/transformer.py``).
 
 Layer parameters are stacked with a leading layer axis, as in the
 reference; a Python loop over that axis takes the place of ``lax.scan``.
@@ -20,6 +20,7 @@ from repro_torch.models.attention import (
     project_qkv,
 )
 from repro_torch.models.layers import Ctx, dense_apply, mlp_apply, norm_apply
+from repro_torch.models.mla import mla_apply, mla_decode, mla_prefill, mla_prefill_tail
 
 
 def layer_params(stacked, i: int):
@@ -45,7 +46,8 @@ def n_stacked(stacked) -> int:
 def block_apply(p, x, cfg, ctx: Ctx, positions):
     """Dense pre-norm causal block over a whole sequence."""
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
-    x = x + attn_apply(p["attn"], h, cfg, ctx, positions)
+    attn = mla_apply if cfg.attention == "mla" else attn_apply
+    x = x + attn(p["attn"], h, cfg, ctx, positions)
     h = norm_apply(p["norm2"], x, cfg.norm, ctx)
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx)
 
@@ -70,7 +72,8 @@ def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
 def block_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
     """Returns (x, cache) — the decode-ready cache for this layer."""
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
-    a, c = attn_prefill(p["attn"], h, cfg, ctx, positions, cache_len)
+    prefill = mla_prefill if cfg.attention == "mla" else attn_prefill
+    a, c = prefill(p["attn"], h, cfg, ctx, positions, cache_len)
     x = x + a
     h = norm_apply(p["norm2"], x, cfg.norm, ctx)
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
@@ -79,11 +82,16 @@ def block_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
 def block_prefill_tail(p, x, cfg, ctx: Ctx, positions, prefix,
                        prefix_len: int):
     """Prefill the unshared prompt tail of one block against the layer's
-    shared-prefix entries ``prefix`` ({"k","v"} [B, s, KV, D]). Returns
-    (x, tail cache) — entries for the tail positions only."""
+    shared-prefix entries ``prefix`` ({"k","v"} [B, s, KV, D], or MLA's
+    {"c_kv" [B, s, r], "k_rope" [B, s, dr]}). Returns (x, tail cache) —
+    entries for the tail positions only."""
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
-    a, c = attn_prefill_tail(p["attn"], h, prefix["k"], prefix["v"], cfg, ctx,
-                             positions, prefix_len)
+    if cfg.attention == "mla":
+        a, c = mla_prefill_tail(p["attn"], h, prefix["c_kv"], prefix["k_rope"],
+                                cfg, ctx, positions, prefix_len)
+    else:
+        a, c = attn_prefill_tail(p["attn"], h, prefix["k"], prefix["v"], cfg, ctx,
+                                 positions, prefix_len)
     x = x + a
     h = norm_apply(p["norm2"], x, cfg.norm, ctx)
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
@@ -93,7 +101,8 @@ def block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
     """Single-token decode step. Returns (x, cache) — the cache updated in
     place."""
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
-    a, c = attn_decode(p["attn"], h, cache, cache_pos, cfg, ctx, positions)
+    decode = mla_decode if cfg.attention == "mla" else attn_decode
+    a, c = decode(p["attn"], h, cache, cache_pos, cfg, ctx, positions)
     x = x + a
     h = norm_apply(p["norm2"], x, cfg.norm, ctx)
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c

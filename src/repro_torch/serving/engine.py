@@ -22,7 +22,7 @@ EOS) runs between admissions. A contiguous cache keeps one stripe per slot;
 the paged cache keeps a block pool with per-slot tables and, with
 ``prefix_share``, reuses resident prompt blocks across requests
 (copy-on-write at the boundary block, tail-only prefill). ``kernel="pallas"``
-decodes through the fused paged kernel K2. Each served request's tokens
+decodes through the fused paged kernel K2 (K4 for MLA). Each served request's tokens
 equal generating it alone with ``mode="eager"``, its own seed and the same
 cache length. Chunked prefill, preemption, speculative decoding, tensor
 parallelism and the other families are later slices (ROADMAP.md Queue 1
@@ -322,7 +322,8 @@ class Engine:
     def _kernel_model(self, kernel: str) -> Model:
         """The Model decoding under ``kernel``: ``"jnp"`` is the engine's
         own; ``"pallas"`` swaps the softmax kind to ``int_pallas_paged`` —
-        the same Alg. 1 everywhere, with paged decode through K2 — and
+        the same Alg. 1 everywhere, with paged decode through K2 (K4 for
+        MLA) — and
         shares ``self.params``. Only the Alg.-1 integer family has a fused
         counterpart."""
         if kernel == "jnp":
@@ -365,7 +366,8 @@ class Engine:
         blocks with the same cumulative content (refcounted by a
         :class:`BlockAllocator`; copy-on-write when the forced tail token
         lands in a shared block) and prefills only the unshared tail.
-        ``kernel="pallas"`` decodes through the fused paged kernel K2.
+        ``kernel="pallas"`` decodes through the fused paged kernel K2 (K4
+        for MLA).
         ``policy="gang"`` admits only whole batches. Each request's tokens
         equal ``generate(prompt[None], generator=Generator().manual_seed(
         request.seed), mode="eager", max_new=request.max_new,

@@ -20,7 +20,7 @@ from typing import Any, Optional
 #: serve policies the scheduler understands (see scheduler.SlotScheduler)
 POLICIES = ("continuous", "gang")
 #: decode kernels: "jnp" gathers then attends, "pallas" runs the fused
-#: paged-decode kernel (K2); the names are the reference's
+#: paged-decode kernel (K2, or K4 for MLA); the names are the reference's
 KERNELS = ("jnp", "pallas")
 
 
