@@ -34,8 +34,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    heads, latent rank 256) through ``Engine.serve`` as in phase 6 on a
    16-request shared-prefix trace: K4 must launch 62 x steps times, K1 62 x
    16 and K2 never; the checks of phase 6 and one warm timing per kernel;
-9. a ``kernels`` JSON line per ported kernel, the card line, and the result
-   line ``{"ok": true, "device": {...}}`` last.
+9. K2's int8 branch against its plain version: the serve decode shape with
+   absmax and with power-of-two (exaq) scales, sentinels and parked slots,
+   4096-token rows, f32 compute; phase 5's checks;
+10. ``kv_quantize`` on the card against the CPU on the K/V of a full-width
+    512-token prefill: absmax bitwise; the EXAQ schemes bitwise or one
+    power of two apart (printed);
+11. the serve path of phase 6 from an int8 KV pool (absmax): K2 must launch
+    16 x steps times, all on int8 pools, and K1 16 x 32; the checks of
+    phase 6 with the int8 limits (the teacher-forced pass quantizes K/V as
+    the prefill does), the pool's bytes per token, and for information the
+    logit distance to the bf16 model;
+12. K3 (the stand-alone fused prefill attention) against its plain version
+    on the reference's kernel matrix and at full widths (olmo-1b's prefill,
+    a 4096-token prefill, GQA 32/8 at 2048): the plain Alg. 1 on its own
+    scores bitwise, scores and outputs within f32 summation bounds; then
+    ``int_attention`` as a user calls it, launching K3 once;
+13. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+    entry), the card line, and the result line ``{"ok": true, "device":
+    {...}}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -297,17 +314,19 @@ def _k2_inputs(gen, *, S, KV, group, T, D, BS, NLOG, NB, dtype, qpos,
 
 def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
             NB=None, dtype=torch.bfloat16, window=0, qpos=None, parked=(),
-            scores_dtype=torch.float32):
+            scores_dtype=torch.float32, quant=None):
     """K2 against its plain version on one input: (a) the plain Alg. 1 on
     K2's own scores gives K2's probabilities bitwise; (b) scores within the
     bounds above of the exactly rounded product and of the plain version;
     outputs within the bounds above of the exact sum over K2's own
-    probabilities and of the plain version. Returns its record."""
+    probabilities and of the plain version. ``quant``: a kv_quantize scheme
+    — the pools become int8 codes with f32 scales, and the bounds hold
+    against the dequantized K and V. Returns its record."""
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.int_softmax.ref import int_softmax_ref
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    from repro_torch.models.attention import paged_gather
+    from repro_torch.models.attention import kv_dequantize, kv_quantize, paged_gather
 
     NB = NB or S * NLOG + 4
     l_full = NLOG * BS
@@ -320,6 +339,17 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     rows = T * group
     scale = D ** -0.5
     kw = dict(scale=scale, window=window, scores_dtype=scores_dtype)
+    if quant:
+        k, ks = kv_quantize(k, quant)
+        v, vs = kv_quantize(v, quant)
+        kw.update(k_scale=ks, v_scale=vs)
+
+    def gathered(pool, scale_pool):                                # [S, L, KV, D] f64
+        g = paged_gather(pool, table)
+        if quant:
+            g = kv_dequantize(g, paged_gather(scale_pool, table), dtype)
+        return g.double()
+
     sc = torch.zeros((S, KV, rows, l_full), device="cuda")
     pr = torch.zeros_like(sc)
     out = ops.paged_attention_rows(q, k, v, table, pos, BEST, scores_out=sc,
@@ -341,7 +371,7 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     # rounded to the compute dtype, then scaled as both sides scale it) and
     # against the plain version, in units of the bound above
     live = valid.reshape(sc.shape)
-    kg = paged_gather(k, table).double()                           # [S, L, KV, D]
+    kg = gathered(k, kw.get("k_scale"))                            # [S, L, KV, D]
     dot = torch.einsum("skrd,slkd->skrl", q.double(), kg)
     exact = (dot.to(dtype).to(scores_dtype) * scale).float()
     summed = D * 2.0 ** -24 * torch.einsum("skrd,slkd->skrl", q.double().abs(), kg.abs())
@@ -367,7 +397,7 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     # (the PV step) and against the plain version, in units of the bounds
     check(bool(torch.isfinite(out).all()), f"K2 {label}: non-finite output")
     del dot, summed, kg
-    vg = paged_gather(v, table).double()                           # [S, L, KV, Dv]
+    vg = gathered(v, kw.get("v_scale"))                            # [S, L, KV, Dv]
     o, w = out.double(), want.double()
     e_k, rec_k, _ = _pv_sums(pr, vg, dtype)
     _, _, mass_p = _pv_sums(want_pr, vg, dtype)
@@ -387,9 +417,10 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     check(out_units["vs_plain"] <= 1, f"K2 {label}: an output is outside the bound of "
           f"the plain version's ({out_units}, in units of the bound; max abs err {err})")
     # bound: the K and V rows the function needs (keys at or below some
-    # row's position, inside its window, on a live page), q, out, table and
-    # positions, each once; operations: the dot and the PV per needed key
-    # and row (at the operand type's rate) and Alg. 1 per score
+    # row's position, inside its window, on a live page; int8 pools: a byte
+    # a value and the two f32 scales), q, out, table and positions, each
+    # once; operations: the dot and the PV per needed key and row (at the
+    # operand type's rate) and Alg. 1 per score
     esz = torch.finfo(dtype).bits // 8
     tab, ps = table.cpu().numpy(), pos.cpu().numpy()
     kp = np.arange(l_full)
@@ -400,7 +431,8 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     keys_read = int(need.any(axis=1).sum())           # a slot's rows share their keys
     row_keys = int(need.sum()) * group
     dv = v.shape[-1]
-    nbytes = (keys_read * KV * (D + dv) * esz + (q.numel() + out.numel()) * esz
+    kv_bytes = (D + dv + 8) if quant else (D + dv) * esz
+    nbytes = (keys_read * KV * kv_bytes + (q.numel() + out.numel()) * esz
               + table.numel() * 4 + pos.numel() * 4)
     bytes_ms = nbytes / rate * 1e3
     op_ms = ops_ms(row_keys * KV * (2 * D + 2 * dv), dtype,
@@ -409,6 +441,7 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     plain = lambda: paged_attention_ref(q, k, v, table, pos, BEST, **kw)  # noqa: E731
     rec = {"shape": label, "S": S, "KV": KV, "rows": rows, "D": D, "BS": BS,
            "NLOG": NLOG, "window": window, "dtype": str(dtype).split(".")[-1],
+           "pools": f"int8 ({quant})" if quant else str(dtype).split(".")[-1],
            "scores_dtype": str(scores_dtype).split(".")[-1],
            "keys_read": keys_read,
            "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
@@ -418,8 +451,8 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
            "call_ms": call_ms(kernel, 20), "bound_ms": max(bytes_ms, op_ms),
            "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
     print(f"K2 {label:<34} S={S} KV={KV} rows={rows} D={D} BS={BS} NLOG={NLOG} "
-          f"w={window} {rec['dtype']}: Alg. 1 on own scores bitwise; scores differing "
-          f"{n_sc} (worst, in units of the bound: {worst}), outputs differing {n_out} "
+          f"w={window} {rec['dtype']}, pools {rec['pools']}: Alg. 1 on own scores bitwise; "
+          f"scores differing {n_sc} (worst, in units of the bound: {worst}), outputs differing {n_out} "
           f"(worst, in units of the bound: {out_units}), max abs err {err:.3e} = "
           f"{err / rms:.3e} of the output's RMS {rms:.3e}; keys read {keys_read}; "
           f"device ms: kernel {rec['ms']:.4f}, plain "
@@ -457,6 +490,184 @@ def phase5_k2(rate):
                         NLOG=2048, qpos=np.array([32767])))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
+
+
+def phase9_k2_int8(rate):
+    """K2's int8 branch against its plain version: the olmo serve decode
+    shape with absmax and with power-of-two (exaq) scales, sentinel tails
+    and parked slots, a 4096-token row, f32 compute; phase 5's checks."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    main = dict(S=8, KV=16, group=1, D=128, BS=16, NLOG=36, NB=324)
+    qpos = np.random.default_rng(1).integers(400, 576, size=8)
+    recs = [k2_case("int8 decode (main path)", gen, rate, qpos=qpos, quant="absmax", **main)]
+    recs.append(k2_case("int8 decode, exaq scales", gen, rate, qpos=qpos, quant="exaq",
+                        **main))
+    recs.append(k2_case("int8 sentinel tails + parked slot", gen, rate, qpos=qpos,
+                        parked=(0, 5), quant="absmax", **main))
+    recs.append(k2_case("int8 4096-token rows", gen, rate, S=4, KV=16, group=1, NLOG=256,
+                        qpos=np.array([4095, 4000, 3000, 2049]), quant="absmax"))
+    recs.append(k2_case("int8 f32 compute", gen, rate, dtype=torch.float32, qpos=qpos,
+                        quant="absmax", **main))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    return recs
+
+
+# ----------------------------------------------------------------- phase 12
+
+
+def k3_case(label, rate, *, B, H, KV, Sq, Skv, D, causal=True, window=0,
+            dtype=torch.bfloat16, seed=0):
+    """K3 against its plain version on one input: (a) the plain Alg. 1 on
+    K3's own scores gives K3's probabilities bitwise; (b) each score within
+    the f32 summation bound (D 2^-24 sum |q_i k_i|, times the scale, plus
+    the scale's rounding) of the exact product and, doubled, of the plain
+    version's; each output within the f32 summation bound n 2^-24 sum |p|
+    |v| over its n valid keys of the exact sum over K3's own probabilities
+    (the PV check), and within sum_j |p_j - p'_j| |v_j| plus both summation
+    bounds of the plain version's. Returns its record."""
+    from repro_torch.core.alg1 import int_softmax_block
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.int_attention import ops
+    from repro_torch.kernels.int_attention.ref import attention_mask, int_attention_ref
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    bh, bkv, g = B * H, B * KV, H // KV
+    q = torch.randn((bh, Sq, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((bkv, Skv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((bkv, Skv, D), generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window)
+    sc = torch.zeros((bh, Sq, Skv), device=dev)
+    pr = torch.zeros_like(sc)
+    out = ops.int_attention_rows(q, k, v, BEST, scores_out=sc, probs_out=pr, **kw)
+    want, want_sc, want_pr = int_attention_ref(q[None], k[None], v[None], BEST,
+                                               return_rows=True, **kw)
+    want = want[0]
+    torch.cuda.synchronize()
+    mask = attention_mask(Sq, Skv, causal, window, device=dev)
+    valid = (torch.ones((Sq, Skv), dtype=torch.bool, device=dev) if mask is None
+             else mask)
+    check(torch.equal(int_softmax_block(sc, valid, BEST), pr),
+          f"K3 {label}: plain Alg. 1 on the kernel's scores != the kernel's probabilities")
+    check(bool(torch.isfinite(out).all()), f"K3 {label}: non-finite output")
+    scale = D ** -0.5
+    worst = {"vs_exact": 0.0, "vs_plain": 0.0, "plain_vs_exact": 0.0}
+    out_units = {"pv_vs_exact": 0.0, "vs_plain": 0.0}
+    n_valid = valid.sum(-1, keepdim=True).double()
+    step = max(1, (1 << 27) // (Sq * Skv))                    # rows of bh per chunk
+    for b0 in range(0, bh, step):
+        sl = slice(b0, min(bh, b0 + step))
+        kr = torch.arange(sl.start, sl.stop, device=dev) // g
+        qd, kd, vd = q[sl].double(), k[kr].double(), v[kr].double()
+        exact = torch.einsum("hqd,hsd->hqs", qd, kd) * scale
+        summed = D * 2.0 ** -24 * torch.einsum("hqd,hsd->hqs", qd.abs(), kd.abs()) * scale
+
+        def units(x, ref, n_sums):
+            tol = n_sums * summed + 2.0 ** -23 * torch.maximum(x.abs(), ref.abs())
+            return float(((x.double() - ref.double()).abs() / (tol * 1.001))[
+                valid.expand(x.shape)].max())
+
+        worst["vs_exact"] = max(worst["vs_exact"], units(sc[sl], exact, 1))
+        worst["vs_plain"] = max(worst["vs_plain"], units(sc[sl], want_sc[sl], 2))
+        worst["plain_vs_exact"] = max(worst["plain_vs_exact"], units(want_sc[sl], exact, 1))
+        del exact, summed
+        p, wp = pr[sl].to(dtype).double(), want_pr[sl].to(dtype).double()
+        e_k = torch.einsum("hqs,hsd->hqd", p, vd)
+        mass = torch.einsum("hqs,hsd->hqd", p.abs(), vd.abs())
+        mass_p = torch.einsum("hqs,hsd->hqd", wp.abs(), vd.abs())
+        dp = torch.einsum("hqs,hsd->hqd", (p - wp).abs(), vd.abs())
+        o, w = out[sl].double(), want[sl].double()
+        tol_pv = n_valid * 2.0 ** -24 * mass
+        tol_out = dp + n_valid * 2.0 ** -24 * (mass + mass_p)
+        out_units["pv_vs_exact"] = max(out_units["pv_vs_exact"],
+                                       float(((o - e_k).abs() / (tol_pv * 1.001 + 1e-300)).max()))
+        out_units["vs_plain"] = max(out_units["vs_plain"],
+                                    float(((o - w).abs() / (tol_out * 1.001 + 1e-300)).max()))
+    check(worst["vs_exact"] <= 1 and worst["vs_plain"] <= 1, f"K3 {label}: a score is "
+          f"outside its bound ({worst}, in units of the bound)")
+    check(out_units["pv_vs_exact"] <= 1 and out_units["vs_plain"] <= 1, f"K3 {label}: an "
+          f"output is outside its bound ({out_units}, in units of the bound)")
+    err = float((out - want).abs().max())
+    rms = float(want.double().pow(2).mean().sqrt())
+    n_sc = int(((sc != want_sc) & valid).sum())
+    del sc, pr, want_sc, want_pr
+    # bound: q, k, v read once and the f32 out written once; operations: the
+    # dot and the PV per valid (row, key) at the operand type's rate, Alg. 1
+    # per valid score
+    esz = torch.finfo(dtype).bits // 8
+    pairs = int(valid.sum()) * bh
+    nbytes = (q.numel() + k.numel() + v.numel()) * esz + out.numel() * 4
+    bytes_ms = nbytes / rate * 1e3
+    op_ms = ops_ms(pairs * 4 * D, dtype, pairs * K1_OPS_PER_ELEMENT)
+    kernel = lambda: ops.int_attention_rows(q, k, v, BEST, **kw)  # noqa: E731
+    plain = lambda: int_attention_ref(q[None], k[None], v[None], BEST, **kw)  # noqa: E731
+    tile = ops.row_tile(Sq, bh, Skv, D, ops.smem_limit(0, dtype),
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    rec = {"shape": label, "B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv, "D": D,
+           "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
+           "row_tile": tile, "ctas": bh * -(-Sq // tile),
+           "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
+           "scores_differing": n_sc, "score_bound_units": worst,
+           "output_bound_units": out_units,
+           "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+           "call_ms": call_ms(kernel, 10), "bound_ms": max(bytes_ms, op_ms),
+           "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
+    print(f"K3 {label:<34} B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} D={D} causal={causal} "
+          f"w={window} {rec['dtype']} tile={tile} ({rec['ctas']} CTAs): Alg. 1 on own "
+          f"scores bitwise; scores differing {n_sc} (worst, in units of the bound: {worst}), "
+          f"outputs (worst, in units of the bound: {out_units}), max abs err {err:.3e} = "
+          f"{err / rms:.3e} of the output's RMS {rms:.3e}; device ms: kernel "
+          f"{rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+          f"({rec['bound_by']}, {rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); eager call "
+          f"{rec['call_ms']:.4f}", flush=True)
+    return rec
+
+
+def phase12_k3(rate):
+    """K3 (the stand-alone fused prefill attention) against its plain
+    version on the reference's kernel matrix and at full widths; then its
+    path: ``int_attention`` called as a user calls it, at olmo-1b's prefill
+    width, with the launch count read around it."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.int_attention import ops
+
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    recs = []
+    # tests/test_kernels.py:61-101: f32, causal on and off, a window, bf16
+    for i, (b, h, kv, sq, skv, d) in enumerate([(2, 4, 2, 64, 64, 32), (1, 8, 8, 96, 96, 64),
+                                                (2, 4, 1, 33, 33, 32), (1, 2, 2, 16, 64, 32)]):
+        for causal in (True, False):
+            recs.append(k3_case(f"reference {b}x{h}/{kv}x{sq}x{skv}x{d} causal={causal}",
+                                rate, B=b, H=h, KV=kv, Sq=sq, Skv=skv, D=d, causal=causal,
+                                dtype=torch.float32, seed=10 * i + causal))
+    recs.append(k3_case("reference window 16", rate, B=1, H=4, KV=2, Sq=64, Skv=64, D=32,
+                        window=16, dtype=torch.float32, seed=100))
+    recs.append(k3_case("reference bf16 inputs", rate, B=1, H=4, KV=4, Sq=32, Skv=32, D=32,
+                        seed=101))
+    recs.append(k3_case("olmo-1b prefill (main)", rate, B=4, H=16, KV=16, Sq=512, Skv=512,
+                        D=128, seed=102))
+    recs.append(k3_case("4096-token prefill", rate, B=1, H=16, KV=16, Sq=4096, Skv=4096,
+                        D=128, seed=103))
+    recs.append(k3_case("GQA H 32 KV 8, 2048 tokens", rate, B=1, H=32, KV=8, Sq=2048,
+                        Skv=2048, D=128, seed=104))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    # the stand-alone path, as a user calls it
+    gen = torch.Generator("cuda").manual_seed(102)
+    q, k, v = (torch.randn((4, 16, 512, 128), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    ops.int_attention_rows.launches = 0
+    out = ops.int_attention(q, k, v, BEST, causal=True)
+    torch.cuda.synchronize()
+    launches = ops.int_attention_rows.launches
+    check(launches == 1, f"K3 launched {launches} times in one int_attention call")
+    check(out.shape == q.shape and out.dtype == torch.float32
+          and bool(torch.isfinite(out).all()), "int_attention: output shape, type or values")
+    print(f"K3 path: int_attention on [4, 16, 512, 128] bf16, causal: {launches} launch, "
+          f"f32 output {tuple(out.shape)} finite", flush=True)
+    return recs, launches
 
 
 # ----------------------------------------------------------------- phase 7
@@ -810,6 +1021,11 @@ LOGIT_RMS_TOL = 0.02
 # that floor.
 ALIGNED_RMS_TOL = 0.0178
 
+# The int8 serve path (phase 11) is held to the same limits: against a
+# teacher-forced pass that quantizes K/V as the prefill does, its floors on
+# the H100 equal bf16's within 1 % (per-request eager max 0.094, RMS
+# 0.0152; step-aligned pallas vs jnp max 0.086, RMS 0.01366).
+
 # The same rules on the MLA serve path (phase 8). The teacher-forced
 # forward up-projects the latents while decode runs the absorbed form,
 # which rounds at other places, so the floor is higher than olmo's:
@@ -841,11 +1057,28 @@ class _LogitRecorder:
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def full_logits(model, params, seq):
+    """Logits at every position of ``seq`` [1, S] from one causal pass:
+    ``Model.train_logits``, or for an int8 KV cache the prefill's layer loop
+    (each layer attends the fake-quantized K/V it caches, as serving does)
+    with the head over every position."""
+    if not model.cfg.kv_quant:
+        return model.train_logits(params, {"tokens": seq})
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import positions_for
+
+    x = model._embed(params, seq)
+    x, _ = tfm.stack_prefill(params["stack"]["layers"], x, model.cfg, model.ctx,
+                             positions_for(seq.shape, device=seq.device), seq.shape[1])
+    return model._head(params, x)
+
+
 def teacher_forced(label, model, params, reqs, tokens, rows, tol, rms_tol):
     """Per run: the largest |served - teacher-forced| logit at the first
     step (the prefill or tail prefill) and at the decode steps, and the RMS
     of the differences over every logit of every step. ``tokens``: the
-    served token row of each request; ``rows``: the recorder's rows."""
+    served token row of each request; ``rows``: the recorder's rows. The
+    teacher-forced pass is ``full_logits`` of ``model``."""
     first = decode = sq = 0.0
     n = 0
     for r, toks in zip(reqs, tokens):
@@ -853,7 +1086,7 @@ def teacher_forced(label, model, params, reqs, tokens, rows, tol, rms_tol):
         check(len(got) == r.max_new, f"{label}, request {r.rid}: {len(got)} sampled rows")
         seq = torch.as_tensor(np.asarray(toks[:-1])[None], dtype=torch.long,
                               device="cuda")
-        ref = model.train_logits(params, {"tokens": seq})[0, r.prompt_len - 1:]
+        ref = full_logits(model, params, seq)[0, r.prompt_len - 1:]
         d = (torch.stack(got).float() - ref.float()).abs()
         first = max(first, float(d[0].max()))
         if len(d) > 1:
@@ -929,7 +1162,7 @@ def compare_tokens(label, got, want, prompt_len, model, params, ties):
 
 
 def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit_rms_tol,
-                aligned_tol, aligned_rms_tol, max_new):
+                aligned_tol, aligned_rms_tol, max_new, kv_quant=False):
     """Full-width ``arch`` served through Engine.serve with the paged pool,
     prefix sharing and ``kernel="pallas"``: the fused paged decode
     ``fused`` (the ``ops`` function whose counter it bumps) launches
@@ -941,31 +1174,36 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
     and the pallas and jnp serves' logits within ``aligned_tol`` (RMS
     ``aligned_rms_tol``) of each other step by step;
     ``warm_runs`` warm runs per kernel, in turns, and one op-counted serve
-    per kernel."""
+    per kernel. ``kv_quant``: the int8 KV pool (absmax); K2 must then launch
+    on int8 pools every time, and the teacher-forced pass quantizes as
+    the prefill does."""
     import dataclasses
 
     from repro_torch.backends import ZERO_COST
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.kernels.int_attention import ops as k3
     from repro_torch.kernels.int_softmax import ops as k1
     from repro_torch.kernels.paged_attention import ops as paged
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
 
-    cfg = get_config(arch, softmax=SoftmaxSpec("int_pallas"))
+    cfg = dataclasses.replace(get_config(arch, softmax=SoftmaxSpec("int_pallas")),
+                              kv_quant=kv_quant)
     model = Model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     eng = Engine(model, params, max_new=max_new)
     gen_tokens = sum(r.max_new for r in reqs)
     counters = {"K1": k1.int_softmax_rows, "K2": paged.paged_attention_rows,
-                "K4": paged.paged_attention_mla_rows}
+                "K3": k3.int_attention_rows, "K4": paged.paged_attention_mla_rows}
     name = next(k for k, f in counters.items() if f is fused)
     print(f"serve path: {cfg.name} full width ({cfg.param_count() / 1e9:.3f} B parameters, "
           f"{cfg.n_layers} layers), bf16 seeded weights, softmax int_pallas; {len(reqs)} "
           f"requests (prompts {min(r.prompt_len for r in reqs)}-"
           f"{max(r.prompt_len for r in reqs)}, max_new {min(r.max_new for r in reqs)}-"
           f"{max(r.max_new for r in reqs)}, {gen_tokens} tokens), slots {opts.slots}, paged "
-          f"bs {opts.block_size}, prefix_share, kernel pallas ({name})", flush=True)
+          f"bs {opts.block_size}, prefix_share, kernel pallas ({name}), KV pool "
+          f"{'int8 (absmax)' if kv_quant else 'bf16'}", flush=True)
 
     # the checked runs sample through a recorder (greedy, per slot) that
     # keeps every logits row; the timed runs below use ``eng``
@@ -973,15 +1211,19 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
     eng_r = Engine(model, params, max_new=max_new, sampler=rec)
     for f in counters.values():
         f.launches = 0
+    paged.paged_attention_rows.int8_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rep = eng_r.serve(reqs, opts)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     n = {k: f.launches for k, f in counters.items()}
+    n["K2 on int8 pools"] = paged.paged_attention_rows.int8_launches
     rows_pallas, rec.rows = rec.rows, {}
-    want = {k: 0 for k in counters}
+    want = {k: 0 for k in n}
     want.update({"K1": cfg.n_layers * len(reqs), name: cfg.n_layers * rep.steps})
+    if kv_quant:
+        want["K2 on int8 pools"] = cfg.n_layers * rep.steps
     print(f"launches in one serve: {n} (expected {want}: {name} {cfg.n_layers} layers x "
           f"{rep.steps} steps, K1 {cfg.n_layers} x {len(reqs)} prefills); first serve "
           f"{first_s * 1e3:.1f} ms, peak device memory "
@@ -1006,6 +1248,10 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
           f"{rep.cow_copies}, evictions {rep.evictions}, leaked blocks {rep.leaked_blocks}; "
           f"per-request cost shares sum to the batch meter (rel 1e-9): "
           f"{rep.cost.describe()}", flush=True)
+    pool_bytes = {q: pool_bytes_per_token(dataclasses.replace(cfg, kv_quant=q))
+                  for q in (False, True)}
+    print(f"KV pool bytes per token: {pool_bytes[cfg.kv_quant]} ({cfg.n_layers} layers; "
+          f"int8 pool {pool_bytes[True]}, bf16 pool {pool_bytes[False]})", flush=True)
 
     ties = []
     rep_j = eng_r.serve(reqs, dataclasses.replace(opts, kernel="jnp", report_cost=False))
@@ -1042,6 +1288,12 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
         check(max(c["first_step_max"], c["decode_max"]) <= logit_tol and
               c["rms"] <= logit_rms_tol, f"{c['run']}: served logits differ from the "
               f"teacher-forced prefill's beyond the limits: {c}")
+    to_bf16 = None
+    if kv_quant:        # information only: what the int8 pool costs in logits
+        to_bf16 = teacher_forced("int8 serve kernel=pallas vs the bf16 model (information)",
+                                 Model(dataclasses.replace(cfg, kv_quant=False)), params,
+                                 reqs, [res.tokens for res in rep.results], rows_pallas,
+                                 float("inf"), float("inf"))
     del rec, eng_r, rows_pallas, rows_jnp
 
     # warm runs, in turns, median per kernel
@@ -1084,14 +1336,25 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
               f"{counter.n / r_k.steps:.0f} per decode step (prefills included) -> "
               f"{timing[kernel]['ms_per_step'] / (counter.n / r_k.steps) * 1e3:.1f} us "
               "of step time per op", flush=True)
-    return {"arch": arch, "launches": n, "steps": rep.steps, "ties": ties,
+    return {"arch": arch, "kv_pool": "int8 (absmax)" if kv_quant else "bf16",
+            "launches": n, "steps": rep.steps, "ties": ties,
             "teacher_forced_logits": logit_checks, "aligned_logits": aligned,
+            "int8_vs_bf16_model_logits": to_bf16, "pool_bytes_per_token": pool_bytes,
             "timing": timing}
 
 
-def phase6_serve():
+def pool_bytes_per_token(cfg) -> int:
+    """Bytes the paged KV pool of ``cfg`` holds per token, every layer."""
+    from repro_torch.models import kv_cache
+
+    pool = kv_cache.paged_cache_zeros(cfg, 1, 16, 16, 1, device="meta")
+    return sum(x.numel() * x.element_size() for k, x in pool.items() if k != "table") // 16
+
+
+def phase6_serve(kv_quant=False):
     """Full-width olmo-1b served through Engine.serve with the paged pool,
-    prefix sharing and the fused paged decode K2."""
+    prefix sharing and the fused paged decode K2; ``kv_quant``: from an
+    int8 pool (phase 11). One warm serve per kernel."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.serving.options import ServeOptions
@@ -1103,8 +1366,56 @@ def phase6_serve():
     opts = ServeOptions(slots=8, paged=True, block_size=16, prefix_share=True,
                         kernel="pallas", report_cost=True)
     return serve_phase("olmo-1b", reqs, opts, fused=ops.paged_attention_rows, eager_n=4,
-                       warm_runs=3, logit_tol=LOGIT_TOL, logit_rms_tol=LOGIT_RMS_TOL,
-                       aligned_tol=LOGIT_TOL, aligned_rms_tol=ALIGNED_RMS_TOL, max_new=64)
+                       warm_runs=1, logit_tol=LOGIT_TOL, logit_rms_tol=LOGIT_RMS_TOL,
+                       aligned_tol=LOGIT_TOL, aligned_rms_tol=ALIGNED_RMS_TOL, max_new=64,
+                       kv_quant=kv_quant)
+
+
+def phase10_kv_quantize():
+    """kv_quantize on the card against the same call on the CPU, on the K/V
+    of a full-width olmo-1b prefill of 512 tokens (every layer): absmax
+    codes and scales bitwise; the EXAQ schemes bitwise, or each differing
+    scale exactly one power of two from the CPU's (printed)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models.attention import kv_quantize
+    from repro_torch.models.model import Model
+
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"))
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    prompt = SyntheticCorpus(cfg.vocab, seed=1234).sample(1, 512, seed=777)[:, :512]
+    _, cache = model.prefill(params, {"tokens": torch.as_tensor(prompt, device="cuda")},
+                             cache_len=512)
+    del params, model
+    out = {}
+    for scheme in ("absmax", "exaq", "exaq_clamped"):
+        rec = {"values": 0, "codes_differing": 0, "scales_differing": 0}
+        for name in ("k", "v"):
+            x = cache[name]                                   # [L, 1, 512, KV, D] bf16
+            codes, scale = kv_quantize(x, scheme)
+            c_cpu, s_cpu = kv_quantize(x.cpu(), scheme)
+            codes, scale = codes.cpu(), scale.cpu()
+            diff = scale != s_cpu
+            rec["values"] += x.numel()
+            rec["codes_differing"] += int((codes != c_cpu).sum())
+            rec["scales_differing"] += int(diff.sum())
+            if diff.any():
+                ratio = torch.log2(scale[diff].double() / s_cpu[diff].double())
+                print(f"  {scheme} {name}: scales differing at "
+                      f"{torch.nonzero(diff)[:8].tolist()} (log2 ratio "
+                      f"{ratio[:8].tolist()})", flush=True)
+                check(scheme != "absmax" and bool((ratio.abs() == 1).all()),
+                      f"kv_quantize {scheme}: card and CPU scales differ other than by one "
+                      "power of two")
+        check(scheme != "absmax" or rec["codes_differing"] == rec["scales_differing"] == 0,
+              f"kv_quantize absmax: card and CPU differ: {rec}")
+        print(f"kv_quantize {scheme}, card vs CPU on the K/V of a full-width 512-token "
+              f"prefill ({rec['values']} values): codes differing {rec['codes_differing']}, "
+              f"scales differing {rec['scales_differing']}", flush=True)
+        out[scheme] = rec
+    return out
 
 
 def phase8_mla_serve():
@@ -1263,7 +1574,8 @@ def main():
 
     # phase 2: build every kernel of the paths, all nvcc processes at once
     t0 = time.perf_counter()
-    logs = build.build(["int_softmax", "paged_attention", "paged_attention_mla"])
+    logs = build.build(["int_softmax", "paged_attention", "paged_attention_mla",
+                        "int_attention"])
     print(f"build: {sorted(logs) or 'already built'} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for log in logs.values():
@@ -1284,14 +1596,23 @@ def main():
     served = timed("phase 6 (serve path, olmo-1b)", phase6_serve)
     k4_recs = timed("phase 7 (K4 against its plain version)", phase7_k4, rate)
     mla = timed("phase 8 (serve path, minicpm3-4b)", phase8_mla_serve)
-    print(f"phases 3-8: {time.perf_counter() - t_all:.1f} s", flush=True)
+    k2_int8_recs = timed("phase 9 (K2's int8 branch against its plain version)",
+                         phase9_k2_int8, rate)
+    quantize = timed("phase 10 (kv_quantize, card vs CPU)", phase10_kv_quantize)
+    served_int8 = timed("phase 11 (serve path, olmo-1b, int8 KV pool)", phase6_serve, True)
+    k3_recs, k3_launches = timed("phase 12 (K3 against its plain version; its path)",
+                                 phase12_k3, rate)
+    print(f"phases 3-12: {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    # phase 9
+    # phase 13
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
     k2_main = next(r for r in k2_recs if r["shape"] == "decode (main path)")
+    k2_int8_main = next(r for r in k2_int8_recs if r["shape"] == "int8 decode (main path)")
+    k3_main = next(r for r in k3_recs if r["shape"] == "olmo-1b prefill (main)")
     k4_main = next(r for r in k4_recs if r["shape"] == "decode (main path)")
     k1_by_path = {"generate": launches, "serve olmo-1b": served["launches"]["K1"],
-                  "serve minicpm3-4b": mla["launches"]["K1"]}
+                  "serve minicpm3-4b": mla["launches"]["K1"],
+                  "serve olmo-1b int8": served_int8["launches"]["K1"]}
     kernels = [{
         "name": "int_softmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_softmax.cu",
@@ -1313,6 +1634,28 @@ def main():
         "library_ms": None,   # no PyTorch call computes Alg. 1 attention
         "shapes": k2_recs,
     }, {
+        "name": "paged_attention_dense (int8 pools)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:145",
+        "launches": served_int8["launches"]["K2 on int8 pools"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2_int8_recs),
+        "ms": k2_int8_main["ms"], "plain_ms": k2_int8_main["plain_ms"],
+        "bound_ms": k2_int8_main["bound_ms"], "bound_by": k2_int8_main["bound_by"],
+        "library_ms": None,   # no PyTorch call computes Alg. 1 attention
+        "shapes": k2_int8_recs,
+    }, {
+        "name": "int_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int_attention.cu",
+        "replaces": "src/repro/kernels/int_attention/kernel.py:63",
+        "launches": k3_launches,   # its stand-alone path; 0 on the serve paths
+        "launches_on_serve_paths": served["launches"]["K3"] + mla["launches"]["K3"]
+        + served_int8["launches"]["K3"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3_recs),
+        "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+        "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+        "library_ms": None,   # no PyTorch call computes Alg. 1 attention
+        "shapes": k3_recs,
+    }, {
         "name": "paged_attention_mla", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_mla.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:248",
@@ -1323,7 +1666,9 @@ def main():
         "library_ms": None,   # no PyTorch call computes Alg.-1 attention
         "shapes": k4_recs,
     }]
-    print(json.dumps({"serve": {"olmo-1b": served, "minicpm3-4b": mla}}), flush=True)
+    print(json.dumps({"serve": {"olmo-1b": served, "minicpm3-4b": mla,
+                                "olmo-1b int8": served_int8},
+                      "kv_quantize_card_vs_cpu": quantize}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,7 @@
 """Quantization helpers for the integer-only softmax path (port of
-``src/repro/core/quantization.py``: the Alg.-1 subset).
+``src/repro/core/quantization.py``: the Alg.-1 quantizer and the EXAQ
+power-of-two KV scales; ``quantize_raw_scores`` and ``affine_*`` come with
+ROADMAP.md Queue 1 items 12-13).
 
     x -> (x - max(x))      stabilization (shift-invariant)
       -> clip to [T_C, 0]  calibrated clipping (Sec. V-A)
@@ -47,3 +49,47 @@ def quantize_stable_scores(x, cfg: PrecisionConfig, mask=None, axis: int = -1):
 def dequantize_probs(p_codes, cfg: PrecisionConfig):
     """Fixed-point probability codes -> float32 probabilities."""
     return p_codes.to(torch.float32) * (2.0 ** (-cfg.P_out))
+
+
+# ---- EXAQ-style exponent-aware KV scales (arxiv 2410.03185) ------------------
+#
+# scale = 2^ceil(log2(max(amax / 127, floor))) per KV position and head: a
+# power of two, so dequantization is an exponent add, and a function of that
+# position's amax alone (position-local, which keeps shared and chunked int8
+# blocks bit-identical). The exponent is read from the f32 bits and the power
+# of two built from them, in integer arithmetic: the result is exact and the
+# same on every device. The reference evaluates ``exp2(ceil(log2(s)))`` with
+# XLA's transcendental functions, which are inexact on this grid at a few
+# points: ``log2`` within an ulp of a power of two (so ``ceil`` can land one
+# exponent off) and ``exp2`` of integers below -12. There the two differ by
+# one power of two, or by a few ulps of the scale (tests/test_torch_kvquant.py).
+
+# ``amax / 127.0`` in the reference's compiled graph: XLA rewrites a
+# division by a constant into a multiplication by its f32 reciprocal.
+KV_RECIP_127 = 1.0 / 127.0
+
+
+def _ceil_log2(s):
+    """ceil(log2(s)) of positive normal f32 ``s``, exactly (int32)."""
+    bits = s.contiguous().view(torch.int32)
+    return (bits >> 23) - 127 + ((bits & 0x7FFFFF) != 0).to(torch.int32)
+
+
+def _pow2(e):
+    """2^e as f32 for int32 ``e`` in the normal range [-126, 127], exactly."""
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def exaq_scale(amax, floor: float = 1e-8):
+    """Power-of-two KV scale per EXAQ: smallest 2^e with 127 * 2^e >= amax."""
+    s = torch.clamp_min(amax.to(torch.float32) * KV_RECIP_127, floor)
+    return _pow2(_ceil_log2(s))
+
+
+def exaq_scale_clamped(amax, exp_bits: int, floor: float = 1e-8):
+    """EXAQ scale with the exponent clamped to a signed ``exp_bits`` field
+    (saturating at -2^(exp_bits-1) and 2^(exp_bits-1) - 1): the scale word
+    an exponent-add datapath would carry. Still position-local."""
+    s = torch.clamp_min(amax.to(torch.float32) * KV_RECIP_127, floor)
+    lo, hi = -(2 ** (exp_bits - 1)), 2 ** (exp_bits - 1) - 1
+    return _pow2(torch.clamp(_ceil_log2(s), lo, hi))

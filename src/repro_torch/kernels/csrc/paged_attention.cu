@@ -14,12 +14,20 @@
 //   p        = Alg. 1 over the valid scores of the row, rounded to cdt
 //   out      = round_cdt(sum_j p[j] v[j], f32 accumulation)
 // where k[j], v[j] come from pool block table[s, j / BS] at offset j % BS,
-// and an entry outside [0, NB) is a zero tile that is never loaded.
+// and an entry outside [0, NB) is a zero tile that is never loaded. An int8
+// pool (the int8 KV cache, kv_quant) is dequantized on load as the TPU
+// kernel's _page_tile does: round_cdt(float(code) * scale), one f32
+// multiply (never fused into an FMA) rounded to nearest-even, with one f32
+// scale per (block, offset, head) from k_scale / v_scale [NB, BS, KV];
+// a sentinel page loads neither codes nor scales. The dequantized values
+// equal the plain version's kv_dequantize bit for bit, and everything after
+// them is the bf16/f32 kernel unchanged.
 //
 // Bound on an H100: memory. Per (slot, head) the live K and V pages are
-// read once; q, out and the table are small. The work per key is one D-long
-// dot and, per row, a few tens of integer operations — far under the ALU
-// rate at decode (ROWS = 1..group).
+// read once (int8 pools: 1 byte a value plus 4 bytes of scale per key and
+// head, about half the bf16 bytes at D 128); q, out and the table are
+// small. The work per key is one D-long dot and, per row, a few tens of
+// integer operations — far under the ALU rate at decode (ROWS = 1..group).
 //
 // Design (simple first; no wgmma, TMA or split-row passes yet):
 //   * one CTA of 256 threads per (slot, kv-head): grid S * KV;
@@ -41,6 +49,7 @@
 // the scores and probabilities of the span for the chip smoke test's
 // bitwise check of the Alg.-1 step; positions outside the span are left as
 // the caller filled them.
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -63,6 +72,7 @@ struct PagedShape {
   int NLOG;         // table entries per slot
   int window;       // sliding window (0: none)
   int scores_bf16;  // scores dtype: 1 bfloat16, 0 float32
+  int quant;        // 1: int8 pools with f32 scales
   float scale;
 };
 
@@ -90,10 +100,26 @@ __device__ __forceinline__ bool valid_pos(int kpos, int qpos, int window) {
   return kpos <= qpos && (window == 0 || kpos > qpos - window);
 }
 
+// One pool value as f32 in the compute dtype T: a T element as it is, or an
+// int8 code times its scale (one f32 multiply, rounded to T).
 template <typename T>
+__device__ __forceinline__ float pool_value(const T* __restrict__ pool, size_t i,
+                                            const float* __restrict__, size_t) {
+  return to_f(pool[i]);
+}
+template <typename T>
+__device__ __forceinline__ float pool_value(const int8_t* __restrict__ pool, size_t i,
+                                            const float* __restrict__ scale, size_t si) {
+  return round_to<T>(__fmul_rn(static_cast<float>(pool[i]), scale[si]));
+}
+
+// T: compute dtype of q and out; P: pool element, T or int8_t (then
+// k_scale / v_scale are read, else they are null).
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool, const int* __restrict__ table,
+paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                       const P* __restrict__ v_pool, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ table,
                        const int* __restrict__ positions, T* __restrict__ out,
                        float* __restrict__ scores_out, float* __restrict__ probs_out,
                        PagedShape a, Alg1Consts c) {
@@ -132,11 +158,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int ent = trow[kpos / a.BS];
     const bool live = ent >= 0 && ent < a.NB;
     float kr[kMaxDPerLane];
-    const T* kp = k_pool + ((static_cast<size_t>(live ? ent : 0) * a.BS + kpos % a.BS) * a.KV + h) * a.D;
+    const size_t tok = (static_cast<size_t>(live ? ent : 0) * a.BS + kpos % a.BS) * a.KV + h;
 #pragma unroll
     for (int i = 0; i < kMaxDPerLane; ++i) {
       const int d = lane + 32 * i;
-      kr[i] = (live && d < a.D) ? to_f(kp[d]) : 0.0f;
+      kr[i] = (live && d < a.D) ? pool_value<T>(k_pool, tok * a.D + d, k_scale, tok) : 0.0f;
     }
     for (int r = 0; r < a.rows; ++r) {
       float acc = 0.0f;
@@ -208,32 +234,39 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int pg = page_lo; pg < page_hi; ++pg) {
       const int ent = trow[pg];
       if (ent < 0 || ent >= a.NB) continue;  // zero tile
-      const T* vp = v_pool + (static_cast<size_t>(ent) * a.BS * a.KV + h) * a.Dv + dv;
+      const size_t tok0 = static_cast<size_t>(ent) * a.BS * a.KV + h;
       const float* pp = pr + (pg - page_lo) * a.BS;
       for (int o = 0; o < a.BS; ++o) {
-        acc = fmaf(pp[o], to_f(vp[static_cast<size_t>(o) * a.KV * a.Dv]), acc);
+        const size_t tok = tok0 + static_cast<size_t>(o) * a.KV;
+        acc = fmaf(pp[o], pool_value<T>(v_pool, tok * a.Dv + dv, v_scale, tok), acc);
       }
     }
     ob[i] = from_f<T>(acc);
   }
 }
 
-// The dynamic shared memory paged_attention_kernel<T> may take on this
-// card: the opt-in limit less its static scratch. The first call raises
-// the kernel's limit to it.
+// The dynamic shared memory the kernels for T (bf16/f32 and int8 pools)
+// may take on this card: the opt-in limit less the larger static scratch.
+// The first call raises both kernels' limits to it.
 template <typename T>
 int smem_limit(int* limit) {
   static int cached = -1;
   if (cached < 0) {
     int dev = 0, optin = 0;
-    cudaFuncAttributes attr{};
+    cudaFuncAttributes plain{}, quant{};
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, paged_attention_kernel<T>);
-    const int lim = optin - static_cast<int>(attr.sharedSizeBytes);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&plain, paged_attention_kernel<T, T>);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(paged_attention_kernel<T>,
+      err = cudaFuncGetAttributes(&quant, paged_attention_kernel<T, int8_t>);
+    const int lim =
+        optin - static_cast<int>(std::max(plain.sharedSizeBytes, quant.sharedSizeBytes));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(paged_attention_kernel<T, T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(paged_attention_kernel<T, int8_t>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
     if (err != cudaSuccess) return static_cast<int>(err);
     cached = lim;
@@ -243,27 +276,39 @@ int smem_limit(int* limit) {
 }
 
 template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool, const int* table,
-           const int* positions, void* out, float* scores_out, float* probs_out,
-           const PagedShape& a, const Alg1Consts& c, cudaStream_t stream) {
+int launch(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
+           const float* v_scale, const int* table, const int* positions, void* out,
+           float* scores_out, float* probs_out, const PagedShape& a, const Alg1Consts& c,
+           cudaStream_t stream) {
   int limit = 0;
   const int rc = smem_limit<T>(&limit);
   if (rc != 0) return rc;
   const size_t smem = (static_cast<size_t>(a.rows) * a.NLOG * a.BS +
                        static_cast<size_t>(a.rows) * a.D) * sizeof(float);
   if (smem > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  paged_attention_kernel<T><<<a.S * a.KV, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      table, positions, static_cast<T*>(out), scores_out, probs_out, a, c);
+  if (a.quant) {
+    if (k_scale == nullptr || v_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    paged_attention_kernel<T, int8_t><<<a.S * a.KV, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const int8_t*>(k_pool),
+        static_cast<const int8_t*>(v_pool), k_scale, v_scale, table, positions,
+        static_cast<T*>(out), scores_out, probs_out, a, c);
+  } else {
+    paged_attention_kernel<T, T><<<a.S * a.KV, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+        nullptr, nullptr, table, positions, static_cast<T*>(out), scores_out, probs_out, a, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error code (0 on success). dtype: 0
-// bfloat16, 1 float32 (q, both pools and out share it). The caller
-// allocates `out` and checks shapes (ops.py:paged_attention_rows).
+// bfloat16, 1 float32 (q and out share it; so do both pools unless a.quant,
+// when they hold int8 codes and k_scale / v_scale their f32 scales, else
+// null). The caller allocates `out` and checks shapes
+// (ops.py:paged_attention_rows).
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
+                                      const float* k_scale, const float* v_scale,
                                       const int* table, const int* positions, void* out,
                                       float* scores_out, float* probs_out, int dtype,
                                       PagedShape a, Alg1Consts c, void* stream) {
@@ -272,11 +317,11 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, table, positions, out, scores_out,
-                                 probs_out, a, c, st);
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, k_scale, v_scale, table, positions, out,
+                                 scores_out, probs_out, a, c, st);
   if (dtype == 1)
-    return launch<float>(q, k_pool, v_pool, table, positions, out, scores_out, probs_out,
-                         a, c, st);
+    return launch<float>(q, k_pool, v_pool, k_scale, v_scale, table, positions, out,
+                         scores_out, probs_out, a, c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -9,7 +9,8 @@ Port of ``src/repro/kernels/paged_attention/ops.py``: ``paged_attend_dense``
 meta tensor takes the plain version (``ref.py``) — the cost meter runs the
 model on ``meta`` — and a CUDA tensor launches the kernel or raises: there
 is no fallback. ``paged_attention_rows.launches`` and
-``paged_attention_mla_rows.launches`` count kernel launches.
+``paged_attention_mla_rows.launches`` count kernel launches;
+``paged_attention_rows.int8_launches`` counts those of K2 on int8 pools.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ class PagedShape(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "KV", "rows", "group", "T", "D", "Dv", "NB", "BS", "NLOG",
-        "window", "scores_bf16")] + [("scale", ctypes.c_float)]
+        "window", "scores_bf16", "quant")] + [("scale", ctypes.c_float)]
 
 
 class MlaShape(ctypes.Structure):
@@ -50,7 +51,7 @@ class MlaShape(ctypes.Structure):
 
 
 # library -> (pointer arguments of ``<library>_launch``, its shape struct)
-_LAUNCH = {"paged_attention": (8, PagedShape), "paged_attention_mla": (9, MlaShape)}
+_LAUNCH = {"paged_attention": (10, PagedShape), "paged_attention_mla": (9, MlaShape)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,8 +128,7 @@ def _check_inputs(name, tensors, floats, ints, debug, debug_shape, layout):
 
 
 def _launch(name, tensors, out, debug, shape, cfg: PrecisionConfig):
-    ptr = [x.data_ptr() for x in tensors] + [out.data_ptr()]
-    ptr += [None if x is None else x.data_ptr() for x in debug]
+    ptr = [None if x is None else x.data_ptr() for x in tensors + (out,) + debug]
     rc = getattr(_library(name), f"{name}_launch")(
         *ptr, _DTYPES[out.dtype], shape, alg1_consts(cfg),
         torch.cuda.current_stream(out.device).cuda_stream)
@@ -147,24 +147,38 @@ def smem_bytes(rows: int, l_full: int, d: int) -> int:
 
 def paged_attention_rows(q, k_pool, v_pool, table, positions,
                          cfg: PrecisionConfig, *, scale: float, window: int = 0,
-                         scores_dtype=torch.float32, scores_out=None,
-                         probs_out=None):
-    """q [S, KV, ROWS, D]; pools [NB, BS, KV, D] in q's dtype (bf16 or f32);
-    table [S, NLOG] int32; positions [S, T] int32 -> out [S, KV, ROWS, Dv].
+                         k_scale=None, v_scale=None, scores_dtype=torch.float32,
+                         scores_out=None, probs_out=None):
+    """q [S, KV, ROWS, D]; pools [NB, BS, KV, D] in q's dtype (bf16 or f32),
+    or int8 codes with ``k_scale``/``v_scale`` [NB, BS, KV] f32 (each code
+    times its scale in f32, rounded to q's dtype); table [S, NLOG] int32;
+    positions [S, T] int32 -> out [S, KV, ROWS, Dv].
     ``scores_out`` / ``probs_out``: optional f32 [S, KV, ROWS, NLOG * BS]
     tensors the kernel fills with the scores and Alg.-1 probabilities of
     the pages it visits (zero them first; the chip smoke test's check)."""
     tensors = (q, k_pool, v_pool, table, positions)
     debug = (scores_out, probs_out)
+    quant = k_scale is not None or v_scale is not None
+    if quant and (k_scale is None or v_scale is None or k_pool.dtype != torch.int8
+                  or v_pool.dtype != torch.int8):
+        raise ValueError("int8 pools take both k_scale and v_scale, and scales "
+                         "take int8 pools")
     if q.device.type != "cuda":
         return _plain(paged_attention_ref, tensors + (cfg,),
-                      dict(scale=scale, window=window, scores_dtype=scores_dtype), *debug)
+                      dict(scale=scale, window=window, k_scale=k_scale, v_scale=v_scale,
+                           scores_dtype=scores_dtype), *debug)
     s_, kvh, rows, d = q.shape
     nb, bs = k_pool.shape[:2]
     nlog, t = table.shape[1], positions.shape[1]
     dv = v_pool.shape[-1]
-    _check_inputs("paged_attention_rows", tensors, (q, k_pool, v_pool), (table, positions),
+    _check_inputs("paged_attention_rows", tensors + ((k_scale, v_scale) if quant else ()),
+                  (q,) if quant else (q, k_pool, v_pool), (table, positions),
                   debug, (s_, kvh, rows, nlog * bs), "[S, KV, ROWS, NLOG * BS]")
+    if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                  or k_scale.shape != (nb, bs, kvh) or v_scale.shape != (nb, bs, kvh)):
+        raise ValueError(f"scales must be f32 [NB, BS, KV] = {(nb, bs, kvh)}, got "
+                         f"{tuple(k_scale.shape)} {k_scale.dtype} and "
+                         f"{tuple(v_scale.shape)} {v_scale.dtype}")
     if scores_dtype not in _SCORE_DTYPES:
         raise ValueError(f"scores dtype {scores_dtype} is not f32 or bf16")
     if (k_pool.shape != (nb, bs, kvh, d) or v_pool.shape[:3] != (nb, bs, kvh)
@@ -186,24 +200,24 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
     shape = PagedShape(S=s_, KV=kvh, rows=rows, group=rows // t, T=t, D=d, Dv=dv,
                        NB=nb, BS=bs, NLOG=nlog, window=window,
                        scores_bf16=int(scores_dtype == torch.bfloat16),
-                       scale=scale)
-    _launch("paged_attention", tensors, out, debug, shape, cfg)
+                       quant=int(quant), scale=scale)
+    _launch("paged_attention", (q, k_pool, v_pool, k_scale, v_scale, table, positions),
+            out, debug, shape, cfg)
     paged_attention_rows.launches += 1
+    paged_attention_rows.int8_launches += int(quant)
     return out
 
 
 paged_attention_rows.launches = 0
+paged_attention_rows.int8_launches = 0
 
 
 def paged_attend_dense(q, k_pool, v_pool, table, positions,
                        pcfg: PrecisionConfig, *, scale: float, window: int = 0,
                        k_scale=None, v_scale=None, scores_dtype=torch.float32):
     """q [B, T, H, D] (model layout) -> [B, T, H, Dv]. ``positions`` [B, T]
-    are the absolute query positions (decode: the written ``cache_pos``)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools in the fused paged decode are not ported: "
-            "ROADMAP.md Queue 1 item 8")
+    are the absolute query positions (decode: the written ``cache_pos``).
+    An int8 pool rides with ``k_scale``/``v_scale`` [NB, BS, KV]."""
     b, t, h, d = q.shape
     kvh = k_pool.shape[2]
     dv = v_pool.shape[-1]
@@ -213,8 +227,8 @@ def paged_attend_dense(q, k_pool, v_pool, table, positions,
     qk = qk.reshape(b, kvh, rows, d).contiguous()
     out = paged_attention_rows(qk, k_pool, v_pool, table,
                                positions.to(torch.int32).contiguous(), pcfg,
-                               scale=scale, window=window,
-                               scores_dtype=scores_dtype)
+                               scale=scale, window=window, k_scale=k_scale,
+                               v_scale=v_scale, scores_dtype=scores_dtype)
     out = out.reshape(b, kvh, t, group, dv).permute(0, 2, 1, 3, 4)
     return out.reshape(b, t, h, dv)
 

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of K2 and K4, in the kernels' layouts.
 
 K2: gather the logical cache through the block table (``paged_gather``: a
-sentinel entry gives zeros), then the port's ``attend`` arithmetic with the
+sentinel entry gives zeros; an int8 pool is dequantized with its gathered
+scales, ``kv_dequantize``), then the port's ``attend`` arithmetic with the
 plain Alg. 1 (``int_softmax_block``, the body K1, K2 and K4 reproduce):
 scores are the compute-dtype product cast to ``scores_dtype`` and scaled,
 rows are masked ``kpos <= qpos`` (and ``kpos > qpos - window``),
@@ -18,21 +19,26 @@ import torch
 
 from repro_torch.core.alg1 import int_softmax_block
 from repro_torch.core.precision import PrecisionConfig
-from repro_torch.models.attention import paged_gather
+from repro_torch.models.attention import kv_dequantize, paged_gather
 
 
 def paged_attention_ref(q, k_pool, v_pool, table, positions,
                         cfg: PrecisionConfig, *, scale: float, window: int = 0,
-                        scores_dtype=torch.float32, return_rows: bool = False):
+                        k_scale=None, v_scale=None, scores_dtype=torch.float32,
+                        return_rows: bool = False):
     """q [S, KV, ROWS, D] (row ``t * group + g``), pools [NB, BS, KV, D] in
-    q's dtype, table [S, NLOG] int, positions [S, T] int -> out
-    [S, KV, ROWS, Dv] in q's dtype. With ``return_rows`` also the f32
-    scores and probabilities, [S, KV, ROWS, NLOG * BS] each."""
+    q's dtype — or int8 codes with ``k_scale``/``v_scale`` [NB, BS, KV] f32
+    — table [S, NLOG] int, positions [S, T] int -> out [S, KV, ROWS, Dv] in
+    q's dtype. With ``return_rows`` also the f32 scores and probabilities,
+    [S, KV, ROWS, NLOG * BS] each."""
     s, kvh, rows, d = q.shape
     t = positions.shape[1]
     group = rows // t
     k = paged_gather(k_pool, table)                     # [S, L, KV, D]
     v = paged_gather(v_pool, table)
+    if k_scale is not None:
+        k = kv_dequantize(k, paged_gather(k_scale, table), q.dtype)
+        v = kv_dequantize(v, paged_gather(v_scale, table), q.dtype)
     l_full = k.shape[1]
     qg = q.reshape(s, kvh, t, group, d).permute(0, 2, 1, 3, 4).contiguous()
     # [S, KV, G, T, L], as attend computes them

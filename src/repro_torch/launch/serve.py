@@ -2,7 +2,8 @@
 batched generation through ``Engine.generate`` — or, with ``--continuous``,
 serve a seeded trace of requests through ``Engine.serve`` (``--paged``,
 ``--prefix-share``, ``--kernel pallas`` for the fused paged decode K2, or
-K4 for an MLA architecture such as ``--arch minicpm3-4b``) —
+K4 for an MLA architecture such as ``--arch minicpm3-4b``; ``--kv-quant``
+for the int8 KV cache) —
 with any ported softmax backend, and report throughput and the AP softmax
 cost (port of ``src/repro/launch/serve.py``, same flags).
 
@@ -48,7 +49,6 @@ LATER_SLICES = {
     "shards": (0, "Queue 1 item 14 (tensor-parallel serving)"),
     "prefill_chunk": (None, "Queue 1 item 9 (chunked prefill)"),
     "preemption": (False, "Queue 1 item 9 (preemption)"),
-    "kv_quant": (False, "Queue 1 item 8 (int8 KV pool)"),
 }
 
 
@@ -118,6 +118,9 @@ def main(argv=None):
             if metered else SoftmaxSpec(args.softmax))
     cfg = (smoke_config(args.arch, softmax=spec) if args.smoke
            else get_config(args.arch, softmax=spec))
+    if args.kv_quant:
+        cfg = dataclasses.replace(cfg, kv_quant=True,
+                                  kv_quant_scheme=args.kv_quant_scheme)
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(model.device).manual_seed(0))
     print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters from seed 0 "

@@ -6,7 +6,10 @@ prefill against a shared prefix, and single-token decode against a
 contiguous or a paged cache. Paged decode gathers the logical cache and
 attends, or — for a backend with ``fused_paged_decode`` — runs the fused
 paged kernel K2 (``kernels/paged_attention``). Caches are written in place.
-The int8 KV cache is a later slice: ROADMAP.md Queue 1 item 8.
+Under ``cfg.kv_quant`` the caches hold int8 codes with one f32 scale per
+(position, head) (``kv_quantize``): prefill and tail prefill attend the
+dequantized values they cache, decode dequantizes what it reads, and K2
+dequantizes inside the kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.backends import telemetry
+from repro_torch.core.quantization import KV_RECIP_127, exaq_scale, exaq_scale_clamped
 from repro_torch.core.softmax_variants import spec_backend
 from repro_torch.models.layers import Ctx, apply_rope, dense_apply
 
@@ -98,6 +102,49 @@ def attn_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "causal"):
     q, k, v = project_qkv(p, x, cfg, ctx, positions)
     out = attend_chunked(q, k, v, positions, positions, kind, cfg, ctx)
     return dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+
+
+def kv_quantize(x, scheme: str = "absmax"):
+    """[B, S, KV, D] -> (int8 codes, f32 scale [B, S, KV]): symmetric absmax
+    over the head dim, one scale per (position, head), a function of that
+    position's amax alone. ``absmax``: max(amax / 127, 1e-8), the division
+    as the reference's compiled graph does it (a multiplication by the f32
+    reciprocal); ``exaq``: the next power of two up; ``exaq_clamped``: its
+    exponent clamped to a signed 5-bit field. Codes are round-half-even of
+    x / scale (a true division by a tensor), clipped to [-127, 127]."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(xf.abs(), dim=-1, keepdim=True)
+    if scheme == "exaq":
+        scale = exaq_scale(amax)
+    elif scheme == "exaq_clamped":
+        scale = exaq_scale_clamped(amax, 5)
+    else:
+        scale = torch.clamp_min(amax * KV_RECIP_127, 1e-8)
+    codes = torch.clamp(torch.round(xf / scale), -127, 127)
+    return codes.to(torch.int8), scale[..., 0]
+
+
+def kv_dequantize(codes, scale, dtype):
+    """codes [..., D] times scale [...], one f32 product, rounded to ``dtype``."""
+    return (codes.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def kv_fake_quant(x, scheme: str = "absmax"):
+    """(codes, scale, the dequantized values in x's dtype): prefill attends
+    the values it caches, so every later reader of the int8 cache sees
+    exactly what the prompt rows attended."""
+    codes, scale = kv_quantize(x, scheme)
+    return codes, scale, kv_dequantize(codes, scale, x.dtype)
+
+
+def _cache_entries(k, v, cfg, quant: bool):
+    """The cache leaves of new K/V [B, T, KV, D]: as they are, or int8 codes
+    with their scales."""
+    if not quant:
+        return {"k": k, "v": v}
+    kq, ks = kv_quantize(k, cfg.kv_quant_scheme)
+    vq, vs = kv_quantize(v, cfg.kv_quant_scheme)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
 def cache_write(buf, new, cache_pos):
@@ -208,24 +255,30 @@ def _attend_paged_fused(p, q, cache, positions, cfg, ctx: Ctx, kind, backend):
     # the substrate
     telemetry.record_softmax(backend, (b, kvh, h // kvh, t, l_max),
                              heads=kvh * (h // kvh))
+    # an int8 pool goes to K2 as codes with their scales
+    quant = "k_scale" in cache
+    k, v = (cache["k"], cache["v"]) if quant else (cache["k"].to(q.dtype),
+                                                    cache["v"].to(q.dtype))
     out = paged_ops.paged_attend_dense(
-        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), table, positions,
-        backend.cfg, scale=dh ** -0.5,
+        q, k, v, table, positions, backend.cfg, scale=dh ** -0.5,
         window=cfg.window if kind == "window" else 0,
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
         scores_dtype=_SCORE_DTYPES[cfg.scores_dtype])
     return dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
 
 
 def _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind):
-    """Paged single-token decode: write the new K/V through the block table
-    (in place), then attend — gathering the whole logical cache, or with K2
-    when the backend sets ``fused_paged_decode``."""
+    """Paged single-token decode: write the new K/V (an int8 pool: codes and
+    scales) through the block table (in place), then attend — gathering the
+    whole logical cache, or with K2 when the backend sets
+    ``fused_paged_decode``."""
     b, s, _ = x.shape  # s == 1
     q, k_new, v_new = project_qkv(p, x, cfg, ctx, positions)
     table = cache["table"]
+    quant = "k_scale" in cache
     target, lands = _write_target(table, cache_pos, *cache["k"].shape[:2])
-    _put(cache["k"], target, lands, k_new[:, 0])
-    _put(cache["v"], target, lands, v_new[:, 0])
+    for name, val in _cache_entries(k_new, v_new, cfg, quant).items():
+        _put(cache[name], target, lands, val[:, 0])
     backend = spec_backend(cfg.softmax)
     if getattr(backend, "fused_paged_decode", False):
         if isinstance(cache_pos, int):
@@ -236,6 +289,9 @@ def _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind):
                                    backend), cache
     k = paged_gather(cache["k"], table)
     v = paged_gather(cache["v"], table)
+    if quant:
+        k = kv_dequantize(k, paged_gather(cache["k_scale"], table), ctx.dtype)
+        v = kv_dequantize(v, paged_gather(cache["v_scale"], table), ctx.dtype)
     l_max = k.shape[1]
     valid = valid_upto(l_max, cache_pos, cfg.window if kind == "window" else 0,
                        device=x.device)
@@ -245,43 +301,60 @@ def _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind):
 
 
 def attn_prefill_tail(p, x, prefix_k, prefix_v, cfg, ctx: Ctx, positions,
-                      prefix_len: int):
+                      prefix_len: int, prefix_k_scale=None, prefix_v_scale=None):
     """Prefill the unshared prompt tail against shared-prefix K/V.
 
     ``x`` embeds tokens[prefix_len:]; ``prefix_k``/``prefix_v`` [B, s, KV, D]
     hold the exact values a whole prefill cached for those positions, so the
     tail's attention rows and its own K/V equal the whole prefill's. Returns
-    (y, {"k","v"} tail cache [B, T, ...])."""
+    (y, {"k","v"} tail cache [B, T, ...]).
+
+    Under ``cfg.kv_quant`` the prefix arrives as int8 codes with their
+    scales ``prefix_*_scale`` [B, s, KV] and is dequantized; the tail is
+    fake-quantized as a whole prefill would (it attends the dequantized
+    values), and the tail cache holds codes and scales."""
     b, t, _ = x.shape
     q, k_t, v_t = project_qkv(p, x, cfg, ctx, positions)
-    k = torch.cat([ctx.cast(prefix_k), k_t], dim=1)
-    v = torch.cat([ctx.cast(prefix_v), v_t], dim=1)
+    if cfg.kv_quant:
+        kq, ks, k_t = kv_fake_quant(k_t, cfg.kv_quant_scheme)
+        vq, vs, v_t = kv_fake_quant(v_t, cfg.kv_quant_scheme)
+        pk = kv_dequantize(prefix_k, prefix_k_scale, k_t.dtype)
+        pv = kv_dequantize(prefix_v, prefix_v_scale, v_t.dtype)
+        tail = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        pk, pv = ctx.cast(prefix_k), ctx.cast(prefix_v)
+        tail = {"k": k_t, "v": v_t}
+    k = torch.cat([pk, k_t], dim=1)
+    v = torch.cat([pv, v_t], dim=1)
     kv_pos = torch.arange(prefix_len + t, dtype=torch.int32,
                           device=x.device)[None, :]
     out = attend_chunked(q, k, v, positions, kv_pos, "causal", cfg, ctx)
     y = dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
-    return y, {"k": k_t, "v": v_t}
+    return y, tail
 
 
 def attn_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
                 kind: str = "causal"):
     """Single-token decode against a contiguous cache {"k","v"} [B, L, KV, D]
+    (int8 codes with {"k_scale","v_scale"} [B, L, KV] under ``kv_quant``)
     or a paged one ({"table"} present: pools [NB, BS, KV, D]), written in
     place. ``cache_pos``: int or per-row [B] tensor."""
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "int8 KV caches are not ported: ROADMAP.md Queue 1 item 8")
     if "table" in cache:
         return _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx, positions,
                                   kind)
     b, s, _ = x.shape  # s == 1
     q, k_new, v_new = project_qkv(p, x, cfg, ctx, positions)
-    k = cache_write(cache["k"], k_new, cache_pos)
-    v = cache_write(cache["v"], v_new, cache_pos)
+    quant = "k_scale" in cache
+    new_cache = {name: cache_write(cache[name], val, cache_pos)
+                 for name, val in _cache_entries(k_new, v_new, cfg, quant).items()}
+    k, v = new_cache["k"], new_cache["v"]
+    if quant:
+        k = kv_dequantize(k, new_cache["k_scale"], ctx.dtype)
+        v = kv_dequantize(v, new_cache["v_scale"], ctx.dtype)
     l_max = k.shape[1]
     valid = valid_upto(l_max, cache_pos, cfg.window if kind == "window" else 0,
                        device=x.device)
     mask = valid[:, None, :].expand(b, 1, l_max)
     out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx)
     y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
-    return y, {"k": k, "v": v}
+    return y, new_cache

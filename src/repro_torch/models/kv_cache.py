@@ -2,22 +2,27 @@
 ``src/repro/models/kv_cache.py``).
 
 Layouts, as the reference's:
-  contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``; MLA
-               {"c_kv": [L, B, C, r], "k_rope": [L, B, C, dr]}
+  contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``; under
+               ``cfg.kv_quant`` int8 codes plus {"k_scale","v_scale":
+               [L, B, C, KV]} f32; MLA {"c_kv": [L, B, C, r], "k_rope":
+               [L, B, C, dr]} in ``KV_DTYPE`` whatever ``kv_quant`` says
+               (the reference has no int8 latent cache)
   paged      : {"k","v": [L, NB, BS, KV, Dh]} pools of NB blocks of BS
-               tokens (MLA: {"c_kv": [L, NB, BS, r], "k_rope": [L, NB, BS,
-               dr]}), plus {"table": [L, S, C // BS]} int32 mapping each
-               slot's logical block to a physical one. ``NB`` is the
+               tokens (int8 with {"k_scale","v_scale": [L, NB, BS, KV]}
+               under ``kv_quant``; MLA: {"c_kv": [L, NB, BS, r], "k_rope":
+               [L, NB, BS, dr]}), plus {"table": [L, S, C // BS]} int32
+               mapping each slot's logical block to a physical one. ``NB`` is the
                sentinel of an empty table entry. The table keeps the
                reference's one identical copy per layer, so every cache
                leaf slices by layer the same way.
 
 The pool operations treat every leaf but the table alike, so scatter,
-copy-on-write and the prefix view serve both families. Unlike the
-reference (pure functions returning new buffers), they write the cache IN
+copy-on-write and the prefix view serve both families and carry the int8
+scales with their codes. Unlike the reference (pure functions returning
+new buffers), they write the cache IN
 PLACE and return it: one pool exists per serve, and copying it per
-admission would double its memory traffic. int8 pools and the other
-families come with ROADMAP.md Queue 1 items 8 and 11.
+admission would double its memory traffic. The other families come with
+ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -29,24 +34,29 @@ KV_DTYPE = torch.bfloat16
 
 
 def _dense_only(cfg):
-    if cfg.family != "dense" or cfg.attention not in ("gqa", "mla") or cfg.kv_quant:
+    if cfg.family != "dense" or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.family}/{cfg.attention} (kv_quant={cfg.kv_quant}) caches "
-            "are not ported: ROADMAP.md Queue 1 items 8 and 11")
+            f"{cfg.family}/{cfg.attention} caches are not ported: ROADMAP.md "
+            "Queue 1 item 11")
 
 
-def _leaf_widths(cfg):
-    """Per-token trailing shape of each cache leaf."""
+def _leaves(cfg):
+    """Per-token trailing shape and dtype of each cache leaf."""
     if cfg.attention == "mla":
-        return {"c_kv": (cfg.kv_lora_rank,), "k_rope": (cfg.qk_rope_dim,)}
-    return {"k": (cfg.n_kv_heads, cfg.d_head), "v": (cfg.n_kv_heads, cfg.d_head)}
+        return {"c_kv": ((cfg.kv_lora_rank,), KV_DTYPE),
+                "k_rope": ((cfg.qk_rope_dim,), KV_DTYPE)}
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    if cfg.kv_quant:
+        return {"k": ((kv, dh), torch.int8), "v": ((kv, dh), torch.int8),
+                "k_scale": ((kv,), torch.float32), "v_scale": ((kv,), torch.float32)}
+    return {"k": ((kv, dh), KV_DTYPE), "v": ((kv, dh), KV_DTYPE)}
 
 
 def cache_zeros(cfg, batch: int, cache_len: int, device=None):
     _dense_only(cfg)
-    return {k: torch.zeros((cfg.n_layers, batch, cache_len) + w, dtype=KV_DTYPE,
+    return {k: torch.zeros((cfg.n_layers, batch, cache_len) + w, dtype=dt,
                            device=device)
-            for k, w in _leaf_widths(cfg).items()}
+            for k, (w, dt) in _leaves(cfg).items()}
 
 
 def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
@@ -58,8 +68,8 @@ def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
         raise ValueError(f"cache_len {cache_len} not a multiple of "
                          f"block_size {block_size}")
     cache = {k: torch.zeros((cfg.n_layers, num_blocks, block_size) + w,
-                            dtype=KV_DTYPE, device=device)
-             for k, w in _leaf_widths(cfg).items()}
+                            dtype=dt, device=device)
+             for k, (w, dt) in _leaves(cfg).items()}
     cache["table"] = torch.full((cfg.n_layers, slots, cache_len // block_size),
                                 num_blocks, dtype=torch.int32, device=device)
     return cache

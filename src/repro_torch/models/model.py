@@ -9,8 +9,10 @@
 
 Batches hold int token tensors on the model's device: {"tokens": [B, S]}
 for prefill, {"token": [B, 1]} for a decode step. The cache is updated in
-place. Other families (MoE, SSM, hybrid, encdec, M-RoPE) are later
-slices: ROADMAP.md Queue 1 item 11.
+place. Under ``cfg.kv_quant`` the GQA caches hold int8 codes and f32
+scales (MLA keeps its bf16 latent cache, as the reference). Other
+families (MoE, SSM, hybrid, encdec, M-RoPE) are later slices: ROADMAP.md
+Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -35,11 +37,10 @@ class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device=None):
         if (cfg.family != "dense" or cfg.attention not in ("gqa", "mla")
-                or cfg.rope_type not in ("rope", "none") or cfg.kv_quant):
+                or cfg.rope_type not in ("rope", "none")):
             raise NotImplementedError(
                 f"{cfg.name}: only the dense family (GQA or MLA) with plain rope "
-                "and a bf16 cache is ported; the others follow ROADMAP.md Queue 1 "
-                "items 8 and 11")
+                "is ported; the others follow ROADMAP.md Queue 1 item 11")
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
         self.device = resolve_device(device)
@@ -136,7 +137,8 @@ class Model:
         """Prefill only the unshared tail of a prompt whose first
         ``prefix_len`` positions are resident in shared cache blocks.
         ``batch["tokens"]`` holds tokens[prefix_len:] ([B, T]); ``prefix`` is
-        {"k","v": [L, B, s, KV, Dh]} (MLA: {"c_kv": [L, B, s, r], "k_rope":
+        {"k","v": [L, B, s, KV, Dh]} (int8 with {"k_scale","v_scale": [L,
+        B, s, KV]} under ``kv_quant``; MLA: {"c_kv": [L, B, s, r], "k_rope":
         [L, B, s, dr]}) gathered from the pool
         (``kv_cache.paged_prefix_view``). Returns (last_logits, tail cache
         [L, B, T, ...]) — equal to the tail slice of a whole prefill."""

@@ -17,6 +17,7 @@ from repro_torch.models.attention import (
     attn_apply,
     attn_decode,
     attn_prefill_tail,
+    kv_fake_quant,
     project_qkv,
 )
 from repro_torch.models.layers import Ctx, dense_apply, mlp_apply, norm_apply
@@ -55,13 +56,25 @@ def block_apply(p, x, cfg, ctx: Ctx, positions):
 def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
     """Causal self-attention over the prompt + the layer's decode cache
     {"k","v"} [B, cache_len, KV, D], zero past the prompt and in the
-    dtype K/V were computed in (as the reference)."""
+    dtype K/V were computed in (as the reference).
+
+    Under ``cfg.kv_quant`` the prompt attends the dequantized K/V while the
+    cache takes their int8 codes and scales (fake-quant prefill), so every
+    later reader of the cache sees what the prompt attended. (The
+    reference leaves the hybrid family's window rings unquantized; that
+    family is not ported.)"""
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, ctx, positions)
+    if cfg.kv_quant:
+        kq, ks, k = kv_fake_quant(k, cfg.kv_quant_scheme)
+        vq, vs, v = kv_fake_quant(v, cfg.kv_quant_scheme)
+        leaves = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        leaves = {"k": k, "v": v}
     out = attend_chunked(q, k, v, positions, positions, "causal", cfg, ctx)
     y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
     cache = {}
-    for name, t in (("k", k), ("v", v)):
+    for name, t in leaves.items():
         buf = torch.zeros((b, cache_len) + t.shape[2:], dtype=t.dtype,
                           device=t.device)
         buf[:, :s] = t
@@ -82,7 +95,8 @@ def block_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
 def block_prefill_tail(p, x, cfg, ctx: Ctx, positions, prefix,
                        prefix_len: int):
     """Prefill the unshared prompt tail of one block against the layer's
-    shared-prefix entries ``prefix`` ({"k","v"} [B, s, KV, D], or MLA's
+    shared-prefix entries ``prefix`` ({"k","v"} [B, s, KV, D] with
+    {"k_scale","v_scale"} under ``kv_quant``, or MLA's
     {"c_kv" [B, s, r], "k_rope" [B, s, dr]}). Returns (x, tail cache) —
     entries for the tail positions only."""
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
@@ -91,7 +105,9 @@ def block_prefill_tail(p, x, cfg, ctx: Ctx, positions, prefix,
                                 cfg, ctx, positions, prefix_len)
     else:
         a, c = attn_prefill_tail(p["attn"], h, prefix["k"], prefix["v"], cfg, ctx,
-                                 positions, prefix_len)
+                                 positions, prefix_len,
+                                 prefix_k_scale=prefix.get("k_scale"),
+                                 prefix_v_scale=prefix.get("v_scale"))
     x = x + a
     h = norm_apply(p["norm2"], x, cfg.norm, ctx)
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c

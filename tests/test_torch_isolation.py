@@ -54,7 +54,7 @@ def test_entry_points_default_to_the_card():
                                   ["--ckpt-dir", "x"], ["--shards", "2"],
                                   ["--continuous", "--paged", "--prefill-chunk", "8"],
                                   ["--continuous", "--paged", "--preemption"],
-                                  ["--continuous", "--paged", "--kv-quant"],
+                                  ["--continuous", "--paged", "--kv-quant", "--speculative"],
                                   ["--serve-softmax", "fp"]])
 def test_later_slice_flags_name_roadmap_item(flag):
     args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu"] + flag

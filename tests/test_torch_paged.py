@@ -6,7 +6,8 @@ reference, and the port's own paged invariants.
   ``paged_scatter``, ``paged_copy_block``, ``paged_prefix_view``.
 * K2's plain version against the reference's ``paged_attend_dense`` in
   interpret mode (as the reference's own tests run it) over the matrix of
-  ``tests/test_paged_kernel.py`` without int8: bitwise in bf16. In f32 the
+  ``tests/test_paged_kernel.py`` without int8 (int8 pools:
+  ``tests/test_torch_kvquant.py``): bitwise in bf16. In f32 the
   reference's kernel and its own gather path disagree in the last bits on
   this jax (a listed seed failure), so f32 is held to 1e-6 absolute.
 * Inside the port, bitwise: paged decode == contiguous decode (gather and
@@ -192,13 +193,16 @@ def test_k2_plain_matches_reference_kernel_f32(bs, nlog, t, kvh, window):
 
 
 def test_k2_wrapper_cpu_does_not_launch_and_rejects_int8():
+    """No launch for CPU tensors; a scale without int8 pools (or one scale
+    alone) is refused. Int8 pools with both scales are
+    tests/test_torch_kvquant.py's."""
     before = ops.paged_attention_rows.launches
     _k2_pair(8, 2, 1, 2, 0, "bfloat16", seed=0)
     assert ops.paged_attention_rows.launches == before
     q = torch.zeros((1, 1, 2, 8))
     pool = torch.zeros((2, 4, 2, 8))
     table = torch.zeros((1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
         ops.paged_attend_dense(q, pool, pool, table, table[:, :1], BEST,
                                scale=1.0, k_scale=torch.ones((2, 4, 2)))
 
