@@ -15,10 +15,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    16 x 32 = 512 times, and the same model with the plain torch Alg. 1
    (``int``) must give bitwise equal tokens and last logits; then the smoke
    config on the card against the same weights on the CPU;
-5. K2 (the fused paged decode) against its plain PyTorch version at the
-   serve path's decode shape and the reference's paged-kernel matrix: the
-   plain Alg. 1 on K2's own scores gives its probabilities bitwise; scores
-   and outputs within stated bounds; times and bounds as for K1;
+5. K2 (the fused paged decode, each row split over CTAs) against its plain
+   PyTorch version at the serve path's decode shape, the reference's
+   paged-kernel matrix and long rows (32768 keys; T 5, GQA 7 and 35 rows
+   at 16384-32768): the plain Alg. 1 on K2's own scores gives its
+   probabilities bitwise; a second run gives the same bits; scores and
+   outputs within stated bounds (outputs: of K2's chunked summation tree);
+   times and bounds as for K1;
 6. the serve path: full-width olmo-1b through ``Engine.serve`` (paged pool,
    prefix sharing, ``kernel="pallas"``) on a 32-request shared-prefix
    trace. K2 must launch 16 x steps times and K1 16 x 32; greedy tokens
@@ -36,7 +39,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    16 and K2 never; the checks of phase 6 and one warm timing per kernel;
 9. K2's int8 branch against its plain version: the serve decode shape with
    absmax and with power-of-two (exaq) scales, sentinels and parked slots,
-   4096-token rows, f32 compute; phase 5's checks;
+   4096-token rows, f32 compute, a 32768-token row; phase 5's checks;
 10. ``kv_quantize`` on the card against the CPU on the K/V of a full-width
     512-token prefill: absmax bitwise; the EXAQ schemes bitwise or one
     power of two apart (printed);
@@ -59,9 +62,11 @@ checkout of the repository.
 
     python3 chip_smoke.py --fault-control
 
-reads the MLA serve path's end-to-end checks (phase 8's logit limits and
-near-tie rule) against known faults patched into its gather decode and
-prints which checks catch each.
+reads phase 5's K2 checks against two faults of K2's split patched into
+its plain split version (each chunk quantizing against its own max, a
+dropped chunk partial), then the MLA serve path's end-to-end checks (phase
+8's logit limits and near-tie rule) against known faults patched into its
+gather decode, and prints which checks catch each.
 """
 
 from __future__ import annotations
@@ -253,14 +258,19 @@ def phase3_k1(rate):
 # it from the plain version's; a score rounded to bf16 after scaling adds
 # one bf16 ulp of the score. Near zero the summation bound is many ulps of
 # the tiny dot.
-# Outputs: the kernel sums p * v in f32 position by position (one rounding
-# per fmaf) and rounds once to the compute dtype, so its output is within
-# 2^-24 * sum_i |partial sum i| plus half an ulp of the f64 sum over its own
-# compute-dtype probabilities (the PV check). Against the plain version's
-# output it may differ by sum_j |p_j - p'_j| |v_j| (the two sides'
-# probabilities differ only where a score moved an Alg.-1 code), both
-# summation bounds (cuBLAS's, in an order not known here, is n * 2^-24 *
-# sum |p'| |v| over the n valid keys) and one ulp for the two roundings.
+# Outputs: the kernel splits each row into chunks of pages (the partition
+# of kernels/paged_attention/ref.py:k2_chunks, sized by k2_split_plan).
+# Each chunk sums p * v in f32 key by key from 0 (one rounding per fmaf);
+# the partials are then added in chunk order from 0 and the total rounded
+# once to the compute dtype. So its output is within 2^-24 times the sum,
+# over the chunks, of sum_i |in-chunk partial sum i|, plus 2^-24 times
+# sum_{c >= 1} |partials 0..c added|, plus half an ulp, of the f64 sum over
+# its own compute-dtype probabilities (the PV check; each term with a factor
+# 1 + 2^-8 for the rounding of the partial sums it counts). Against the
+# plain version's output it may differ by sum_j |p_j - p'_j| |v_j| (the two
+# sides' probabilities differ only where a score moved an Alg.-1 code),
+# both summation bounds (cuBLAS's, in an order not known here, is n * 2^-24
+# * sum |p'| |v| over the n valid keys) and one ulp for the two roundings.
 MANTISSA = {torch.bfloat16: 7, torch.float32: 23}
 
 
@@ -270,18 +280,39 @@ def _ulp(x, dtype):
                       - MANTISSA[dtype])
 
 
-def _pv_sums(probs, vg, dtype):
-    """probs [S, KV, ROWS, L] f32, vg [S, L, KV, Dv] f64 -> the exact f64
-    sum over the compute-dtype probabilities, the bound of the kernel's
-    position-by-position f32 sum, and sum |p| |v|; each [S, KV, ROWS, Dv]."""
-    exact, recursive, mass = [], [], []
-    for s in range(probs.shape[0]):        # one slot at a time: [KV, ROWS, L, Dv]
-        terms = probs[s].to(dtype).double()[..., None] * vg[s].permute(1, 0, 2)[:, None]
-        part = torch.cumsum(terms, dim=2)
-        exact.append(part[:, :, -1])
-        recursive.append(2.0 ** -24 * (1 + 2.0 ** -8) * part.abs().sum(dim=2))
-        mass.append(terms.abs().sum(dim=2))
-    return torch.stack(exact), torch.stack(recursive), torch.stack(mass)
+def k2_key_chunks(table, pos, *, KV, rows, BS, window):
+    """The kernel's chunks per slot as key ranges ``[(first, end), ...]``."""
+    from repro_torch.kernels.paged_attention.ref import k2_chunks, k2_span, k2_split_plan
+
+    S, nlog = table.shape
+    cp = k2_split_plan(S, KV, rows, nlog, BS,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    spans = [k2_span(p, nlog, BS, window) for p in pos.cpu().tolist()]
+    return cp, [[(a * BS, b * BS) for a, b in k2_chunks(lo, hi, cp)] for lo, hi in spans]
+
+
+def _pv_sums(probs, vg, dtype, chunks):
+    """probs [S, KV, ROWS, L] f32, vg [S, L, KV, Dv] f64, ``chunks`` the
+    kernel's key ranges per slot -> the exact f64 sum over the
+    compute-dtype probabilities and the bound of the kernel's summation
+    tree (key order inside a chunk, chunk order across them), each [S, KV,
+    ROWS, Dv]. One (slot, kv-head, chunk) at a time, so long rows fit."""
+    S, KV, rows, _ = probs.shape
+    exact = torch.zeros((S, KV, rows, vg.shape[-1]), dtype=torch.float64, device=vg.device)
+    bound = torch.zeros_like(exact)
+    for s in range(S):
+        for h in range(KV):
+            running = torch.zeros_like(exact[s, h])
+            for c, (a, b) in enumerate(chunks[s]):
+                terms = (probs[s, h, :, a:b].to(dtype).double()[..., None]
+                         * vg[s, a:b, h][None])                   # [ROWS, keys, Dv]
+                part = torch.cumsum(terms, dim=1)
+                bound[s, h] += part.abs().sum(dim=1)
+                running += part[:, -1]
+                if c:
+                    bound[s, h] += running.abs()
+            exact[s, h] = running
+    return exact, 2.0 ** -24 * (1 + 2.0 ** -8) * bound
 
 
 def _k2_inputs(gen, *, S, KV, group, T, D, BS, NLOG, NB, dtype, qpos,
@@ -312,21 +343,101 @@ def _k2_inputs(gen, *, S, KV, group, T, D, BS, NLOG, NB, dtype, qpos,
             torch.as_tensor(positions, device=dev))
 
 
+def k2_checks(x, *, q, k, v, table, pos, kw, group, chunks, want, want_sc, want_pr):
+    """K2's checks on one result ``x = (out, scores, probs)``, the kernel's
+    or a stand-in's (``--fault-control``), against the plain version's
+    ``want``: (a) whether the plain Alg. 1 on its own scores gives its
+    probabilities bitwise; (b) its scores in units of their bounds from the
+    exactly rounded product and from the plain version's, and its outputs
+    in units of the bounds above from the exact sum over its own
+    probabilities (the kernel's summation tree over ``chunks``) and from
+    the plain version's. Returns them; raises nothing."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.int_softmax.ref import int_softmax_ref
+    from repro_torch.models.attention import kv_dequantize, paged_gather
+
+    out, sc, pr = x
+    S, KV, rows, l_full = sc.shape
+    D = q.shape[-1]
+    dtype, scale = q.dtype, kw["scale"]
+    window, scores_dtype = kw["window"], kw["scores_dtype"]
+    quant = "k_scale" in kw
+
+    def gathered(pool, scale_pool):                                # [S, L, KV, D] f64
+        g = paged_gather(pool, table)
+        if quant:
+            g = kv_dequantize(g, paged_gather(scale_pool, table), dtype)
+        return g.double()
+
+    # (a) the Alg.-1 step, bitwise, on its own scores
+    kpos = torch.arange(l_full, device="cuda")
+    qp = pos.repeat_interleave(group, dim=1)[:, None, :, None]      # [S,1,ROWS,1]
+    valid = kpos <= qp
+    if window:
+        valid &= kpos > qp - window
+    valid = valid.expand(S, KV, rows, l_full).reshape(-1, l_full)
+    again = int_softmax_ref(sc.reshape(-1, l_full), BEST, valid).reshape(sc.shape)
+    res = {"alg1_bitwise": bool(torch.equal(again, pr))}
+    del again
+    # (b) bounded: scores against the exactly rounded product (the f64 dot
+    # rounded to the compute dtype, then scaled as both sides scale it) and
+    # against the plain version, in units of the bound above
+    live = valid.reshape(sc.shape)
+    kg = gathered(k, kw.get("k_scale"))                            # [S, L, KV, D]
+    dot = torch.einsum("skrd,slkd->skrl", q.double(), kg)
+    exact = (dot.to(dtype).to(scores_dtype) * scale).float()
+    summed = D * 2.0 ** -24 * torch.einsum("skrd,slkd->skrl", q.double().abs(), kg.abs())
+    del dot, kg
+
+    def units(y, ref, n_sums):
+        mag = torch.maximum(ref.abs(), y.abs()) / scale * (1 + 1e-6)
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - MANTISSA[dtype])
+        tol = (ulp + n_sums * summed) * scale
+        if scores_dtype == torch.bfloat16:
+            tol = tol + torch.exp2(torch.floor(torch.log2(
+                torch.maximum(ref.abs(), y.abs()).clamp_min(1e-30))) - 7)
+        return float(((y - ref).abs() / (tol * 1.001))[live].max())
+
+    res["score_bound_units"] = {"vs_exact": units(sc, exact, 1),
+                                "vs_plain": units(sc, want_sc, 2),
+                                "plain_vs_exact": units(want_sc, exact, 1)}
+    res["scores_differing"] = int(((sc != want_sc) & live).sum())
+    del exact, summed
+    # outputs: against the exact sum over its own probabilities (the PV
+    # step, the kernel's summation tree) and against the plain version
+    vg = gathered(v, kw.get("v_scale"))                            # [S, L, KV, Dv]
+    o, w = out.double(), want.double()
+    e_k, rec_k = _pv_sums(pr, vg, dtype, chunks)
+    vabs = vg.abs()
+    mass_p = torch.einsum("skrl,slkd->skrd", want_pr.to(dtype).double().abs(), vabs)
+    dp = torch.einsum("skrl,slkd->skrd", (pr.to(dtype).double()
+                                          - want_pr.to(dtype).double()).abs(), vabs)
+    del vg, vabs
+    n_valid = live.sum(-1, keepdim=True).double()
+    tol_pv = rec_k + 0.5 * _ulp(torch.maximum(o.abs(), e_k.abs() + rec_k), dtype)
+    tol_out = (dp + rec_k + n_valid * 2.0 ** -24 * mass_p
+               + _ulp(torch.maximum(o.abs(), w.abs()), dtype))
+    res["output_bound_units"] = {"pv_vs_exact": float(((o - e_k).abs() / tol_pv).max()),
+                                 "vs_plain": float(((o - w).abs() / tol_out).max())}
+    res["finite"] = bool(torch.isfinite(out).all())
+    res["max_abs_err"] = float((o - w).abs().max())
+    res["out_rms"] = float(w.pow(2).mean().sqrt())
+    res["outputs_differing"] = int((out != want).sum())
+    return res
+
+
 def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
             NB=None, dtype=torch.bfloat16, window=0, qpos=None, parked=(),
             scores_dtype=torch.float32, quant=None):
-    """K2 against its plain version on one input: (a) the plain Alg. 1 on
-    K2's own scores gives K2's probabilities bitwise; (b) scores within the
-    bounds above of the exactly rounded product and of the plain version;
-    outputs within the bounds above of the exact sum over K2's own
-    probabilities and of the plain version. ``quant``: a kv_quantize scheme
-    — the pools become int8 codes with f32 scales, and the bounds hold
-    against the dequantized K and V. Returns its record."""
+    """K2 against its plain version on one input: the checks of ``k2_checks``
+    must pass (Alg. 1 on its own scores bitwise, scores and outputs within
+    their bounds), and a second run must give the same bits. ``quant``: a
+    kv_quantize scheme — the pools become int8 codes with f32 scales, and
+    the bounds hold against the dequantized K and V. Returns its record."""
     from repro_torch.core.precision import BEST
-    from repro_torch.kernels.int_softmax.ref import int_softmax_ref
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    from repro_torch.models.attention import kv_dequantize, kv_quantize, paged_gather
+    from repro_torch.models.attention import kv_quantize
 
     NB = NB or S * NLOG + 4
     l_full = NLOG * BS
@@ -337,81 +448,39 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
                                      NLOG=NLOG, NB=NB, dtype=dtype, qpos=qpos,
                                      parked=parked)
     rows = T * group
-    scale = D ** -0.5
-    kw = dict(scale=scale, window=window, scores_dtype=scores_dtype)
+    kw = dict(scale=D ** -0.5, window=window, scores_dtype=scores_dtype)
     if quant:
         k, ks = kv_quantize(k, quant)
         v, vs = kv_quantize(v, quant)
         kw.update(k_scale=ks, v_scale=vs)
 
-    def gathered(pool, scale_pool):                                # [S, L, KV, D] f64
-        g = paged_gather(pool, table)
-        if quant:
-            g = kv_dequantize(g, paged_gather(scale_pool, table), dtype)
-        return g.double()
+    def run():
+        sc = torch.zeros((S, KV, rows, l_full), device="cuda")
+        pr = torch.zeros_like(sc)
+        out = ops.paged_attention_rows(q, k, v, table, pos, BEST, scores_out=sc,
+                                       probs_out=pr, **kw)
+        return out, sc, pr
 
-    sc = torch.zeros((S, KV, rows, l_full), device="cuda")
-    pr = torch.zeros_like(sc)
-    out = ops.paged_attention_rows(q, k, v, table, pos, BEST, scores_out=sc,
-                                   probs_out=pr, **kw)
+    got = run()
+    again = run()
     want, want_sc, want_pr = paged_attention_ref(q, k, v, table, pos, BEST,
                                                  return_rows=True, **kw)
     torch.cuda.synchronize()
-    # (a) the Alg.-1 step, bitwise, on the kernel's own scores
-    kpos = torch.arange(l_full, device="cuda")
-    qp = pos.repeat_interleave(group, dim=1)[:, None, :, None]      # [S,1,ROWS,1]
-    valid = kpos <= qp
-    if window:
-        valid &= kpos > qp - window
-    valid = valid.expand(S, KV, rows, l_full).reshape(-1, l_full)
-    again = int_softmax_ref(sc.reshape(-1, l_full), BEST, valid).reshape(sc.shape)
-    check(torch.equal(again, pr), f"K2 {label}: plain Alg. 1 on the kernel's "
-          "scores != the kernel's probabilities")
-    # (b) bounded: scores against the exactly rounded product (the f64 dot
-    # rounded to the compute dtype, then scaled as both sides scale it) and
-    # against the plain version, in units of the bound above
-    live = valid.reshape(sc.shape)
-    kg = gathered(k, kw.get("k_scale"))                            # [S, L, KV, D]
-    dot = torch.einsum("skrd,slkd->skrl", q.double(), kg)
-    exact = (dot.to(dtype).to(scores_dtype) * scale).float()
-    summed = D * 2.0 ** -24 * torch.einsum("skrd,slkd->skrl", q.double().abs(), kg.abs())
-
-    def units(x, ref, n_sums):
-        mag = torch.maximum(ref.abs(), x.abs()) / scale * (1 + 1e-6)
-        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - MANTISSA[dtype])
-        tol = (ulp + n_sums * summed) * scale
-        if scores_dtype == torch.bfloat16:
-            tol = tol + torch.exp2(torch.floor(torch.log2(
-                torch.maximum(ref.abs(), x.abs()).clamp_min(1e-30))) - 7)
-        return ((x - ref).abs() / (tol * 1.001))[live]
-
-    worst = {"vs_exact": float(units(sc, exact, 1).max()),
-             "vs_plain": float(units(sc, want_sc, 2).max()),
-             "plain_vs_exact": float(units(want_sc, exact, 1).max())}
-    n_sc = int(((sc != want_sc) & live).sum())
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K2 {label}: a second run gave other bits")
+    del again
+    cp, chunks = k2_key_chunks(table, pos, KV=KV, rows=rows, BS=BS, window=window)
+    res = k2_checks(got, q=q, k=k, v=v, table=table, pos=pos, kw=kw, group=group,
+                    chunks=chunks, want=want, want_sc=want_sc, want_pr=want_pr)
+    worst, out_units = res["score_bound_units"], res["output_bound_units"]
+    err, rms = res["max_abs_err"], res["out_rms"]
+    check(res["alg1_bitwise"], f"K2 {label}: plain Alg. 1 on the kernel's scores != the "
+          "kernel's probabilities")
     check(worst["vs_exact"] <= 1, f"K2 {label}: a score is outside the bound of the "
           f"exactly rounded product ({worst}, in units of the bound)")
     check(worst["vs_plain"] <= 1, f"K2 {label}: a score is outside the bound of the "
           f"plain version's ({worst}, in units of the bound)")
-    # outputs: against the exact sum over the kernel's own probabilities
-    # (the PV step) and against the plain version, in units of the bounds
-    check(bool(torch.isfinite(out).all()), f"K2 {label}: non-finite output")
-    del dot, summed, kg
-    vg = gathered(v, kw.get("v_scale"))                            # [S, L, KV, Dv]
-    o, w = out.double(), want.double()
-    e_k, rec_k, _ = _pv_sums(pr, vg, dtype)
-    _, _, mass_p = _pv_sums(want_pr, vg, dtype)
-    dp = torch.einsum("skrl,slkd->skrd", (pr.to(dtype).double()
-                                          - want_pr.to(dtype).double()).abs(), vg.abs())
-    n_valid = live.sum(-1, keepdim=True).double()
-    tol_pv = rec_k + 0.5 * _ulp(torch.maximum(o.abs(), e_k.abs() + rec_k), dtype)
-    tol_out = (dp + rec_k + n_valid * 2.0 ** -24 * mass_p
-               + _ulp(torch.maximum(o.abs(), w.abs()), dtype))
-    out_units = {"pv_vs_exact": float(((o - e_k).abs() / tol_pv).max()),
-                 "vs_plain": float(((o - w).abs() / tol_out).max())}
-    err = float((o - w).abs().max())
-    rms = float(w.pow(2).mean().sqrt())
-    n_out = int((out != want).sum())
+    check(res["finite"], f"K2 {label}: non-finite output")
     check(out_units["pv_vs_exact"] <= 1, f"K2 {label}: an output is outside the bound of "
           f"the exact sum over its own probabilities ({out_units}, in units of the bound)")
     check(out_units["vs_plain"] <= 1, f"K2 {label}: an output is outside the bound of "
@@ -432,6 +501,7 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     row_keys = int(need.sum()) * group
     dv = v.shape[-1]
     kv_bytes = (D + dv + 8) if quant else (D + dv) * esz
+    out = got[0]
     nbytes = (keys_read * KV * kv_bytes + (q.numel() + out.numel()) * esz
               + table.numel() * 4 + pos.numel() * 4)
     bytes_ms = nbytes / rate * 1e3
@@ -439,26 +509,29 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
                    row_keys * KV * K1_OPS_PER_ELEMENT)
     kernel = lambda: ops.paged_attention_rows(q, k, v, table, pos, BEST, **kw)  # noqa: E731
     plain = lambda: paged_attention_ref(q, k, v, table, pos, BEST, **kw)  # noqa: E731
+    n_chunks = sum(len(c) for c in chunks)
     rec = {"shape": label, "S": S, "KV": KV, "rows": rows, "D": D, "BS": BS,
            "NLOG": NLOG, "window": window, "dtype": str(dtype).split(".")[-1],
            "pools": f"int8 ({quant})" if quant else str(dtype).split(".")[-1],
            "scores_dtype": str(scores_dtype).split(".")[-1],
-           "keys_read": keys_read,
+           "keys_read": keys_read, "chunk_pages": cp, "live_ctas": n_chunks * KV,
            "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
-           "scores_differing": n_sc, "outputs_differing": n_out,
+           "scores_differing": res["scores_differing"],
+           "outputs_differing": res["outputs_differing"], "repeat_bitwise": True,
            "score_bound_units": worst, "output_bound_units": out_units,
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
            "call_ms": call_ms(kernel, 20), "bound_ms": max(bytes_ms, op_ms),
            "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
     print(f"K2 {label:<34} S={S} KV={KV} rows={rows} D={D} BS={BS} NLOG={NLOG} "
-          f"w={window} {rec['dtype']}, pools {rec['pools']}: Alg. 1 on own scores bitwise; "
-          f"scores differing {n_sc} (worst, in units of the bound: {worst}), outputs differing {n_out} "
-          f"(worst, in units of the bound: {out_units}), max abs err {err:.3e} = "
-          f"{err / rms:.3e} of the output's RMS {rms:.3e}; keys read {keys_read}; "
-          f"device ms: kernel {rec['ms']:.4f}, plain "
-          f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}, "
-          f"{rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); eager call {rec['call_ms']:.4f}",
-          flush=True)
+          f"w={window} {rec['dtype']}, pools {rec['pools']}, chunks of {cp} pages "
+          f"({n_chunks * KV} CTAs): Alg. 1 on own scores bitwise; repeat bitwise; "
+          f"scores differing {res['scores_differing']} (worst, in units of the bound: "
+          f"{worst}), outputs differing {res['outputs_differing']} (worst, in units of "
+          f"the bound: {out_units}), max abs err {err:.3e} = {err / rms:.3e} of the "
+          f"output's RMS {rms:.3e}; keys read {keys_read}; device ms: kernel "
+          f"{rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+          f"({rec['bound_by']}, {rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); eager "
+          f"call {rec['call_ms']:.4f}", flush=True)
     return rec
 
 
@@ -488,6 +561,13 @@ def phase5_k2(rate):
     recs.append(k2_case("bf16 scores", gen, rate, scores_dtype=torch.bfloat16, **main))
     recs.append(k2_case("32768-token row, rows 1", gen, rate, S=1, KV=16, group=1,
                         NLOG=2048, qpos=np.array([32767])))
+    # past the whole-row design's shared memory (it raised on these)
+    recs.append(k2_case("T 5 at 16384 keys", gen, rate, S=2, KV=16, group=1, T=5,
+                        NLOG=1024, qpos=np.array([16379, 12000])))
+    recs.append(k2_case("GQA group 7 (H 28, KV 4), 16384", gen, rate, S=2, KV=4, group=7,
+                        NLOG=1024, qpos=np.array([16383, 9000])))
+    recs.append(k2_case("rows 35 (group 7 x T 5), 32768", gen, rate, S=1, KV=4, group=7,
+                        T=5, NLOG=2048, qpos=np.array([32763])))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -510,6 +590,8 @@ def phase9_k2_int8(rate):
                         qpos=np.array([4095, 4000, 3000, 2049]), quant="absmax"))
     recs.append(k2_case("int8 f32 compute", gen, rate, dtype=torch.float32, qpos=qpos,
                         quant="absmax", **main))
+    recs.append(k2_case("int8 32768-token row, rows 1", gen, rate, S=1, KV=16, group=1,
+                        NLOG=2048, qpos=np.array([32767]), quant="absmax"))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -794,11 +876,12 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
     # outputs, as in phase 5 (the latent is the value)
     check(bool(torch.isfinite(out).all()), f"K4 {label}: non-finite output")
     vg = cg[:, :, None]                                        # [S, L, 1, R]
-    e_k, rec_k, _ = _pv_sums(pr[:, None], vg, dtype)
-    _, _, mass_p = _pv_sums(want_pr[:, None], vg, dtype)
+    # K4 sums each output in key order over the whole row: one chunk
+    e_k, rec_k = _pv_sums(pr[:, None], vg, dtype, [[(0, pr.shape[-1])]] * pr.shape[0])
+    mass_p = torch.einsum("srl,slk->srk", want_pr.to(dtype).double().abs(), cg.abs())
     dp = torch.einsum("srl,slk->srk", (pr.to(dtype).double()
                                        - want_pr.to(dtype).double()).abs(), cg.abs())
-    e_k, rec_k, mass_p = e_k[:, 0], rec_k[:, 0], mass_p[:, 0]
+    e_k, rec_k = e_k[:, 0], rec_k[:, 0]
     o, w = out.double(), want.double()
     n_valid = valid.sum(-1, keepdim=True).double()
     tol_pv = rec_k + 0.5 * _ulp(torch.maximum(o.abs(), e_k.abs() + rec_k), dtype)
@@ -1063,7 +1146,7 @@ def full_logits(model, params, seq):
     (each layer attends the fake-quantized K/V it caches, as serving does)
     with the head over every position."""
     if not model.cfg.kv_quant:
-        return model.train_logits(params, {"tokens": seq})
+        return model.train_logits(params, {"tokens": seq})[0]
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import positions_for
 
@@ -1522,6 +1605,74 @@ def fault_control():
     return results
 
 
+def _own_chunk_max(chunk_max):
+    return chunk_max
+
+
+def _last_partial_dropped(partials):
+    acc = torch.zeros_like(partials[0])
+    for part in partials[:-1]:
+        acc = acc + part
+    return acc
+
+
+# Known faults of K2's split, patched into its plain split version
+# (kernels/paged_attention/ref.py, chunk_pages set): (module attribute,
+# replacement).
+K2_FAULTS = {
+    "each chunk quantizes against its own max": ("split_row_max", _own_chunk_max),
+    "one chunk's PV partial dropped": ("combine_partials", _last_partial_dropped),
+}
+
+
+def k2_fault_control():
+    """K2's checks (phase 5's k2_checks) against known faults of the split:
+    the plain split version at the serve decode shape, cleanly and once per
+    fault in K2_FAULTS, stands in for the kernel. Fails if the clean run
+    fails a check or a fault passes them; prints which checks catch each."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.paged_attention import ref
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    S, KV, BS, NLOG = 8, 16, 16, 36
+    q, k, v, table, pos = _k2_inputs(gen, S=S, KV=KV, group=1, T=1, D=128, BS=BS, NLOG=NLOG,
+                                     NB=324, dtype=torch.bfloat16,
+                                     qpos=np.random.default_rng(1).integers(400, 576, size=8))
+    kw = dict(scale=128 ** -0.5, window=0, scores_dtype=torch.float32)
+    want = ref.paged_attention_ref(q, k, v, table, pos, BEST, return_rows=True, **kw)
+    cp, chunks = k2_key_chunks(table, pos, KV=KV, rows=1, BS=BS, window=0)
+    results = {}
+    for fault, (attr, fn) in [("clean", (None, None))] + list(K2_FAULTS.items()):
+        saved = getattr(ref, attr) if attr else None
+        if attr:
+            setattr(ref, attr, fn)
+        try:
+            x = ref.paged_attention_ref(q, k, v, table, pos, BEST, return_rows=True,
+                                        chunk_pages=cp, **kw)
+        finally:
+            if attr:
+                setattr(ref, attr, saved)
+        res = k2_checks(x, q=q, k=k, v=v, table=table, pos=pos, kw=kw, group=1,
+                        chunks=chunks, want=want[0], want_sc=want[1], want_pr=want[2])
+        units = {**res["score_bound_units"], **{f"out_{n}": u for n, u in
+                                                 res["output_bound_units"].items()}}
+        caught = (["alg1_bitwise"] if not res["alg1_bitwise"] else []) + [
+            n for n, u in units.items() if n != "plain_vs_exact" and u > 1]
+        results[fault] = {"caught_by": caught, "bound_units": units}
+        print(f"  K2 split, {fault}: caught by {caught or 'nothing'}; in units of the "
+              f"bounds {units}", flush=True)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    check(not results["clean"]["caught_by"], f"the clean split fails a check: {results}")
+    own, drop = (results[f] for f in K2_FAULTS)
+    check("alg1_bitwise" in own["caught_by"],
+          "the bitwise Alg.-1 check misses per-chunk maxima")
+    check(drop["bound_units"]["out_pv_vs_exact"] > 100,
+          "the PV bound misses a dropped chunk partial by less than 100x")
+    return results
+
+
 class _OpCount(TorchDispatchMode):
     """Counts the aten ops dispatched while active."""
 
@@ -1566,10 +1717,12 @@ def main():
     if fault_mode:
         build.build(["int_softmax", "paged_attention_mla"])
         t0 = time.perf_counter()
+        k2_results = k2_fault_control()
         results = fault_control()
         print(f"fault control: {time.perf_counter() - t0:.1f} s", flush=True)
         print(card, flush=True)
-        print(json.dumps({"fault_control": results}), flush=True)
+        print(json.dumps({"k2_fault_control": k2_results, "fault_control": results}),
+              flush=True)
         return
 
     # phase 2: build every kernel of the paths, all nvcc processes at once

@@ -39,6 +39,13 @@ def quantize_stable_scores(x, cfg: PrecisionConfig, mask=None, axis: int = -1):
     # Guard fully-masked rows (row_max == NEG_INF): stabilized values become
     # 0, they are zeroed by the mask later.
     row_max = torch.where(row_max <= NEG_INF, 0.0, row_max)
+    return quantize_against(x, row_max, cfg)
+
+
+def quantize_against(x, row_max, cfg: PrecisionConfig):
+    """f32 scores -> signed M-bit codes (<= 0) against an already guarded
+    row max (broadcastable to ``x``): clip ``x - row_max`` to [T_C, 0],
+    divide by S, round half to even."""
     x_stable = torch.clamp(x - row_max, cfg.T_C, 0.0)
     s = torch.full((), cfg.S, dtype=torch.float32, device=x.device)
     v = torch.round(x_stable / s).to(torch.int32)

@@ -9,7 +9,8 @@ Port of ``src/repro/kernels/paged_attention/ops.py``: ``paged_attend_dense``
 meta tensor takes the plain version (``ref.py``) — the cost meter runs the
 model on ``meta`` — and a CUDA tensor launches the kernel or raises: there
 is no fallback. ``paged_attention_rows.launches`` and
-``paged_attention_mla_rows.launches`` count kernel launches;
+``paged_attention_mla_rows.launches`` count wrapper calls that launch their
+kernel (one K2 call runs its two or three launches);
 ``paged_attention_rows.int8_launches`` counts those of K2 on int8 pools.
 """
 
@@ -24,7 +25,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.int_softmax.ops import Alg1Consts, alg1_consts
 from repro_torch.kernels.paged_attention.ref import (
-    paged_attention_mla_ref, paged_attention_ref,
+    k2_split_plan, paged_attention_mla_ref, paged_attention_ref,
 )
 
 MAX_D = 256
@@ -39,7 +40,7 @@ class PagedShape(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "KV", "rows", "group", "T", "D", "Dv", "NB", "BS", "NLOG",
-        "window", "scores_bf16", "quant")] + [("scale", ctypes.c_float)]
+        "window", "scores_bf16", "quant", "chunk_pages")] + [("scale", ctypes.c_float)]
 
 
 class MlaShape(ctypes.Structure):
@@ -51,23 +52,27 @@ class MlaShape(ctypes.Structure):
 
 
 # library -> (pointer arguments of ``<library>_launch``, its shape struct)
-_LAUNCH = {"paged_attention": (10, PagedShape), "paged_attention_mla": (9, MlaShape)}
+_LAUNCH = {"paged_attention": (11, PagedShape), "paged_attention_mla": (9, MlaShape)}
 
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` loaded, with ``<name>_launch`` (the pointers, the
-    dtype code, the shape, the Alg.-1 constants, the stream) and
-    ``<name>_smem_limit`` typed once."""
+    dtype code, the shape, the Alg.-1 constants, the stream) typed once,
+    and K4's ``<name>_smem_limit`` or K2's ``<name>_scratch_bytes``."""
     lib = build.load(name)
     n_ptrs, shape_type = _LAUNCH[name]
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int, shape_type, Alg1Consts,
                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lim = getattr(lib, f"{name}_smem_limit")
-    lim.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lim.restype = ctypes.c_int
+    if name == "paged_attention":
+        lib.paged_attention_scratch_bytes.argtypes = [PagedShape]
+        lib.paged_attention_scratch_bytes.restype = ctypes.c_size_t
+    else:
+        lim = getattr(lib, f"{name}_smem_limit")
+        lim.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lim.restype = ctypes.c_int
     return lib
 
 
@@ -127,8 +132,8 @@ def _check_inputs(name, tensors, floats, ints, debug, debug_shape, layout):
                              "on the queries' card")
 
 
-def _launch(name, tensors, out, debug, shape, cfg: PrecisionConfig):
-    ptr = [None if x is None else x.data_ptr() for x in tensors + (out,) + debug]
+def _launch(name, tensors, out, debug, shape, cfg: PrecisionConfig, scratch=()):
+    ptr = [None if x is None else x.data_ptr() for x in tensors + (out,) + debug + scratch]
     rc = getattr(_library(name), f"{name}_launch")(
         *ptr, _DTYPES[out.dtype], shape, alg1_consts(cfg),
         torch.cuda.current_stream(out.device).cuda_stream)
@@ -137,12 +142,6 @@ def _launch(name, tensors, out, debug, shape, cfg: PrecisionConfig):
 
 
 # ------------------------------------------------------------- K2 (dense / GQA)
-
-
-def smem_bytes(rows: int, l_full: int, d: int) -> int:
-    """Dynamic shared memory of one K2 CTA: the scores of all rows over the
-    whole logical row, plus q, as f32."""
-    return 4 * rows * (l_full + d)
 
 
 def paged_attention_rows(q, k_pool, v_pool, table, positions,
@@ -155,7 +154,10 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
     positions [S, T] int32 -> out [S, KV, ROWS, Dv].
     ``scores_out`` / ``probs_out``: optional f32 [S, KV, ROWS, NLOG * BS]
     tensors the kernel fills with the scores and Alg.-1 probabilities of
-    the pages it visits (zero them first; the chip smoke test's check)."""
+    the pages it visits (zero them first; the chip smoke test's check).
+    The kernel splits each row over ``k2_split_plan`` chunks of pages; the
+    context is bounded by the scratch this call allocates, not by shared
+    memory."""
     tensors = (q, k_pool, v_pool, table, positions)
     debug = (scores_out, probs_out)
     quant = k_scale is not None or v_scale is not None
@@ -187,22 +189,24 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
             f"shapes do not match: q {tuple(q.shape)}, k {tuple(k_pool.shape)}, "
             f"v {tuple(v_pool.shape)}, table {tuple(table.shape)}, positions "
             f"{tuple(positions.shape)}")
-    if d > MAX_D:
-        raise ValueError(f"head dim {d} > {MAX_D}")
-    need = smem_bytes(rows, nlog * bs, d)
-    limit = _smem_limit("paged_attention", q.device.index, q.dtype)
-    if need > limit:
-        raise ValueError(
-            f"paged decode of {rows} rows over {nlog * bs} positions needs "
-            f"{need} B of shared memory > {limit} B; shorten the cache "
-            "or the verify width")
-    out = torch.empty((s_, kvh, rows, dv), dtype=q.dtype, device=q.device)
+    esz = k_pool.element_size()
+    if d > MAX_D or dv > MAX_D or (d * esz) % 16 or (dv * esz) % 16:
+        raise ValueError(f"head dims {d} and {dv} must be within {MAX_D} with rows of "
+                         f"a multiple of 16 bytes ({esz} B a value)")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the pools must be 16-byte aligned")
+    dev = q.device.index
     shape = PagedShape(S=s_, KV=kvh, rows=rows, group=rows // t, T=t, D=d, Dv=dv,
                        NB=nb, BS=bs, NLOG=nlog, window=window,
-                       scores_bf16=int(scores_dtype == torch.bfloat16),
-                       quant=int(quant), scale=scale)
+                       scores_bf16=int(scores_dtype == torch.bfloat16), quant=int(quant),
+                       chunk_pages=k2_split_plan(s_, kvh, rows, nlog, bs, _sm_count(dev)),
+                       scale=scale)
+    out = torch.empty((s_, kvh, rows, dv), dtype=q.dtype, device=q.device)
+    # scores, chunk maxima, sums and PV partials
+    nbytes = _library("paged_attention").paged_attention_scratch_bytes(shape)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     _launch("paged_attention", (q, k_pool, v_pool, k_scale, v_scale, table, positions),
-            out, debug, shape, cfg)
+            out, debug, shape, cfg, (scratch,))
     paged_attention_rows.launches += 1
     paged_attention_rows.int8_launches += int(quant)
     return out

@@ -11,26 +11,135 @@ ones ``attend`` runs, so on the CPU this equals the gather path of paged
 decode bit for bit; K4's plain version likewise runs the einsums of MLA's
 gather path. The wrappers (``ops.py``) run them for CPU and meta tensors;
 ``chip_smoke.py`` holds the kernels against them on the card.
+
+K2 splits each row over CTAs in exact Alg.-1 passes (``csrc/paged_attention.cu``).
+Its partition lives here as pure functions — ``k2_span`` (the pages holding
+some row's valid position), ``k2_split_plan`` (pages per chunk) and
+``k2_chunks`` — and ``paged_attention_ref(..., chunk_pages=p)`` mirrors it:
+per-chunk row maxima combined into the row max (``split_row_max``), per-chunk
+exact integer sums, per-chunk f32 PV partials added in chunk order
+(``combine_partials``). ``chunk_pages=None`` is the whole-row path.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core.alg1 import int_softmax_block
+from repro_torch.core.alg1 import fixedpoint_div, int_exp_codes, int_softmax_block
 from repro_torch.core.precision import PrecisionConfig
+from repro_torch.core.quantization import NEG_INF, dequantize_probs, quantize_against
 from repro_torch.models.attention import kv_dequantize, paged_gather
+
+
+# ------------------------------------------------------------- K2's partition
+
+# Chunks hold at least this many keys (one cp.async stage of the kernel),
+# their f32 score tile (rows x chunk keys) at most K2_TILE_BYTES of shared
+# memory, and they grow while the grid keeps K2_CTAS_PER_SM CTAs per SM.
+K2_STAGE_KEYS = 64
+K2_TILE_BYTES = 48 * 1024
+K2_CTAS_PER_SM = 3.5
+
+
+def k2_span(positions_row, nlog: int, bs: int, window: int = 0):
+    """Pages ``[lo, hi)`` of one slot that hold some row's valid position:
+    from the page of ``min(qpos) - window + 1`` (page 0 without a window) to
+    the page of ``max(qpos)``, within the table. A key outside it is masked
+    for every row of the slot."""
+    qmax, qmin = max(positions_row), min(positions_row)
+    hi = 0 if qmax < 0 else min(nlog, qmax // bs + 1)
+    lo = min(max(0, qmin - window + 1) // bs, hi) if window else 0
+    return lo, hi
+
+
+def k2_split_plan(slots: int, kv: int, rows: int, nlog: int, bs: int, sms: int) -> int:
+    """Pages per chunk of K2's split (one CTA per chunk, kv-head and slot):
+    the smallest power of two holding ``K2_STAGE_KEYS`` keys, doubled while
+    the grid still has ``K2_CTAS_PER_SM`` CTAs per SM, the chunk stays
+    within the table and the score tile within ``K2_TILE_BYTES``; at least
+    one page."""
+    p = 1
+    while p * bs < K2_STAGE_KEYS and p < nlog:
+        p *= 2
+    while (2 * p <= nlog and 4 * rows * 2 * p * bs <= K2_TILE_BYTES
+           and slots * kv * math.ceil(nlog / (2 * p)) >= K2_CTAS_PER_SM * sms):
+        p *= 2
+    while p > 1 and 4 * rows * p * bs > K2_TILE_BYTES:
+        p //= 2
+    return p
+
+
+def k2_chunks(lo: int, hi: int, chunk_pages: int):
+    """The chunks ``[(first page, end page), ...]`` of a span, in order."""
+    return [(p, min(p + chunk_pages, hi)) for p in range(lo, hi, chunk_pages)]
+
+
+def split_row_max(chunk_max):
+    """[..., NC] per-chunk maxima over valid keys -> the max each chunk
+    quantizes against: the row's, the same for every chunk."""
+    return chunk_max.amax(-1, keepdim=True).expand_as(chunk_max)
+
+
+def combine_partials(partials):
+    """[NC, ...] f32 chunk partials -> their f32 sum, added in chunk order
+    from 0 (the kernel's combine)."""
+    acc = torch.zeros_like(partials[0])
+    for part in partials:
+        acc = acc + part
+    return acc
+
+
+def _split_rows(scores, valid, v, positions, cfg: PrecisionConfig, *, bs, window,
+                chunk_pages, dtype):
+    """Alg. 1 and PV over K2's chunks. scores [S, KV, G, T, L] (f32-exact),
+    valid [S, T, L], v [S, L, KV, Dv] in ``dtype`` -> probabilities [S, KV,
+    G, T, L] f32 and out [S, KV, G, T, Dv] in ``dtype``."""
+    s_, kvh, g, t, l_full = scores.shape
+    x = scores.to(torch.float32)
+    probs = torch.zeros_like(x)
+    out = torch.zeros((s_, kvh, g, t, v.shape[-1]), dtype=torch.float32, device=x.device)
+    for s in range(s_):
+        lo, hi = k2_span(positions[s].tolist(), l_full // bs, bs, window)
+        keys = [(a * bs, b * bs) for a, b in k2_chunks(lo, hi, chunk_pages)]
+        if not keys:
+            continue
+        xs, vm = x[s], valid[s][None, None]                 # [KV, G, T, L], [1, 1, T, L]
+        cmax = torch.stack([torch.where(vm[..., a:b], xs[..., a:b], NEG_INF).amax(-1)
+                            for a, b in keys], -1)          # [KV, G, T, NC]
+        mrow = split_row_max(cmax)
+        codes, sums = [], []
+        for c, (a, b) in enumerate(keys):
+            m = mrow[..., c:c + 1]
+            mu = torch.where(m <= NEG_INF, 0.0, m)
+            vmax = quantize_against(m, mu, cfg)               # 0 unless fully masked
+            va = int_exp_codes(quantize_against(xs[..., a:b], mu, cfg) - vmax, cfg)
+            va = torch.where(vm[..., a:b], va, 0)
+            codes.append(va)
+            sums.append(va.sum(-1, dtype=torch.int64))
+        total = torch.stack(sums, -1).sum(-1).clamp(1, cfg.sum_saturation)[..., None]
+        partials = []
+        for c, (a, b) in enumerate(keys):
+            p = dequantize_probs(fixedpoint_div(codes[c], total, cfg.P_out), cfg)
+            probs[s, ..., a:b] = p
+            partials.append(torch.einsum("kgtl,lkd->kgtd", p.to(dtype).to(torch.float32),
+                                         v[s, a:b].to(torch.float32)))
+        out[s] = combine_partials(torch.stack(partials))
+    return probs, out.to(dtype)
 
 
 def paged_attention_ref(q, k_pool, v_pool, table, positions,
                         cfg: PrecisionConfig, *, scale: float, window: int = 0,
                         k_scale=None, v_scale=None, scores_dtype=torch.float32,
-                        return_rows: bool = False):
+                        chunk_pages=None, return_rows: bool = False):
     """q [S, KV, ROWS, D] (row ``t * group + g``), pools [NB, BS, KV, D] in
     q's dtype — or int8 codes with ``k_scale``/``v_scale`` [NB, BS, KV] f32
     — table [S, NLOG] int, positions [S, T] int -> out [S, KV, ROWS, Dv] in
     q's dtype. With ``return_rows`` also the f32 scores and probabilities,
-    [S, KV, ROWS, NLOG * BS] each."""
+    [S, KV, ROWS, NLOG * BS] each. ``chunk_pages``: None for whole rows, or
+    K2's partition (``k2_chunks``), whose probabilities equal the whole
+    rows' bit for bit."""
     s, kvh, rows, d = q.shape
     t = positions.shape[1]
     group = rows // t
@@ -48,9 +157,15 @@ def paged_attention_ref(q, k_pool, v_pool, table, positions,
     valid = kpos <= qpos
     if window:
         valid &= kpos > qpos - window
-    probs = int_softmax_block(scores, valid[:, None, None], cfg)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(q.dtype), v)
-    out = out.permute(0, 2, 1, 3, 4).reshape(s, kvh, rows, v.shape[-1])
+    if chunk_pages is None:
+        probs = int_softmax_block(scores, valid[:, None, None], cfg)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(q.dtype), v)
+        out = out.permute(0, 2, 1, 3, 4).reshape(s, kvh, rows, v.shape[-1])
+    else:
+        bs = k_pool.shape[1]
+        probs, out = _split_rows(scores, valid, v, positions, cfg, bs=bs, window=window,
+                                 chunk_pages=chunk_pages, dtype=q.dtype)
+        out = out.permute(0, 1, 3, 2, 4).reshape(s, kvh, rows, v.shape[-1])
     if not return_rows:
         return out
 

@@ -2,7 +2,7 @@
 ``src/repro/models/model.py``).
 
   init(generator)                          -> params (nested dict of tensors)
-  train_logits(params, batch)              -> logits [B, S, V]
+  train_logits(params, batch)              -> (logits [B, S, V], aux)
   prefill(params, batch, cache_len)        -> (last_logits [B, 1, V], cache)
   prefill_tail(params, batch, prefix, s)   -> (last_logits [B, 1, V], tail cache)
   decode_step(params, cache, batch, pos)   -> (logits [B, 1, V], cache)
@@ -118,12 +118,15 @@ class Model:
     # ---------------------------------------------------------------- entry
 
     def train_logits(self, p, batch):
+        """(logits, aux) as the reference returns them: aux is the summed
+        auxiliary loss of the layers, a 0-dim f32 zero for the dense and MLA
+        families (only MoE layers add one)."""
         tokens = batch["tokens"]
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device)
         x = tfm.stack_apply(p["stack"]["layers"], x, self.cfg, self.ctx,
                             positions)
-        return self._head(p, x)
+        return self._head(p, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def prefill(self, p, batch, cache_len: int):
         tokens = batch["tokens"]

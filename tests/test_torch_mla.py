@@ -97,7 +97,7 @@ def test_chunked_prefill_train_logits_and_cost(pair):
     tl, _ = tm.prefill(tp, {"tokens": torch.as_tensor(prompts, dtype=torch.long)}, 64)
     _close(jl, tl, atol)
     jlog = jax.jit(jm.train_logits)(jp, {"tokens": jnp.asarray(prompts[:, :16])})[0]
-    tlog = tm.train_logits(tp, {"tokens": torch.as_tensor(prompts[:, :16], dtype=torch.long)})
+    tlog, _ = tm.train_logits(tp, {"tokens": torch.as_tensor(prompts[:, :16], dtype=torch.long)})
     _close(jlog, tlog, atol)
     short = prompts[:, :6].repeat(2, axis=0)
     ref = JEngine(jm, jp, max_new=4).generate(short, mode="eager", report_cost=True)
@@ -107,6 +107,20 @@ def test_chunked_prefill_train_logits_and_cost(pair):
 
 
 # ------------------------------------------------------------ in the port, bitwise
+
+
+def test_train_logits_pair_matches_reference_structure(pair):
+    """The MLA model's ``train_logits`` returns ``(logits, aux)`` as the
+    reference does, aux a 0-dim f32 zero."""
+    jm, jp, tm, tp, _ = pair
+    tokens = _tokens(1, 8, jm.cfg.vocab, seed=3)
+    jlog, jaux = jax.jit(jm.train_logits)(jp, {"tokens": jnp.asarray(tokens)})
+    out = tm.train_logits(tp, {"tokens": torch.as_tensor(tokens, dtype=torch.long)})
+    assert isinstance(out, tuple) and len(out) == 2
+    tlog, taux = out
+    assert tuple(tlog.shape) == tuple(jlog.shape)
+    assert taux.shape == () == jnp.shape(jaux) and taux.dtype == torch.float32
+    assert float(taux) == float(jaux) == 0.0
 
 
 @pytest.fixture(scope="module")

@@ -89,8 +89,25 @@ def test_chunked_prefill_and_train_logits(pair):
     tl, _ = tm.prefill(tp, {"tokens": torch.as_tensor(prompts, dtype=torch.long)}, 64)
     _close(jl, tl, atol)
     jlog, _ = jax.jit(jm.train_logits)(jp, {"tokens": jnp.asarray(prompts[:, :16])})
-    tlog = tm.train_logits(tp, {"tokens": torch.as_tensor(prompts[:, :16], dtype=torch.long)})
+    tlog, _ = tm.train_logits(tp, {"tokens": torch.as_tensor(prompts[:, :16], dtype=torch.long)})
     _close(jlog, tlog, atol)
+
+
+def test_train_logits_pair_matches_reference_structure(pair):
+    """``train_logits`` returns ``(logits, aux)`` as the reference does (its
+    training step unpacks the pair): aux a 0-dim f32 zero for the dense
+    family, logits of the reference's shape and dtype."""
+    jm, jp, tm, tp, _ = pair
+    tokens = _tokens(2, 8, jm.cfg.vocab, seed=3)
+    jout = jax.jit(jm.train_logits)(jp, {"tokens": jnp.asarray(tokens)})
+    tout = tm.train_logits(tp, {"tokens": torch.as_tensor(tokens, dtype=torch.long)})
+    assert isinstance(tout, tuple) and len(tout) == len(jout) == 2
+    (jlog, jaux), (tlog, taux) = jout, tout
+    assert tuple(tlog.shape) == tuple(jlog.shape)
+    assert str(tlog.dtype).split(".")[-1] == str(jlog.dtype)
+    assert taux.shape == () == jnp.shape(jaux)
+    assert taux.dtype == torch.float32 and str(jnp.asarray(jaux).dtype) == "float32"
+    assert float(taux) == float(jaux) == 0.0
 
 
 def test_per_row_decode_positions_match_scalar(pair):

@@ -32,7 +32,9 @@ from repro_torch.configs.registry import smoke_config as tsmoke
 from repro_torch.core.precision import BEST
 from repro_torch.core.softmax_variants import SoftmaxSpec
 from repro_torch.kernels.paged_attention import ops
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (
+    k2_chunks, k2_span, k2_split_plan, paged_attention_ref,
+)
 from repro_torch.models import attention as tatt
 from repro_torch.models import kv_cache as tkv
 from repro_torch.models.model import Model
@@ -299,8 +301,10 @@ def test_prefill_tail_equals_whole_prefill(model_bf16, s):
 def test_k2_kernel_matches_plain_on_card(dtype, bs, t, kvh, window):
     """The CUDA kernel against its plain version: the plain Alg. 1 on the
     kernel's own scores gives its probabilities bitwise. Outputs: within
-    2^-24 x sum_i |partial sum i| (its f32 sum, position by position) plus
-    half an ulp of the exact sum over its own compute-dtype probabilities;
+    the bound of its summation tree (2^-24 x sum_i |partial sum i| key by
+    key inside each chunk of its split, plus 2^-24 x |chunk partials added
+    so far| for each chunk after the first) plus half an ulp of the exact
+    sum over its own compute-dtype probabilities;
     within sum_j |p_j - p'_j| |v_j| (a score one ulp off may move an Alg.-1
     code), both f32 summation bounds and one ulp of the plain version's."""
     if not torch.cuda.is_available():
@@ -348,9 +352,20 @@ def test_k2_kernel_matches_plain_on_card(dtype, bs, t, kvh, window):
 
     vg = tatt.paged_gather(v, table).double().permute(0, 2, 1, 3)[:, :, None]
     terms = pr.to(dtype).double()[..., None] * vg                 # [S, KV, ROWS, L, Dv]
-    part = torch.cumsum(terms, dim=3)
-    exact = part[:, :, :, -1]
-    recursive = 2.0 ** -24 * (1 + 2.0 ** -8) * part.abs().sum(dim=3)
+    # the kernel's summation tree: key order inside each chunk of its split,
+    # then the chunk partials in chunk order
+    cp = k2_split_plan(S, kvh, q.shape[2], nlog, bs,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    exact = torch.zeros_like(terms[:, :, :, 0])
+    recursive = torch.zeros_like(exact)
+    for s, prow in enumerate(pos.cpu().tolist()):
+        for c, (a, b) in enumerate(k2_chunks(*k2_span(prow, nlog, bs, window), cp)):
+            part = torch.cumsum(terms[s, :, :, a * bs:b * bs], dim=2)
+            recursive[s] += part.abs().sum(dim=2)
+            exact[s] += part[:, :, -1]
+            if c:
+                recursive[s] += exact[s].abs()
+    recursive *= 2.0 ** -24 * (1 + 2.0 ** -8)
     plain_sum = (valid.sum(-1, keepdim=True).double() * 2.0 ** -24
                  * (want_pr.to(dtype).double()[..., None] * vg).abs().sum(dim=3))
     dp = ((pr.to(dtype).double() - want_pr.to(dtype).double()).abs()[..., None]
