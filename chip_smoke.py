@@ -7,7 +7,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
 2. build: every CUDA kernel of the main path, from ``src/repro_torch/kernels/csrc``;
 3. K1 (the Alg.-1 softmax kernel) against its plain PyTorch version, bitwise,
-   at the generate and MLA serve paths' shapes and at edge shapes, with the
+   at the generate and both serve paths' shapes and at edge shapes, with the
    kernel's and the plain version's times and the card's memory bound;
 4. the main path: full-width olmo-1b (16 layers, d_model 2048, seeded random
    bf16 weights) through ``Engine.generate(mode="fused")`` with softmax
@@ -29,10 +29,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    served logit within a stated limit of a teacher-forced prefill of the
    served tokens, and of the jnp serve's step by step; warm timings of both
    kernels;
-7. K4 (the absorbed-MLA paged decode) against its plain PyTorch version at
-   the MLA serve path's decode shape, the reference's MLA kernel matrix,
-   4096-token rows, parked slots, f32 compute and deepseek-v2's width, with
-   the checks of phase 5 (and K1 at the MLA path's shapes in phase 3);
+7. K4 (the absorbed-MLA paged decode, each row split over CTAs, both dots
+   and PV on tensor cores in bf16) against its plain PyTorch version at the
+   MLA serve path's decode shape, the reference's MLA kernel matrix,
+   4096-token rows, parked slots, f32 compute, deepseek-v2's width at 512
+   and 4096 keys, T 3 at 4096 keys and a 32768-token row, with the checks
+   of phase 5 (outputs: of K4's chunked summation tree, bounded for
+   truncating tensor-core sums) and a second run bitwise equal (and K1 at
+   the MLA path's shapes in phase 3);
 8. the MLA serve path: full-width minicpm3-4b (62 layers, d_model 2560, 40
    heads, latent rank 256) through ``Engine.serve`` as in phase 6 on a
    16-request shared-prefix trace: K4 must launch 62 x steps times, K1 62 x
@@ -62,11 +66,11 @@ checkout of the repository.
 
     python3 chip_smoke.py --fault-control
 
-reads phase 5's K2 checks against two faults of K2's split patched into
-its plain split version (each chunk quantizing against its own max, a
-dropped chunk partial), then the MLA serve path's end-to-end checks (phase
-8's logit limits and near-tie rule) against known faults patched into its
-gather decode, and prints which checks catch each.
+reads phase 5's K2 checks and phase 7's K4 checks against two faults of
+each split patched into its plain split version (each chunk quantizing
+against its own max, a dropped chunk partial), then the MLA serve path's
+end-to-end checks (phase 8's logit limits and near-tie rule) against known
+faults patched into its gather decode, and prints which checks catch each.
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -227,6 +232,16 @@ def phase3_k1(rate):
                         causal.repeat(16, 1), m4, rate))
     recs.append(k1_case("lone-element rows, M=4 T_C=-4", scores(64, 544),
                         m, m4, rate))
+    # the olmo-1b serve path (phase 6: 16 heads, rows h * T + t): the first
+    # request's whole 512-token prefill, then tail prefills of 16, 64 and
+    # 128 tokens behind the 384-token shared prefix
+    recs.append(k1_case("olmo whole prefill (16 x 512)", scores(16 * 512, 512),
+                        causal.repeat(16, 1), BEST, rate))
+    for n in (16, 64, 128):
+        tail = (torch.arange(384 + n, device=dev)[None, :]
+                <= 384 + torch.arange(n, device=dev)[:, None]).to(torch.uint8)
+        recs.append(k1_case(f"olmo tail prefill (16 x {n}, 384 + {n})",
+                            scores(16 * n, 384 + n), tail.repeat(16, 1), BEST, rate))
     # the MLA serve path (phase 8: minicpm3-4b, 40 heads, one request per
     # prefill, rows h * T + t): a whole prefill of a 400-token prompt; a
     # tail prefill of 128 tokens behind the 384-token shared prefix (query
@@ -239,6 +254,15 @@ def phase3_k1(rate):
             <= 384 + torch.arange(128, device=dev)[:, None]).to(torch.uint8)
     recs.append(k1_case("MLA tail prefill (40 x 128, 384 + 128)", scores(40 * 128, 512),
                         tail.repeat(40, 1), BEST, rate))
+    # the rest of the MLA serve's prefills: the first request's whole
+    # 512-token prefill and the 16- and 64-token tails
+    recs.append(k1_case("MLA whole prefill (40 x 512)", scores(40 * 512, 512),
+                        causal.repeat(40, 1), BEST, rate))
+    for n in (16, 64):
+        tail = (torch.arange(384 + n, device=dev)[None, :]
+                <= 384 + torch.arange(n, device=dev)[:, None]).to(torch.uint8)
+        recs.append(k1_case(f"MLA tail prefill (40 x {n}, 384 + {n})", scores(40 * n, 384 + n),
+                            tail.repeat(40, 1), BEST, rate))
     qpos = torch.as_tensor(np.random.default_rng(1).integers(400, 544, size=8), device=dev)
     m = (torch.arange(544, device=dev)[None, :] <= qpos[:, None]).to(torch.uint8)
     recs.append(k1_case("MLA decode, kernel=jnp (8 x 40)", scores(320, 544),
@@ -272,6 +296,22 @@ def phase3_k1(rate):
 # both summation bounds (cuBLAS's, in an order not known here, is n * 2^-24
 # * sum |p'| |v| over the n valid keys) and one ulp for the two roundings.
 MANTISSA = {torch.bfloat16: 7, torch.float32: 23}
+# One f32 rounding to nearest (2^-24), with room for the bound's own use of
+# computed rather than exact partial sums.
+U32 = 2.0 ** -24 * (1 + 2.0 ** -8)
+# K4 in bf16 sums on tensor cores (mma.sync m16n8k16, f32 accumulate), whose
+# adds are not documented to round to nearest. The bound assumes less: one
+# instruction adds its 16 exact bf16 products to the accumulator in fused
+# groups of any g <= 16 products, and a group keeps 24 bits of its largest
+# addend M (the bits below M's last are cut off each addend: < 2^-23 M
+# each) and truncates its result (< 2^-23 |result|), so it loses < 2^-23 (g
+# M + |result|). With M and |result| at most X = |partial before the
+# instruction| + sum |products of the instruction|, the 16 / g groups lose
+# < (16 + 16 / g) 2^-23 X <= 32 2^-23 X: MMA_UNIT per instruction, 16 keys
+# (PV) or 16 of the R or DR products (scores). Round-to-nearest is inside
+# it; against a key-order f32 sum (n 2^-24 sum |terms| over n terms) it
+# allows about 2 to 4 times more at R 256.
+MMA_UNIT = 32 * 2.0 ** -23 * (1 + 2.0 ** -8)
 
 
 def _ulp(x, dtype):
@@ -291,12 +331,41 @@ def k2_key_chunks(table, pos, *, KV, rows, BS, window):
     return cp, [[(a * BS, b * BS) for a, b in k2_chunks(lo, hi, cp)] for lo, hi in spans]
 
 
-def _pv_sums(probs, vg, dtype, chunks):
+def _in_order(terms, mma):
+    """terms [ROWS, n, Dv] summed over n in order in f32: one term at a time
+    (fmaf, rounded to nearest: U32 per partial sum) or, on tensor cores,
+    16 a step (MMA_UNIT per step). Returns the exact f64 sum and the bound
+    of the f32 one, [ROWS, Dv] each."""
+    if not mma:
+        part = torch.cumsum(terms, dim=1)
+        return part[:, -1], U32 * part.abs().sum(dim=1)
+    steps = F.pad(terms, (0, 0, 0, (-terms.shape[1]) % 16)).unflatten(1, (-1, 16))
+    step, mass = steps.sum(2), steps.abs().sum(2)
+    before = torch.cumsum(step, 1) - step
+    return step.sum(1), MMA_UNIT * (before.abs() + mass).sum(1)
+
+
+def _mma_dot_bound(q, g):
+    """The bound of the f32 dots [S, ROWS, L] of q [S, ROWS, K] and g [S, L,
+    K] (f64) summed on tensor cores over K, 16 products a step (MMA_UNIT
+    per step; K padded with zeros to a multiple of 16, as the kernel pads
+    it)."""
+    pad = (-q.shape[-1]) % 16
+    q16, g16 = (F.pad(x, (0, pad)).unflatten(-1, (-1, 16)) for x in (q, g))
+    step = torch.einsum("srbk,slbk->srlb", q16, g16)
+    mass = torch.einsum("srbk,slbk->srlb", q16.abs(), g16.abs())
+    before = torch.cumsum(step, -1) - step
+    return MMA_UNIT * (before.abs() + mass).sum(-1)
+
+
+def _pv_sums(probs, vg, dtype, chunks, mma=False):
     """probs [S, KV, ROWS, L] f32, vg [S, L, KV, Dv] f64, ``chunks`` the
     kernel's key ranges per slot -> the exact f64 sum over the
     compute-dtype probabilities and the bound of the kernel's summation
-    tree (key order inside a chunk, chunk order across them), each [S, KV,
-    ROWS, Dv]. One (slot, kv-head, chunk) at a time, so long rows fit."""
+    tree (``_in_order`` inside a chunk, key by key or, ``mma``, 16 keys a
+    tensor-core step; then the chunk partials in chunk order, U32 per sum
+    after the first), each [S, KV, ROWS, Dv]. One (slot, kv-head, chunk) at
+    a time, so long rows fit."""
     S, KV, rows, _ = probs.shape
     exact = torch.zeros((S, KV, rows, vg.shape[-1]), dtype=torch.float64, device=vg.device)
     bound = torch.zeros_like(exact)
@@ -306,13 +375,13 @@ def _pv_sums(probs, vg, dtype, chunks):
             for c, (a, b) in enumerate(chunks[s]):
                 terms = (probs[s, h, :, a:b].to(dtype).double()[..., None]
                          * vg[s, a:b, h][None])                   # [ROWS, keys, Dv]
-                part = torch.cumsum(terms, dim=1)
-                bound[s, h] += part.abs().sum(dim=1)
-                running += part[:, -1]
+                part, tree = _in_order(terms, mma)
+                bound[s, h] += tree
+                running += part
                 if c:
-                    bound[s, h] += running.abs()
+                    bound[s, h] += U32 * running.abs()
             exact[s, h] = running
-    return exact, 2.0 ** -24 * (1 + 2.0 ** -8) * bound
+    return exact, bound
 
 
 def _k2_inputs(gen, *, S, KV, group, T, D, BS, NLOG, NB, dtype, qpos,
@@ -801,19 +870,113 @@ def _k4_inputs(gen, rng, *, S, H, T, R, DR, BS, NLOG, NB, dtype, qpos, parked, m
             torch.as_tensor(positions, device=dev))
 
 
-def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=None,
-            dtype=torch.bfloat16, qpos=None, parked=(), mixed=False, scale=96 ** -0.5):
-    """K4 against its plain version on one input: (a) the plain Alg. 1 on
-    K4's own scores gives K4's probabilities bitwise; (b) scores within the
-    bounds below of the exactly rounded products and of the plain version,
-    and in bf16 nearly all equal to the f32 sum of those products; outputs
-    within the bounds of phase 5 of the exact sum over K4's own
-    probabilities and of the plain version. Returns its record."""
+def k4_key_chunks(table, pos, *, rows, BS):
+    """K4's chunk size and its chunks per slot as key ranges ``[(first,
+    end), ...]``."""
+    from repro_torch.kernels.paged_attention.ref import k2_chunks, k2_span, k4_split_plan
+
+    S, nlog = table.shape
+    cp = k4_split_plan(S, rows, nlog, BS,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    spans = [k2_span(p, nlog, BS) for p in pos.cpu().tolist()]
+    return cp, [[(a * BS, b * BS) for a, b in k2_chunks(lo, hi, cp)] for lo, hi in spans]
+
+
+def k4_checks(x, *, q_lat, q_rope, c, kr, table, pos, scale, chunks, want, want_sc,
+              want_pr):
+    """K4's checks on one result ``x = (out, scores, probs)``, the kernel's
+    or a stand-in's (``--fault-control``), against the plain version's
+    ``want``: (a) whether the plain Alg. 1 on its own scores gives its
+    probabilities bitwise; (b) its scores in units of the bounds below from
+    the exactly rounded products and from the plain version's, the share of
+    them off the f32 sum of the exactly rounded dots, and its outputs in
+    units of the bounds of phase 5 (the kernel's summation tree over
+    ``chunks``, on tensor cores in bf16) from the exact sum over its own
+    probabilities and from the plain version's. Returns them; raises
+    nothing."""
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.int_softmax.ref import int_softmax_ref
-    from repro_torch.kernels.paged_attention import ops
-    from repro_torch.kernels.paged_attention.ref import paged_attention_mla_ref
     from repro_torch.models.attention import paged_gather
+
+    out, sc, pr = x
+    S, rows, l_full = sc.shape
+    NB, BS, R = c.shape
+    H = rows // pos.shape[1]
+    dtype = q_lat.dtype
+    mma = dtype == torch.bfloat16
+    # (a) the Alg.-1 step, bitwise, on its own scores
+    kpos = torch.arange(l_full, device="cuda")
+    valid = (kpos <= pos.repeat_interleave(H, dim=1)[:, :, None])          # [S, ROWS, L]
+    again = int_softmax_ref(sc.reshape(-1, l_full), BEST,
+                            valid.reshape(-1, l_full)).reshape(sc.shape)
+    res = {"alg1_bitwise": bool(torch.equal(again, pr))}
+    del again
+    # (b) scores: each of the two dots may be one compute-dtype ulp plus its
+    # f32 summation bound from the exactly rounded product: the plain
+    # version's n 2^-24 sum |q_i c_i| (cuBLAS, rounding to nearest in an
+    # order not known here), the kernel's the same for f32 (fmaf in element
+    # order) or _mma_dot_bound for bf16 (tensor cores); the f32 add and
+    # scale round once each
+    cg, krg = paged_gather(c, table).double(), paged_gather(kr, table).double()
+    pairs = ((q_lat.double(), cg), (q_rope.double(), krg))
+    dots = [torch.einsum("srk,slk->srl", q, g) for q, g in pairs]
+    plain_err = [q.shape[-1] * 2.0 ** -24 * torch.einsum("srk,slk->srl", q.abs(), g.abs())
+                 for q, g in pairs]
+    own_err = [_mma_dot_bound(q, g) for q, g in pairs] if mma else plain_err
+    exact = ((dots[0].to(dtype).float() + dots[1].to(dtype).float()) * scale).double()
+    live = valid & ((table >= 0) & (table < NB))[:, kpos // BS][:, None, :]
+
+    def units(y, ref, errs):
+        tol = sum(_ulp(d.abs() + e, dtype) + e for d, e in zip(dots, errs))
+        tol = tol * scale + 2.0 ** -22 * torch.maximum(y.abs(), ref.abs())
+        return float(((y.double() - ref.double()).abs() / (tol * 1.001))[live].max())
+
+    both = [a + b for a, b in zip(own_err, plain_err)]
+    res["score_bound_units"] = {"vs_exact": units(sc, exact, own_err),
+                                "vs_plain": units(sc, want_sc, both),
+                                "plain_vs_exact": units(want_sc, exact, plain_err)}
+    res["scores_differing"] = int(((sc != want_sc) & valid).sum())
+    # (b') in bf16 a score equals the f32 sum of the exactly rounded dots
+    # unless a dot's f32 sum straddles a bf16 rounding boundary; the share a
+    # bf16 add of the two dots (the "semi" error) would move is printed
+    n_live = int(live.sum())
+    res["score_share_differing"] = {
+        "vs_exact": int(((sc.double() != exact) & live).sum()) / n_live,
+        "bf16_add_vs_exact": int(((((dots[0].to(dtype) + dots[1].to(dtype)).float()
+                                    * scale).double() != exact) & live).sum()) / n_live}
+    del dots, plain_err, own_err, both, krg, exact
+    # outputs, as in phase 5 (the latent is the value)
+    vg = cg[:, :, None]                                        # [S, L, 1, R]
+    e_k, rec_k = _pv_sums(pr[:, None], vg, dtype, chunks, mma=mma)
+    e_k, rec_k = e_k[:, 0], rec_k[:, 0]
+    mass_p = torch.einsum("srl,slk->srk", want_pr.to(dtype).double().abs(), cg.abs())
+    dp = torch.einsum("srl,slk->srk", (pr.to(dtype).double()
+                                       - want_pr.to(dtype).double()).abs(), cg.abs())
+    del cg, vg
+    o, w = out.double(), want.double()
+    n_valid = valid.sum(-1, keepdim=True).double()
+    tol_pv = rec_k + 0.5 * _ulp(torch.maximum(o.abs(), e_k.abs() + rec_k), dtype)
+    tol_out = dp + rec_k + n_valid * 2.0 ** -24 * mass_p + _ulp(torch.maximum(o.abs(),
+                                                                               w.abs()), dtype)
+    res["output_bound_units"] = {"pv_vs_exact": float(((o - e_k).abs() / tol_pv).max()),
+                                 "vs_plain": float(((o - w).abs() / tol_out).max())}
+    res["finite"] = bool(torch.isfinite(out).all())
+    res["max_abs_err"] = float((o - w).abs().max())
+    res["out_rms"] = float(w.pow(2).mean().sqrt())
+    res["outputs_differing"] = int((out != want).sum())
+    return res
+
+
+def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=None,
+            dtype=torch.bfloat16, qpos=None, parked=(), mixed=False, scale=96 ** -0.5):
+    """K4 against its plain version on one input: the checks of ``k4_checks``
+    must pass (Alg. 1 on its own scores bitwise, scores and outputs within
+    their bounds, in bf16 at most 1 % of scores off the f32 sum of the
+    exactly rounded dots), and a second run must give the same bits.
+    Returns its record."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import K4_TILE_ROWS, paged_attention_mla_ref
 
     NB = NB or S * NLOG + 4
     l_full = NLOG * BS
@@ -825,110 +988,79 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
         gen, rng, S=S, H=H, T=T, R=R, DR=DR, BS=BS, NLOG=NLOG, NB=NB, dtype=dtype,
         qpos=qpos, parked=parked, mixed=mixed)
     args = (q_lat, q_rope, c, kr, table, pos, BEST)
-    sc = torch.zeros((S, rows, l_full), device="cuda")
-    pr = torch.zeros_like(sc)
-    out = ops.paged_attention_mla_rows(*args, scale=scale, scores_out=sc, probs_out=pr)
+
+    def run():
+        sc = torch.zeros((S, rows, l_full), device="cuda")
+        pr = torch.zeros_like(sc)
+        out = ops.paged_attention_mla_rows(*args, scale=scale, scores_out=sc, probs_out=pr)
+        return out, sc, pr
+
+    got = run()
+    again = run()
     want, want_sc, want_pr = paged_attention_mla_ref(*args, scale=scale, return_rows=True)
     torch.cuda.synchronize()
-    # (a) the Alg.-1 step, bitwise, on the kernel's own scores
-    kpos = torch.arange(l_full, device="cuda")
-    valid = (kpos <= pos.repeat_interleave(H, dim=1)[:, :, None])          # [S, ROWS, L]
-    again = int_softmax_ref(sc.reshape(-1, l_full), BEST,
-                            valid.reshape(-1, l_full)).reshape(sc.shape)
-    check(torch.equal(again, pr), f"K4 {label}: plain Alg. 1 on the kernel's scores != "
-          "the kernel's probabilities")
-    # (b) scores: each of the two dots may be one compute-dtype ulp plus its
-    # f32 summation bound (n * 2^-24 * sum |q_i c_i|) from the exactly
-    # rounded product (twice the summation bound from the plain version's),
-    # and the f32 add and scale round once each
-    cg, krg = paged_gather(c, table).double(), paged_gather(kr, table).double()
-    dots = [torch.einsum("srk,slk->srl", q.double(), g) for q, g in ((q_lat, cg), (q_rope, krg))]
-    sums = [n * 2.0 ** -24 * torch.einsum("srk,slk->srl", q.double().abs(), g.abs())
-            for n, q, g in ((R, q_lat, cg), (DR, q_rope, krg))]
-    exact = ((dots[0].to(dtype).float() + dots[1].to(dtype).float()) * scale).double()
-
-    def units(x, ref, n_sums):
-        tol = sum(_ulp(d.abs() + n_sums * e, dtype) + n_sums * e for d, e in zip(dots, sums))
-        tol = tol * scale + 2.0 ** -22 * torch.maximum(x.abs(), ref.abs())
-        return ((x.double() - ref.double()).abs() / (tol * 1.001))[live]
-
-    live = valid & ((table >= 0) & (table < NB))[:, kpos // BS][:, None, :]
-    worst = {"vs_exact": float(units(sc, exact, 1).max()),
-             "vs_plain": float(units(sc, want_sc, 2).max()),
-             "plain_vs_exact": float(units(want_sc, exact, 1).max())}
-    n_sc = int(((sc != want_sc) & valid).sum())
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K4 {label}: a second run gave other bits")
+    del again
+    cp, chunks = k4_key_chunks(table, pos, rows=rows, BS=BS)
+    res = k4_checks(got, q_lat=q_lat, q_rope=q_rope, c=c, kr=kr, table=table, pos=pos,
+                    scale=scale, chunks=chunks, want=want, want_sc=want_sc, want_pr=want_pr)
+    worst, out_units = res["score_bound_units"], res["output_bound_units"]
+    share = res["score_share_differing"]
+    err, rms = res["max_abs_err"], res["out_rms"]
+    check(res["alg1_bitwise"], f"K4 {label}: plain Alg. 1 on the kernel's scores != the "
+          "kernel's probabilities")
     check(worst["vs_exact"] <= 1, f"K4 {label}: a score is outside the bound of the "
           f"exactly rounded products ({worst}, in units of the bound)")
     check(worst["vs_plain"] <= 1, f"K4 {label}: a score is outside the bound of the "
           f"plain version's ({worst}, in units of the bound)")
-    # (b') in bf16 a score equals the f32 sum of the exactly rounded dots
-    # unless a dot's f32 sum straddles a bf16 rounding boundary: at most 1 %
-    # of the live scores may differ. The share a bf16 add of the two dots
-    # (the "semi" error) would move is printed beside it.
-    n_live = int(live.sum())
-    share = {"vs_exact": int(((sc.double() != exact) & live).sum()) / n_live,
-             "bf16_add_vs_exact": int(((((dots[0].to(dtype) + dots[1].to(dtype)).float()
-                                         * scale).double() != exact) & live).sum()) / n_live}
     if dtype == torch.bfloat16:
         check(share["vs_exact"] <= 0.01, f"K4 {label}: {share['vs_exact']:.2%} of the "
               "scores differ from the f32 sum of the exactly rounded dots (limit 1 %)")
-    del dots, sums, krg, exact
-    # outputs, as in phase 5 (the latent is the value)
-    check(bool(torch.isfinite(out).all()), f"K4 {label}: non-finite output")
-    vg = cg[:, :, None]                                        # [S, L, 1, R]
-    # K4 sums each output in key order over the whole row: one chunk
-    e_k, rec_k = _pv_sums(pr[:, None], vg, dtype, [[(0, pr.shape[-1])]] * pr.shape[0])
-    mass_p = torch.einsum("srl,slk->srk", want_pr.to(dtype).double().abs(), cg.abs())
-    dp = torch.einsum("srl,slk->srk", (pr.to(dtype).double()
-                                       - want_pr.to(dtype).double()).abs(), cg.abs())
-    e_k, rec_k = e_k[:, 0], rec_k[:, 0]
-    o, w = out.double(), want.double()
-    n_valid = valid.sum(-1, keepdim=True).double()
-    tol_pv = rec_k + 0.5 * _ulp(torch.maximum(o.abs(), e_k.abs() + rec_k), dtype)
-    tol_out = dp + rec_k + n_valid * 2.0 ** -24 * mass_p + _ulp(torch.maximum(o.abs(),
-                                                                               w.abs()), dtype)
-    out_units = {"pv_vs_exact": float(((o - e_k).abs() / tol_pv).max()),
-                 "vs_plain": float(((o - w).abs() / tol_out).max())}
-    err = float((o - w).abs().max())
-    rms = float(w.pow(2).mean().sqrt())
-    n_out = int((out != want).sum())
+    check(res["finite"], f"K4 {label}: non-finite output")
     check(out_units["pv_vs_exact"] <= 1, f"K4 {label}: an output is outside the bound of "
           f"the exact sum over its own probabilities ({out_units}, in units of the bound)")
     check(out_units["vs_plain"] <= 1, f"K4 {label}: an output is outside the bound of "
           f"the plain version's ({out_units}, in units of the bound; max abs err {err})")
-    del cg, vg
     # bound: the latent and rope rows the function needs (keys at or below
     # some row's position, on a live page), the queries, out, table and
     # positions, each once; operations: both dots and the PV per needed
     # (row, key) at the operand type's rate, and Alg. 1
     esz = torch.finfo(dtype).bits // 8
+    kpos = torch.arange(l_full, device="cuda")
+    live = ((kpos <= pos.repeat_interleave(H, dim=1)[:, :, None])
+            & ((table >= 0) & (table < NB))[:, kpos // BS][:, None, :])
     keys_read = int(live.any(dim=1).sum())                     # a slot's rows share keys
     row_keys = int(live.sum())
+    out = got[0]
     nbytes = (keys_read * (R + DR) * esz + (q_lat.numel() + q_rope.numel() + out.numel())
               * esz + table.numel() * 4 + pos.numel() * 4)
     bytes_ms = nbytes / rate * 1e3
     op_ms = ops_ms(row_keys * (2 * (R + DR) + 2 * R), dtype, row_keys * K1_OPS_PER_ELEMENT)
     kernel = lambda: ops.paged_attention_mla_rows(*args, scale=scale)  # noqa: E731
     plain = lambda: paged_attention_mla_ref(*args, scale=scale)  # noqa: E731
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tile = ops.mla_row_tile(rows, S, l_full, R, DR, ops.mla_smem_limit(dtype), sms)
+    tiles, groups = -(-rows // K4_TILE_ROWS), -(-R // 64)
+    n_chunks = sum(len(ch) for ch in chunks)
     rec = {"shape": label, "S": S, "H": H, "T": T, "rows": rows, "R": R, "DR": DR,
-           "BS": BS, "NLOG": NLOG, "dtype": str(dtype).split(".")[-1], "row_tile": tile,
-           "ctas": S * -(-rows // tile), "keys_read": keys_read,
+           "BS": BS, "NLOG": NLOG, "dtype": str(dtype).split(".")[-1], "chunk_pages": cp,
+           "live_ctas": n_chunks * tiles, "pv_ctas": n_chunks * tiles * groups,
+           "keys_read": keys_read,
            "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
-           "scores_differing": n_sc, "outputs_differing": n_out,
+           "scores_differing": res["scores_differing"],
+           "outputs_differing": res["outputs_differing"], "repeat_bitwise": True,
            "score_share_differing": share,
            "score_bound_units": worst, "output_bound_units": out_units,
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
            "call_ms": call_ms(kernel, 20), "bound_ms": max(bytes_ms, op_ms),
            "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
     print(f"K4 {label:<34} S={S} H={H} T={T} R={R} DR={DR} BS={BS} NLOG={NLOG} "
-          f"{rec['dtype']} tile={tile} ({rec['ctas']} CTAs): Alg. 1 on own scores bitwise; "
-          f"scores differing {n_sc} (worst, in units of the bound: {worst}; share "
-          f"differing from the exactly rounded dots' f32 sum {share['vs_exact']:.4%}, a "
-          f"bf16 add's {share['bf16_add_vs_exact']:.2%}), outputs "
-          f"differing {n_out} (worst, in units of the bound: {out_units}), max abs err "
-          f"{err:.3e} = {err / rms:.3e} of the output's RMS {rms:.3e}; keys read "
+          f"{rec['dtype']}, chunks of {cp} pages ({rec['live_ctas']} CTAs, PV "
+          f"{rec['pv_ctas']}): Alg. 1 on own scores bitwise; repeat bitwise; scores "
+          f"differing {res['scores_differing']} (worst, in units of the bound: {worst}; "
+          f"share differing from the exactly rounded dots' f32 sum {share['vs_exact']:.4%}, "
+          f"a bf16 add's {share['bf16_add_vs_exact']:.2%}), outputs differing "
+          f"{res['outputs_differing']} (worst, in units of the bound: {out_units}), max "
+          f"abs err {err:.3e} = {err / rms:.3e} of the output's RMS {rms:.3e}; keys read "
           f"{keys_read}; device ms: kernel {rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, "
           f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}, "
           f"{rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); eager call {rec['call_ms']:.4f}",
@@ -962,6 +1094,15 @@ def phase7_k4(rate):
     recs.append(k4_case("f32 compute", gen, rate, dtype=torch.float32, qpos=qpos, **main))
     recs.append(k4_case("deepseek-v2 width", gen, rate, S=2, H=128, R=512, DR=64, NLOG=32,
                         qpos=np.array([511, 400]), scale=(128 + 64) ** -0.5))
+    # past the whole-row design's reach or speed: minicpm3's max_seq, and
+    # two head tiles (verify rows, deepseek-v2's 128 heads) over long rows
+    recs.append(k4_case("32768-token row (max_seq)", gen, rate, S=1, H=40, NLOG=2048,
+                        qpos=np.array([32767])))
+    recs.append(k4_case("T 3 at 4096 keys", gen, rate, S=2, H=40, T=3, NLOG=256,
+                        qpos=np.array([4093, 3000])))
+    recs.append(k4_case("deepseek-v2 width, 4096 keys", gen, rate, S=2, H=128, R=512,
+                        DR=64, NLOG=256, qpos=np.array([4095, 3000]),
+                        scale=(128 + 64) ** -0.5))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -1616,10 +1757,10 @@ def _last_partial_dropped(partials):
     return acc
 
 
-# Known faults of K2's split, patched into its plain split version
-# (kernels/paged_attention/ref.py, chunk_pages set): (module attribute,
-# replacement).
-K2_FAULTS = {
+# Known faults of K2's and K4's split, patched into their plain split
+# versions (kernels/paged_attention/ref.py, chunk_pages set): (module
+# attribute, replacement).
+SPLIT_FAULTS = {
     "each chunk quantizes against its own max": ("split_row_max", _own_chunk_max),
     "one chunk's PV partial dropped": ("combine_partials", _last_partial_dropped),
 }
@@ -1628,7 +1769,7 @@ K2_FAULTS = {
 def k2_fault_control():
     """K2's checks (phase 5's k2_checks) against known faults of the split:
     the plain split version at the serve decode shape, cleanly and once per
-    fault in K2_FAULTS, stands in for the kernel. Fails if the clean run
+    fault in SPLIT_FAULTS, stands in for the kernel. Fails if the clean run
     fails a check or a fault passes them; prints which checks catch each."""
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.paged_attention import ref
@@ -1644,7 +1785,7 @@ def k2_fault_control():
     want = ref.paged_attention_ref(q, k, v, table, pos, BEST, return_rows=True, **kw)
     cp, chunks = k2_key_chunks(table, pos, KV=KV, rows=1, BS=BS, window=0)
     results = {}
-    for fault, (attr, fn) in [("clean", (None, None))] + list(K2_FAULTS.items()):
+    for fault, (attr, fn) in [("clean", (None, None))] + list(SPLIT_FAULTS.items()):
         saved = getattr(ref, attr) if attr else None
         if attr:
             setattr(ref, attr, fn)
@@ -1665,11 +1806,65 @@ def k2_fault_control():
               f"bounds {units}", flush=True)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     check(not results["clean"]["caught_by"], f"the clean split fails a check: {results}")
-    own, drop = (results[f] for f in K2_FAULTS)
+    own, drop = (results[f] for f in SPLIT_FAULTS)
     check("alg1_bitwise" in own["caught_by"],
           "the bitwise Alg.-1 check misses per-chunk maxima")
     check(drop["bound_units"]["out_pv_vs_exact"] > 100,
           "the PV bound misses a dropped chunk partial by less than 100x")
+    return results
+
+
+def k4_fault_control():
+    """K4's checks (phase 7's k4_checks) against the known faults of the
+    split: the plain split version at the MLA serve decode shape and K4's
+    chunk size, cleanly and once per fault in SPLIT_FAULTS, stands in for
+    the kernel. Fails if the clean run fails a check or a fault passes
+    them; prints which checks catch each."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.paged_attention import ref
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    nlog = -(-max(r.prompt_len + r.max_new for r in _mla_trace()) // MLA_BS)
+    qpos = np.random.default_rng(1).integers(400, nlog * MLA_BS, size=MLA_SLOTS)
+    q_lat, q_rope, c, kr, table, pos = _k4_inputs(
+        gen, np.random.default_rng(2), S=MLA_SLOTS, H=40, T=1, R=256, DR=32, BS=MLA_BS,
+        NLOG=nlog, NB=(MLA_SLOTS + 1) * nlog, dtype=torch.bfloat16, qpos=qpos, parked=(),
+        mixed=False)
+    args, scale = (q_lat, q_rope, c, kr, table, pos, BEST), 96 ** -0.5
+    want = ref.paged_attention_mla_ref(*args, scale=scale, return_rows=True)
+    cp, chunks = k4_key_chunks(table, pos, rows=40, BS=MLA_BS)
+    results = {}
+    for fault, (attr, fn) in [("clean", (None, None))] + list(SPLIT_FAULTS.items()):
+        saved = getattr(ref, attr) if attr else None
+        if attr:
+            setattr(ref, attr, fn)
+        try:
+            x = ref.paged_attention_mla_ref(*args, scale=scale, chunk_pages=cp,
+                                            return_rows=True)
+        finally:
+            if attr:
+                setattr(ref, attr, saved)
+        res = k4_checks(x, q_lat=q_lat, q_rope=q_rope, c=c, kr=kr, table=table, pos=pos,
+                        scale=scale, chunks=chunks, want=want[0], want_sc=want[1],
+                        want_pr=want[2])
+        units = {**res["score_bound_units"], **{f"out_{n}": u for n, u in
+                                                 res["output_bound_units"].items()}}
+        caught = (["alg1_bitwise"] if not res["alg1_bitwise"] else []) + [
+            n for n, u in units.items() if n != "plain_vs_exact" and u > 1]
+        if res["score_share_differing"]["vs_exact"] > 0.01:
+            caught.append("score_share")
+        results[fault] = {"caught_by": caught, "bound_units": units}
+        print(f"  K4 split (chunks of {cp} pages), {fault}: caught by {caught or 'nothing'}; "
+              f"in units of the bounds {units}", flush=True)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    check(not results["clean"]["caught_by"], f"the clean K4 split fails a check: {results}")
+    own, drop = (results[f] for f in SPLIT_FAULTS)
+    check("alg1_bitwise" in own["caught_by"],
+          "K4: the bitwise Alg.-1 check misses per-chunk maxima")
+    check(drop["bound_units"]["out_pv_vs_exact"] > 100,
+          "K4: the PV bound misses a dropped chunk partial by less than 100x")
     return results
 
 
@@ -1718,11 +1913,12 @@ def main():
         build.build(["int_softmax", "paged_attention_mla"])
         t0 = time.perf_counter()
         k2_results = k2_fault_control()
+        k4_results = k4_fault_control()
         results = fault_control()
         print(f"fault control: {time.perf_counter() - t0:.1f} s", flush=True)
         print(card, flush=True)
-        print(json.dumps({"k2_fault_control": k2_results, "fault_control": results}),
-              flush=True)
+        print(json.dumps({"k2_fault_control": k2_results, "k4_fault_control": k4_results,
+                          "fault_control": results}), flush=True)
         return
 
     # phase 2: build every kernel of the paths, all nvcc processes at once
@@ -1812,6 +2008,11 @@ def main():
         "name": "paged_attention_mla", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_mla.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:248",
+        "design": "rows split over CTAs in exact Alg.-1 passes (scores and chunk maxima, "
+                  "integer sums, PV partials added in chunk order); bf16 dots and PV on "
+                  "tensor cores (mma.sync m16n8k16, f32 accumulate)",
+        "chunk_pages": k4_main["chunk_pages"],
+        "chunk_keys": k4_main["chunk_pages"] * k4_main["BS"],
         "launches": mla["launches"]["K4"],
         "max_abs_err": max(r["max_abs_err"] for r in k4_recs),
         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],

@@ -2,8 +2,8 @@
 //
 // Counterpart of src/repro/core/alg1.py:int_softmax_block, the body every
 // Pallas kernel of the reference traces. K1 (int_softmax.cu), K2
-// (paged_attention.cu) and K4 (paged_attention_mla.cu) include it; K3 will
-// when it is ported, as all Pallas kernels share int_softmax_block.
+// (paged_attention.cu), K3 (int_attention.cu) and K4 (paged_attention_mla.cu)
+// include it, as all Pallas kernels share int_softmax_block.
 //
 // Per element, given the row's fp max and, later, the row's integer max and
 // saturating sum:
@@ -71,6 +71,29 @@ __device__ __forceinline__ float alg1_prob(int v_approx, int total,
                                            const Alg1Consts& c) {
   const long long q = (static_cast<long long>(v_approx) << c.P_out) / total;
   const long long top = (1LL << c.P_out) - 1;
+  const int code = static_cast<int>(q < top ? q : top);
+  return scalbnf(__int2float_rn(code), -c.P_out);
+}
+
+// alg1_prob by one double division and an exact integer correction: the
+// same code for every input. num = v_approx 2^P < 2^61 and total are exact
+// doubles, so the rounded quotient q' is within q 2^-52 < 1 of q = num /
+// total while q <= 2^P + 1 (P <= 30); its truncation is then floor(q) - 1,
+// floor(q) or floor(q) + 1, which the remainder num - q' total (exact in
+// int64) puts right. A larger q' means q > 2^P - 1: the code is 2^P - 1
+// either way. On the H100 it is the faster form in K4, which takes each
+// probability once per latent column group, and the slower one in K1, so
+// each kernel keeps its faster form (PERF.md §6).
+__device__ __forceinline__ float alg1_prob_fast(int v_approx, int total,
+                                                const Alg1Consts& c) {
+  const long long num = static_cast<long long>(v_approx) << c.P_out;
+  const long long top = (1LL << c.P_out) - 1;
+  long long q = static_cast<long long>(
+      __ddiv_rn(static_cast<double>(num), static_cast<double>(total)));
+  if (q <= top + 1) {
+    const long long rem = num - q * total;
+    q += rem < 0 ? -1 : (rem >= total ? 1 : 0);
+  }
   const int code = static_cast<int>(q < top ? q : top);
   return scalbnf(__int2float_rn(code), -c.P_out);
 }

@@ -25,11 +25,11 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.int_softmax.ops import Alg1Consts, alg1_consts
 from repro_torch.kernels.paged_attention.ref import (
-    k2_split_plan, paged_attention_mla_ref, paged_attention_ref,
+    k2_split_plan, k4_split_plan, paged_attention_mla_ref, paged_attention_ref,
 )
 
 MAX_D = 256
-MAX_R, MAX_DR, MAX_ROW_TILE = 512, 64, 16
+MAX_R, MAX_DR = 512, 64
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _SCORE_DTYPES = (torch.float32, torch.bfloat16)
@@ -47,57 +47,41 @@ class MlaShape(ctypes.Structure):
     """Mirror of ``struct MlaShape`` in ``csrc/paged_attention_mla.cu``."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "S", "rows", "heads", "T", "R", "DR", "NB", "BS", "NLOG", "row_tile")] + [
+        "S", "rows", "heads", "T", "R", "DR", "NB", "BS", "NLOG", "chunk_pages")] + [
         ("scale", ctypes.c_float)]
 
 
 # library -> (pointer arguments of ``<library>_launch``, its shape struct)
-_LAUNCH = {"paged_attention": (11, PagedShape), "paged_attention_mla": (9, MlaShape)}
+_LAUNCH = {"paged_attention": (11, PagedShape), "paged_attention_mla": (10, MlaShape)}
 
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` loaded, with ``<name>_launch`` (the pointers, the
-    dtype code, the shape, the Alg.-1 constants, the stream) typed once,
-    and K4's ``<name>_smem_limit`` or K2's ``<name>_scratch_bytes``."""
+    dtype code, the shape, the Alg.-1 constants, the stream) and
+    ``<name>_scratch_bytes`` (the shape) typed once."""
     lib = build.load(name)
     n_ptrs, shape_type = _LAUNCH[name]
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int, shape_type, Alg1Consts,
                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    if name == "paged_attention":
-        lib.paged_attention_scratch_bytes.argtypes = [PagedShape]
-        lib.paged_attention_scratch_bytes.restype = ctypes.c_size_t
-    else:
-        lim = getattr(lib, f"{name}_smem_limit")
-        lim.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lim.restype = ctypes.c_int
+    nbytes = getattr(lib, f"{name}_scratch_bytes")
+    nbytes.argtypes = [shape_type]
+    nbytes.restype = ctypes.c_size_t
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _smem_limit(name: str, device: int, dtype) -> int:
-    """The dynamic shared memory a CTA of ``name`` may take on card
-    ``device``, as the library computes it (the opt-in limit less its
-    static scratch)."""
-    limit = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = getattr(_library(name), f"{name}_smem_limit")(_DTYPES[dtype],
-                                                           ctypes.byref(limit))
-    if rc != 0:
-        raise RuntimeError(f"{name} shared-memory query failed: CUDA error {rc}")
-    return limit.value
+def _scratch(name: str, shape, device) -> torch.Tensor:
+    """The scratch one launch of ``name`` at ``shape`` needs, uninitialized
+    (the kernels write every byte they read)."""
+    nbytes = getattr(_library(name), f"{name}_scratch_bytes")(shape)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def mla_smem_limit(dtype) -> int:
-    """K4's shared-memory limit per CTA on the current card."""
-    return _smem_limit("paged_attention_mla", torch.cuda.current_device(), dtype)
 
 
 def _plain(ref, args, kw, scores_out, probs_out):
@@ -203,10 +187,8 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
                        scale=scale)
     out = torch.empty((s_, kvh, rows, dv), dtype=q.dtype, device=q.device)
     # scores, chunk maxima, sums and PV partials
-    nbytes = _library("paged_attention").paged_attention_scratch_bytes(shape)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     _launch("paged_attention", (q, k_pool, v_pool, k_scale, v_scale, table, positions),
-            out, debug, shape, cfg, (scratch,))
+            out, debug, shape, cfg, (_scratch("paged_attention", shape, q.device),))
     paged_attention_rows.launches += 1
     paged_attention_rows.int8_launches += int(quant)
     return out
@@ -240,23 +222,6 @@ def paged_attend_dense(q, k_pool, v_pool, table, positions,
 # ------------------------------------------------------------------ K4 (MLA)
 
 
-def mla_row_tile(rows: int, slots: int, l_full: int, r: int, dr: int, limit: int,
-                 sms: int) -> int:
-    """Query rows per K4 CTA, a power of two (the kernel's template
-    parameter): the largest that still lets the grid (slots x row tiles)
-    cover the ``sms`` SMs, at most ``MAX_ROW_TILE``, and at most what fits
-    ``limit`` bytes of shared memory (each row keeps its f32 scores over
-    ``l_full`` positions and its f32 query). Raises when one row does not
-    fit."""
-    per_row = 4 * (l_full + r + dr)
-    most = min(MAX_ROW_TILE, limit // per_row, rows, -(-rows * slots // sms))
-    if limit < per_row:
-        raise ValueError(
-            f"absorbed-MLA paged decode over {l_full} positions needs {per_row} B of "
-            f"shared memory for one query row > {limit} B; shorten the cache")
-    return 1 << (max(most, 1).bit_length() - 1)
-
-
 def paged_attention_mla_rows(q_lat, q_rope, c_pool, kr_pool, table, positions,
                              cfg: PrecisionConfig, *, scale: float, scores_out=None,
                              probs_out=None):
@@ -265,7 +230,10 @@ def paged_attention_mla_rows(q_lat, q_rope, c_pool, kr_pool, table, positions,
     NLOG] int32; positions [S, T] int32 -> o_lat [S, ROWS, R].
     ``scores_out`` / ``probs_out``: optional f32 [S, ROWS, NLOG * BS]
     tensors the kernel fills with the scores and Alg.-1 probabilities of
-    the pages it visits (zero them first; the chip smoke test's check)."""
+    the pages it visits (zero them first; the chip smoke test's check).
+    The kernel splits each row over ``k4_split_plan`` chunks of pages; the
+    context is bounded by the scratch this call allocates, not by shared
+    memory."""
     tensors = (q_lat, q_rope, c_pool, kr_pool, table, positions)
     debug = (scores_out, probs_out)
     if q_lat.device.type != "cuda":
@@ -286,15 +254,15 @@ def paged_attention_mla_rows(q_lat, q_rope, c_pool, kr_pool, table, positions,
     if r > MAX_R or dr > MAX_DR or r % 8 or dr % 8:
         raise ValueError(f"latent rank {r} and rope dim {dr} must be multiples of 8 "
                          f"within {MAX_R} and {MAX_DR}")
-    if c_pool.data_ptr() % 16 or kr_pool.data_ptr() % 16:
-        raise ValueError("the latent pools must be 16-byte aligned")
-    dev = q_lat.device.index
-    tile = mla_row_tile(rows, s_, nlog * bs, r, dr,
-                        _smem_limit("paged_attention_mla", dev, q_lat.dtype), _sm_count(dev))
-    out = torch.empty((s_, rows, r), dtype=q_lat.dtype, device=q_lat.device)
+    if any(x.data_ptr() % 16 for x in (q_lat, q_rope, c_pool, kr_pool)):
+        raise ValueError("the queries and latent pools must be 16-byte aligned")
+    cp = k4_split_plan(s_, rows, nlog, bs, _sm_count(q_lat.device.index))
     shape = MlaShape(S=s_, rows=rows, heads=rows // t, T=t, R=r, DR=dr, NB=nb, BS=bs,
-                     NLOG=nlog, row_tile=tile, scale=scale)
-    _launch("paged_attention_mla", tensors, out, debug, shape, cfg)
+                     NLOG=nlog, chunk_pages=cp, scale=scale)
+    out = torch.empty((s_, rows, r), dtype=q_lat.dtype, device=q_lat.device)
+    # scores, chunk maxima, sums and PV partials
+    _launch("paged_attention_mla", tensors, out, debug, shape, cfg,
+            (_scratch("paged_attention_mla", shape, q_lat.device),))
     paged_attention_mla_rows.launches += 1
     return out
 

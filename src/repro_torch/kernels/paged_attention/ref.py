@@ -12,13 +12,15 @@ decode bit for bit; K4's plain version likewise runs the einsums of MLA's
 gather path. The wrappers (``ops.py``) run them for CPU and meta tensors;
 ``chip_smoke.py`` holds the kernels against them on the card.
 
-K2 splits each row over CTAs in exact Alg.-1 passes (``csrc/paged_attention.cu``).
-Its partition lives here as pure functions — ``k2_span`` (the pages holding
-some row's valid position), ``k2_split_plan`` (pages per chunk) and
-``k2_chunks`` — and ``paged_attention_ref(..., chunk_pages=p)`` mirrors it:
-per-chunk row maxima combined into the row max (``split_row_max``), per-chunk
-exact integer sums, per-chunk f32 PV partials added in chunk order
-(``combine_partials``). ``chunk_pages=None`` is the whole-row path.
+K2 and K4 split each row over CTAs in exact Alg.-1 passes
+(``csrc/paged_attention.cu``, ``csrc/paged_attention_mla.cu``). Their
+partition lives here as pure functions — ``k2_span`` (the pages holding
+some row's valid position), ``k2_split_plan`` and ``k4_split_plan`` (pages
+per chunk) and ``k2_chunks`` — and ``paged_attention_ref(...,
+chunk_pages=p)`` and ``paged_attention_mla_ref(..., chunk_pages=p)`` mirror
+it: per-chunk row maxima combined into the row max (``split_row_max``),
+per-chunk exact integer sums, per-chunk f32 PV partials added in chunk
+order (``combine_partials``). ``chunk_pages=None`` is the whole-row path.
 """
 
 from __future__ import annotations
@@ -68,6 +70,35 @@ def k2_split_plan(slots: int, kv: int, rows: int, nlog: int, bs: int, sms: int) 
         p *= 2
     while p > 1 and 4 * rows * p * bs > K2_TILE_BYTES:
         p //= 2
+    return p
+
+
+# K4's partition. A head tile holds up to K4_TILE_ROWS rows of a slot (the
+# kernel's four m16 tiles). Chunks hold at least K4_STAGE_KEYS keys (one
+# bf16 stage of the kernel) and grow while the grid of launch 1 keeps
+# K4_CTAS_PER_SM CTAs per SM; a slot has at most K4_MAX_CHUNKS of them,
+# since the last CTA of a (slot, head tile, column group) reads every
+# chunk's partial, 64 latent columns of each row.
+K4_TILE_ROWS = 64
+K4_STAGE_KEYS = 32
+K4_CTAS_PER_SM = 1
+K4_MAX_CHUNKS = 128
+
+
+def k4_split_plan(slots: int, rows: int, nlog: int, bs: int, sms: int) -> int:
+    """Pages per chunk of K4's split (one CTA of launch 1 per chunk, head
+    tile and slot): the smallest power of two holding ``K4_STAGE_KEYS``
+    keys, doubled while the chunk stays within the table and the grid still
+    has ``K4_CTAS_PER_SM`` CTAs per SM, then while the table has more than
+    ``K4_MAX_CHUNKS`` chunks; at least one page."""
+    tiles = math.ceil(rows / K4_TILE_ROWS)
+    p = 1
+    while p * bs < K4_STAGE_KEYS and p < nlog:
+        p *= 2
+    while 2 * p <= nlog and slots * tiles * math.ceil(nlog / (2 * p)) >= K4_CTAS_PER_SM * sms:
+        p *= 2
+    while math.ceil(nlog / p) > K4_MAX_CHUNKS:
+        p *= 2
     return p
 
 
@@ -189,9 +220,8 @@ def mla_pv(w, c_kv):
     return torch.einsum("bhql,blr->bqhr", w, c_kv)
 
 
-
 def paged_attention_mla_ref(q_lat, q_rope, c_pool, kr_pool, table, positions,
-                            cfg: PrecisionConfig, *, scale: float,
+                            cfg: PrecisionConfig, *, scale: float, chunk_pages=None,
                             return_rows: bool = False):
     """Plain K4. q_lat [S, ROWS, R], q_rope [S, ROWS, DR] (row ``t * H +
     h``), pools c [NB, BS, R] and kr [NB, BS, DR] in q's dtype, table [S,
@@ -202,7 +232,9 @@ def paged_attention_mla_ref(q_lat, q_rope, c_pool, kr_pool, table, positions,
     product rounded to the compute dtype, the two added in f32, times
     ``scale``; rows masked ``kpos <= qpos``; the plain Alg. 1; PV over the
     compute-dtype probabilities. So on the CPU it equals the gather path of
-    paged MLA decode bit for bit. With ``return_rows`` also the f32 scores
+    paged MLA decode bit for bit. ``chunk_pages``: None for whole rows, or
+    K4's partition (``k2_chunks`` of the span), whose probabilities equal
+    the whole rows' bit for bit. With ``return_rows`` also the f32 scores
     and probabilities, [S, ROWS, NLOG * BS] each."""
     s, rows, r = q_lat.shape
     t = positions.shape[1]
@@ -214,8 +246,16 @@ def paged_attention_mla_ref(q_lat, q_rope, c_pool, kr_pool, table, positions,
                         scale)                          # [S, H, T, L]
     kpos = torch.arange(l_full, dtype=torch.int32, device=q_lat.device)
     valid = kpos <= positions.to(torch.int32)[:, :, None]
-    probs = int_softmax_block(scores, valid[:, None], cfg)
-    out = mla_pv(probs.to(q_lat.dtype), c).reshape(s, rows, r)
+    if chunk_pages is None:
+        probs = int_softmax_block(scores, valid[:, None], cfg)
+        out = mla_pv(probs.to(q_lat.dtype), c).reshape(s, rows, r)
+    else:
+        # K2's split with one kv head whose group is the H heads
+        probs, out = _split_rows(scores[:, None], valid, c[:, :, None], positions, cfg,
+                                 bs=c_pool.shape[1], window=0, chunk_pages=chunk_pages,
+                                 dtype=q_lat.dtype)
+        probs = probs[:, 0]                             # [S, H, T, L]
+        out = out[:, 0].permute(0, 2, 1, 3).reshape(s, rows, r)
     if not return_rows:
         return out
 

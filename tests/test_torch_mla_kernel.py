@@ -24,7 +24,7 @@ against the reference.
 * ``convert.params_from_numpy`` carries the reference's MLA tree to the
   tree the port's ``Model.init`` draws (keys, shapes, dtypes).
 * A ``cuda`` case holds the CUDA kernel against its plain version; it skips
-  without a card.
+  without a card. (K4's split and its plan: ``tests/test_torch_mla_split.py``.)
 """
 
 import dataclasses
@@ -191,20 +191,6 @@ def test_k4_wrapper_on_cpu_runs_the_plain_rows_without_a_launch():
     np.testing.assert_allclose(pr.sum(-1).numpy(), 1.0, atol=1e-4)
 
 
-def test_k4_row_tile_covers_the_card_and_fits():
-    # minicpm3's serve decode: 40 rows x 8 slots over 132 SMs -> at most 3
-    # rows a CTA for 132 CTAs, so 2 (a power of two: the kernel's template)
-    assert ops.mla_row_tile(40, 8, 544, 256, 32, 227 * 1024, 132) == 2
-    assert ops.mla_row_tile(128, 2, 512, 512, 64, 227 * 1024, 132) == 2
-    assert ops.mla_row_tile(128, 1, 512, 512, 64, 227 * 1024, 132) == 1
-    # few SMs: as many rows as fit, at most 16
-    assert ops.mla_row_tile(40, 1, 576, 256, 32, 227 * 1024, 1) == 16
-    assert ops.mla_row_tile(40, 1, 4096, 256, 32, 227 * 1024, 1) == 8
-    assert ops.mla_row_tile(40, 1, 32768, 256, 32, 227 * 1024, 1) == 1
-    with pytest.raises(ValueError, match="shorten the cache"):
-        ops.mla_row_tile(40, 1, 65536, 256, 32, 227 * 1024, 132)
-
-
 # ------------------------------------------------------------ pools and params
 
 
@@ -294,16 +280,56 @@ def test_minicpm3_config_is_the_reference_config():
 # ------------------------------------------------------------ on the card
 
 
+U = 2.0 ** -24 * (1 + 2.0 ** -8)            # f32 unit roundoff, with room for its own rounding
+# One tensor-core step adds 16 exact bf16 products to the accumulator in
+# fused groups of g <= 16 products; a group that keeps 24 bits of its
+# largest addend and truncates loses < 2^-23 (g max + |result|), so the step
+# < (16 + 16 / g) 2^-23 <= 32 2^-23 times (|partial before the step| + sum
+# |products|). Round-to-nearest is inside this bound.
+MMA_U = 32 * 2.0 ** -23 * (1 + 2.0 ** -8)
+
+
+def _k4_tree(p, c, pos, bs, nlog, rows, mma):
+    """The exact f64 sum of p [B, ROWS, L] (compute-dtype values) times the
+    latent rows c [B, L, R], and the bound of K4's summation tree, each [B,
+    ROWS, R]: inside each chunk of its split (``ref.k4_split_plan`` on this
+    card) key by key in f32 (U per partial sum) or, in bf16 on tensor
+    cores, 16 keys a step (MMA_U per step); then the chunk partials added
+    in chunk order (U per sum after the first)."""
+    from repro_torch.kernels.paged_attention.ref import k2_chunks, k2_span, k4_split_plan
+
+    B = p.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cp = k4_split_plan(B, rows, nlog, bs, sms)
+    exact = torch.zeros(p.shape[:2] + c.shape[-1:], dtype=torch.float64, device=p.device)
+    bound = torch.zeros_like(exact)
+    for b, prow in enumerate(pos.tolist()):
+        for i, (lo, hi) in enumerate(k2_chunks(*k2_span(prow, nlog, bs), cp)):
+            terms = p[b, :, lo * bs:hi * bs, None] * c[b, None, lo * bs:hi * bs]
+            if mma:
+                steps = torch.nn.functional.pad(terms, (0, 0, 0, (-terms.shape[1]) % 16))
+                steps = steps.reshape(rows, -1, 16, terms.shape[-1])
+                step, mass = steps.sum(2), steps.abs().sum(2)
+                before = torch.cumsum(step, 1) - step
+                bound[b] += MMA_U * (before.abs() + mass).sum(1)
+            else:
+                bound[b] += U * torch.cumsum(terms, 1).abs().sum(1)
+            exact[b] += terms.sum(1)
+            if i:
+                bound[b] += U * exact[b].abs()
+    return exact, bound
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bs,nlog,t", MATRIX)
 def test_k4_kernel_matches_plain_on_card(dtype, bs, nlog, t):
     """The CUDA kernel against its plain version: the plain Alg. 1 on the
     kernel's own scores gives its probabilities bitwise; each output within
-    2^-24 x sum_i |partial sum i| (its f32 sum, key by key) plus half an ulp
+    the bound of the kernel's summation tree (``_k4_tree``) plus half an ulp
     of the exact sum over its own compute-dtype probabilities, and within
-    sum_j |p_j - p'_j| |c_j|, both f32 summation bounds and one ulp of the
-    plain version's."""
+    sum_j |p_j - p'_j| |c_j|, both summation bounds and one ulp of the plain
+    version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels.int_softmax.ref import int_softmax_ref
@@ -336,10 +362,8 @@ def test_k4_kernel_matches_plain_on_card(dtype, bs, nlog, t):
         return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - mantissa)
 
     c = tatt.paged_gather(T[2], args[4]).double()[:, None]        # [B, 1, L, R]
-    terms = pr.to(dtype).double()[..., None] * c                   # [B, ROWS, L, R]
-    part = torch.cumsum(terms, dim=2)
-    exact = part[:, :, -1]
-    recursive = 2.0 ** -24 * (1 + 2.0 ** -8) * part.abs().sum(dim=2)
+    exact, recursive = _k4_tree(pr.to(dtype).double(), c[:, 0], pos, bs, nlog, rows,
+                                dtype == torch.bfloat16)
     plain_sum = (valid.sum(-1, keepdim=True).double() * 2.0 ** -24
                  * (want_pr.to(dtype).double()[..., None] * c).abs().sum(dim=2))
     dp = ((pr.to(dtype).double() - want_pr.to(dtype).double()).abs()[..., None]
