@@ -7,8 +7,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
 2. build: every CUDA kernel of the main path, from ``src/repro_torch/kernels/csrc``;
 3. K1 (the Alg.-1 softmax kernel) against its plain PyTorch version, bitwise,
-   at the generate and both serve paths' shapes and at edge shapes, with the
-   kernel's and the plain version's times and the card's memory bound;
+   at the generate and both serve paths' shapes and at edge shapes (odd
+   widths, sentinel rows, a saturating sum, M=15 (no exp table), rows split
+   over a cluster of CTAs up to 131072 columns, where the plain split
+   version over the kernel's chunks must agree too), with the kernel's and
+   the plain version's times, the card's memory bound, the launch's layout
+   and the CUDA launches of one call (torch.profiler: one of that layout);
 4. the main path: full-width olmo-1b (16 layers, d_model 2048, seeded random
    bf16 weights) through ``Engine.generate(mode="fused")`` with softmax
    ``int_pallas``, batch 4, prompt 512, 32 new tokens. K1 must launch exactly
@@ -66,9 +70,11 @@ checkout of the repository.
 
     python3 chip_smoke.py --fault-control
 
-reads phase 5's K2 checks and phase 7's K4 checks against two faults of
-each split patched into its plain split version (each chunk quantizing
-against its own max, a dropped chunk partial), then the MLA serve path's
+reads phase 3's K1 check against two faults of K1's split patched into
+its plain split version (each chunk quantizing against its own max, a
+dropped chunk sum), phase 5's K2 checks and phase 7's K4 checks against
+two faults of each split (each chunk quantizing against its own max, a
+dropped chunk partial), then the MLA serve path's
 end-to-end checks (phase 8's logit limits and near-tie rule) against known
 faults patched into its gather decode, and prints which checks catch each.
 """
@@ -165,17 +171,52 @@ def device_ms(fn, per_graph: int = 10, reps: int = 5) -> float:
 # ----------------------------------------------------------------- phase 3
 
 
-def k1_case(label, x, mask, cfg, rate, reps=20):
-    """Kernel vs plain version on one input, bitwise; returns its record."""
-    from repro_torch.kernels.int_softmax import ops
-    from repro_torch.kernels.int_softmax.ref import int_softmax_ref
+def k1_layout(plan, rows) -> str:
+    if plan.layout == "rows":
+        return (f"rows layout: a warp a row, {plan.rows_per_cta} a CTA, "
+                f"{plan.per_thread} a lane ({-(-rows // plan.rows_per_cta)} CTAs)")
+    return (f"split layout: a cluster of {plan.cluster} CTAs a row, chunks of "
+            f"{plan.chunk_cols} columns, {plan.per_thread} a thread "
+            f"({rows * plan.cluster} CTAs)")
 
+
+def cuda_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches, in order, as
+    torch.profiler's CUDA activity records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA]
+
+
+def k1_case(label, x, mask, cfg, rate, reps=20):
+    """Kernel vs plain version on one input, bitwise (and, for the split
+    layout, the plain split version over the kernel's chunks); returns its
+    record."""
+    from repro_torch.kernels.int_softmax import ops
+    from repro_torch.kernels.int_softmax.ref import int_softmax_ref, int_softmax_split_ref
+
+    plan = ops.launch_plan(x)
+    before = ops.int_softmax_rows.launches
     got = ops.int_softmax_rows(x, cfg, mask)
+    check(ops.int_softmax_rows.launches == before + 1, f"K1 {label}: wrapper did not launch")
+    # the CUDA launches of one wrapper call: one kernel of the plan's layout
+    names = cuda_kernels(lambda: ops.int_softmax_rows(x, cfg, mask))
+    check(len(names) == 1 and f"k1_{plan.layout}" in names[0],
+          f"K1 {label}: one call launched {names}, not one k1_{plan.layout}")
     want = int_softmax_ref(x, cfg, mask)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     check(torch.equal(got, want), f"K1 {label}: kernel != plain (max abs err {err})")
     check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite output")
+    if plan.layout == "split":
+        split = int_softmax_split_ref(x, cfg, mask, plan.chunk_cols)
+        check(torch.equal(split, want), f"K1 {label}: plain split != plain whole rows")
     rows, cols = x.shape
     nbytes = rows * cols * (4 + 4 + (1 if mask is not None else 0))
     bytes_ms = nbytes / rate * 1e3
@@ -183,7 +224,10 @@ def k1_case(label, x, mask, cfg, rate, reps=20):
     kernel = lambda: ops.int_softmax_rows(x, cfg, mask)  # noqa: E731
     plain = lambda: int_softmax_ref(x, cfg, mask)  # noqa: E731
     rec = {"shape": label, "rows": rows, "cols": cols, "masked": mask is not None,
-           "M": cfg.M, "max_abs_err": err,
+           "M": cfg.M, "max_abs_err": err, "layout": plan.layout,
+           "per_thread": plan.per_thread, "rows_per_cta": plan.rows_per_cta,
+           "cluster": plan.cluster, "chunk_cols": plan.chunk_cols,
+           "cuda_launches_per_call": len(names),
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
            "call_ms": call_ms(kernel, reps), "plain_call_ms": call_ms(plain, reps),
            "bound_ms": max(bytes_ms, op_ms),
@@ -192,7 +236,8 @@ def k1_case(label, x, mask, cfg, rate, reps=20):
           f"bitwise equal; device ms: kernel {rec['ms']:.4f}, plain "
           f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}, "
           f"{rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); per eager call: kernel "
-          f"{rec['call_ms']:.4f}, plain {rec['plain_call_ms']:.4f}", flush=True)
+          f"{rec['call_ms']:.4f}, plain {rec['plain_call_ms']:.4f}; {k1_layout(plan, rows)}, "
+          f"{len(names)} CUDA launch(es) a call (profiled)", flush=True)
     return rec
 
 
@@ -267,6 +312,37 @@ def phase3_k1(rate):
     m = (torch.arange(544, device=dev)[None, :] <= qpos[:, None]).to(torch.uint8)
     recs.append(k1_case("MLA decode, kernel=jnp (8 x 40)", scores(320, 544),
                         m.repeat_interleave(40, dim=0), BEST, rate))
+    # odd columns: scalar loads and stores
+    m = (torch.rand((64, 543), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    recs.append(k1_case("cols 543 (scalar tail)", scores(64, 543), m, BEST, rate))
+    m = (torch.rand((8, 1001), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    recs.append(k1_case("cols 1001 (scalar tail)", scores(8, 1001), m, BEST, rate))
+    # rows whose valid scores all lie at or below the masking sentinel: the
+    # guarded max 0 puts them on the floor code (integer max = floor code)
+    x = scores(16, 544)
+    x[0:8] = -1e30
+    x[8:16, ::2] = -2e30
+    x[8:16, 1::2] = -1e30
+    m = (torch.rand((16, 544), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    recs.append(k1_case("valid scores at the sentinel", x, m, BEST, rate))
+    # a config whose sum saturates (N = 0: sum_saturation 4095)
+    sat = PrecisionConfig(M=6, N=0)
+    recs.append(k1_case("saturating sums, N=0", scores(64, 544), None, sat, rate))
+    # rows split over a cluster of CTAs
+    recs.append(k1_case("cols 32768, one row", scores(1, 32768), None, BEST, rate))
+    m = (torch.rand((8, 32768), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    recs.append(k1_case("cols 32768 (max_seq), M=4 T_C=-4", scores(8, 32768), m, m4, rate))
+    m = (torch.rand((4, 32769), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    recs.append(k1_case("cols 32769 (split, scalar tail)", scores(4, 32769), m, BEST, rate))
+    m = (torch.rand((4, 131072), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    m[0] = 0                         # an all-masked split row
+    recs.append(k1_case("cols 131072 (row cap)", scores(4, 131072), m, BEST, rate))
+    # M above the exp table's 14 bits: each exp computed, scalar loads
+    m15 = PrecisionConfig(M=15, T_C=-1.0, P_out_override=24)
+    m = (torch.rand((64, 544), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    recs.append(k1_case("M=15 (no exp table)", scores(64, 544), m, m15, rate))
+    m = (torch.rand((2, 40001), generator=gen, device=dev) < 0.7).to(torch.uint8)
+    recs.append(k1_case("M=15 (no exp table), split", scores(2, 40001), m, m15, rate))
     return recs
 
 
@@ -1766,6 +1842,58 @@ SPLIT_FAULTS = {
 }
 
 
+def _last_sum_dropped(chunk_sums):
+    return chunk_sums[..., :-1].sum(-1)
+
+
+# Known faults of K1's split, patched into its plain split version
+# (kernels/int_softmax/ref.py:int_softmax_split_ref): (module attribute,
+# replacement).
+K1_SPLIT_FAULTS = {
+    "each chunk quantizes against its own max": ("split_row_max", _own_chunk_max),
+    "one chunk's sum dropped": ("split_row_sum", _last_sum_dropped),
+}
+
+
+def k1_fault_control():
+    """K1's check (phase 3's bitwise comparison with the whole-row plain
+    version) against known faults of the split: the plain split version
+    at the 8 x 32768 shape and the kernel's chunks, cleanly and once per
+    fault in K1_SPLIT_FAULTS, stands in for the kernel. Fails if the clean
+    run fails the check or a fault passes it; prints what each changes."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.int_softmax import ops, ref
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((8, 32768), generator=gen, device="cuda") * 3.0
+    mask = (torch.rand((8, 32768), generator=gen, device="cuda") < 0.7).to(torch.uint8)
+    plan = ops.launch_plan(x)
+    want = ref.int_softmax_ref(x, BEST, mask)
+    kernel = ops.int_softmax_rows(x, BEST, mask)
+    results = {}
+    for fault, (attr, fn) in [("clean", (None, None))] + list(K1_SPLIT_FAULTS.items()):
+        saved = getattr(ref, attr) if attr else None
+        if attr:
+            setattr(ref, attr, fn)
+        try:
+            got = ref.int_softmax_split_ref(x, BEST, mask, plan.chunk_cols)
+        finally:
+            if attr:
+                setattr(ref, attr, saved)
+        differ = int((got != want).sum())
+        results[fault] = {"caught_by": ["k1_bitwise"] if differ else [],
+                          "elements_differing": differ,
+                          "max_abs_err": float((got - want).abs().max())}
+        print(f"  K1 split ({k1_layout(plan, 8)}), {fault}: caught by "
+              f"{results[fault]['caught_by'] or 'nothing'}; {differ} of {x.numel()} "
+              f"probabilities differ", flush=True)
+    check(torch.equal(kernel, want), "K1 differs from its plain version")
+    check(not results["clean"]["caught_by"], f"the clean K1 split fails: {results}")
+    for fault in K1_SPLIT_FAULTS:
+        check(results[fault]["caught_by"], f"K1: the bitwise check misses {fault!r}")
+    return results
+
+
 def k2_fault_control():
     """K2's checks (phase 5's k2_checks) against known faults of the split:
     the plain split version at the serve decode shape, cleanly and once per
@@ -1912,12 +2040,14 @@ def main():
     if fault_mode:
         build.build(["int_softmax", "paged_attention_mla"])
         t0 = time.perf_counter()
+        k1_results = k1_fault_control()
         k2_results = k2_fault_control()
         k4_results = k4_fault_control()
         results = fault_control()
         print(f"fault control: {time.perf_counter() - t0:.1f} s", flush=True)
         print(card, flush=True)
-        print(json.dumps({"k2_fault_control": k2_results, "k4_fault_control": k4_results,
+        print(json.dumps({"k1_fault_control": k1_results, "k2_fault_control": k2_results,
+                          "k4_fault_control": k4_results,
                           "fault_control": results}), flush=True)
         return
 
@@ -1966,6 +2096,11 @@ def main():
         "name": "int_softmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_softmax.cu",
         "replaces": "src/repro/kernels/int_softmax/kernel.py:43",
+        "design": "one launch of ref.k1_split_plan's layout: a warp a row with the row in "
+                  "registers up to 2048 columns; longer rows over a thread-block cluster "
+                  "in exact Alg.-1 passes (chunk maxima, int64 chunk sums through "
+                  "distributed shared memory); exp by a table, division by a reciprocal "
+                  "per row",
         "launches": sum(k1_by_path.values()), "launches_by_path": k1_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],

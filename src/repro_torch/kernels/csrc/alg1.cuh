@@ -82,8 +82,8 @@ __device__ __forceinline__ float alg1_prob(int v_approx, int total,
 // floor(q) or floor(q) + 1, which the remainder num - q' total (exact in
 // int64) puts right. A larger q' means q > 2^P - 1: the code is 2^P - 1
 // either way. On the H100 it is the faster form in K4, which takes each
-// probability once per latent column group, and the slower one in K1, so
-// each kernel keeps its faster form (PERF.md §6).
+// probability once per latent column group; K1 divides a whole row by one
+// total and takes alg1_prob_row below (PERF.md §6).
 __device__ __forceinline__ float alg1_prob_fast(int v_approx, int total,
                                                 const Alg1Consts& c) {
   const long long num = static_cast<long long>(v_approx) << c.P_out;
@@ -96,6 +96,36 @@ __device__ __forceinline__ float alg1_prob_fast(int v_approx, int total,
   }
   const int code = static_cast<int>(q < top ? q : top);
   return scalbnf(__int2float_rn(code), -c.P_out);
+}
+
+// alg1_prob for a row whose total is fixed, by a reciprocal taken once per
+// row (alg1_row_div) and 32-bit arithmetic per element (alg1_prob_row): the
+// same code for every input. With T = total (1 <= T < 2^30), P = P_out <=
+// 30 and R = floor(2^(P+32) / T) = r_hi 2^32 + r_lo, a v < T gives
+//   y = v r_hi + floor(v r_lo / 2^32)
+// with y <= v 2^P / T < y + 1 + v / 2^32 < y + 1.25, so y is q or q - 1
+// for q = floor(v 2^P / T) < 2^P; the remainder v 2^P - y T lies in
+// [0, 1.25 T) and so is exact in 32-bit wrap-around arithmetic, and
+// y + (remainder >= T) is q. A v >= T gives 2^P - 1, as alg1_prob does
+// (v == T is a lone element, v > T a saturated sum).
+struct Alg1RowDiv {
+  unsigned total, r_hi, r_lo;
+};
+
+__device__ __forceinline__ Alg1RowDiv alg1_row_div(int total, const Alg1Consts& c) {
+  const unsigned t = static_cast<unsigned>(total);
+  const unsigned long long r = (1ULL << (c.P_out + 32)) / t;
+  return {t, static_cast<unsigned>(r >> 32), static_cast<unsigned>(r)};
+}
+
+__device__ __forceinline__ float alg1_prob_row(int v_approx, const Alg1RowDiv& d,
+                                               const Alg1Consts& c) {
+  const unsigned v = static_cast<unsigned>(v_approx);
+  unsigned q = v * d.r_hi + __umulhi(v, d.r_lo);
+  q += (v << c.P_out) - q * d.total >= d.total ? 1u : 0u;
+  const unsigned code = v >= d.total ? (1u << c.P_out) - 1u : q;
+  // code * 2^-P_out: exact, as scalbnf (a normal result or 0)
+  return __int2float_rn(static_cast<int>(code)) * __int_as_float((127 - c.P_out) << 23);
 }
 
 // Block-wide reductions over blockDim.x threads (a multiple of 32); every

@@ -4,23 +4,27 @@ Port of ``src/repro/kernels/int_softmax/ops.py:int_softmax_pallas`` (the
 drop-in over arbitrary leading dims) and ``kernel.py:int_softmax_kernel``
 (the ``[rows, cols]`` launch). A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises — there is no
-fallback. ``int_softmax_rows.launches`` counts kernel launches.
+fallback. The launch's layout is ``ref.k1_split_plan``'s.
+``int_softmax_rows.launches`` counts kernel launches (one a call).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.precision import BEST, PrecisionConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.int_softmax.ref import int_softmax_ref
+from repro_torch.kernels.int_softmax.ref import (
+    K1_MAX_COLS, K1Plan, int_softmax_ref, k1_split_plan,
+)
 
-# Longest row: the row's int32 codes live in dynamic shared memory
-# (32768 * 4 B = 128 KB of the 227 KB a block may use). cfg.max_seq of
-# every supported model is <= 32768.
-MAX_COLS = 32768
+# Longest row: a cluster of 8 CTAs (portable on every Hopper card) of 512
+# threads holding 32 elements each. cfg.max_seq of every supported model
+# is <= 32768.
+MAX_COLS = K1_MAX_COLS
 
 
 class Alg1Consts(ctypes.Structure):
@@ -51,9 +55,19 @@ def _library() -> ctypes.CDLL:
     lib = build.load("int_softmax")
     fn = lib.int_softmax_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, Alg1Consts, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, Alg1Consts, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+_plan = functools.lru_cache(maxsize=256)(k1_split_plan)
+
+
+def launch_plan(x) -> K1Plan:
+    """The layout K1 launches for CUDA scores ``x`` [rows, cols]."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return _plan(*x.shape, sms)
 
 
 def int_softmax_rows(x, cfg: PrecisionConfig, mask=None):
@@ -75,10 +89,11 @@ def int_softmax_rows(x, cfg: PrecisionConfig, mask=None):
     out = torch.empty_like(x)
     if rows == 0:
         return out
+    plan = launch_plan(x)
     rc = _library().int_softmax_launch(
         x.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), rows, cols, alg1_consts(cfg),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), rows, cols, plan.per_thread, plan.rows_per_cta,
+        plan.cluster, alg1_consts(cfg), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int_softmax kernel launch failed: CUDA error {rc}")
     int_softmax_rows.launches += 1

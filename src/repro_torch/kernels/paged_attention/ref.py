@@ -32,6 +32,7 @@ import torch
 from repro_torch.core.alg1 import fixedpoint_div, int_exp_codes, int_softmax_block
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.quantization import NEG_INF, dequantize_probs, quantize_against
+from repro_torch.kernels.int_softmax.ref import split_row_max
 from repro_torch.models.attention import kv_dequantize, paged_gather
 
 
@@ -105,12 +106,6 @@ def k4_split_plan(slots: int, rows: int, nlog: int, bs: int, sms: int) -> int:
 def k2_chunks(lo: int, hi: int, chunk_pages: int):
     """The chunks ``[(first page, end page), ...]`` of a span, in order."""
     return [(p, min(p + chunk_pages, hi)) for p in range(lo, hi, chunk_pages)]
-
-
-def split_row_max(chunk_max):
-    """[..., NC] per-chunk maxima over valid keys -> the max each chunk
-    quantizes against: the row's, the same for every chunk."""
-    return chunk_max.amax(-1, keepdim=True).expand_as(chunk_max)
 
 
 def combine_partials(partials):

@@ -23,7 +23,9 @@ from repro_torch.kernels.int_softmax.ref import int_softmax_ref
 
 torch.set_num_threads(2)
 
-CFG_KW = {"best": dict(M=6, N=16, T_C=-7.0), "m4": dict(M=4, T_C=-4.0)}
+# m15: above the CUDA kernel's exp table (M <= 14), so it computes each exp
+CFG_KW = {"best": dict(M=6, N=16, T_C=-7.0), "m4": dict(M=4, T_C=-4.0),
+          "m15": dict(M=15, T_C=-1.0, P_out_override=24)}
 
 
 def _inputs(shape, seed=0):
@@ -76,7 +78,8 @@ def test_alg1_consts_mirror_precision():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CFG_KW)
-@pytest.mark.parametrize("rows,cols", [(64, 544), (37, 1), (8, 1000), (4, 32768)])
+@pytest.mark.parametrize("rows,cols", [(64, 544), (37, 1), (8, 1000), (4, 32768),
+                                       (64, 543), (3, 40001), (2, 131072)])
 def test_kernel_matches_plain_on_card(name, rows, cols):
     """The CUDA kernel equals its plain version bit for bit on the card."""
     if not torch.cuda.is_available():
