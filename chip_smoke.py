@@ -56,11 +56,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     phase 6 with the int8 limits (the teacher-forced pass quantizes K/V as
     the prefill does), the pool's bytes per token, and for information the
     logit distance to the bf16 model;
-12. K3 (the stand-alone fused prefill attention) against its plain version
-    on the reference's kernel matrix and at full widths (olmo-1b's prefill,
-    a 4096-token prefill, GQA 32/8 at 2048): the plain Alg. 1 on its own
-    scores bitwise, scores and outputs within f32 summation bounds; then
-    ``int_attention`` as a user calls it, launching K3 once;
+12. K3 (the stand-alone fused prefill attention: query tiles over key tiles
+    in three exact Alg.-1 passes, bf16 products on tensor cores) against its
+    plain version: first its branch-free division by S against IEEE
+    division over every f32 it may divide (three configs); then the
+    reference's kernel matrix, the full widths (olmo-1b's prefill, a
+    4096-token prefill, GQA 32/8 at 2048) and the tiles' edges (a 128-token
+    tail on 512 keys, ragged Sq 1000, a window of 1024, d 64, d 256, d 24
+    at M=15, rows that see no key, 64 queries on 65536 keys, which the
+    whole-row design refused): the plain Alg. 1 on its own scores bitwise,
+    a second run bitwise equal, one CUDA launch a call (torch.profiler),
+    score writes exactly at ``ref.k3_plan``'s key tiles, its shared memory
+    ``ref.k3_smem_bytes``; scores within their summation bounds (bf16: of
+    tensor-core sums) and in bf16 at most 1 % beyond a quarter of a bf16
+    ulp of the exactly rounded dot; outputs within the bound of the
+    kernel's key-order sum (bf16: 16 keys a tensor-core step) and of the
+    plain version's; then ``int_attention`` as a user calls it, launching
+    K3 once;
 13. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
@@ -74,7 +86,9 @@ reads phase 3's K1 check against two faults of K1's split patched into
 its plain split version (each chunk quantizing against its own max, a
 dropped chunk sum), phase 5's K2 checks and phase 7's K4 checks against
 two faults of each split (each chunk quantizing against its own max, a
-dropped chunk partial), then the MLA serve path's
+dropped chunk partial), phase 12's K3 checks against three faults of its
+plain tiled version (each key tile quantizing against its own max, a
+dropped key tile's PV, scores rounded to bf16), then the MLA serve path's
 end-to-end checks (phase 8's logit limits and near-tie rule) against known
 faults patched into its gather decode, and prints which checks catch each.
 """
@@ -180,24 +194,84 @@ def k1_layout(plan, rows) -> str:
             f"({rows * plan.cluster} CTAs)")
 
 
-def cuda_kernels(fn) -> list:
-    """Names of the CUDA kernels one call of ``fn`` launches, in order, as
-    torch.profiler's CUDA activity records them."""
+# Quiet time (s) before and after the calls of one launch-check session, in
+# turn: a session that loses a kernel is run again with the next. On the
+# H100 machine torch.profiler's device trace drops a kernel as out of its
+# session's window (Kineto: "Out-of-range"), more often the longer the
+# process has run: a few seconds into a process every kernel of a short
+# session came back, a minute later most were lost, while sessions with 2 s
+# before and after kept every one.
+LAUNCH_CHECK_PADS = (0.0, 1.0, 4.0, 16.0)
+
+
+def launch_checks(kind, calls):
+    """Run each of ``calls`` (``(label, fn, kernel, rec)``) once under one
+    torch.profiler session, each inside ``record_function(label)``, and
+    check that it made one CUDA kernel launch (the runtime's launch calls,
+    host side, within the label's range) and that the device trace holds
+    one kernel for it whose name contains ``kernel`` (matched to its launch
+    call by CUPTI's correlation id, not by time). Writes the counts and
+    names into ``rec``. A session in which some label made its one launch
+    but the trace lost the kernel is run again with the next quiet time of
+    ``LAUNCH_CHECK_PADS``; a kernel still missing after the last fails, as
+    does any other count or name at once."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    labels = [label for label, *_ in calls]
+    check(len(set(labels)) == len(labels), f"{kind}: launch-check labels repeat")
+    for pad in LAUNCH_CHECK_PADS:
         torch.cuda.synchronize()
-    return [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
-            if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for label, fn, _, _ in calls:
+                with record_function(label):
+                    fn()
+                torch.cuda.synchronize()
+            time.sleep(pad)
+        events = prof.profiler.kineto_results.events()
+        ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+                  if e.device_type() == DeviceType.CPU and e.name() in labels]
+        check(len(ranges) == len(labels), f"{kind}: the profiler recorded "
+              f"{len(ranges)} of {len(labels)} launch-check ranges")
+        launches = {label: [] for label in labels}
+        kernels = {label: [] for label in labels}
+        caller = {}  # a launch call's correlation id -> its label
+        for e in events:
+            if e.device_type() == DeviceType.CPU and "LaunchKernel" in e.name():
+                owner = [label for t0, t1, label in ranges if t0 <= e.start_ns() <= t1]
+                check(len(owner) == 1,
+                      f"{kind}: a launch call outside the checked calls: {e.name()}")
+                launches[owner[0]].append(e.name())
+                caller[e.correlation_id()] = owner[0]
+        for e in events:  # kernels (the labels' device-side ranges aside)
+            if e.device_type() == DeviceType.CUDA and e.name() not in labels:
+                check(e.correlation_id() in caller,
+                      f"{kind}: a kernel no checked call launched: {e.name()}")
+                kernels[caller[e.correlation_id()]].append(e.name())
+        for label, _, kernel, rec in calls:
+            check(len(launches[label]) == 1,
+                  f"{kind} {label}: one call made the CUDA launches {launches[label]}")
+            check(len(kernels[label]) <= 1 and all(kernel in n for n in kernels[label]),
+                  f"{kind} {label}: one call launched the kernels {kernels[label]}, "
+                  f"not one {kernel}")
+        lost = [label for label in labels if not kernels[label]]
+        if not lost:
+            break
+    check(not lost, f"{kind}: the device trace lost the kernels of {lost} "
+          f"with {LAUNCH_CHECK_PADS[-1]} s before and after the calls")
+    for label, _, kernel, rec in calls:
+        rec["cuda_launches_per_call"] = len(launches[label])
+        rec["kernels_traced"] = kernels[label]
+    print(f"{kind}: each of {len(calls)} calls made one CUDA launch, and the device "
+          f"trace holds its kernel ({', '.join(sorted({k for _, _, k, _ in calls}))}; "
+          f"torch.profiler, {pad} s before and after the calls)", flush=True)
 
 
-def k1_case(label, x, mask, cfg, rate, reps=20):
+def k1_case(label, x, mask, cfg, rate, launch_calls, reps=20):
     """Kernel vs plain version on one input, bitwise (and, for the split
     layout, the plain split version over the kernel's chunks); returns its
-    record."""
+    record and adds its call to ``launch_calls`` (for ``launch_checks``)."""
     from repro_torch.kernels.int_softmax import ops
     from repro_torch.kernels.int_softmax.ref import int_softmax_ref, int_softmax_split_ref
 
@@ -205,10 +279,6 @@ def k1_case(label, x, mask, cfg, rate, reps=20):
     before = ops.int_softmax_rows.launches
     got = ops.int_softmax_rows(x, cfg, mask)
     check(ops.int_softmax_rows.launches == before + 1, f"K1 {label}: wrapper did not launch")
-    # the CUDA launches of one wrapper call: one kernel of the plan's layout
-    names = cuda_kernels(lambda: ops.int_softmax_rows(x, cfg, mask))
-    check(len(names) == 1 and f"k1_{plan.layout}" in names[0],
-          f"K1 {label}: one call launched {names}, not one k1_{plan.layout}")
     want = int_softmax_ref(x, cfg, mask)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -227,7 +297,6 @@ def k1_case(label, x, mask, cfg, rate, reps=20):
            "M": cfg.M, "max_abs_err": err, "layout": plan.layout,
            "per_thread": plan.per_thread, "rows_per_cta": plan.rows_per_cta,
            "cluster": plan.cluster, "chunk_cols": plan.chunk_cols,
-           "cuda_launches_per_call": len(names),
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
            "call_ms": call_ms(kernel, reps), "plain_call_ms": call_ms(plain, reps),
            "bound_ms": max(bytes_ms, op_ms),
@@ -236,8 +305,9 @@ def k1_case(label, x, mask, cfg, rate, reps=20):
           f"bitwise equal; device ms: kernel {rec['ms']:.4f}, plain "
           f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}, "
           f"{rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); per eager call: kernel "
-          f"{rec['call_ms']:.4f}, plain {rec['plain_call_ms']:.4f}; {k1_layout(plan, rows)}, "
-          f"{len(names)} CUDA launch(es) a call (profiled)", flush=True)
+          f"{rec['call_ms']:.4f}, plain {rec['plain_call_ms']:.4f}; {k1_layout(plan, rows)}",
+          flush=True)
+    launch_calls.append((f"K1 {label}", kernel, f"k1_{plan.layout}", rec))
     return rec
 
 
@@ -250,43 +320,43 @@ def phase3_k1(rate):
     def scores(rows, cols):
         return torch.randn((rows, cols), generator=gen, device=dev) * 3.0
 
-    recs = []
+    recs, calls = [], []
     # main path, decode: [batch 4 x heads 16, cache 544], valid_upto at the
     # first decode position (513 valid, 31 not yet written)
     kv = torch.arange(544, device=dev)
     m = (kv <= 512).expand(64, 544).to(torch.uint8).contiguous()
-    recs.append(k1_case("decode (main path)", scores(64, 544), m, BEST, rate))
+    recs.append(k1_case("decode (main path)", scores(64, 544), m, BEST, rate, calls))
     # main path, prefill: [4 x 16 x 512 query rows, 512], causal
     causal = torch.tril(torch.ones(512, 512, dtype=torch.uint8, device=dev))
     m = causal.repeat(64, 1)
-    recs.append(k1_case("prefill (main path)", scores(64 * 512, 512), m, BEST, rate))
+    recs.append(k1_case("prefill (main path)", scores(64 * 512, 512), m, BEST, rate, calls))
     # edges
-    recs.append(k1_case("cols 1", scores(64, 1), None, BEST, rate))
+    recs.append(k1_case("cols 1", scores(64, 1), None, BEST, rate, calls))
     m = (torch.rand((64, 1), generator=gen, device=dev) < 0.5).to(torch.uint8)
-    recs.append(k1_case("cols 1, masked", scores(64, 1), m, BEST, rate))
-    recs.append(k1_case("cols 1000", scores(256, 1000), None, BEST, rate))
+    recs.append(k1_case("cols 1, masked", scores(64, 1), m, BEST, rate, calls))
+    recs.append(k1_case("cols 1000", scores(256, 1000), None, BEST, rate, calls))
     m = (torch.rand((8, 32768), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("cols 32768 (max_seq)", scores(8, 32768), m, BEST, rate))
+    recs.append(k1_case("cols 32768 (max_seq)", scores(8, 32768), m, BEST, rate, calls))
     m = (torch.rand((64, 544), generator=gen, device=dev) < 0.7).to(torch.uint8)
     m[0:8] = 0                       # all-masked rows
     m[8:16] = 0
     m[8:16, 100] = 1                 # lone-element rows: v_approx == total
-    recs.append(k1_case("all-masked + lone-element rows", scores(64, 544), m, BEST, rate))
+    recs.append(k1_case("all-masked + lone-element rows", scores(64, 544), m, BEST, rate, calls))
     m4 = PrecisionConfig(M=4, T_C=-4.0)
     recs.append(k1_case("prefill rows, M=4 T_C=-4", scores(16 * 512, 512),
-                        causal.repeat(16, 1), m4, rate))
+                        causal.repeat(16, 1), m4, rate, calls))
     recs.append(k1_case("lone-element rows, M=4 T_C=-4", scores(64, 544),
-                        m, m4, rate))
+                        m, m4, rate, calls))
     # the olmo-1b serve path (phase 6: 16 heads, rows h * T + t): the first
     # request's whole 512-token prefill, then tail prefills of 16, 64 and
     # 128 tokens behind the 384-token shared prefix
     recs.append(k1_case("olmo whole prefill (16 x 512)", scores(16 * 512, 512),
-                        causal.repeat(16, 1), BEST, rate))
+                        causal.repeat(16, 1), BEST, rate, calls))
     for n in (16, 64, 128):
         tail = (torch.arange(384 + n, device=dev)[None, :]
                 <= 384 + torch.arange(n, device=dev)[:, None]).to(torch.uint8)
         recs.append(k1_case(f"olmo tail prefill (16 x {n}, 384 + {n})",
-                            scores(16 * n, 384 + n), tail.repeat(16, 1), BEST, rate))
+                            scores(16 * n, 384 + n), tail.repeat(16, 1), BEST, rate, calls))
     # the MLA serve path (phase 8: minicpm3-4b, 40 heads, one request per
     # prefill, rows h * T + t): a whole prefill of a 400-token prompt; a
     # tail prefill of 128 tokens behind the 384-token shared prefix (query
@@ -294,29 +364,29 @@ def phase3_k1(rate):
     # x 40 heads, cache_len 544, each slot at its own position
     tril = torch.tril(torch.ones(400, 400, dtype=torch.uint8, device=dev))
     recs.append(k1_case("MLA prefill (40 x 400)", scores(40 * 400, 400),
-                        tril.repeat(40, 1), BEST, rate))
+                        tril.repeat(40, 1), BEST, rate, calls))
     tail = (torch.arange(512, device=dev)[None, :]
             <= 384 + torch.arange(128, device=dev)[:, None]).to(torch.uint8)
     recs.append(k1_case("MLA tail prefill (40 x 128, 384 + 128)", scores(40 * 128, 512),
-                        tail.repeat(40, 1), BEST, rate))
+                        tail.repeat(40, 1), BEST, rate, calls))
     # the rest of the MLA serve's prefills: the first request's whole
     # 512-token prefill and the 16- and 64-token tails
     recs.append(k1_case("MLA whole prefill (40 x 512)", scores(40 * 512, 512),
-                        causal.repeat(40, 1), BEST, rate))
+                        causal.repeat(40, 1), BEST, rate, calls))
     for n in (16, 64):
         tail = (torch.arange(384 + n, device=dev)[None, :]
                 <= 384 + torch.arange(n, device=dev)[:, None]).to(torch.uint8)
         recs.append(k1_case(f"MLA tail prefill (40 x {n}, 384 + {n})", scores(40 * n, 384 + n),
-                            tail.repeat(40, 1), BEST, rate))
+                            tail.repeat(40, 1), BEST, rate, calls))
     qpos = torch.as_tensor(np.random.default_rng(1).integers(400, 544, size=8), device=dev)
     m = (torch.arange(544, device=dev)[None, :] <= qpos[:, None]).to(torch.uint8)
     recs.append(k1_case("MLA decode, kernel=jnp (8 x 40)", scores(320, 544),
-                        m.repeat_interleave(40, dim=0), BEST, rate))
+                        m.repeat_interleave(40, dim=0), BEST, rate, calls))
     # odd columns: scalar loads and stores
     m = (torch.rand((64, 543), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("cols 543 (scalar tail)", scores(64, 543), m, BEST, rate))
+    recs.append(k1_case("cols 543 (scalar tail)", scores(64, 543), m, BEST, rate, calls))
     m = (torch.rand((8, 1001), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("cols 1001 (scalar tail)", scores(8, 1001), m, BEST, rate))
+    recs.append(k1_case("cols 1001 (scalar tail)", scores(8, 1001), m, BEST, rate, calls))
     # rows whose valid scores all lie at or below the masking sentinel: the
     # guarded max 0 puts them on the floor code (integer max = floor code)
     x = scores(16, 544)
@@ -324,25 +394,26 @@ def phase3_k1(rate):
     x[8:16, ::2] = -2e30
     x[8:16, 1::2] = -1e30
     m = (torch.rand((16, 544), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("valid scores at the sentinel", x, m, BEST, rate))
+    recs.append(k1_case("valid scores at the sentinel", x, m, BEST, rate, calls))
     # a config whose sum saturates (N = 0: sum_saturation 4095)
     sat = PrecisionConfig(M=6, N=0)
-    recs.append(k1_case("saturating sums, N=0", scores(64, 544), None, sat, rate))
+    recs.append(k1_case("saturating sums, N=0", scores(64, 544), None, sat, rate, calls))
     # rows split over a cluster of CTAs
-    recs.append(k1_case("cols 32768, one row", scores(1, 32768), None, BEST, rate))
+    recs.append(k1_case("cols 32768, one row", scores(1, 32768), None, BEST, rate, calls))
     m = (torch.rand((8, 32768), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("cols 32768 (max_seq), M=4 T_C=-4", scores(8, 32768), m, m4, rate))
+    recs.append(k1_case("cols 32768 (max_seq), M=4 T_C=-4", scores(8, 32768), m, m4, rate, calls))
     m = (torch.rand((4, 32769), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("cols 32769 (split, scalar tail)", scores(4, 32769), m, BEST, rate))
+    recs.append(k1_case("cols 32769 (split, scalar tail)", scores(4, 32769), m, BEST, rate, calls))
     m = (torch.rand((4, 131072), generator=gen, device=dev) < 0.7).to(torch.uint8)
     m[0] = 0                         # an all-masked split row
-    recs.append(k1_case("cols 131072 (row cap)", scores(4, 131072), m, BEST, rate))
+    recs.append(k1_case("cols 131072 (row cap)", scores(4, 131072), m, BEST, rate, calls))
     # M above the exp table's 14 bits: each exp computed, scalar loads
     m15 = PrecisionConfig(M=15, T_C=-1.0, P_out_override=24)
     m = (torch.rand((64, 544), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("M=15 (no exp table)", scores(64, 544), m, m15, rate))
+    recs.append(k1_case("M=15 (no exp table)", scores(64, 544), m, m15, rate, calls))
     m = (torch.rand((2, 40001), generator=gen, device=dev) < 0.7).to(torch.uint8)
-    recs.append(k1_case("M=15 (no exp table), split", scores(2, 40001), m, m15, rate))
+    recs.append(k1_case("M=15 (no exp table), split", scores(2, 40001), m, m15, rate, calls))
+    launch_checks("K1", calls)
     return recs
 
 
@@ -744,142 +815,270 @@ def phase9_k2_int8(rate):
 # ----------------------------------------------------------------- phase 12
 
 
-def k3_case(label, rate, *, B, H, KV, Sq, Skv, D, causal=True, window=0,
-            dtype=torch.bfloat16, seed=0):
-    """K3 against its plain version on one input: (a) the plain Alg. 1 on
-    K3's own scores gives K3's probabilities bitwise; (b) each score within
-    the f32 summation bound (D 2^-24 sum |q_i k_i|, times the scale, plus
-    the scale's rounding) of the exact product and, doubled, of the plain
-    version's; each output within the f32 summation bound n 2^-24 sum |p|
-    |v| over its n valid keys of the exact sum over K3's own probabilities
-    (the PV check), and within sum_j |p_j - p'_j| |v_j| plus both summation
-    bounds of the plain version's. Returns its record."""
+# Bounds of K3 (tier (b)): in bf16 the kernel's dots and PV run on tensor
+# cores (mma.sync m16n8k16): each score is within _mma_dot_bound (d in
+# 16-deep steps) of the exact product, times the scale, plus the scale's
+# rounding; each output within _pv_sums(..., mma=True) over one key-order
+# chunk (16 keys a step; the kernel accumulates every key tile of a row in
+# key order in registers) of the exact sum over its own probabilities. In
+# f32 both are fmaf chains: a score within D 2^-24 sum |q_i k_i|, an output
+# within n 2^-24 sum |p| |v| over its n valid keys. Against the plain
+# version's (cuBLAS, f32, in an order not known here) the two sides' bounds
+# add, and outputs also by sum_j |p_j - p'_j| |v_j|.
+# The share check: a bf16 score is the tensor cores' f32 sum, which is not
+# the exactly rounded f32 dot in most places (each of the d / 16 steps
+# truncates), so the share of scores that differ from it at all is printed
+# for information; at most 1 % may lie more than a quarter of a bf16 ulp
+# from it, which a bf16 rounding of the scores (half a bf16 ulp) breaks for
+# about half of them.
+K3_SHARE_BF16_ULPS = 0.25
+K3_BOUND_ELEMS = 1 << 26      # f64 terms of one bound evaluation (512 MB)
+
+
+def k3_checks(x, *, q, k, v, cfg, causal, window, want, want_sc, want_pr):
+    """K3's checks on one result ``x = (out, scores, probs)`` ([BH, Sq, D],
+    [BH, Sq, Skv] x 2), the kernel's or a stand-in's (``--fault-control``),
+    against the plain version's ``want``: (a) whether the plain Alg. 1 on
+    its own scores gives its probabilities bitwise; (b) its scores in units
+    of their bounds (above) from the exact products and from the plain
+    version's, the shares of them off the exactly rounded f32 dot, and its
+    outputs in units of their bounds from the exact sum over its own
+    probabilities and from the plain version's. One head and one block of
+    rows at a time, over the keys some row of the block attends. Returns
+    them; raises nothing."""
     from repro_torch.core.alg1 import int_softmax_block
+    from repro_torch.kernels.int_attention.ref import attention_mask, k3_span
+
+    out, sc, pr = x
+    bh, sq, d = q.shape
+    bkv, skv = k.shape[:2]
+    g, dtype, scale = bh // bkv, q.dtype, d ** -0.5
+    mma = dtype == torch.bfloat16
+    mask = attention_mask(sq, skv, causal, window, device=q.device)
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device) if mask is None else mask
+    res = {"alg1_bitwise": bool(torch.equal(int_softmax_block(sc, valid, cfg), pr))}
+    worst = {"vs_exact": 0.0, "vs_plain": 0.0, "plain_vs_exact": 0.0}
+    out_units = {"pv_vs_exact": 0.0, "vs_plain": 0.0}
+    n_live = n_off = n_far = 0
+
+    def units(y, ref, err, live):
+        tol = err * scale + 2.0 ** -23 * torch.maximum(y.abs(), ref.abs())
+        return float(((y - ref).abs() / (tol * 1.001))[live].max())
+
+    def worse(acc, key, u):
+        acc[key] = max(acc[key], u)
+
+    rows_blk = max(1, K3_BOUND_ELEMS // (skv * d))
+    for hh in range(bh):
+        kd, vd = k[hh // g].double(), v[hh // g].double()
+        for r_a in range(0, sq, rows_blk):
+            r_b = min(sq, r_a + rows_blk)
+            lo, hi = k3_span(r_a, r_b - r_a, sq, skv, causal, window)
+            o, w = out[hh, r_a:r_b].double(), want[hh, r_a:r_b].double()
+            if hi <= lo:                        # no valid key: the sums are empty
+                worse(out_units, "pv_vs_exact", 0.0 if bool((o == 0).all()) else float("inf"))
+                worse(out_units, "vs_plain", 0.0 if bool((o == w).all()) else float("inf"))
+                continue
+            a, e = lo // 16 * 16, hi            # 16-key steps from a multiple of 16
+            live = valid[r_a:r_b, a:e]
+            qd, kk, vv = q[hh, r_a:r_b].double(), kd[a:e], vd[a:e]
+            dots = qd @ kk.T
+            plain_err = d * 2.0 ** -24 * (qd.abs() @ kk.abs().T)
+            own_err = _mma_dot_bound(qd[None], kk[None])[0] if mma else plain_err
+            s_k, s_p = sc[hh, r_a:r_b, a:e].double(), want_sc[hh, r_a:r_b, a:e].double()
+            worse(worst, "vs_exact", units(s_k, dots * scale, own_err, live))
+            worse(worst, "vs_plain", units(s_k, s_p, own_err + plain_err, live))
+            worse(worst, "plain_vs_exact", units(s_p, dots * scale, plain_err, live))
+            ex32 = (dots.float() * scale).double()  # the exactly rounded dot, scaled in f32
+            n_live += int(live.sum())
+            n_off += int(((s_k != ex32) & live).sum())
+            n_far += int((((s_k - ex32).abs() > K3_SHARE_BF16_ULPS
+                           * _ulp(ex32, torch.bfloat16)) & live).sum())
+            del dots, plain_err, own_err, s_k, s_p, ex32
+            p = pr[hh, r_a:r_b, a:e].to(dtype).double()
+            wp = want_pr[hh, r_a:r_b, a:e].to(dtype).double()
+            n_v = live.sum(-1, keepdim=True).double()
+            if mma:
+                e_k, tol_pv = (t[0, 0] for t in _pv_sums(
+                    pr[hh, r_a:r_b, a:e][None, None], vv[None, :, None], dtype, [[(0, e - a)]],
+                    mma=True))
+            else:
+                e_k, tol_pv = p @ vv, n_v * 2.0 ** -24 * (p.abs() @ vv.abs())
+            tol_out = ((p - wp).abs() @ vv.abs() + tol_pv
+                       + n_v * 2.0 ** -24 * (wp.abs() @ vv.abs()))
+            worse(out_units, "pv_vs_exact", float(((o - e_k).abs()
+                                                   / (tol_pv * 1.001 + 1e-300)).max()))
+            worse(out_units, "vs_plain", float(((o - w).abs() / (tol_out * 1.001 + 1e-300)).max()))
+    res["score_bound_units"] = worst
+    res["output_bound_units"] = out_units
+    res["score_share_differing"] = {"vs_exact": n_off / max(n_live, 1),
+                                    "beyond_quarter_bf16_ulp": n_far / max(n_live, 1)}
+    res["scores_differing"] = int(((sc != want_sc) & valid).sum())
+    res["finite"] = bool(torch.isfinite(out).all())
+    res["max_abs_err"] = float((out - want).abs().max())
+    res["out_rms"] = float(want.double().pow(2).mean().sqrt())
+    return res
+
+
+def k3_case(label, rate, launch_calls, *, B, H, KV, Sq, Skv, D, causal=True, window=0,
+            dtype=torch.bfloat16, seed=0, cfg=None):
+    """K3 against its plain version on one input: the checks of ``k3_checks``
+    must pass (Alg. 1 on its own scores bitwise, scores and outputs within
+    their bounds, in bf16 at most 1 % of scores beyond a quarter of a bf16
+    ulp of the exactly rounded dot); a second run gives the same bits; the
+    kernel writes scores exactly at the key tiles of ``ref.k3_plan``; its
+    shared memory is ``ref.k3_smem_bytes``. Returns its record and adds its
+    call to ``launch_calls`` (``launch_checks``: one CUDA launch of
+    k3_attention a call)."""
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.int_attention import ops
-    from repro_torch.kernels.int_attention.ref import attention_mask, int_attention_ref
+    from repro_torch.kernels.int_attention.ref import (
+        attention_mask, int_attention_ref, k3_plan, k3_smem_bytes, k3_tiles,
+    )
 
+    cfg = cfg or BEST
     gen = torch.Generator("cuda").manual_seed(seed)
     dev = torch.device("cuda")
-    bh, bkv, g = B * H, B * KV, H // KV
+    bh, bkv = B * H, B * KV
     q = torch.randn((bh, Sq, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((bkv, Skv, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((bkv, Skv, D), generator=gen, device=dev).to(dtype)
     kw = dict(causal=causal, window=window)
-    sc = torch.zeros((bh, Sq, Skv), device=dev)
-    pr = torch.zeros_like(sc)
-    out = ops.int_attention_rows(q, k, v, BEST, scores_out=sc, probs_out=pr, **kw)
-    want, want_sc, want_pr = int_attention_ref(q[None], k[None], v[None], BEST,
-                                               return_rows=True, **kw)
-    want = want[0]
+
+    def run():
+        sc = torch.full((bh, Sq, Skv), float("nan"), device=dev)  # unvisited keys stay NaN
+        pr = torch.zeros_like(sc)
+        return ops.int_attention_rows(q, k, v, cfg, scores_out=sc, probs_out=pr, **kw), sc, pr
+
+    before = ops.int_attention_rows.launches
+    got, again = run(), run()
     torch.cuda.synchronize()
-    mask = attention_mask(Sq, Skv, causal, window, device=dev)
-    valid = (torch.ones((Sq, Skv), dtype=torch.bool, device=dev) if mask is None
-             else mask)
-    check(torch.equal(int_softmax_block(sc, valid, BEST), pr),
+    check(ops.int_attention_rows.launches == before + 2, f"K3 {label}: wrapper did not launch")
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again)),
+          f"K3 {label}: a second run gave other bits")
+    del again
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = k3_plan(Sq, Skv, causal, window, *k3_tiles(dtype, D, bh, Sq, sms))
+    check(torch.equal(~torch.isnan(got[1]), plan.visited(Sq, Skv, dev).expand(bh, Sq, Skv)),
+          f"K3 {label}: the kernel's score writes are not the plan's key tiles")
+    smem = ops.smem_bytes(dtype, D, cfg.M)
+    check(smem == k3_smem_bytes(D, dtype, cfg.M),
+          f"K3 {label}: the kernel takes {smem} B of shared memory, the plan says "
+          f"{k3_smem_bytes(D, dtype, cfg.M)}")
+    want, want_sc, want_pr = int_attention_ref(q[None], k[None], v[None], cfg,
+                                               return_rows=True, **kw)
+    res = k3_checks(got, q=q, k=k, v=v, cfg=cfg, want=want[0], want_sc=want_sc,
+                    want_pr=want_pr, **kw)
+    worst, out_units = res["score_bound_units"], res["output_bound_units"]
+    share = res["score_share_differing"]
+    err, rms = res["max_abs_err"], res["out_rms"]
+    check(res["alg1_bitwise"],
           f"K3 {label}: plain Alg. 1 on the kernel's scores != the kernel's probabilities")
-    check(bool(torch.isfinite(out).all()), f"K3 {label}: non-finite output")
-    scale = D ** -0.5
-    worst = {"vs_exact": 0.0, "vs_plain": 0.0, "plain_vs_exact": 0.0}
-    out_units = {"pv_vs_exact": 0.0, "vs_plain": 0.0}
-    n_valid = valid.sum(-1, keepdim=True).double()
-    step = max(1, (1 << 27) // (Sq * Skv))                    # rows of bh per chunk
-    for b0 in range(0, bh, step):
-        sl = slice(b0, min(bh, b0 + step))
-        kr = torch.arange(sl.start, sl.stop, device=dev) // g
-        qd, kd, vd = q[sl].double(), k[kr].double(), v[kr].double()
-        exact = torch.einsum("hqd,hsd->hqs", qd, kd) * scale
-        summed = D * 2.0 ** -24 * torch.einsum("hqd,hsd->hqs", qd.abs(), kd.abs()) * scale
-
-        def units(x, ref, n_sums):
-            tol = n_sums * summed + 2.0 ** -23 * torch.maximum(x.abs(), ref.abs())
-            return float(((x.double() - ref.double()).abs() / (tol * 1.001))[
-                valid.expand(x.shape)].max())
-
-        worst["vs_exact"] = max(worst["vs_exact"], units(sc[sl], exact, 1))
-        worst["vs_plain"] = max(worst["vs_plain"], units(sc[sl], want_sc[sl], 2))
-        worst["plain_vs_exact"] = max(worst["plain_vs_exact"], units(want_sc[sl], exact, 1))
-        del exact, summed
-        p, wp = pr[sl].to(dtype).double(), want_pr[sl].to(dtype).double()
-        e_k = torch.einsum("hqs,hsd->hqd", p, vd)
-        mass = torch.einsum("hqs,hsd->hqd", p.abs(), vd.abs())
-        mass_p = torch.einsum("hqs,hsd->hqd", wp.abs(), vd.abs())
-        dp = torch.einsum("hqs,hsd->hqd", (p - wp).abs(), vd.abs())
-        o, w = out[sl].double(), want[sl].double()
-        tol_pv = n_valid * 2.0 ** -24 * mass
-        tol_out = dp + n_valid * 2.0 ** -24 * (mass + mass_p)
-        out_units["pv_vs_exact"] = max(out_units["pv_vs_exact"],
-                                       float(((o - e_k).abs() / (tol_pv * 1.001 + 1e-300)).max()))
-        out_units["vs_plain"] = max(out_units["vs_plain"],
-                                    float(((o - w).abs() / (tol_out * 1.001 + 1e-300)).max()))
+    check(res["finite"], f"K3 {label}: non-finite output")
     check(worst["vs_exact"] <= 1 and worst["vs_plain"] <= 1, f"K3 {label}: a score is "
           f"outside its bound ({worst}, in units of the bound)")
+    if dtype == torch.bfloat16:
+        check(share["beyond_quarter_bf16_ulp"] <= 0.01,
+              f"K3 {label}: {share['beyond_quarter_bf16_ulp']:.2%} of the scores lie more "
+              "than a quarter of a bf16 ulp from the exactly rounded dot (limit 1 %)")
     check(out_units["pv_vs_exact"] <= 1 and out_units["vs_plain"] <= 1, f"K3 {label}: an "
           f"output is outside its bound ({out_units}, in units of the bound)")
-    err = float((out - want).abs().max())
-    rms = float(want.double().pow(2).mean().sqrt())
-    n_sc = int(((sc != want_sc) & valid).sum())
-    del sc, pr, want_sc, want_pr
+    out = got[0]
+    del got, want_sc, want_pr
     # bound: q, k, v read once and the f32 out written once; operations: the
     # dot and the PV per valid (row, key) at the operand type's rate, Alg. 1
     # per valid score
+    mask = attention_mask(Sq, Skv, causal, window, device=dev)
     esz = torch.finfo(dtype).bits // 8
-    pairs = int(valid.sum()) * bh
+    pairs = (Sq * Skv if mask is None else int(mask.sum())) * bh
     nbytes = (q.numel() + k.numel() + v.numel()) * esz + out.numel() * 4
     bytes_ms = nbytes / rate * 1e3
     op_ms = ops_ms(pairs * 4 * D, dtype, pairs * K1_OPS_PER_ELEMENT)
-    kernel = lambda: ops.int_attention_rows(q, k, v, BEST, **kw)  # noqa: E731
-    plain = lambda: int_attention_ref(q[None], k[None], v[None], BEST, **kw)  # noqa: E731
-    tile = ops.row_tile(Sq, bh, Skv, D, ops.smem_limit(0, dtype),
-                        torch.cuda.get_device_properties(0).multi_processor_count)
+    kernel = lambda: ops.int_attention_rows(q, k, v, cfg, **kw)  # noqa: E731
+    plain = lambda: int_attention_ref(q[None], k[None], v[None], cfg, **kw)  # noqa: E731
     rec = {"shape": label, "B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv, "D": D,
-           "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
-           "row_tile": tile, "ctas": bh * -(-Sq // tile),
+           "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1], "M": cfg.M,
+           "q_tile": plan.q_tile, "k_tile": plan.k_tile, "ctas": plan.ctas(bh),
+           "key_tiles_visited": plan.tiles_visited * bh, "smem_bytes": smem,
+           "repeat_bitwise": True,
            "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
-           "scores_differing": n_sc, "score_bound_units": worst,
-           "output_bound_units": out_units,
+           "scores_differing": res["scores_differing"], "score_share_differing": share,
+           "score_bound_units": worst, "output_bound_units": out_units,
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
            "call_ms": call_ms(kernel, 10), "bound_ms": max(bytes_ms, op_ms),
            "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
     print(f"K3 {label:<34} B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} D={D} causal={causal} "
-          f"w={window} {rec['dtype']} tile={tile} ({rec['ctas']} CTAs): Alg. 1 on own "
-          f"scores bitwise; scores differing {n_sc} (worst, in units of the bound: {worst}), "
-          f"outputs (worst, in units of the bound: {out_units}), max abs err {err:.3e} = "
-          f"{err / rms:.3e} of the output's RMS {rms:.3e}; device ms: kernel "
-          f"{rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} "
-          f"({rec['bound_by']}, {rec['bound_ms'] / rec['ms'] * 100:.1f}% of it); eager call "
-          f"{rec['call_ms']:.4f}", flush=True)
+          f"w={window} {rec['dtype']} M={cfg.M}: plan q tile {plan.q_tile} x key tile "
+          f"{plan.k_tile} ({rec['ctas']} CTAs, {rec['key_tiles_visited']} key tiles, {smem} B "
+          f"shared); Alg. 1 on own scores "
+          f"bitwise; repeat bitwise; scores differing from plain {res['scores_differing']} "
+          f"(worst, in units of the bound: {worst}; share off the exactly rounded dot "
+          f"{share['vs_exact']:.4%}, beyond a quarter bf16 ulp "
+          f"{share['beyond_quarter_bf16_ulp']:.4%}), outputs (worst, in units of the bound: "
+          f"{out_units}), max abs err {err:.3e} = {err / rms:.3e} of the output's RMS "
+          f"{rms:.3e}; device ms: kernel {rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound "
+          f"{rec['bound_ms']:.4f} ({rec['bound_by']}, {rec['bound_ms'] / rec['ms'] * 100:.1f}% "
+          f"of it); eager call {rec['call_ms']:.4f}", flush=True)
+    launch_calls.append((f"K3 {label}", kernel, "k3_attention", rec))
     return rec
 
 
 def phase12_k3(rate):
     """K3 (the stand-alone fused prefill attention) against its plain
-    version on the reference's kernel matrix and at full widths; then its
-    path: ``int_attention`` called as a user calls it, at olmo-1b's prefill
-    width, with the launch count read around it."""
-    from repro_torch.core.precision import BEST
+    version on the reference's kernel matrix, at full widths and at the
+    shapes the whole-row design refused or ran slowest; then its path:
+    ``int_attention`` called as a user calls it, at olmo-1b's prefill width,
+    with the launch count read around it."""
+    from repro_torch.core.precision import BEST, PrecisionConfig
     from repro_torch.kernels.int_attention import ops
 
+    # the kernel's branch-free division by S against IEEE division, over
+    # every f32 value x - m it may divide, at each config phase 12 runs
+    m15 = PrecisionConfig(M=15, T_C=-1.0, P_out_override=24)
+    m4 = PrecisionConfig(M=4, T_C=-4.0)
+    for name, cfg in (("BEST", BEST), ("M=15", m15), ("M=4 T_C=-4", m4)):
+        bad = ops.division_mismatches(cfg)
+        check(bad == 0, f"K3: {bad} values in [T_C, 0] get another exp index from the "
+              f"branch-free division at {name}")
+        print(f"K3 division at {name}: every f32 in [{cfg.T_C}, 0] gets the exp index of "
+              "IEEE division (0 differ)", flush=True)
     prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    recs = []
+    recs, calls = [], []
+
+    def case(label, **kw):
+        recs.append(k3_case(label, rate, calls, **kw))
+
     # tests/test_kernels.py:61-101: f32, causal on and off, a window, bf16
     for i, (b, h, kv, sq, skv, d) in enumerate([(2, 4, 2, 64, 64, 32), (1, 8, 8, 96, 96, 64),
                                                 (2, 4, 1, 33, 33, 32), (1, 2, 2, 16, 64, 32)]):
         for causal in (True, False):
-            recs.append(k3_case(f"reference {b}x{h}/{kv}x{sq}x{skv}x{d} causal={causal}",
-                                rate, B=b, H=h, KV=kv, Sq=sq, Skv=skv, D=d, causal=causal,
-                                dtype=torch.float32, seed=10 * i + causal))
-    recs.append(k3_case("reference window 16", rate, B=1, H=4, KV=2, Sq=64, Skv=64, D=32,
-                        window=16, dtype=torch.float32, seed=100))
-    recs.append(k3_case("reference bf16 inputs", rate, B=1, H=4, KV=4, Sq=32, Skv=32, D=32,
-                        seed=101))
-    recs.append(k3_case("olmo-1b prefill (main)", rate, B=4, H=16, KV=16, Sq=512, Skv=512,
-                        D=128, seed=102))
-    recs.append(k3_case("4096-token prefill", rate, B=1, H=16, KV=16, Sq=4096, Skv=4096,
-                        D=128, seed=103))
-    recs.append(k3_case("GQA H 32 KV 8, 2048 tokens", rate, B=1, H=32, KV=8, Sq=2048,
-                        Skv=2048, D=128, seed=104))
+            case(f"reference {b}x{h}/{kv}x{sq}x{skv}x{d} causal={causal}", B=b, H=h, KV=kv,
+                 Sq=sq, Skv=skv, D=d, causal=causal, dtype=torch.float32, seed=10 * i + causal)
+    case("reference window 16", B=1, H=4, KV=2, Sq=64, Skv=64, D=32, window=16,
+         dtype=torch.float32, seed=100)
+    case("reference bf16 inputs", B=1, H=4, KV=4, Sq=32, Skv=32, D=32, seed=101)
+    case("olmo-1b prefill (main)", B=4, H=16, KV=16, Sq=512, Skv=512, D=128, seed=102)
+    case("4096-token prefill", B=1, H=16, KV=16, Sq=4096, Skv=4096, D=128, seed=103)
+    case("GQA H 32 KV 8, 2048 tokens", B=1, H=32, KV=8, Sq=2048, Skv=2048, D=128, seed=104)
+    # the tiles' edges: a right-aligned tail, ragged query tiles, a window,
+    # rows that see no key, d 64 and d 256 (Q in shared memory), f32 at d
+    # 256, M=15 (no exp table), and a context the whole-row design refused
+    case("128-token tail on 512 keys", B=1, H=16, KV=16, Sq=128, Skv=512, D=128, seed=105)
+    case("ragged Sq 1000", B=2, H=16, KV=16, Sq=1000, Skv=1000, D=128, seed=106)
+    case("4096 tokens, window 1024", B=1, H=16, KV=16, Sq=4096, Skv=4096, D=128, window=1024,
+         seed=107)
+    case("bf16 at d 64, GQA 8/2", B=2, H=8, KV=2, Sq=512, Skv=512, D=64, seed=108)
+    case("Sq 40 on Skv 32 (all-masked rows)", B=1, H=4, KV=4, Sq=40, Skv=32, D=128, seed=109)
+    case("bf16 at d 256, not causal", B=1, H=4, KV=4, Sq=200, Skv=300, D=256, causal=False,
+         seed=110)
+    case("f32 at d 256, window 5", B=1, H=2, KV=1, Sq=100, Skv=130, D=256, window=5,
+         dtype=torch.float32, seed=111)
+    case("bf16 at d 24, M=15 (no exp table)", B=1, H=4, KV=2, Sq=70, Skv=90, D=24, seed=112,
+         cfg=m15)
+    case("64 queries on 65536 keys", B=1, H=4, KV=4, Sq=64, Skv=65536, D=128, seed=113)
+    launch_checks("K3", calls)
+    del calls
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     # the stand-alone path, as a user calls it
     gen = torch.Generator("cuda").manual_seed(102)
@@ -1996,6 +2195,74 @@ def k4_fault_control():
     return results
 
 
+def _bf16_rounded(scores_fn):
+    return lambda q, k: scores_fn(q, k).to(torch.bfloat16).float()
+
+
+def k3_fault_control():
+    """K3's checks (phase 12's k3_checks) against known faults of its
+    passes: the plain tiled version (``ref.int_attention_tiled``) at
+    olmo-1b's prefill shape over the bf16 kernel's tiles, cleanly and with
+    each key tile quantizing against its own max, with one key tile's PV
+    dropped and with its scores rounded to bf16, stands in for the kernel.
+    Fails if the clean run fails a check or a fault passes them; prints
+    which checks catch each."""
+    from repro_torch.core.precision import BEST
+    from repro_torch.kernels.int_attention import ref
+    from repro_torch.kernels.int_softmax import ref as k1_ref
+
+    gen = torch.Generator("cuda").manual_seed(102)
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    B, H, S, D = 4, 16, 512, 128
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    kw = dict(causal=True, window=0)
+    want = ref.int_attention_ref(q, k, v, BEST, return_rows=True, **kw)
+    faults = {  # (module, attribute, replacement from the original)
+        "each key tile quantizes against its own max": (
+            k1_ref, "split_row_max", lambda f: _own_chunk_max),
+        "one key tile's PV dropped": (ref, "combine_partials", lambda f: _last_partial_dropped),
+        "scores rounded to bf16": (ref, "attention_scores", _bf16_rounded),
+    }
+    rows = lambda x: x.reshape(B * H, S, D)  # noqa: E731
+    tiles = ref.k3_tiles(torch.bfloat16, D, B * H, S,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+    results = {}
+    for fault, (mod, attr, make) in [("clean", (None, None, None))] + list(faults.items()):
+        saved = getattr(mod, attr) if mod else None
+        if mod:
+            setattr(mod, attr, make(saved))
+        try:
+            out, sc, pr = ref.int_attention_tiled(q, k, v, BEST, q_tile=tiles[0],
+                                                  k_tile=tiles[1], return_rows=True, **kw)
+        finally:
+            if mod:
+                setattr(mod, attr, saved)
+        res = k3_checks((rows(out), sc, pr), q=rows(q), k=rows(k), v=rows(v), cfg=BEST,
+                        want=rows(want[0]), want_sc=want[1], want_pr=want[2], **kw)
+        units = {**res["score_bound_units"], **{f"out_{n}": u for n, u in
+                                                 res["output_bound_units"].items()}}
+        caught = (["alg1_bitwise"] if not res["alg1_bitwise"] else []) + [
+            n for n, u in units.items() if n != "plain_vs_exact" and u > 1]
+        share = res["score_share_differing"]["beyond_quarter_bf16_ulp"]
+        if share > 0.01:
+            caught.append("score_share")
+        results[fault] = {"caught_by": caught, "bound_units": units, "score_share": share}
+        print(f"  K3 tiled (q tile {tiles[0]}, key tile {tiles[1]}), {fault}: caught by "
+              f"{caught or 'nothing'}; in units of the bounds {units}; share beyond a "
+              f"quarter bf16 ulp {share:.4%}", flush=True)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    check(not results["clean"]["caught_by"], f"the clean K3 tiled version fails: {results}")
+    own, drop, bf16 = (results[f] for f in faults)
+    check("alg1_bitwise" in own["caught_by"],
+          "K3: the bitwise Alg.-1 check misses per-tile maxima")
+    check(drop["bound_units"]["out_pv_vs_exact"] > 100,
+          "K3: the PV bound misses a dropped key tile by less than 100x")
+    check("score_share" in bf16["caught_by"], "K3: the score share misses bf16 scores")
+    return results
+
+
 class _OpCount(TorchDispatchMode):
     """Counts the aten ops dispatched while active."""
 
@@ -2043,11 +2310,12 @@ def main():
         k1_results = k1_fault_control()
         k2_results = k2_fault_control()
         k4_results = k4_fault_control()
+        k3_results = k3_fault_control()
         results = fault_control()
         print(f"fault control: {time.perf_counter() - t0:.1f} s", flush=True)
         print(card, flush=True)
         print(json.dumps({"k1_fault_control": k1_results, "k2_fault_control": k2_results,
-                          "k4_fault_control": k4_results,
+                          "k4_fault_control": k4_results, "k3_fault_control": k3_results,
                           "fault_control": results}), flush=True)
         return
 
@@ -2131,6 +2399,13 @@ def main():
         "name": "int_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_attention.cu",
         "replaces": "src/repro/kernels/int_attention/kernel.py:63",
+        "design": "one CTA per (head, query tile of ref.k3_tiles) over the key tiles of "
+                  "ref.k3_plan in three exact Alg.-1 passes (row max, int64 sums, "
+                  "probabilities and PV) that recompute QK^T; bf16 up to d 128: QK^T on "
+                  "wgmma (Q in registers), PV on mma.sync with P repacked in registers, "
+                  "Q/K/V tiles by TMA; exp by a table, a branch-free division by S, a "
+                  "reciprocal per row; no cap on context",
+        "q_tile": k3_main["q_tile"], "k_tile": k3_main["k_tile"],
         "launches": k3_launches,   # its stand-alone path; 0 on the serve paths
         "launches_on_serve_paths": served["launches"]["K3"] + mla["launches"]["K3"]
         + served_int8["launches"]["K3"],

@@ -128,6 +128,61 @@ __device__ __forceinline__ float alg1_prob_row(int v_approx, const Alg1RowDiv& d
   return __int2float_rn(static_cast<int>(code)) * __int_as_float((127 - c.P_out) << 23);
 }
 
+// The row's divisor from its exact integer sum: total = max(min(sum,
+// sum_sat), 1), the reference's saturating tree in any order.
+__device__ __forceinline__ Alg1RowDiv alg1_sum_div(long long sum, const Alg1Consts& c) {
+  const long long clipped = sum < c.sum_sat ? sum : c.sum_sat;
+  return alg1_row_div(clipped > 1 ? static_cast<int>(clipped) : 1, c);
+}
+
+// A split row (K1's clusters, K3's key tiles) needs no integer max pass: the
+// integer row max is the code of the fp row max, 0 for a row with a valid
+// score above ALG1_NEG_INF (quantize is monotone). Where every valid score
+// is at or below it, the guarded max 0 puts them all on the floor code and
+// their stable codes are 0. alg1_guard turns the fp row max m over valid
+// scores into the guarded max and `off`, the integer max's distance below 0
+// (0, or 2^(M-1) in a guarded row).
+__device__ __forceinline__ void alg1_guard(float& m, int& off, const Alg1Consts& c) {
+  const bool guarded = m <= ALG1_NEG_INF;
+  off = guarded ? 1 << (c.M - 1) : 0;
+  m = guarded ? 0.0f : m;
+}
+
+// -v_stable = -(alg1_quantize(x, m) - vmax) for the guarded max m and `off`
+// of alg1_guard, clamped at 0 (an invalid score may sit above a guarded
+// row's floor; its exp code is dropped). rint is the 1.5 * 2^23 magic add:
+// round-half-even in the add, exact while |x - m| / S <= 2^22, and
+// (x - m) / S >= T_C / S = -2^(M-1) needs no floor clamp.
+__device__ __forceinline__ int alg1_exp_index(float x, float m, int off, const Alg1Consts& c) {
+  const float xs = fminf(fmaxf(x - m, c.T_C), 0.0f);
+  const float q = __fadd_rn(__fdiv_rn(xs, c.S), 12582912.0f);  // rint(xs / S) + 1.5 2^23
+  return max(0x4B400000 - __float_as_int(q) - off, 0);
+}
+
+// alg1_exp_index with the division by S as a product by y = RN(1/S)
+// (__frcp_rn, once a thread) and one FMA correction, with no branch
+// (__fdiv_rn carries a slow-path branch per element). Markstein's theorem:
+// y within half an ulp of 1/S and q0 = RN(xs y) within an ulp of xs / S
+// make r = xs - q0 S exact and RN(q0 + r y) = RN(xs / S), barring
+// underflow, which only |xs / S| < 2^-100 meets, and those give code 0
+// either way. K3's wrapper checks it against alg1_exp_index on the card
+// over every f32 in [T_C, 0] (int_attention_check_division).
+__device__ __forceinline__ int alg1_exp_index_rcp(float x, float m, int off, float rcp_s,
+                                                  const Alg1Consts& c) {
+  const float xs = fminf(fmaxf(x - m, c.T_C), 0.0f);
+  const float q0 = __fmul_rn(xs, rcp_s);
+  const float q = __fmaf_rn(__fmaf_rn(-c.S, q0, xs), rcp_s, q0);
+  return max(0x4B400000 - __float_as_int(__fadd_rn(q, 12582912.0f)) - off, 0);
+}
+
+// table[i] = alg1_exp(-i) for the 2^(M-1) + 1 stable codes -i, built by the
+// block's threads (TABLE false: nothing; the caller computes alg1_exp).
+template <bool TABLE>
+__device__ __forceinline__ void alg1_build_table(int* table, const Alg1Consts& c) {
+  if (!TABLE) return;
+  for (int i = threadIdx.x; i <= (1 << (c.M - 1)); i += blockDim.x) table[i] = alg1_exp(-i, c);
+}
+
 // Block-wide reductions over blockDim.x threads (a multiple of 32); every
 // thread returns the result. `scratch` holds 32 values in shared memory.
 template <typename T, typename Op>

@@ -113,9 +113,7 @@ struct Slice {
     long long sum = 0;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const float xs = fminf(fmaxf(x[e] - m, c.T_C), 0.0f);
-      const float q = __fadd_rn(__fdiv_rn(xs, c.S), 12582912.0f);  // rint(xs / S) + 1.5 2^23
-      const int idx = max(0x4B400000 - __float_as_int(q) - off, 0);  // -(code - vmax)
+      const int idx = alg1_exp_index(x[e], m, off, c);
       const int va = ok(e) ? (TABLE ? table[idx] : alg1_exp(-idx, c)) : 0;
       sum += va;
       x[e] = __int_as_float(va);
@@ -150,13 +148,6 @@ struct Slice {
   }
 };
 
-// table[i] = alg1_exp(-i) for the 2^(M-1) + 1 stable codes -i.
-template <bool TABLE>
-__device__ __forceinline__ void build_table(int* table, const Alg1Consts& c) {
-  if (!TABLE) return;
-  for (int i = threadIdx.x; i <= (1 << (c.M - 1)); i += blockDim.x) table[i] = alg1_exp(-i, c);
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -169,18 +160,6 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
-// The guarded row max and the integer max's offset (see the file's note).
-__device__ __forceinline__ void guard(float& m, int& off, const Alg1Consts& c) {
-  const bool guarded = m <= ALG1_NEG_INF;
-  off = guarded ? 1 << (c.M - 1) : 0;
-  m = guarded ? 0.0f : m;
-}
-
-__device__ __forceinline__ Alg1RowDiv row_div(long long sum, const Alg1Consts& c) {
-  const long long clipped = sum < c.sum_sat ? sum : c.sum_sat;
-  return alg1_row_div(clipped > 1 ? static_cast<int>(clipped) : 1, c);
-}
-
 // ------------------------------------------------------------ rows layout
 
 template <int E, bool VEC, bool TABLE>
@@ -188,7 +167,7 @@ __global__ void __launch_bounds__(256)
 k1_rows(const float* __restrict__ x, const uint8_t* __restrict__ mask,
         float* __restrict__ out, int rows, int cols, Alg1Consts c) {
   extern __shared__ int table[];
-  build_table<TABLE>(table, c);
+  alg1_build_table<TABLE>(table, c);
   __syncthreads();
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -200,9 +179,9 @@ k1_rows(const float* __restrict__ x, const uint8_t* __restrict__ mask,
   s.load(x + base, mr, 0, cols, lane, 32);
   float m = warp_max(s.max_valid());
   int off;
-  guard(m, off, c);
+  alg1_guard(m, off, c);
   const long long sum = warp_sum(s.template exp_codes<TABLE>(m, off, table, c));
-  s.store(out + base, 0, cols, lane, 32, row_div(sum, c), c);
+  s.store(out + base, 0, cols, lane, 32, alg1_sum_div(sum, c), c);
 }
 
 // ----------------------------------------------------------- split layout
@@ -231,7 +210,7 @@ k1_split(const float* __restrict__ x, const uint8_t* __restrict__ mask,
   __shared__ float cta_max;
   __shared__ long long cta_sum;
   cg::cluster_group cluster = cg::this_cluster();
-  build_table<TABLE>(table, c);
+  alg1_build_table<TABLE>(table, c);
 
   const int row = blockIdx.x / cluster.num_blocks();
   const int begin = cluster.block_rank() * kSplitThreads * E;
@@ -247,7 +226,7 @@ k1_split(const float* __restrict__ x, const uint8_t* __restrict__ mask,
   cluster.sync();  // also publishes the table
   m = cluster_combine(cluster, &cta_max, ALG1_NEG_INF, Alg1MaxF());
   int off;
-  guard(m, off, c);
+  alg1_guard(m, off, c);
   // pass 2: chunk int64 sums -> the row sum, clipped once
   long long sum =
       alg1_block_reduce(s.template exp_codes<TABLE>(m, off, table, c), Alg1SumLL(), part_sum);
@@ -257,7 +236,7 @@ k1_split(const float* __restrict__ x, const uint8_t* __restrict__ mask,
   // no CTA leaves while another may still read its shared memory
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   // pass 3: the division
-  s.store(out + base, begin, end, threadIdx.x, kSplitThreads, row_div(sum, c), c);
+  s.store(out + base, begin, end, threadIdx.x, kSplitThreads, alg1_sum_div(sum, c), c);
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 

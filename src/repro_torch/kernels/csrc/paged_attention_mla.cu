@@ -109,6 +109,7 @@
 
 #include "alg1.cuh"
 #include "paged_common.cuh"
+#include "tensor_core.cuh"
 
 // Shapes of one launch (mirrored by ctypes in
 // repro_torch/kernels/paged_attention/ops.py:MlaShape).
@@ -149,38 +150,6 @@ template <typename T>
 struct Stage {
   static constexpr int kKeys = sizeof(T) == 2 ? 32 : 16;
 };
-
-// ------------------------------------------------------------ tensor cores
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-// two 8x8 b16 matrices (lanes 0-15 give the row addresses)
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-// d += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // ------------------------------------------------------------ layout
 

@@ -1,6 +1,7 @@
-// Pieces K2 (paged_attention.cu) and K4 (paged_attention_mla.cu) share: the
-// compute-dtype conversions, 16-byte cp.async page loads, programmatic
-// dependent launches, and the opt-in shared-memory raise.
+// Pieces K2 (paged_attention.cu), K3 (int_attention.cu) and K4
+// (paged_attention_mla.cu) share: the compute-dtype conversions, 16-byte
+// cp.async loads, programmatic dependent launches, and the opt-in
+// shared-memory raise.
 #pragma once
 
 #include <cstddef>
@@ -44,6 +45,10 @@ __device__ __forceinline__ void cp_async_commit() {
 // all but the newest group have landed (for this thread)
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// every group has landed (for this thread)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Programmatic dependent launch: a kernel launched with programmatic stream

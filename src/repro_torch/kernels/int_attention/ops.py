@@ -4,8 +4,11 @@ Port of ``src/repro/kernels/int_attention/ops.py:int_attention_pallas``
 (model layout ``[B, H, S, D]``) over ``kernel.py:int_attention_kernel``
 (the ``[B * H, Sq, D]`` launch). A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises: there is no
-fallback. ``int_attention_rows.launches`` counts kernel launches. The model
-does not call K3 (nor does the reference's): it is a stand-alone op.
+fallback. The kernel runs one CTA per (head, tile of query rows) over the
+key tiles of ``ref.k3_plan`` (tiles of ``ref.k3_tiles``); its shared memory
+depends on d alone, so the context has no cap. ``int_attention_rows.launches`` counts kernel
+launches. The model does not call K3 (nor does the reference's): it is a
+stand-alone op.
 """
 
 from __future__ import annotations
@@ -17,10 +20,8 @@ import torch
 
 from repro_torch.core.precision import BEST, PrecisionConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.int_attention.ref import int_attention_ref
+from repro_torch.kernels.int_attention.ref import K3_MAX_D, int_attention_ref, k3_tiles
 from repro_torch.kernels.int_softmax.ops import Alg1Consts, alg1_consts
-
-MAX_D, MAX_ROW_TILE = 256, 16
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -29,48 +30,46 @@ class AttnShape(ctypes.Structure):
     """Mirror of ``struct AttnShape`` in ``csrc/int_attention.cu``."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "BH", "group", "Sq", "Skv", "D", "causal", "window", "row_tile")] + [
+        "BH", "group", "Sq", "Skv", "D", "causal", "window", "q_tile", "k_tile")] + [
         ("scale", ctypes.c_float)]
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """``csrc/int_attention.cu`` loaded, its two entry points typed once."""
+    """``csrc/int_attention.cu`` loaded, its entry points typed once."""
     lib = build.load("int_attention")
     lib.int_attention_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, AttnShape, Alg1Consts, ctypes.c_void_p]
     lib.int_attention_launch.restype = ctypes.c_int
-    lib.int_attention_smem_limit.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.int_attention_smem_limit.restype = ctypes.c_int
+    lib.int_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.int_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.int_attention_check_division.argtypes = [Alg1Consts, ctypes.c_void_p, ctypes.c_void_p]
+    lib.int_attention_check_division.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def smem_limit(device: int, dtype) -> int:
-    """The dynamic shared memory a K3 CTA may take on card ``device``, as the
-    library computes it (the opt-in limit less its static scratch)."""
-    limit = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = _library().int_attention_smem_limit(_DTYPES[dtype], ctypes.byref(limit))
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def smem_bytes(dtype, d: int, m: int) -> int:
+    """The dynamic shared memory of one K3 CTA as the library computes it
+    (``chip_smoke.py`` holds it against ``ref.k3_smem_bytes``)."""
+    return _library().int_attention_smem_bytes(_DTYPES[dtype], d, m)
+
+
+def division_mismatches(cfg: PrecisionConfig, device=None) -> int:
+    """How many f32 values x - m in [T_C, 0] get another exp index from the
+    kernel's branch-free division by S than from IEEE division
+    (``alg1.cuh:alg1_exp_index_rcp`` against ``alg1_exp_index``), counted
+    over all of them on the card. ``chip_smoke.py`` requires 0."""
+    count = torch.zeros(1, dtype=torch.int64, device=device or "cuda")
+    rc = _library().int_attention_check_division(
+        alg1_consts(cfg), count.data_ptr(), torch.cuda.current_stream(count.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"int_attention shared-memory query failed: CUDA error {rc}")
-    return limit.value
-
-
-def row_tile(sq: int, bh: int, skv: int, d: int, limit: int, sms: int) -> int:
-    """Query rows per K3 CTA, a power of two (the kernel's template
-    parameter): the largest that still lets the grid (B*H x row tiles)
-    cover the ``sms`` SMs, at most ``MAX_ROW_TILE``, and at most what fits
-    ``limit`` bytes of shared memory (each row keeps its f32 scores over
-    all ``skv`` keys and its f32 query). Raises when one row does not
-    fit."""
-    per_row = 4 * (skv + d)
-    if limit < per_row:
-        raise ValueError(
-            f"fused prefill attention over {skv} keys needs {per_row} B of shared "
-            f"memory for one query row > {limit} B; split the keys")
-    most = min(MAX_ROW_TILE, limit // per_row, sq, -(-sq * bh // sms))
-    return 1 << (max(most, 1).bit_length() - 1)
+        raise RuntimeError(f"int_attention division check failed: CUDA error {rc}")
+    return int(count.item())
 
 
 def int_attention_rows(q, k, v, cfg: PrecisionConfig, *, causal: bool = True,
@@ -78,8 +77,8 @@ def int_attention_rows(q, k, v, cfg: PrecisionConfig, *, causal: bool = True,
     """q [BH, Sq, D]; k, v [BKV, Skv, D] in q's dtype (bf16 or f32), BH a
     multiple of BKV (row bh reads kv row bh // (BH / BKV)) -> f32 [BH, Sq,
     D]. ``scores_out`` / ``probs_out``: optional f32 [BH, Sq, Skv] tensors
-    the kernel fills with the scores and Alg.-1 probabilities of the keys
-    it visits (zero them first; the chip smoke test's check)."""
+    the kernel fills with the scores and Alg.-1 probabilities of the key
+    tiles it visits (zero them first; the chip smoke test's check)."""
     bh, sq, d = q.shape
     bkv, skv = k.shape[:2]
     if k.shape != (bkv, skv, d) or v.shape != (bkv, skv, d) or bkv < 1 or bh % bkv:
@@ -101,8 +100,8 @@ def int_attention_rows(q, k, v, cfg: PrecisionConfig, *, causal: bool = True,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must share bf16 or f32, got "
                          f"{[x.dtype for x in (q, k, v)]}")
-    if d > MAX_D or d % 8:
-        raise ValueError(f"head dim {d} must be a multiple of 8 within {MAX_D}")
+    if d > K3_MAX_D or d % 8:
+        raise ValueError(f"head dim {d} must be a multiple of 8 within {K3_MAX_D}")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     for dbg in debug:
@@ -110,11 +109,11 @@ def int_attention_rows(q, k, v, cfg: PrecisionConfig, *, causal: bool = True,
                                 or dbg.device != dev or not dbg.is_contiguous()):
             raise ValueError("scores_out / probs_out must be contiguous f32 [BH, Sq, Skv] "
                              "on the queries' card")
-    tile = row_tile(sq, bh, skv, d, smem_limit(dev.index, q.dtype),
-                    torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((bh, sq, d), dtype=torch.float32, device=dev)
+    q_tile, k_tile = k3_tiles(q.dtype, d, bh, sq, _sms(dev.index))
     shape = AttnShape(BH=bh, group=bh // bkv, Sq=sq, Skv=skv, D=d, causal=int(causal),
-                      window=window if causal else 0, row_tile=tile, scale=d ** -0.5)
+                      window=window if causal else 0, q_tile=q_tile, k_tile=k_tile,
+                      scale=d ** -0.5)
     ptr = [None if x is None else x.data_ptr() for x in (q, k, v, out) + debug]
     rc = _library().int_attention_launch(*ptr, _DTYPES[q.dtype], shape, alg1_consts(cfg),
                                          torch.cuda.current_stream(dev).cuda_stream)

@@ -6,8 +6,9 @@ on the matrix of ``tests/test_kernels.py:61-101``: causal on and off, a
 window, GQA, bf16 inputs. Tolerances are the reference's: 5e-3 in f32 (a
 product summed in another order can move a score across a rounding
 boundary of the M-bit grid); for bf16 inputs 2e-2 against the oracle on
-f32-upcast inputs. Also the wrapper's shape errors and row tiles, and a
-``cuda`` case that holds the CUDA kernel against its plain version.
+f32-upcast inputs. Also the wrapper's shape errors, and a ``cuda`` case
+that holds the CUDA kernel against its plain version (the kernel's tiled
+passes are checked on the CPU in ``test_torch_int_attention_split.py``).
 """
 
 import numpy as np
@@ -122,19 +123,21 @@ def test_wrapper_rejects_bad_shapes():
                                torch.zeros((2, 8, 16)), BEST)
 
 
-@pytest.mark.parametrize("sq,bh,skv,d,limit,want", [
-    (512, 64, 512, 128, 232448 - 1024, 16),     # olmo-1b prefill: 2.5 KB a row
-    (4096, 16, 4096, 128, 232448 - 1024, 8),    # 16.9 KB a row: 13 fit
-    (2048, 32, 2048, 128, 232448 - 1024, 16),
-    (8, 1, 64, 32, 232448, 1),                  # 8 rows on 132 SMs: one a CTA
-])
-def test_row_tile(sq, bh, skv, d, limit, want):
-    assert ops.row_tile(sq, bh, skv, d, limit, 132) == want
+# A tensor-core step of 16 products (mma.sync / wgmma, f32 accumulate) is
+# bounded as fused sums that keep 24 bits of their largest addend and
+# truncate: MMA_UNIT of (|partial before| + sum |products|) a step
+# (chip_smoke.py:MMA_UNIT).
+MMA_UNIT = 32 * 2.0 ** -23 * (1 + 2.0 ** -8)
 
 
-def test_row_tile_raises_past_one_row():
-    with pytest.raises(ValueError, match="one query row"):
-        ops.row_tile(16, 1, 65536, 128, 232448, 132)
+def _mma_steps_bound(terms):
+    """terms [..., n, X] (f64) summed over n, 16 a step from the first ->
+    the bound of the tensor cores' f32 sum, [..., X]."""
+    pad = (-terms.shape[-2]) % 16
+    steps = torch.nn.functional.pad(terms, (0, 0, 0, pad)).unflatten(-2, (-1, 16))
+    step, mass = steps.sum(-2), steps.abs().sum(-2)
+    before = torch.cumsum(step, -2) - step
+    return MMA_UNIT * (before.abs() + mass).sum(-2)
 
 
 @pytest.mark.cuda
@@ -143,9 +146,11 @@ def test_row_tile_raises_past_one_row():
 def test_kernel_matches_plain_on_card(dtype, causal, window, kvh):
     """The CUDA kernel against its plain version: the plain Alg. 1 on the
     kernel's own scores gives its probabilities bitwise; scores within the
-    f32 summation bound of the plain version's (2 d 2^-24 sum |q_i k_i| and
-    two roundings); outputs within the f32 summation bound over the valid
-    keys (2 n 2^-24 sum |p| |v|) plus sum_j |p_j - p'_j| |v_j|."""
+    kernel's summation bound plus the plain version's (d 2^-24 sum |q_i k_i|
+    for an f32 sum; bf16 on tensor cores: MMA_UNIT a 16-deep step) and two
+    roundings; outputs within both sides' summation bounds (f32: n 2^-24 sum
+    |p| |v| over the n valid keys; bf16: MMA_UNIT a 16-key step in key
+    order) plus sum_j |p_j - p'_j| |v_j|."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.core.alg1 import int_softmax_block
@@ -166,11 +171,16 @@ def test_kernel_matches_plain_on_card(dtype, causal, window, kvh):
     assert torch.equal(int_softmax_block(sc, valid, BEST), pr)
     kg = k.double().repeat_interleave(h // kvh, dim=0)
     vg = v.double().repeat_interleave(h // kvh, dim=0)
-    qk = torch.einsum("hqd,hsd->hqs", q.double().abs(), kg.abs())
-    tol = 2 * d * 2.0 ** -24 * qk * d ** -0.5 + 2 ** -22 * sc.abs()
+    qd = q.double()
+    plain = d * 2.0 ** -24 * torch.einsum("hqd,hsd->hqs", qd.abs(), kg.abs())
+    own = (_mma_steps_bound((qd[:, :, None] * kg[:, None]).transpose(-1, -2)[..., None])[..., 0]
+           if dtype == torch.bfloat16 else plain)
+    tol = (own + plain) * d ** -0.5 + 2 ** -22 * sc.abs()
     assert bool(((sc - wsc).abs() <= tol)[valid].all())
     p, wp = pr.to(dtype).double(), wpr.to(dtype).double()
     n = valid.sum(-1, keepdim=True).double()
-    tol_out = (2 * n * 2.0 ** -24 * torch.einsum("hqs,hsd->hqd", p.abs(), vg.abs())
-               + torch.einsum("hqs,hsd->hqd", (p - wp).abs(), vg.abs()))
+    plain_pv = n * 2.0 ** -24 * torch.einsum("hqs,hsd->hqd", wp.abs(), vg.abs())
+    own_pv = (_mma_steps_bound(p[..., None] * vg[:, None]) if dtype == torch.bfloat16
+              else n * 2.0 ** -24 * torch.einsum("hqs,hsd->hqd", p.abs(), vg.abs()))
+    tol_out = own_pv + plain_pv + torch.einsum("hqs,hsd->hqd", (p - wp).abs(), vg.abs())
     assert bool(((out.double() - want[0].double()).abs() <= tol_out * 1.001 + 1e-30).all())
