@@ -42,9 +42,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    truncating tensor-core sums) and a second run bitwise equal (and K1 at
    the MLA path's shapes in phase 3);
 8. the MLA serve path: full-width minicpm3-4b (62 layers, d_model 2560, 40
-   heads, latent rank 256) through ``Engine.serve`` as in phase 6 on a
-   16-request shared-prefix trace: K4 must launch 62 x steps times, K1 62 x
-   16 and K2 never; the checks of phase 6 and one warm timing per kernel;
+   heads, latent rank 256) through ``Engine.serve`` as in phase 6 on an
+   8-request shared-prefix trace: K4 must launch 62 x steps times, K1 62 x
+   8 and K2 never; the checks of phase 6 and one warm timing per kernel;
 9. K2's int8 branch against its plain version: the serve decode shape with
    absmax and with power-of-two (exaq) scales, sentinels and parked slots,
    4096-token rows, f32 compute, a 32768-token row; phase 5's checks;
@@ -73,7 +73,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     kernel's key-order sum (bf16: 16 keys a tensor-core step) and of the
     plain version's; then ``int_attention`` as a user calls it, launching
     K3 once;
-13. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+13. chunked prefill and priority preemption: phase 6's trace with every
+    fourth request in class 0 and the rest in class 1, served with phase
+    6's options plus ``prefill_chunk=128`` and ``preemption=True`` from a
+    pool of six requests' worst case, once from the bf16 pool and once
+    from the int8 pool, each against phase 6's plain serve of the same
+    trace from the same pool. Gates: preemptions >= 1 and as many resumes,
+    no leaked blocks, at most 128 prompt tokens a step (beyond a resume's
+    re-prefill of evicted blocks), cost shares summing to the batch meter,
+    K2 16 x steps launches (on int8 pools only in the int8 run), K1 16 x
+    the prefill pieces worked out from the trace, greedy tokens equal to
+    the plain serve's but at near ties, served logits within phase 6's
+    limits of a teacher-forced pass and, step by step, of the plain
+    serve's. Beside them: the swap round trip on each full-width pool
+    (bitwise), a 2048-token prompt prefilled whole and in 256-token chunks
+    and a 512-token one in 128-token chunks (equal K/V bytes, printed),
+    and from the bf16 pool the chunked and
+    plain serves' ms per step, most prompt tokens in a step and time
+    between tokens (p50, p99, max), with the card's name and power limit;
+14. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
 
@@ -90,7 +108,12 @@ dropped chunk partial), phase 12's K3 checks against three faults of its
 plain tiled version (each key tile quantizing against its own max, a
 dropped key tile's PV, scores rounded to bf16), then the MLA serve path's
 end-to-end checks (phase 8's logit limits and near-tie rule) against known
-faults patched into its gather decode, and prints which checks catch each.
+faults patched into its gather decode, then phase 13's checks (the swap
+round trip, the logit and token checks on phase 13's trace and on a
+targeted trace whose victim holds several private blocks) against two
+faults patched into ``kv_cache`` (``swap_write`` restoring the private
+blocks in reversed order, a chunk committing one position late), and
+prints which checks catch each.
 """
 
 from __future__ import annotations
@@ -357,6 +380,13 @@ def phase3_k1(rate):
                 <= 384 + torch.arange(n, device=dev)[:, None]).to(torch.uint8)
         recs.append(k1_case(f"olmo tail prefill (16 x {n}, 384 + {n})",
                             scores(16 * n, 384 + n), tail.repeat(16, 1), BEST, rate, calls))
+    # phase 13's chunks of 128 tokens after 0, 128 and 256 committed (the
+    # chunk after 384 is the 128-token tail above)
+    for s in (0, 128, 256):
+        piece = (torch.arange(s + 128, device=dev)[None, :]
+                 <= s + torch.arange(128, device=dev)[:, None]).to(torch.uint8)
+        recs.append(k1_case(f"olmo chunk (16 x 128, {s} + 128)", scores(16 * 128, s + 128),
+                            piece.repeat(16, 1), BEST, rate, calls))
     # the MLA serve path (phase 8: minicpm3-4b, 40 heads, one request per
     # prefill, rows h * T + t): a whole prefill of a 400-token prompt; a
     # tail prefill of 128 tokens behind the 384-token shared prefix (query
@@ -1102,7 +1132,8 @@ def phase12_k3(rate):
 # 384-token shared prefix.
 MLA_TRACE = dict(prefix_len=384, suffix_lens=(16, 64, 128), max_new_range=(16, 32), seed=0,
                  arrival_spacing=2.0)
-MLA_REQUESTS, MLA_SLOTS, MLA_BS = 16, 8, 16
+# 8 requests (16 before phase 13 took the time of the other 8)
+MLA_REQUESTS, MLA_SLOTS, MLA_BS = 8, 8, 16
 
 
 def _mla_trace():
@@ -1678,11 +1709,8 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
     the prefill does."""
     import dataclasses
 
-    from repro_torch.backends import ZERO_COST
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
-    from repro_torch.kernels.int_attention import ops as k3
-    from repro_torch.kernels.int_softmax import ops as k1
     from repro_torch.kernels.paged_attention import ops as paged
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
@@ -1693,8 +1721,7 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
     params = model.init(torch.Generator("cuda").manual_seed(0))
     eng = Engine(model, params, max_new=max_new)
     gen_tokens = sum(r.max_new for r in reqs)
-    counters = {"K1": k1.int_softmax_rows, "K2": paged.paged_attention_rows,
-                "K3": k3.int_attention_rows, "K4": paged.paged_attention_mla_rows}
+    counters = _kernel_counters()
     name = next(k for k, f in counters.items() if f is fused)
     print(f"serve path: {cfg.name} full width ({cfg.param_count() / 1e9:.3f} B parameters, "
           f"{cfg.n_layers} layers), bf16 seeded weights, softmax int_pallas; {len(reqs)} "
@@ -1736,12 +1763,7 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
               f"request {r.rid}: token range")
     check(rep.shared_prefill_tokens > 0, "no prefix was shared")
     check(rep.leaked_blocks == 0, f"{rep.leaked_blocks} pool blocks leaked")
-    summed = ZERO_COST
-    for res in rep.results:
-        summed = summed + res.cost
-    for f in ("vectors", "cycles", "latency_s", "energy_j"):
-        a, b = float(getattr(summed, f)), float(getattr(rep.cost, f))
-        check(abs(a - b) <= 1e-9 * abs(b), f"cost shares do not sum to the batch: {f}")
+    check(cost_shares_sum(rep), "cost shares do not sum to the batch meter")
     print(f"served: {rep.steps} decode steps, cache_len {rep.cache_len}, prefill "
           f"{rep.prefill_tokens} tokens + shared {rep.shared_prefill_tokens}, cow copies "
           f"{rep.cow_copies}, evictions {rep.evictions}, leaked blocks {rep.leaked_blocks}; "
@@ -1850,6 +1872,13 @@ def pool_bytes_per_token(cfg) -> int:
     return sum(x.numel() * x.element_size() for k, x in pool.items() if k != "table") // 16
 
 
+# Phase 6's trace and serve options (phases 11 and 13 reuse them).
+SERVE_TRACE = dict(prefix_len=384, suffix_lens=(16, 64, 128), max_new_range=(16, 64), seed=0,
+                   arrival_spacing=2.0)
+SERVE_OPTIONS = dict(slots=8, paged=True, block_size=16, prefix_share=True, kernel="pallas",
+                     report_cost=True)
+
+
 def phase6_serve(kv_quant=False):
     """Full-width olmo-1b served through Engine.serve with the paged pool,
     prefix sharing and the fused paged decode K2; ``kv_quant``: from an
@@ -1859,11 +1888,8 @@ def phase6_serve(kv_quant=False):
     from repro_torch.serving.options import ServeOptions
     from repro_torch.serving.scheduler import shared_prefix_trace
 
-    reqs = shared_prefix_trace(32, get_config("olmo-1b").vocab, prefix_len=384,
-                               suffix_lens=(16, 64, 128), max_new_range=(16, 64), seed=0,
-                               arrival_spacing=2.0)
-    opts = ServeOptions(slots=8, paged=True, block_size=16, prefix_share=True,
-                        kernel="pallas", report_cost=True)
+    reqs = shared_prefix_trace(32, get_config("olmo-1b").vocab, **SERVE_TRACE)
+    opts = ServeOptions(**SERVE_OPTIONS)
     return serve_phase("olmo-1b", reqs, opts, fused=ops.paged_attention_rows, eager_n=4,
                        warm_runs=1, logit_tol=LOGIT_TOL, logit_rms_tol=LOGIT_RMS_TOL,
                        aligned_tol=LOGIT_TOL, aligned_rms_tol=ALIGNED_RMS_TOL, max_new=64,
@@ -1931,6 +1957,353 @@ def phase8_mla_serve():
                        eager_n=2, warm_runs=1, logit_tol=MLA_LOGIT_TOL,
                        logit_rms_tol=MLA_LOGIT_RMS_TOL, aligned_tol=MLA_ALIGNED_TOL,
                        aligned_rms_tol=MLA_ALIGNED_RMS_TOL, max_new=32)
+
+
+# ----------------------------------------------------------------- phase 13
+
+# Chunked prefill and priority preemption: phase 6's trace with every fourth
+# request in class 0 and the rest in class 1, served with phase 6's options
+# plus prefill_chunk=CHUNK and preemption from a pool of POOL_REQUESTS
+# requests' worst case (five, plus one request's slack for the prefix cache).
+CHUNK = 128
+POOL_REQUESTS = 6
+
+
+def _kernel_counters():
+    from repro_torch.kernels.int_attention import ops as k3
+    from repro_torch.kernels.int_softmax import ops as k1
+    from repro_torch.kernels.paged_attention import ops as paged
+
+    return {"K1": k1.int_softmax_rows, "K2": paged.paged_attention_rows,
+            "K3": k3.int_attention_rows, "K4": paged.paged_attention_mla_rows}
+
+
+def cost_shares_sum(rep) -> bool:
+    """The per-request cost shares sum to the batch meter (rel 1e-9)."""
+    from repro_torch.backends import ZERO_COST
+
+    summed = ZERO_COST
+    for res in rep.results:
+        summed = summed + res.cost
+    return all(abs(float(getattr(summed, f)) - float(getattr(rep.cost, f)))
+               <= 1e-9 * abs(float(getattr(rep.cost, f)))
+               for f in ("vectors", "cycles", "latency_s", "energy_j"))
+
+
+def phase13_trace():
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    reqs = shared_prefix_trace(32, get_config("olmo-1b").vocab, **SERVE_TRACE)
+    return [dataclasses.replace(r, priority=0 if r.rid % 4 == 0 else 1) for r in reqs]
+
+
+def phase13_options(reqs, chunked=True):
+    """Phase 6's options; ``chunked``: plus prefill_chunk, preemption and
+    the phase's pool."""
+    from repro_torch.serving.options import ServeOptions
+
+    if not chunked:
+        return ServeOptions(**SERVE_OPTIONS)
+    bs = SERVE_OPTIONS["block_size"]
+    worst = max(-(-(r.prompt_len + r.max_new) // bs) for r in reqs)
+    return ServeOptions(**SERVE_OPTIONS, prefill_chunk=CHUNK, preemption=True,
+                        num_blocks=POOL_REQUESTS * worst)
+
+
+def counted_serve(eng, reqs, opts, rec):
+    """One serve through ``eng`` (sampling through the recorder ``rec``),
+    every kernel count set to 0 just before and read just after. Returns
+    the report, the launches, the logit rows and the wall seconds."""
+    from repro_torch.kernels.paged_attention import ops as paged
+
+    counters = _kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    paged.paged_attention_rows.int8_launches = 0
+    rec.rows = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = eng.serve(reqs, opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {k: f.launches for k, f in counters.items()}
+    n["K2 on int8 pools"] = paged.paged_attention_rows.int8_launches
+    return rep, n, rec.rows, wall
+
+
+def prefill_pieces(reqs, rep):
+    """The prefill calls a chunked, preempting serve must make, from the
+    trace, the chunk and the report's shared tokens: request r commits its
+    P - s unshared prompt tokens in ceil((P - s) / CHUNK) pieces (whole
+    when that is one). A resume that finds registered prompt blocks of its
+    own evicted re-prefills them in one more piece; those tokens are the
+    ones prefilled beyond the sum of P - s. Returns (pieces without
+    re-prefills, re-prefilled tokens)."""
+    base = sum(-(-(r.prompt_len - res.shared_prefix) // CHUNK)
+               for r, res in zip(reqs, rep.results))
+    reprefill = (rep.prefill_tokens + rep.shared_prefill_tokens
+                 - sum(r.prompt_len for r in reqs))
+    return base, reprefill
+
+
+def phase13_gates(cfg, reqs, rep, n):
+    """The chunked, preempting serve's scheduling and launch gates (name ->
+    passed), and what they were computed from."""
+    L, bs = cfg.n_layers, SERVE_OPTIONS["block_size"]
+    base, reprefill = prefill_pieces(reqs, rep)
+    # re-prefill pieces: none without re-prefilled tokens, else one per
+    # resume that re-prefilled, each at least a block
+    extra = (n["K1"] - L * base) // L
+    k1_ok = n["K1"] % L == 0 and (
+        extra == 0 if reprefill == 0 else 1 <= extra <= min(rep.resumes, reprefill // bs))
+    gates = {
+        "completed": len(rep.results) == len(reqs) and all(
+            res.rid == r.rid and res.tokens.shape == (r.prompt_len + r.max_new,)
+            and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
+            for r, res in zip(reqs, rep.results)),
+        "preempted": rep.preemptions >= 1 and rep.resumes == rep.preemptions
+        and sum(res.preempts for res in rep.results) == rep.preemptions,
+        "no_leaked_blocks": rep.leaked_blocks == 0,
+        "prefill_per_step": rep.max_prefill_per_step <= CHUNK + reprefill,
+        "cost_shares": cost_shares_sum(rep),
+        "k2_launches": n["K2"] == L * rep.steps
+        and n["K2 on int8 pools"] == (L * rep.steps if cfg.kv_quant else 0),
+        "k1_launches": k1_ok,
+        "no_other_kernel": n["K3"] == n["K4"] == 0,
+    }
+    info = {"prefill_pieces": base, "reprefill_tokens": reprefill,
+            "reprefill_pieces": extra, "expected_k1": L * base,
+            "expected_k2": L * rep.steps}
+    return gates, info
+
+
+def phase13_logits(label, model, params, reqs, rep, rows, plain, plain_rows):
+    """A chunked, preempting serve's logits against a teacher-forced pass of
+    its tokens and, step by step, against the plain serve's; its greedy
+    tokens against the plain serve's under the near-tie rule. Phase 6's
+    limits (phase 11's for the int8 pool: the same). Returns the
+    statistics and the checks that fail (name -> failed)."""
+    tf = teacher_forced(label, model, params, reqs, [r.tokens for r in rep.results], rows,
+                        LOGIT_TOL, LOGIT_RMS_TOL)
+    al = aligned_logits(f"{label} vs plain", reqs, rep.results, plain.results, rows,
+                        plain_rows)
+    divs = [first_divergence(f"{label} vs plain, request {a.rid}", a.tokens, b.tokens,
+                             a.prompt_len, model, params)
+            for a, b in zip(rep.results, plain.results)]
+    divs = [d for d in divs if d is not None]
+    for d in divs:
+        print(f"  divergence {d['run']}: generated step {d['step']}, plain top-2 logit "
+              f"margin {d['margin']:.4g} at top logit {d['top']:.4g} (near-tie bound "
+              f"{d['near_tie_bound']:.4g})", flush=True)
+    failed = {"tokens": any(not d["near_tie"] for d in divs),
+              "logit_max": max(tf["first_step_max"], tf["decode_max"]) > LOGIT_TOL,
+              "logit_rms": tf["rms"] > LOGIT_RMS_TOL,
+              "aligned_max": al["max"] > LOGIT_TOL,
+              "aligned_rms": al["rms"] > ALIGNED_RMS_TOL}
+    return {"teacher_forced": tf, "aligned": al, "divergences": divs}, failed
+
+
+def swap_round_trip(cfg, num_blocks):
+    """swap_read -> host -> swap_write on a full-width pool of random
+    contents, into other block ids: every restored block equal to the
+    original (torch.equal) and the slot's table row as given."""
+    from repro_torch.models import kv_cache
+
+    C, bs, slot = 576, SERVE_OPTIONS["block_size"], 2
+    cache = kv_cache.paged_cache_zeros(cfg, SERVE_OPTIONS["slots"], C, bs, num_blocks,
+                                       device="cuda")
+    g = torch.Generator("cuda").manual_seed(13)
+    for k, leaf in cache.items():
+        if k == "table":
+            continue
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device="cuda"))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda"))
+    rng = np.random.default_rng(13)
+    picked = rng.permutation(num_blocks)[:12]
+    ids, new_ids, shared = picked[:5].tolist(), picked[5:10].tolist(), picked[10:].tolist()
+    row = np.full((C // bs,), num_blocks, np.int32)
+    row[:7] = shared + new_ids
+    before = {k: v[:, ids].clone() for k, v in cache.items() if k != "table"}
+    payload = kv_cache.swap_read(cache, slot, ids)
+    host = all(v.device.type == "cpu" for v in payload.values())
+    kv_cache.swap_write(cache, payload, slot, new_ids, row)
+    equal = {k: bool(torch.equal(cache[k][:, new_ids], v)) for k, v in before.items()}
+    table = bool((cache["table"][:, slot].cpu() == torch.from_numpy(row)).all())
+    nbytes = sum(v.numel() * v.element_size() for v in payload.values())
+    ok = host and table and all(equal.values())
+    print(f"  swap round trip, {'int8' if cfg.kv_quant else 'bf16'} pool of {num_blocks} "
+          f"blocks: {len(ids)} blocks ({nbytes} B, leaves {sorted(equal)}) to the host and "
+          f"back into other ids: restored blocks equal {equal}, table row as given {table}",
+          flush=True)
+    return {"ok": ok, "blocks": len(ids), "bytes": nbytes, "equal": equal, "table": table}
+
+
+def whole_vs_chunked_prefill(model, params, n=2048, chunk=256):
+    """Information only: a prompt of ``n`` tokens prefilled whole and in
+    ``chunk``-token prefill_tail pieces (contiguous layout, slot_prefix_view
+    / slot_scatter): the share of committed K/V bytes that are equal, the
+    largest difference, and the last logits' largest difference. cuBLAS may
+    reduce other row counts in another order, so bitwise equality (which
+    the CPU tests hold) is not asked of the card."""
+    from repro_torch.models import kv_cache
+
+    cfg = model.cfg
+    g = torch.Generator("cuda").manual_seed(n)
+    x = torch.randint(0, cfg.vocab, (1, n), generator=g, device="cuda")
+    logits_w, whole = model.prefill(params, {"tokens": x}, cache_len=n)
+    committed = kv_cache.cache_zeros(cfg, 1, n, device="cuda")
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        if c0 == 0:
+            logits, piece = model.prefill(params, {"tokens": x[:, :c1]}, cache_len=n)
+        else:
+            prefix = kv_cache.slot_prefix_view(committed, 0, c0)
+            logits, piece = model.prefill_tail(params, {"tokens": x[:, c0:c1]}, prefix, c0)
+        kv_cache.slot_scatter(committed, piece, 0, c0, 0, c1 - c0)
+    same = total = 0
+    diff = {}
+    for k in whole:
+        a, b = whole[k].contiguous(), committed[k].contiguous()
+        same += int((a.view(torch.uint8) == b.view(torch.uint8)).sum())
+        total += a.numel() * a.element_size()
+        diff[k] = float((a.float() - b.float()).abs().max())
+    logit_diff = float((logits[:, -1].float() - logits_w[:, -1].float()).abs().max())
+    out = {"tokens": n, "chunk": chunk, "equal_byte_share": same / total,
+           "max_abs_diff": diff, "last_logits_max_abs_diff": logit_diff}
+    print(f"  whole vs chunked prefill ({'int8' if cfg.kv_quant else 'bf16'} K/V, {n} tokens, "
+          f"{chunk}-token prefill_tail chunks; information): {same / total:.6f} of committed "
+          f"K/V bytes equal, largest difference {diff}, last logits {logit_diff:.4g}",
+          flush=True)
+    return out
+
+
+def serve_timing(eng, reqs, runs):
+    """Warm serves timed on the host clock, in the order of ``runs``
+    ((label, options) pairs): per label, ms per step (prefills included) of
+    each run, the most prompt tokens prefilled in a step, and the time
+    between tokens over every emission of its runs."""
+    import dataclasses
+
+    reps = {}
+    for label, opts in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.serve(reqs, dataclasses.replace(opts, report_cost=False))
+        torch.cuda.synchronize()
+        reps.setdefault(label, []).append((time.perf_counter() - t0, rep))
+    out = {}
+    for label, rs in reps.items():
+        results = [r for _, rep in rs for r in rep.results]
+        t = {"ms_per_step": [wall * 1e3 / rep.steps for wall, rep in rs],
+             "steps": rs[0][1].steps,
+             "max_prompt_tokens_per_step": rs[0][1].max_prefill_per_step}
+        # a preempted request's gap while swapped out is a TBT too: read the
+        # requests never preempted apart
+        for key, sel in (("tbt", results),
+                         ("tbt_never_preempted", [r for r in results if not r.preempts])):
+            tbt = np.concatenate([np.asarray(r.tbt_s) for r in sel]) * 1e3
+            t.update({f"{key}_p50_ms": float(np.percentile(tbt, 50)),
+                      f"{key}_p99_ms": float(np.percentile(tbt, 99)),
+                      f"{key}_max_ms": float(tbt.max())})
+        gaps = [max(r.tbt_s) * 1e3 for r in results if r.preempts]
+        t["preempted_longest_gap_ms"] = max(gaps) if gaps else None
+        out[label] = t
+    return out
+
+
+def phase13_chunked_preempt():
+    """Full-width olmo-1b through Engine.serve with chunked prefill and
+    priority preemption (phase 13), from the bf16 and the int8 pool, each
+    against phase 6's plain serve of the same trace from the same pool."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    t_phase = time.perf_counter()
+    reqs = phase13_trace()
+    opts, plain_opts = phase13_options(reqs), phase13_options(reqs, chunked=False)
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"))
+    params = Model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    print(f"chunked prefill and preemption: {cfg.name} full width, bf16 seeded weights, "
+          f"softmax int_pallas; phase 6's trace of {len(reqs)} requests, "
+          f"{sum(r.priority == 0 for r in reqs)} in class 0 and "
+          f"{sum(r.priority == 1 for r in reqs)} in class 1; phase 6's options plus "
+          f"prefill_chunk {CHUNK} and preemption, pool of {opts.num_blocks} blocks "
+          f"({POOL_REQUESTS} requests' worst case; phase 6's pool: "
+          f"{SERVE_OPTIONS['slots'] + 1} requests' worst case)", flush=True)
+    out = {"pool_blocks": opts.num_blocks, "chunk": CHUNK, "runs": {}}
+    for kv_quant in (False, True):
+        pool = "int8 (absmax)" if kv_quant else "bf16"
+        model = Model(dataclasses.replace(cfg, kv_quant=kv_quant))
+        rt = swap_round_trip(model.cfg, opts.num_blocks)
+        check(rt["ok"], f"swap round trip on the {pool} pool: {rt}")
+        rec = _LogitRecorder()
+        eng = Engine(model, params, max_new=64, sampler=rec)
+        rep, n, rows, first_s = counted_serve(eng, reqs, opts, rec)
+        plain, n_p, rows_p, _ = counted_serve(eng, reqs, plain_opts, rec)
+        gates, info = phase13_gates(model.cfg, reqs, rep, n)
+        print(f"{pool} pool, chunked + preempting serve: {rep.steps} steps, preemptions "
+              f"{rep.preemptions}, resumes {rep.resumes}, preempts per request "
+              f"{[r.preempts for r in rep.results if r.preempts]}, leaked blocks "
+              f"{rep.leaked_blocks}, evictions {rep.evictions}, max prompt tokens in a step "
+              f"{rep.max_prefill_per_step} (chunk {CHUNK}; re-prefilled tokens "
+              f"{info['reprefill_tokens']}), prefill {rep.prefill_tokens} + shared "
+              f"{rep.shared_prefill_tokens} tokens; launches {n} (expected K2 "
+              f"{info['expected_k2']} = {cfg.n_layers} x {rep.steps} steps, K1 "
+              f"{cfg.n_layers} x ({info['prefill_pieces']} pieces + "
+              f"{info['reprefill_pieces']} re-prefills)); first serve {first_s:.1f} s",
+              flush=True)
+        print(f"  plain serve (phase 6's options): {plain.steps} steps, max prompt tokens in "
+              f"a step {plain.max_prefill_per_step}, launches {n_p}", flush=True)
+        print(f"  gates: {gates}", flush=True)
+        for name, ok in gates.items():
+            check(ok, f"phase 13, {pool} pool: gate {name} fails ({info}, launches {n})")
+        stats, failed = phase13_logits(f"chunked + preempting serve, {pool} pool", model,
+                                       params, reqs, rep, rows, plain, rows_p)
+        check(not any(failed.values()), f"phase 13, {pool} pool: logit or token checks "
+              f"fail: {[k for k, v in failed.items() if v]}")
+        run = {"gates": gates, **info, "launches": n, "plain_launches": n_p,
+               "steps": rep.steps, "preemptions": rep.preemptions, "resumes": rep.resumes,
+               "evictions": rep.evictions, "max_prefill_per_step": rep.max_prefill_per_step,
+               "plain_max_prefill_per_step": plain.max_prefill_per_step,
+               "swap_round_trip": rt, **stats}
+        # 2048 tokens in 256-token chunks, and this phase's own 128-token
+        # chunks of a 512-token prompt
+        run["whole_vs_chunked_prefill"] = [whole_vs_chunked_prefill(model, params),
+                                           whole_vs_chunked_prefill(model, params, 512, 128)]
+        if not kv_quant:
+            eng_t = Engine(model, params, max_new=64)
+            run["timing"] = serve_timing(eng_t, reqs, [
+                ("plain", plain_opts), ("chunked", opts), ("chunked", opts),
+                ("plain", plain_opts)])
+            card = card_line()
+            for label, t in run["timing"].items():
+                gap = ("" if t["preempted_longest_gap_ms"] is None else
+                       f"; a preempted request's longest gap {t['preempted_longest_gap_ms']:.2f}"
+                       " ms")
+                print(f"  {label} serve, 2 warm runs in turns (plain, chunked, chunked, plain), "
+                      f"{pool} pool: {[round(x, 2) for x in t['ms_per_step']]} ms per step "
+                      f"({t['steps']} steps, prefills included), max prompt tokens in a step "
+                      f"{t['max_prompt_tokens_per_step']}, time between tokens p50 "
+                      f"{t['tbt_p50_ms']:.2f} / p99 {t['tbt_p99_ms']:.2f} / max "
+                      f"{t['tbt_max_ms']:.2f} ms over all requests of both runs, p50 "
+                      f"{t['tbt_never_preempted_p50_ms']:.2f} / p99 "
+                      f"{t['tbt_never_preempted_p99_ms']:.2f} / max "
+                      f"{t['tbt_never_preempted_max_ms']:.2f} ms over those never preempted"
+                      f"{gap} ({card})", flush=True)
+        out["runs"][pool] = run
+        del eng, rec, rows, rows_p
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 13 in {out['seconds']:.1f} s ({card_line()})", flush=True)
+    return out
 
 
 def _bf16_score_add(q_lat, q_rope, c_kv, k_rope, scale):
@@ -2018,6 +2391,122 @@ def fault_control():
               f"{results[-1]['caught_by'] or 'nothing'}", flush=True)
     for r in results[:2]:
         check(not r["caught_by"], f"a clean run fails a check: {r}")
+    return results
+
+
+def _swap_reversed(swap_write):
+    def reversed_order(cache, payload, slot, ids, table_row):
+        return swap_write(cache, payload, slot, list(ids)[::-1], table_row)
+    return reversed_order
+
+
+def _chunk_one_late(paged_scatter):
+    """A commit of positions [c0, c1) with c0 > 0 (a chunk or a tail) lands
+    at [c0 + 1, c1 + 1)."""
+    def late(cache, values, slot, table_row, pb, offs, t0, t1):
+        row = np.asarray(table_row)
+        bs = next(v for k, v in cache.items() if k != "table").shape[2]
+        logical = {int(b): i for i, b in enumerate(row)}
+        wpos = np.asarray([logical[int(b)] * bs + int(o) for b, o in zip(pb, offs)])
+        if wpos.size and wpos[0] > 0:
+            wpos = wpos + 1
+            pb, offs = row[np.minimum(wpos // bs, len(row) - 1)], wpos % bs
+        return paged_scatter(cache, values, slot, table_row, pb, offs, t0, t1)
+    return late
+
+
+# Known faults of the chunk and swap path, patched into kv_cache for a run:
+# (attribute, wrapper of the original).
+PHASE13_FAULTS = {
+    "swap_write restores the private blocks in reversed order": ("swap_write",
+                                                                  _swap_reversed),
+    "a chunk commits one position late": ("paged_scatter", _chunk_one_late),
+}
+
+
+def phase13_fault_control():
+    """Phase 13's checks against known faults of the chunk and swap path:
+    the phase-13 trace (bf16 pool) served cleanly and once per fault in
+    PHASE13_FAULTS, each run's teacher-forced and step-aligned logits and
+    greedy tokens read against the plain serve with phase 6's limits, and
+    the swap round trip. On this trace every victim holds one private block
+    when it is swapped out, where a reversed restore changes nothing, so a
+    second, targeted trace (two class-1 requests, then a class-0 one at step
+    40 on two slots, slower aging: the victim holds three) is served the
+    same way. Fails
+    if a clean run fails a check; prints which checks catch each fault."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models import kv_cache
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    reqs = phase13_trace()
+    opts, plain_opts = phase13_options(reqs), phase13_options(reqs, chunked=False)
+    targeted = [dataclasses.replace(reqs[1], arrival=0.0, max_new=64),
+                dataclasses.replace(reqs[2], arrival=0.0, max_new=64),
+                dataclasses.replace(reqs[4], arrival=40.0)]
+    # aging 256: with the default 16 a victim that arrived more than 16 steps
+    # before the class-0 request outranks it once swapped out, swaps straight
+    # back in and is preempted again, forever (the reference's serve does
+    # the same: ROADMAP.md Queue 3), so the default keeps victims under 17
+    # generated tokens, one private block
+    t_opts = dataclasses.replace(opts, slots=2, aging=256.0, report_cost=False)
+    model = Model(get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas")))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    rec = _LogitRecorder()
+    eng = Engine(model, params, max_new=64, sampler=rec)
+    plain, _, plain_rows, _ = counted_serve(eng, reqs, plain_opts, rec)
+    t_plain, _, t_plain_rows, _ = counted_serve(
+        eng, targeted, dataclasses.replace(t_opts, preemption=False), rec)
+    victims = []
+    swap_read = kv_cache.swap_read
+
+    def counting_read(cache, slot, ids):
+        victims.append(len(ids))
+        return swap_read(cache, slot, ids)
+
+    results = []
+    for fault in [None] + list(PHASE13_FAULTS):
+        label = fault or "clean"
+        saved = None
+        if fault is not None:
+            attr, wrap = PHASE13_FAULTS[fault]
+            saved = getattr(kv_cache, attr)
+            setattr(kv_cache, attr, wrap(saved))
+        kv_cache.swap_read = counting_read
+        try:
+            caught = {"round_trip": not swap_round_trip(model.cfg, opts.num_blocks)["ok"]}
+            victims.clear()
+            rep, _, rows, _ = counted_serve(eng, reqs, opts, rec)
+            held = list(victims)
+            _, failed = phase13_logits(f"{label}, phase 13 trace", model, params, reqs, rep,
+                                       rows, plain, plain_rows)
+            caught.update({f"{k} (trace)": v for k, v in failed.items()})
+            victims.clear()
+            rep_t, _, rows_t, _ = counted_serve(eng, targeted, t_opts, rec)
+            held_t = list(victims)
+            _, failed = phase13_logits(f"{label}, targeted trace", model, params, targeted,
+                                       rep_t, rows_t, t_plain, t_plain_rows)
+            caught.update({f"{k} (targeted)": v for k, v in failed.items()})
+        finally:
+            kv_cache.swap_read = swap_read
+            if saved is not None:
+                setattr(kv_cache, attr, saved)
+        results.append({"run": label, "victims_private_blocks": held,
+                        "targeted_victims_private_blocks": held_t,
+                        "preemptions": rep.preemptions,
+                        "targeted_preemptions": rep_t.preemptions,
+                        "caught_by": [k for k, v in caught.items() if v]})
+        print(f"  phase 13, {label}: victims' private blocks {held} (targeted trace "
+              f"{held_t}); caught by {results[-1]['caught_by'] or 'nothing'}", flush=True)
+    check(not results[0]["caught_by"], f"a clean phase-13 run fails a check: {results[0]}")
+    clean = results[0]
+    check(clean["targeted_preemptions"] >= 1 and all(
+        b >= 2 for b in clean["targeted_victims_private_blocks"]),
+        f"the targeted trace's victims hold fewer than two private blocks: {clean}")
     return results
 
 
@@ -2305,18 +2794,20 @@ def main():
     rate = hbm_rate(name)
 
     if fault_mode:
-        build.build(["int_softmax", "paged_attention_mla"])
+        build.build(["int_softmax", "paged_attention", "paged_attention_mla"])
         t0 = time.perf_counter()
         k1_results = k1_fault_control()
         k2_results = k2_fault_control()
         k4_results = k4_fault_control()
         k3_results = k3_fault_control()
         results = fault_control()
+        p13_results = phase13_fault_control()
         print(f"fault control: {time.perf_counter() - t0:.1f} s", flush=True)
         print(card, flush=True)
         print(json.dumps({"k1_fault_control": k1_results, "k2_fault_control": k2_results,
                           "k4_fault_control": k4_results, "k3_fault_control": k3_results,
-                          "fault_control": results}), flush=True)
+                          "fault_control": results, "phase13_fault_control": p13_results}),
+              flush=True)
         return
 
     # phase 2: build every kernel of the paths, all nvcc processes at once
@@ -2349,9 +2840,11 @@ def main():
     served_int8 = timed("phase 11 (serve path, olmo-1b, int8 KV pool)", phase6_serve, True)
     k3_recs, k3_launches = timed("phase 12 (K3 against its plain version; its path)",
                                  phase12_k3, rate)
-    print(f"phases 3-12: {time.perf_counter() - t_all:.1f} s", flush=True)
+    chunked = timed("phase 13 (chunked prefill and preemption, olmo-1b, bf16 and int8 pools)",
+                    phase13_chunked_preempt)
+    print(f"phases 3-13: {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    # phase 13
+    # phase 14
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
     k2_main = next(r for r in k2_recs if r["shape"] == "decode (main path)")
     k2_int8_main = next(r for r in k2_int8_recs if r["shape"] == "int8 decode (main path)")
@@ -2431,7 +2924,8 @@ def main():
         "shapes": k4_recs,
     }]
     print(json.dumps({"serve": {"olmo-1b": served, "minicpm3-4b": mla,
-                                "olmo-1b int8": served_int8},
+                                "olmo-1b int8": served_int8,
+                                "olmo-1b chunked + preempting": chunked},
                       "kv_quantize_card_vs_cpu": quantize}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

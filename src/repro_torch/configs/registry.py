@@ -15,6 +15,7 @@ from repro_torch.core.softmax_variants import SoftmaxSpec
 ARCHS = {
     "olmo-1b": "olmo_1b",
     "minicpm3-4b": "minicpm3_4b",
+    "llama2-7b": "llama2_7b",
 }
 
 # reference architectures not ported yet -> the ROADMAP.md item that ports them
@@ -30,7 +31,6 @@ NOT_PORTED = {
     "hymba-1.5b": "Queue 1 item 11 (hybrid)",
     "whisper-base": "Queue 1 item 11 (encdec)",
     "qwen2-vl-7b": "Queue 1 item 11 (M-RoPE)",
-    "llama2-7b": "Queue 1 item 15 (launchers: the paper's own model config)",
 }
 
 

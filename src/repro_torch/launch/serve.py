@@ -3,7 +3,8 @@ batched generation through ``Engine.generate`` — or, with ``--continuous``,
 serve a seeded trace of requests through ``Engine.serve`` (``--paged``,
 ``--prefix-share``, ``--kernel pallas`` for the fused paged decode K2, or
 K4 for an MLA architecture such as ``--arch minicpm3-4b``; ``--kv-quant``
-for the int8 KV cache) —
+for the int8 KV cache; ``--prefill-chunk N`` and ``--preemption`` for
+chunked prefill and priority preemption) —
 with any ported softmax backend, and report throughput and the AP softmax
 cost (port of ``src/repro/launch/serve.py``, same flags).
 
@@ -12,6 +13,9 @@ cost (port of ``src/repro/launch/serve.py``, same flags).
         --prompt-len 512 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --smoke --continuous --paged --prefix-share --kernel pallas \\
+        --softmax int_pallas --warm-steps 0 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --smoke --continuous --paged --prefill-chunk 8 --preemption \\
         --softmax int_pallas --warm-steps 0 --device cpu
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path. Flags of
@@ -47,8 +51,6 @@ LATER_SLICES = {
                       "--warm-steps 0 to serve seeded weights"),
     "speculative": (False, "Queue 1 item 10 (speculative decoding)"),
     "shards": (0, "Queue 1 item 14 (tensor-parallel serving)"),
-    "prefill_chunk": (None, "Queue 1 item 9 (chunked prefill)"),
-    "preemption": (False, "Queue 1 item 9 (preemption)"),
 }
 
 
@@ -103,13 +105,17 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to repro_torch yet: "
                 f"ROADMAP.md {item}")
-    # cross-field serve constraints (--prefix-share and --kernel pallas
-    # require --paged, ...) fail here, before a model is built
+    if args.prefill_chunk is not None and not args.continuous:
+        ap.error("--prefill-chunk requires --continuous (it paces "
+                 "Engine.serve admissions)")
+    # cross-field serve constraints (--prefix-share, --kernel pallas and
+    # --preemption require --paged, ...) fail here, before a model is built
     try:
         serve_options = ServeOptions(
             slots=args.slots, policy=args.policy, paged=args.paged,
             block_size=args.block_size, prefix_share=args.prefix_share,
-            kernel=args.kernel)
+            kernel=args.kernel, prefill_chunk=args.prefill_chunk,
+            preemption=args.preemption)
     except ValueError as e:
         ap.error(str(e))
 
@@ -174,6 +180,21 @@ def serve_trace(eng: Engine, args, serve_options: ServeOptions):
           f"({gen / rep.wall_s:.0f} tok/s){paged_note}")
     print(f"request latency p50={np.percentile(lat, 50) * 1e3:.1f} ms "
           f"p99={np.percentile(lat, 99) * 1e3:.1f} ms")
+    if args.prefill_chunk is not None or args.preemption:
+        print(f"sla: prefill_chunk={rep.prefill_chunk or 'off'} "
+              f"(max prefill/step {rep.max_prefill_per_step}), "
+              f"preemptions={rep.preemptions} resumes={rep.resumes} "
+              f"leaked_blocks={rep.leaked_blocks}")
+        for cls in sorted(rep.class_latency):
+            c = rep.class_latency[cls]
+            sla = ("" if c["sla_attainment"] is None
+                   else f"  sla={c['sla_attainment'] * 100:.0f}%")
+            print(f"  class {cls}: n={c['n']} "
+                  f"ttft p50={c['ttft_p50'] * 1e3:.1f}/"
+                  f"p99={c['ttft_p99'] * 1e3:.1f} ms  "
+                  f"tbt p50={c['tbt_p50'] * 1e3:.1f}/"
+                  f"p99={c['tbt_p99'] * 1e3:.1f} ms"
+                  f"{sla}  preempted={c['preemptions']}")
     for r in rep.results[:3]:
         cost = (f"  cost: {r.cost.describe()}"
                 if r.cost is not None and r.cost.cycles else "")

@@ -128,3 +128,57 @@ def paged_prefix_view(cache, ids, s: int):
                              + tuple(leaf.shape[3:]))
         out[k] = flat[:, None, :s]
     return out
+
+
+def slot_scatter(cache, values, slot: int, dst: int, t0: int, t1: int):
+    """Commit one chunk of prefilled entries into a CONTIGUOUS slot-batched
+    cache, in place: positions ``[t0, t1)`` of ``values`` (each leaf [L, 1,
+    T, ...]) land at stripe positions ``[dst, dst + t1 - t0)`` of ``slot``
+    (the contiguous counterpart of :func:`paged_scatter` for chunked
+    prefill: a first chunk passes ``dst == t0 == 0``, a tail chunk's values
+    start at 0 with ``dst`` at the committed boundary)."""
+    for k, leaf in cache.items():
+        leaf[:, slot, dst:dst + t1 - t0] = values[k][:, 0, t0:t1].to(leaf.dtype)
+    return cache
+
+
+def slot_prefix_view(cache, slot: int, s: int):
+    """The first ``s`` committed positions of one slot's CONTIGUOUS cache as
+    [L, 1, s, ...]: the prefix input of the next ``prefill_tail`` chunk. A
+    copy, like :func:`paged_prefix_view`."""
+    return {k: leaf[:, slot:slot + 1, :s].clone() for k, leaf in cache.items()}
+
+
+def swap_read(cache, slot: int, ids):
+    """Snapshot one slot's paged state for preemption swap-out: the
+    contents of pool blocks ``ids`` (host ints; the blocks not
+    re-acquirable by content key) as CPU tensors [L, n, bs, ...] per pool
+    leaf, int8 codes with their scales. The table is left out: the row is
+    host bookkeeping, rebuilt on resume by :func:`swap_write`. The copy is
+    synchronous, so the caller may release the blocks as soon as this
+    returns. ``slot`` is kept for the reference's signature: it names the
+    slot-resident stripes, which no ported family has (item 11)."""
+    out = {}
+    for k in _pools(cache):
+        leaf = cache[k]
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=leaf.device)
+        out[k] = leaf.index_select(1, idx).cpu()
+    return out
+
+
+def swap_write(cache, payload, slot: int, ids, table_row):
+    """Restore a :func:`swap_read` payload on resume, in place: the copied
+    blocks land in the freshly allocated pool blocks ``ids`` (host ints) and
+    the slot's table row becomes ``table_row`` (the sentinel-padded map over
+    the re-acquired and restored blocks). A resume that re-prefills nothing
+    writes the table only here."""
+    table = cache["table"]
+    table[:, slot, :] = torch.as_tensor(np.asarray(table_row, np.int32),
+                                        device=table.device)
+    ids = np.asarray(ids, np.int64)
+    if ids.size:
+        for k in _pools(cache):
+            leaf = cache[k]
+            idx = torch.as_tensor(ids, device=leaf.device)
+            leaf[:, idx] = payload[k].to(device=leaf.device, dtype=leaf.dtype)
+    return cache

@@ -22,11 +22,14 @@ EOS) runs between admissions. A contiguous cache keeps one stripe per slot;
 the paged cache keeps a block pool with per-slot tables and, with
 ``prefix_share``, reuses resident prompt blocks across requests
 (copy-on-write at the boundary block, tail-only prefill). ``kernel="pallas"``
-decodes through the fused paged kernel K2 (K4 for MLA). Each served request's tokens
-equal generating it alone with ``mode="eager"``, its own seed and the same
-cache length. Chunked prefill, preemption, speculative decoding, tensor
-parallelism and the other families are later slices (ROADMAP.md Queue 1
-items 9-14); ``ServeOptions`` raises for them.
+decodes through the fused paged kernel K2 (K4 for MLA). ``prefill_chunk``
+commits long prompts in bounded ``prefill_tail`` pieces between decode
+steps; ``preemption`` swaps a lower-priority request out to host memory
+for a blocked higher class and resumes it later. Each served request's
+tokens equal generating it alone with ``mode="eager"``, its own seed and
+the same cache length, chunked or preempted or not. Speculative decoding,
+tensor parallelism and the other families are later slices (ROADMAP.md
+Queue 1 items 10-14); ``ServeOptions`` raises for them.
 
 Cost telemetry: ``report_cost=True`` returns the AP :class:`CostReport` —
 the reference's meter, computed by running the model on the ``meta``
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -83,7 +87,7 @@ class RequestResult:
     first_token_at: float = 0.0  # serve-clock step time of the first token
     ttft_s: float = 0.0         # wall seconds, queue entry -> first token
     tbt_s: List[float] = dataclasses.field(default_factory=list)
-    preempts: int = 0           # times swapped out (no preemption yet: 0)
+    preempts: int = 0           # times this request was swapped out
 
 
 @dataclasses.dataclass
@@ -101,7 +105,10 @@ class ServeReport:
     shared_prefill_tokens: int = 0      # prompt tokens served from shared blocks
     cow_copies: int = 0
     evictions: int = 0
+    prefill_chunk: int = 0              # 0: whole prefill per admission
     max_prefill_per_step: int = 0       # most prompt tokens prefilled in a step
+    preemptions: int = 0
+    resumes: int = 0
     leaked_blocks: int = 0              # pool blocks unaccounted after drain
     class_latency: Optional[dict] = None  # per-priority-class latency/SLA
 
@@ -374,14 +381,33 @@ class Engine:
         cache_len=report.cache_len)``. With ``report_cost`` the report
         carries the batch AP meter and each request its attributed share
         (its prefill plus an even split of every step it was active in);
-        the shares sum to the batch meter."""
+        the shares sum to the batch meter.
+
+        ``prefill_chunk=N`` bounds the prompt tokens prefilled per step: a
+        prompt that does not fit the step's budget commits in N-token
+        pieces, each a ``prefill_tail`` against the pieces committed so far
+        (bitwise equal to one whole prefill), one piece per step for the
+        oldest job, interleaved with decode. ``preemption=True`` (paged)
+        lets a blocked request of a strictly better class swap a victim
+        out: its registered prompt blocks are released (resume re-acquires
+        them by content key, or re-prefills the evicted ones), its private
+        written blocks are copied to host memory, and its token, position,
+        EOS flag and generator are banked, so the resumed stream equals an
+        uninterrupted run."""
         opt = ServeOptions() if options is None else options
         slots, policy = opt.slots, opt.policy
         paged, block_size = opt.paged, opt.block_size
+        prefill_chunk = opt.prefill_chunk
         reqs = list(requests)
         if not reqs:
             return ServeReport([], 0, 0.0, slots, opt.cache_len or 0, None)
         cfg, dev = self.model.cfg, self.model.device
+        if prefill_chunk is not None and not (cfg.family in ("dense", "moe")
+                                              and cfg.rope_type != "mrope"):
+            raise NotImplementedError(
+                f"chunked prefill of the {cfg.family}/{cfg.rope_type} family "
+                "(the reference's staged branch) is not ported: ROADMAP.md "
+                "Queue 1 item 11")
         params = self.params
         serve_step = self._serve_step(opt.kernel)
         need = max(r.prompt_len + r.max_new for r in reqs)
@@ -427,6 +453,11 @@ class Engine:
         done = np.ones((slots,), bool)
         gens: List[Optional[torch.Generator]] = [None] * slots
         counts = {"prefill": 0, "shared": 0, "step": 0, "max": 0}
+        # chunked prefill: slot -> prompt-commit job, the oldest advancing
+        # one piece per step
+        chunk_jobs: "OrderedDict[int, dict]" = OrderedDict()
+        # preemption: rid -> host payload (copied blocks) and banked lane
+        swap_store: Dict[int, dict] = {}
 
         wall0 = time.perf_counter()
         queued_wall: Dict[int, float] = {}
@@ -471,7 +502,8 @@ class Engine:
         def paged_admit(req: Request) -> dict:
             """Reserve one request's paged residency: match and refcount the
             shared prefix, copy-on-write a partial boundary block, allocate
-            the private blocks, build the table row."""
+            the private blocks, build the table row. The prompt's content
+            lands later, whole or in chunks, against these ids."""
             bs = block_size
             P = req.prompt_len
             pkeys = prefix_keys(req.prompt, bs) if opt.prefix_share else []
@@ -501,7 +533,8 @@ class Engine:
                     "s": s, "cow": cow}
 
         def paged_register(adm: dict) -> None:
-            """Publish the prompt's full blocks once their content is final."""
+            """Publish the prompt's full blocks once their content is final
+            (a whole commit, or a chunked prompt's last piece)."""
             for i, key in enumerate(adm["pkeys"]):
                 if i < adm["keep"] and not (adm["cow"]
                                             and i == adm["keep"] - 1):
@@ -510,8 +543,9 @@ class Engine:
 
         def paged_commit(slot: int, req: Request, adm: dict, c0: int, c1: int):
             """Prefill prompt positions [c0, c1) — whole when ``c0 == 0``,
-            else a tail against the shared prefix — and scatter them through
-            the slot's table row. Returns the prefill's last logits."""
+            else a tail against the committed or shared prefix — and scatter
+            them through the slot's table row. Returns the piece's last
+            logits."""
             bs = block_size
             id_arr = np.asarray(adm["ids"], np.int64)
             if c0 == 0:
@@ -530,19 +564,44 @@ class Engine:
             if attr is not None:
                 if c0 == 0:
                     attr.record_request(req.rid, self._meter_prefill(c1, C))
-                else:
-                    # a shared prefix: log the sharing savings once
+                elif c0 == adm["s"]:
+                    # the first piece past a shared prefix: log the sharing
+                    # savings once
                     attr.record_shared_prefill(
                         req.rid, self._meter_prefill_tail(c0, c1 - c0),
                         self._meter_prefill(c0, C), c0)
+                else:
+                    attr.record_request(
+                        req.rid, self._meter_prefill_tail(c0, c1 - c0))
+            return logits
+
+        def contig_commit(slot: int, req: Request, c0: int, c1: int):
+            """Contiguous-layout chunk commit: prefill [c0, c1) and write it
+            into the slot's stripe."""
+            if c0 == 0:
+                logits, slot_cache = self.model.prefill(
+                    params, tokens_of(req, 0, c1), cache_len=C)
+                if attr is not None:
+                    attr.record_request(req.rid, self._meter_prefill(c1, C))
+            else:
+                prefix = kv_cache.slot_prefix_view(cache, slot, c0)
+                logits, slot_cache = self.model.prefill_tail(
+                    params, tokens_of(req, c0, c1), prefix, prefix_len=c0)
+                if attr is not None:
+                    attr.record_request(
+                        req.rid, self._meter_prefill_tail(c0, c1 - c0))
+            kv_cache.slot_scatter(cache, slot_cache, slot, c0, 0, c1 - c0)
+            counts["prefill"] += c1 - c0
+            counts["step"] += c1 - c0
             return logits
 
         def activate(slot: int, req: Request, logits) -> None:
-            """Sample the first token from the prefill logits with the
+            """Sample the first token from the (last) prefill logits with the
             request's own generator and turn the slot into a decode lane."""
             g = torch.Generator(dev).manual_seed(req.seed)
             first = int(self.sample(logits[:, -1], g)[0])
             done0 = self.eos_id is not None and first == self.eos_id
+            sched.slots[slot].prefilling = False
             sched.install(slot, first, done0)
             tok[slot, 0] = first
             pos[slot] = req.prompt_len
@@ -553,16 +612,89 @@ class Engine:
             if sched.slot_done(slot):
                 finish(slot)
 
+        def swap_out(slot: int) -> None:
+            """Preempt one victim: release its registered prompt blocks (the
+            prefix registry keeps them resident until evicted), copy its
+            private written blocks to host memory, park the lane and bank
+            the request with its generator."""
+            st = sched.slots[slot]
+            r = st.request
+            # the host arrays are authoritative for the lane's position
+            st.pos = int(pos[slot])
+            bs = block_size
+            ids = slot_blocks.pop(slot)
+            pk = prefix_keys(r.prompt, bs) if opt.prefix_share else []
+            nwritten = -(-int(st.pos) // bs)     # blocks with live positions
+            nreg = 0
+            while nreg < min(len(pk), len(ids)) and \
+                    alloc.key_of(ids[nreg]) == pk[nreg]:
+                nreg += 1
+            payload = kv_cache.swap_read(cache, slot, ids[nreg:nwritten])
+            for b in ids:
+                alloc.release_block(b)
+            sched.preempt(slot, t)
+            swap_store[r.rid] = {"payload": payload, "nreg": nreg,
+                                 "nwritten": nwritten, "gen": gens[slot]}
+            gens[slot] = None
+            pos[slot] = C
+            done[slot] = True
+
+        def resume(slot: int, req: Request) -> None:
+            """Swap a preempted request back in: re-acquire its registered
+            prompt blocks by content key, re-prefill the evicted ones,
+            restore the host-copied blocks and the lane (token, position,
+            EOS flag, generator)."""
+            meta = swap_store.pop(req.rid)
+            st = sched.slots[slot]        # restored by admit()
+            bs = block_size
+            nblocks = alloc.blocks_needed(req.prompt_len, req.max_new)
+            pk = (prefix_keys(req.prompt, bs)[:meta["nreg"]]
+                  if opt.prefix_share else [])
+            shared = alloc.match_prefix(pk)
+            got = len(shared)
+            ids = shared + [alloc.alloc() for _ in range(nblocks - got)]
+            row = np.full((C // bs,), alloc.num_blocks, np.int32)
+            row[:nblocks] = np.asarray(ids, np.int32)
+            slot_blocks[slot] = ids
+            kv_cache.swap_write(cache, meta["payload"], slot,
+                                ids[meta["nreg"]:meta["nwritten"]], row)
+            if got < meta["nreg"]:
+                # registered blocks evicted while swapped out hold prompt
+                # positions only: re-prefill them and publish them again
+                # ("s": -1 leaves the sharing meter alone)
+                adm = {"ids": ids, "row": row, "s": -1}
+                paged_commit(slot, req, adm, got * bs, meta["nreg"] * bs)
+                for i in range(got, meta["nreg"]):
+                    alloc.register(pk[i], ids[i])
+            tok[slot, 0] = st.generated[-1]
+            pos[slot] = st.pos
+            gens[slot] = meta["gen"]
+            done[slot] = st.done
+
         def handle_admission(slot: int, req: Request) -> None:
+            if req.rid in swap_store:
+                resume(slot, req)
+                return
             P = req.prompt_len
             if alloc is not None:
                 adm = paged_admit(req)
                 slot_blocks[slot] = adm["ids"]
                 shared_of[req.rid] = adm["s"]
                 counts["shared"] += adm["s"]
+                if prefill_chunk is not None and \
+                        counts["step"] + P - adm["s"] > prefill_chunk:
+                    sched.slots[slot].prefilling = True
+                    chunk_jobs[slot] = {"req": req, "adm": adm,
+                                        "committed": adm["s"]}
+                    return
                 logits = paged_commit(slot, req, adm, adm["s"], P)
                 paged_register(adm)
             else:
+                if prefill_chunk is not None and \
+                        counts["step"] + P > prefill_chunk:
+                    sched.slots[slot].prefilling = True
+                    chunk_jobs[slot] = {"req": req, "adm": None, "committed": 0}
+                    return
                 logits, slot_cache = self.model.prefill(
                     params, tokens_of(req, 0, P), cache_len=C)
                 for k, leaf in cache.items():    # the slot's stripe
@@ -573,13 +705,45 @@ class Engine:
                     attr.record_request(req.rid, self._meter_prefill(P, C))
             activate(slot, req, logits)
 
+        def advance_chunks() -> None:
+            """One step's prompt-commit work: the oldest job commits its
+            next ``prefill_chunk`` tokens, and activates on its last."""
+            slot, job = next(iter(chunk_jobs.items()))
+            req = job["req"]
+            P = req.prompt_len
+            c0 = job["committed"]
+            c1 = min(c0 + prefill_chunk, P)
+            if alloc is not None:
+                logits = paged_commit(slot, req, job["adm"], c0, c1)
+            else:
+                logits = contig_commit(slot, req, c0, c1)
+            job["committed"] = c1
+            if c1 == P:
+                if alloc is not None:
+                    paged_register(job["adm"])
+                del chunk_jobs[slot]
+                activate(slot, req, logits)
+
         while sched.unfinished:
             sched.advance(t)
             counts["step"] = 0
             for r in sched.queue:
                 queued_wall.setdefault(r.rid, time.perf_counter())
-            for slot, req in sched.admit(t):
-                handle_admission(slot, req)
+            while True:
+                for slot, req in sched.admit(t):
+                    handle_admission(slot, req)
+                if not opt.preemption:
+                    break
+                victim = sched.preempt_victim(t)
+                if victim is None:
+                    break
+                swap_out(victim)
+            progressed = False
+            if chunk_jobs and (counts["step"] == 0 or not sched.active_slots()):
+                # one bounded piece a step, and none in a step whose
+                # admissions already prefilled while decode lanes are live
+                advance_chunks()
+                progressed = True
             active = sched.active_slots()
             if active:
                 step_gens = [g if i in active else None
@@ -609,9 +773,12 @@ class Engine:
                     if sched.slot_done(slot):
                         finish(slot)
                 t += 1.0
+            elif progressed:
+                t += 1.0    # a chunk-only step takes time too
             else:
                 nxt = sched.next_arrival()
                 if nxt is None:
+                    assert not sched.swapped, "swapped requests unreachable"
                     break   # defensive: nothing active, queued, or pending
                 t = max(t + 1.0, float(nxt))
             counts["max"] = max(counts["max"], counts["step"])
@@ -626,7 +793,9 @@ class Engine:
             shared_prefill_tokens=counts["shared"],
             cow_copies=alloc.cow_copies if alloc else 0,
             evictions=alloc.evictions if alloc else 0,
+            prefill_chunk=prefill_chunk or 0,
             max_prefill_per_step=counts["max"],
+            preemptions=sched.preemptions, resumes=sched.resumes,
             leaked_blocks=(alloc.num_blocks - alloc.available())
             if alloc else 0,
             class_latency=telemetry.class_latency_summary(ordered))

@@ -90,10 +90,6 @@ class ServeOptions:
                     f"backends: {', '.join(names)}")
         later = [("speculative", self.speculative,
                   "Queue 1 item 10 (speculative decoding)"),
-                 ("prefill_chunk", self.prefill_chunk is not None,
-                  "Queue 1 item 9 (chunked prefill)"),
-                 ("preemption", self.preemption,
-                  "Queue 1 item 9 (preemption)"),
                  ("mesh/shards", self.mesh is not None or self.shards is not None,
                   "Queue 1 item 14 (tensor-parallel serving)"),
                  ("softmax_kind", self.softmax_kind is not None,

@@ -148,7 +148,8 @@ def test_row_reciprocal_division_equals_floor_division(cfg_name):
 # (rows, cols) of every phase-3 shape of chip_smoke.py and the plan's edges
 PLANS = [(64, 544), (32768, 512), (64, 1), (256, 1000), (8, 32768), (1, 32768),
          (4, 32769), (4, 131072), (64, 543), (8, 1001), (16 * 16, 400), (8192, 512),
-         (20480, 512), (5120, 512), (320, 544), (1, 2048), (3, 2049), (7, 33)]
+         (20480, 512), (5120, 512), (320, 544), (1, 2048), (3, 2049), (7, 33),
+         (2048, 128), (2048, 256), (2048, 384)]
 
 
 # SMs of an H100 SXM and an H100 PCIe

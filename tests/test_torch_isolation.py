@@ -52,8 +52,9 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("flag", [["--continuous", "--speculative"], ["--warm-steps", "5"],
                                   ["--ckpt-dir", "x"], ["--shards", "2"],
-                                  ["--continuous", "--paged", "--prefill-chunk", "8"],
-                                  ["--continuous", "--paged", "--preemption"],
+                                  ["--continuous", "--paged", "--prefill-chunk", "8",
+                                   "--speculative"],
+                                  ["--continuous", "--paged", "--preemption", "--shards", "2"],
                                   ["--continuous", "--paged", "--kv-quant", "--speculative"],
                                   ["--serve-softmax", "fp"]])
 def test_later_slice_flags_name_roadmap_item(flag):

@@ -8,8 +8,9 @@
   traces, both policies, with and without a resource gate;
 * ``prefix_keys`` and every trace generator are byte-equal, and the JSON
   round trip gives the same trace;
-* ``ServeOptions`` validates as the reference does, and options of later
-  slices raise naming their ROADMAP.md item.
+* ``ServeOptions`` validates as the reference does, options of later
+  slices raise naming their ROADMAP.md item, and chunked prefill and
+  preemption construct and run through the launcher.
 """
 
 import dataclasses
@@ -163,14 +164,45 @@ def test_serve_options_validation_matches_reference(kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(speculative=True), "item 10"),
-    (dict(paged=True, prefill_chunk=8), "item 9"),
-    (dict(paged=True, preemption=True), "item 9"),
     (dict(shards=2), "item 14"),
     (dict(softmax_kind="int"), "item 12"),
 ])
 def test_later_slice_options_name_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         topt.ServeOptions(**kw)
+
+
+def test_chunked_prefill_and_preemption_options_construct():
+    opts = topt.ServeOptions(paged=True, prefill_chunk=8, preemption=True)
+    assert (opts.prefill_chunk, opts.preemption) == (8, True)
+    want = jopt.ServeOptions(paged=True, prefill_chunk=8, preemption=True)
+    assert dataclasses.astuple(opts) == dataclasses.astuple(want)
+
+
+def test_launcher_chunked_preempting_serve_prints_sla_line(capsys):
+    from repro_torch.launch import serve
+
+    rep = serve.main(["--arch", "olmo-1b", "--smoke", "--continuous", "--paged",
+                      "--prefill-chunk", "8", "--preemption", "--softmax", "int_pallas",
+                      "--warm-steps", "0", "--device", "cpu", "--requests", "4",
+                      "--max-new", "4", "--prompt-len", "12"])
+    out = capsys.readouterr().out
+    assert rep.prefill_chunk == 8 and rep.leaked_blocks == 0
+    assert 0 < rep.max_prefill_per_step <= 8
+    assert (f"sla: prefill_chunk=8 (max prefill/step {rep.max_prefill_per_step}), "
+            f"preemptions=0 resumes=0 leaked_blocks=0") in out
+    assert "  class 0: n=4 ttft p50=" in out
+
+
+def test_launcher_prefill_chunk_requires_continuous(capsys):
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "olmo-1b", "--prefill-chunk", "8", "--warm-steps", "0",
+                    "--device", "cpu"])
+    # the reference's message (src/repro/launch/serve.py)
+    assert ("--prefill-chunk requires --continuous (it paces Engine.serve admissions)"
+            in capsys.readouterr().err)
 
 
 def test_serve_options_fields_and_defaults_match_reference():
