@@ -15,10 +15,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and the CUDA launches of one call (torch.profiler: one of that layout);
 4. the main path: full-width olmo-1b (16 layers, d_model 2048, seeded random
    bf16 weights) through ``Engine.generate(mode="fused")`` with softmax
-   ``int_pallas``, batch 4, prompt 512, 32 new tokens. K1 must launch exactly
-   16 x 32 = 512 times, and the same model with the plain torch Alg. 1
+   ``int_pallas``, batch 4, prompt 512, 32 new tokens, each decode step one
+   CUDA-graph replay (``serving/graphs.py``). K1 must launch exactly
+   16 x 32 = 512 times, graphed and op by op (graphed: the wrappers'
+   count plus the replays times the 16 K1 kernels each replay launched in
+   the device trace, which is gated too); the graphed run must equal
+   the op-by-op one bitwise (tokens, last logits, cache bytes) with one
+   capture, dispatch at most 20 aten ops a step and take less time a step
+   (printed beside op by op and mode="eager", with the fused / eager
+   ratio and one replayed step's device trace: GEMMs, K1-K4 and the rest,
+   and the idle share); the same model with the plain torch Alg. 1
    (``int``) must give bitwise equal tokens and last logits; then the smoke
-   config on the card against the same weights on the CPU;
+   config on the card against the same weights on the CPU; then llama2-7b
+   (32 layers, d_model 4096, 6.74 B parameters) through the same graphed
+   generate at batch 4, prompt 512, 32 new tokens: K1 32 x 32 = 1024, the
+   same checks and times, and the peak memory;
 5. K2 (the fused paged decode, each row split over CTAs) against its plain
    PyTorch version at the serve path's decode shape, the reference's
    paged-kernel matrix and long rows (32768 keys; T 5, GQA 7 and 35 rows
@@ -28,11 +39,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    times and bounds as for K1;
 6. the serve path: full-width olmo-1b through ``Engine.serve`` (paged pool,
    prefix sharing, ``kernel="pallas"``) on a 32-request shared-prefix
-   trace. K2 must launch 16 x steps times and K1 16 x 32; greedy tokens
+   trace. K2 must launch 16 x steps times (the replays' launches counted
+   in the device trace, 16 a replay) and K1 16 x 32; greedy tokens
    equal ``kernel="jnp"`` and per-request eager but at near ties; every
    served logit within a stated limit of a teacher-forced prefill of the
-   served tokens, and of the jnp serve's step by step; warm timings of both
-   kernels;
+   served tokens, and of the jnp serve's step by step; each decode step one
+   CUDA-graph replay, bitwise equal to the same serve op by op (tokens,
+   every logit row, pool bytes, launches), one capture per engine and step
+   shape, at most 20 aten ops a replayed greedy step and less time a step
+   than op by op (warm serves in turns, with the jnp kernel's graphed
+   serve), one replayed step's device trace;
 7. K4 (the absorbed-MLA paged decode, each row split over CTAs, both dots
    and PV on tensor cores in bf16) against its plain PyTorch version at the
    MLA serve path's decode shape, the reference's MLA kernel matrix,
@@ -44,7 +60,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 8. the MLA serve path: full-width minicpm3-4b (62 layers, d_model 2560, 40
    heads, latent rank 256) through ``Engine.serve`` as in phase 6 on an
    8-request shared-prefix trace: K4 must launch 62 x steps times, K1 62 x
-   8 and K2 never; the checks of phase 6 and one warm timing per kernel;
+   8 and K2 never; the checks of phase 6, graph checks and times included;
 9. K2's int8 branch against its plain version: the serve decode shape with
    absmax and with power-of-two (exaq) scales, sentinels and parked slots,
    4096-token rows, f32 compute, a 32768-token row; phase 5's checks;
@@ -54,8 +70,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 11. the serve path of phase 6 from an int8 KV pool (absmax): K2 must launch
     16 x steps times, all on int8 pools, and K1 16 x 32; the checks of
     phase 6 with the int8 limits (the teacher-forced pass quantizes K/V as
-    the prefill does), the pool's bytes per token, and for information the
-    logit distance to the bf16 model;
+    the prefill does), phase 6's graph checks and times, the pool's bytes
+    per token, and for information the logit distance to the bf16 model;
 12. K3 (the stand-alone fused prefill attention: query tiles over key tiles
     in three exact Alg.-1 passes, bf16 products on tensor cores) against its
     plain version: first its branch-free division by S against IEEE
@@ -85,12 +101,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     the prefill pieces worked out from the trace, greedy tokens equal to
     the plain serve's but at near ties, served logits within phase 6's
     limits of a teacher-forced pass and, step by step, of the plain
-    serve's. Beside them: the swap round trip on each full-width pool
-    (bitwise), a 2048-token prompt prefilled whole and in 256-token chunks
-    and a 512-token one in 128-token chunks (equal K/V bytes, printed),
-    and from the bf16 pool the chunked and
-    plain serves' ms per step, most prompt tokens in a step and time
-    between tokens (p50, p99, max), with the card's name and power limit;
+    serve's, and the chunked serve equal to the plain one bitwise (tokens,
+    every step-aligned logit row). Beside them: the swap round trip on
+    each full-width pool (bitwise), a 2048-token prompt prefilled whole
+    and in 256-token chunks and a 512-token one in 128-token chunks
+    (committed K/V bytes and last logits bitwise equal: the prefill pads
+    its products to 256 rows on the card, past cuBLAS's split-K), the
+    kernels each prefill product launches at 128 and 512 rows, whether the
+    pieces' rows equal the whole's plain and padded (gated) and a piece's
+    time plain and padded, phase 6's graph checks and times for
+    the chunked serve on each pool (bitwise equal to op by op, preemptions
+    and resumes included), with the chunked and plain serves' ms per
+    step, most prompt tokens in a step and time between tokens (p50, p99,
+    max), with the card's name and power limit;
 14. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
@@ -118,6 +141,7 @@ prints which checks catch each.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -227,65 +251,94 @@ def k1_layout(plan, rows) -> str:
 LAUNCH_CHECK_PADS = (0.0, 1.0, 4.0, 16.0)
 
 
-def launch_checks(kind, calls):
-    """Run each of ``calls`` (``(label, fn, kernel, rec)``) once under one
-    torch.profiler session, each inside ``record_function(label)``, and
-    check that it made one CUDA kernel launch (the runtime's launch calls,
-    host side, within the label's range) and that the device trace holds
-    one kernel for it whose name contains ``kernel`` (matched to its launch
-    call by CUPTI's correlation id, not by time). Writes the counts and
-    names into ``rec``. A session in which some label made its one launch
-    but the trace lost the kernel is run again with the next quiet time of
-    ``LAUNCH_CHECK_PADS``; a kernel still missing after the last fails, as
-    does any other count or name at once."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+def profiled_events(run, pad):
+    """The Kineto events (CPU and CUDA activity) of one torch.profiler
+    session around ``run()``, with ``pad`` s of quiet time before and
+    after it."""
+    from torch.profiler import ProfilerActivity, profile
 
-    labels = [label for label, *_ in calls]
-    check(len(set(labels)) == len(labels), f"{kind}: launch-check labels repeat")
-    for pad in LAUNCH_CHECK_PADS:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(pad)
-            for label, fn, _, _ in calls:
-                with record_function(label):
-                    fn()
-                torch.cuda.synchronize()
-            time.sleep(pad)
-        events = prof.profiler.kineto_results.events()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
+        run()
+        time.sleep(pad)
+    return prof.profiler.kineto_results.events()
+
+
+def traced_kernels(kind, calls, complete, pads=LAUNCH_CHECK_PADS):
+    """Run each of ``calls`` (``(label, fn)``) once under one torch.profiler
+    session, each inside ``record_function(label)``, and match the device
+    trace's kernels to the runtime's launch calls (kernel and graph
+    launches, host side) within each label's range by CUPTI's correlation
+    id, not by time. A session for which ``complete(kernels)`` is false is
+    run again with the next quiet time of ``pads``. Returns
+    {label: launch call names}, {label: kernel events}, the launch calls
+    outside every label, the kernels no label launched, and the pad."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    labels = [label for label, _ in calls]
+    check(len(set(labels)) == len(labels), f"{kind}: traced labels repeat")
+
+    def run():
+        for label, fn in calls:
+            with record_function(label):
+                fn()
+            torch.cuda.synchronize()
+
+    for pad in pads:
+        events = profiled_events(run, pad)
         ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
                   if e.device_type() == DeviceType.CPU and e.name() in labels]
         check(len(ranges) == len(labels), f"{kind}: the profiler recorded "
-              f"{len(ranges)} of {len(labels)} launch-check ranges")
+              f"{len(ranges)} of {len(labels)} traced ranges")
         launches = {label: [] for label in labels}
         kernels = {label: [] for label in labels}
-        caller = {}  # a launch call's correlation id -> its label
+        caller, stray, orphans = {}, [], []
         for e in events:
-            if e.device_type() == DeviceType.CPU and "LaunchKernel" in e.name():
+            if e.device_type() == DeviceType.CPU and ("LaunchKernel" in e.name()
+                                                      or "GraphLaunch" in e.name()):
                 owner = [label for t0, t1, label in ranges if t0 <= e.start_ns() <= t1]
-                check(len(owner) == 1,
-                      f"{kind}: a launch call outside the checked calls: {e.name()}")
+                if len(owner) != 1:
+                    stray.append(e.name())
+                    continue
                 launches[owner[0]].append(e.name())
                 caller[e.correlation_id()] = owner[0]
         for e in events:  # kernels (the labels' device-side ranges aside)
             if e.device_type() == DeviceType.CUDA and e.name() not in labels:
-                check(e.correlation_id() in caller,
-                      f"{kind}: a kernel no checked call launched: {e.name()}")
-                kernels[caller[e.correlation_id()]].append(e.name())
-        for label, _, kernel, rec in calls:
-            check(len(launches[label]) == 1,
-                  f"{kind} {label}: one call made the CUDA launches {launches[label]}")
-            check(len(kernels[label]) <= 1 and all(kernel in n for n in kernels[label]),
-                  f"{kind} {label}: one call launched the kernels {kernels[label]}, "
-                  f"not one {kernel}")
-        lost = [label for label in labels if not kernels[label]]
-        if not lost:
+                if e.correlation_id() in caller:
+                    kernels[caller[e.correlation_id()]].append(e)
+                else:
+                    orphans.append(e.name())
+        if complete(kernels):
             break
+    return launches, kernels, stray, orphans, pad
+
+
+def launch_checks(kind, calls):
+    """Run each of ``calls`` (``(label, fn, kernel, rec)``) once under one
+    torch.profiler session (``traced_kernels``) and check that it made one
+    CUDA kernel launch and that the device trace holds one kernel for it
+    whose name contains ``kernel``. Writes the counts and names into
+    ``rec``. A session that lost some label's kernel is run again with more
+    quiet time; a kernel still missing after the last fails, as does any
+    other count or name."""
+    launches, kernels, stray, orphans, pad = traced_kernels(
+        kind, [(label, fn) for label, fn, _, _ in calls],
+        lambda kernels: all(kernels.values()))
+    check(not stray, f"{kind}: launch calls outside the checked calls: {stray}")
+    check(not orphans, f"{kind}: kernels no checked call launched: {orphans}")
+    for label, _, kernel, rec in calls:
+        names = [e.name() for e in kernels[label]]
+        check(len(launches[label]) == 1,
+              f"{kind} {label}: one call made the CUDA launches {launches[label]}")
+        check(len(names) <= 1 and all(kernel in n for n in names),
+              f"{kind} {label}: one call launched the kernels {names}, not one {kernel}")
+        rec["cuda_launches_per_call"] = len(launches[label])
+        rec["kernels_traced"] = names
+    lost = [label for label, ks in kernels.items() if not ks]
     check(not lost, f"{kind}: the device trace lost the kernels of {lost} "
           f"with {LAUNCH_CHECK_PADS[-1]} s before and after the calls")
-    for label, _, kernel, rec in calls:
-        rec["cuda_launches_per_call"] = len(launches[label])
-        rec["kernels_traced"] = kernels[label]
     print(f"{kind}: each of {len(calls)} calls made one CUDA launch, and the device "
           f"trace holds its kernel ({', '.join(sorted({k for _, _, k, _ in calls}))}; "
           f"torch.profiler, {pad} s before and after the calls)", flush=True)
@@ -1413,46 +1466,289 @@ def phase7_k4(rate):
     return recs
 
 
+# ---------------------------------------------- decode steps as CUDA graphs
+
+# A replayed decode step asks the host for at most this many aten ops (the
+# inputs copied in, the outputs read back) on a greedy path.
+MAX_REPLAYED_STEP_OPS = 20
+
+
+class StepOps:
+    """While active, counts the aten ops the host dispatches inside the
+    engine's decode-step method ``name`` (``"_serve_decode"``: one serve
+    step, the host's lanes in to tokens on the host; ``"_fused_step"``: one
+    fused generate step), over its first ``first_n`` calls (every call
+    when None)."""
+
+    def __init__(self, name, first_n=None):
+        from repro_torch.serving.engine import Engine
+
+        self.cls, self.name, self.first_n = Engine, name, first_n
+        self.ops = self.steps = 0
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.name)
+
+        def counted(eng, *args, **kw):
+            if self.first_n is not None and self.steps >= self.first_n:
+                return orig(eng, *args, **kw)
+            counter = _OpCount()
+            with counter:
+                out = orig(eng, *args, **kw)
+            self.ops += counter.n
+            self.steps += 1
+            return out
+
+        setattr(self.cls, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+    @property
+    def per_step(self) -> float:
+        return self.ops / max(self.steps, 1)
+
+
+def graph_states(*engines):
+    """The decode states of ``engines`` that hold a captured graph."""
+    return [st for eng in engines for st in eng._decode_states.values()
+            if st.graph is not None]
+
+
+def op_by_op(eng):
+    """``eng`` with its decode steps run op by op (no CUDA graph)."""
+    eng._cuda_graphs = False
+    return eng
+
+
+def caches_equal(a, b) -> dict:
+    """Leaf -> bitwise equal, over two decode states' caches."""
+    return {k: bool(torch.equal(a.cache[k], b.cache[k])) for k in a.cache}
+
+
+def cache_bytes(st) -> int:
+    return sum(v.numel() * v.element_size() for v in st.cache.values())
+
+
+def rows_equal(rows_a, rows_b) -> int:
+    """How many requests' logit rows (recorder rows by seed) are bitwise
+    equal, every row of each; -1 when the request sets differ."""
+    if set(rows_a) != set(rows_b):
+        return -1
+    return sum(len(rows_a[s]) == len(rows_b[s]) and
+               all(torch.equal(x, y) for x, y in zip(rows_a[s], rows_b[s]))
+               for s in rows_a)
+
+
+def replay_counts(eng) -> dict:
+    """{step shape: graph replays so far} of ``eng``'s captured steps."""
+    return {k: st.graph.replays for k, st in eng._decode_states.items()
+            if st.graph is not None}
+
+
+def replays_in(eng, before) -> dict:
+    """{step shape: replays since ``before``} (a ``replay_counts``)."""
+    now = replay_counts(eng)
+    return {k: n - before.get(k, 0) for k, n in now.items() if n != before.get(k, 0)}
+
+
+# Kernel calls in a device trace: K1 launches one kernel a call, K3 one, K2
+# and K4 two or three (scores, sums for long rows, PV), so their PV launch
+# counts the calls; K2's on int8 pools are its int8_t instances.
+KERNEL_CALLS = {"K1": "k1_", "K2": "k2_pv", "K3": "k3_attention", "K4": "k4_pv"}
+
+
+def kernel_calls(names) -> dict:
+    """Calls of each kernel wrapper among the traced kernel ``names``,
+    keyed as ``_kernel_counters`` plus "K2 on int8 pools"."""
+    n = {k: sum(mark in name for name in names) for k, mark in KERNEL_CALLS.items()}
+    n["K2 on int8 pools"] = sum("k2_pv" in name and "signed char" in name for name in names)
+    return n
+
+
+# Device time of one replayed step by kernel class: a kernel whose name
+# holds a K prefix is that kernel's; cuBLAS / CUTLASS matrix products
+# (cuBLAS 12.8+ names its own "nvjet_*") are GEMMs; everything else
+# (elementwise, norms, rope, the quantizer, copies, gathers, argmax) is
+# "rest".
+STEP_TRACE_PADS = (1.0, 4.0, 16.0)
+
+
+def _kernel_class(name: str) -> str:
+    for k in ("k1_", "k2_", "k3_", "k4_"):
+        if k in name:
+            return k[:2].upper()
+    low = name.lower()
+    if any(t in low for t in ("nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_",
+                              "cublas")):
+        return "GEMM"
+    return "rest"
+
+
+def replay_trace(label, graphs, replays=3):
+    """torch.profiler over ``replays`` replays of each of ``graphs``
+    ({name: StepGraph}), each replay its own ``cudaGraphLaunch`` and its
+    kernels matched to it (``traced_kernels``, padded sessions), a session
+    kept when every replay of a graph shows the same kernel count. Per
+    graph: the kernel calls of one replay (``kernel_calls``), and of its
+    middle replay the device ms by class, the kernel count, the span from
+    its first kernel's start to its last one's end, and the idle share of
+    that span (no kernel running). Prints a line per graph; fails if a
+    graph's replays launched no kernel or differ."""
+    names = list(graphs)
+    calls = [(f"{label}: graph {i} replay {r}", graphs[name])
+             for i, name in enumerate(names) for r in range(replays)]
+
+    def per_graph(kernels):
+        return [[len(kernels[f"{label}: graph {i} replay {r}"]) for r in range(replays)]
+                for i in range(len(names))]
+
+    launches, kernels, _, _, pad = traced_kernels(
+        label, calls, lambda ks: all(c[0] > 0 and len(set(c)) == 1 for c in per_graph(ks)),
+        STEP_TRACE_PADS)
+    counts = per_graph(kernels)
+    check(all(c[0] > 0 and len(set(c)) == 1 for c in counts) and
+          all(len(launches[lab]) == 1 for lab, _ in calls),
+          f"{label}: kernels per replay {counts} over graph launches "
+          f"{[len(launches[lab]) for lab, _ in calls]}")
+    out = {}
+    for i, name in enumerate(names):
+        ks = sorted(kernels[f"{label}: graph {i} replay {replays // 2}"],
+                    key=lambda e: e.start_ns())
+        ms, rest = {}, {}
+        for e in ks:
+            c = _kernel_class(e.name())
+            ms[c] = ms.get(c, 0.0) + e.duration_ns() / 1e6
+            if c == "rest":
+                key = e.name()[:60]
+                n, t = rest.get(key, (0, 0.0))
+                rest[key] = (n + 1, t + e.duration_ns() / 1e6)
+        t0, t1 = ks[0].start_ns(), max(e.start_ns() + e.duration_ns() for e in ks)
+        busy, end = 0, t0
+        for e in ks:                 # union of the kernels' intervals
+            a, b = max(e.start_ns(), end), e.start_ns() + e.duration_ns()
+            if b > a:
+                busy += b - a
+            end = max(end, b)
+        top = sorted(rest.items(), key=lambda kv: -kv[1][1])[:6]
+        calls_per_replay = kernel_calls([e.name() for e in ks])
+        rec = out[name] = {
+            "path": label, "graph": str(name), "kernels": len(ks),
+            "calls_per_replay": calls_per_replay, "span_ms": (t1 - t0) / 1e6,
+            "device_ms": ms, "idle_share": 1 - busy / (t1 - t0),
+            "rest_top": {k: {"kernels": n, "ms": t} for k, (n, t) in top}}
+        print(f"  device trace of one replayed step, {label}, graph {i}: {len(ks)} kernels "
+              f"over {rec['span_ms']:.4f} ms, kernel calls {calls_per_replay}, device ms "
+              f"{ {k: round(v, 4) for k, v in sorted(ms.items())} }, idle share between "
+              f"kernels {rec['idle_share']:.3f} (torch.profiler, {pad} s before and after); "
+              f"the rest's largest: {[(k, n, round(t, 4)) for k, (n, t) in top]}", flush=True)
+    return out
+
+
+def replayed_graphs(eng, *replayed) -> dict:
+    """{step shape: StepGraph} of ``eng`` for the shapes in ``replayed``."""
+    return {k: eng._decode_states[k].graph for r in replayed for k in r}
+
+
+def path_launches(label, counted, replayed, traces, want_per_replay):
+    """The kernel launches of a run whose decode steps were graph replays:
+    the wrappers' counts ``counted`` (launches outside the graphs: prefills,
+    each graph's warm-up step) plus, for each graph, its replays in the run
+    (``replayed``) times its kernel calls per replay in the device trace
+    (``traces``, from ``replay_trace``). Gates each graph's calls per
+    replay against ``want_per_replay``."""
+    total = dict(counted)
+    for k, n in replayed.items():
+        per = traces[k]["calls_per_replay"]
+        check(per == want_per_replay, f"{label}: kernel calls per replay {per}, expected "
+              f"{want_per_replay}")
+        for key in total:
+            total[key] += n * per[key]
+    print(f"  {label}: launches {total} = the wrappers' {counted} + "
+          f"{ {str(k): n for k, n in replayed.items()} } replays x {want_per_replay} "
+          f"traced per replay", flush=True)
+    return total
+
+
 # ----------------------------------------------------------------- phase 4
 
 
-def phase4_main_path():
-    from repro_torch.configs.registry import get_config, smoke_config
-    from repro_torch.core.softmax_variants import SoftmaxSpec
-    from repro_torch.data.synthetic import SyntheticCorpus
-    from repro_torch.kernels.int_softmax import ops
-    from repro_torch.models.model import Model
+def graphed_generate(label, model, params, prompts, max_new, rounds, eager_mode=True):
+    """``Engine.generate(mode="fused")`` of ``model`` at full width, its
+    decode steps replayed as one CUDA graph (captured once), against the
+    same steps op by op: K1 launches n_layers x max_new in both runs (the
+    graphed run's replays counted from the device trace: ``path_launches``)
+    and every other kernel none; tokens, last logits and the final cache
+    bytes bitwise equal, and tokens
+    and last logits equal to mode="eager"'s; finite logits, tokens in
+    range. Then ``rounds`` rounds in turns of prefill
+    alone, the graphed generate, the op-by-op one and (``eager_mode``)
+    mode="eager" (host clock, synchronized), ms per decode step as
+    (median generate - median prefill) / (max_new - 1) and the
+    fused / eager decode ratio as ``benchmarks/decode_bench.py`` computes
+    it; the aten ops the host dispatches per decode step in each mode; one
+    replayed step's device trace. Gates: at most MAX_REPLAYED_STEP_OPS ops
+    a replayed step, one capture, graph faster than op by op."""
     from repro_torch.serving.engine import Engine
 
-    batch, prompt_len, max_new = 4, 512, 32
-    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"))
-    model = Model(cfg)                       # bf16 on the card
-    params = model.init(torch.Generator("cuda").manual_seed(0))
-    corpus = SyntheticCorpus(cfg.vocab, seed=1234)
-    prompts = corpus.sample(batch, prompt_len, seed=777)[:, :prompt_len]
-    print(f"main path: {cfg.name} ({cfg.param_count() / 1e9:.3f} B parameters, "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}), bf16 seeded weights, "
-          f"softmax int_pallas, batch {batch}, prompt {prompt_len}, "
-          f"max_new {max_new}, fused", flush=True)
+    cfg = model.cfg
+    batch, prompt_len = prompts.shape
+    print(f"{label}: {cfg.name} ({cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}), bf16 seeded weights, softmax "
+          f"{cfg.softmax.kind}, batch {batch}, prompt {prompt_len}, max_new {max_new}, fused",
+          flush=True)
     eng = Engine(model, params, max_new=max_new)
-    torch.cuda.reset_peak_memory_stats()
-
-    ops.int_softmax_rows.launches = 0
-    t0 = time.perf_counter()
-    res = eng.generate(prompts, report_cost=True, mode="fused")
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = ops.int_softmax_rows.launches
+    eng_o = op_by_op(Engine(model, params, max_new=max_new))
     want = cfg.n_layers * max_new
-    print(f"K1 launches in one generate: {launches} (expected {cfg.n_layers} layers "
-          f"x {max_new} steps = {want})", flush=True)
-    check(launches == want, f"K1 launched {launches} times, expected {want}")
-    check(res.tokens.shape == (batch, prompt_len + max_new), "token shape")
-    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "token range")
-    check(bool(torch.isfinite(res.logits).all()), "non-finite logits")
+    res, first_s, counted, replayed = {}, {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, e in (("graph", eng), ("op by op", eng_o)):
+        zero_counters()
+        before = replay_counts(e)
+        t0 = time.perf_counter()
+        res[name] = e.generate(prompts, report_cost=name == "graph", mode="fused")
+        torch.cuda.synchronize()
+        first_s[name] = time.perf_counter() - t0
+        counted[name], replayed[name] = read_counters(), replays_in(e, before)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    g, o = res["graph"], res["op by op"]
+    check(g.tokens.shape == (batch, prompt_len + max_new), "token shape")
+    check(bool(((g.tokens >= 0) & (g.tokens < cfg.vocab)).all()), "token range")
+    check(bool(torch.isfinite(g.logits).all()), "non-finite logits")
+    (sg,), (so,) = eng._decode_states.values(), eng_o._decode_states.values()
+    eq = caches_equal(sg, so)
+    check(np.array_equal(g.tokens, o.tokens) and torch.equal(g.logits, o.logits)
+          and all(eq.values()), f"{label}: graph and op by op differ (tokens "
+          f"{np.array_equal(g.tokens, o.tokens)}, logits {torch.equal(g.logits, o.logits)}, "
+          f"cache {eq})")
+    captures = len(graph_states(eng))
+    e = eng.generate(prompts, mode="eager")
+    check(np.array_equal(e.tokens, g.tokens) and torch.equal(e.logits, g.logits),
+          f"{label}: graph and mode='eager' differ")
+    print(f"graph == op by op, bitwise: tokens, last logits and the final cache "
+          f"({cache_bytes(sg)} B, leaves {sorted(eq)}); == mode='eager' in tokens and last "
+          f"logits; graphs captured: {captures} "
+          f"(one shape); first calls {first_s['graph'] * 1e3:.1f} / "
+          f"{first_s['op by op'] * 1e3:.1f} ms (graph, capture included / op by op); "
+          f"peak device memory {peak:.2f} GiB", flush=True)
+    check(captures == 1, f"{label}: {captures} graphs captured, expected 1")
+    # K1 launches: op by op, the wrappers' count; graphed, the prefill's and
+    # the warm-up step's plus the replays times the kernels one replay
+    # launched in the device trace
+    per_replay = {k: 0 for k in counted["graph"]}
+    per_replay["K1"] = cfg.n_layers
+    traces = replay_trace(label, replayed_graphs(eng, replayed["graph"]))
+    n = path_launches(label, counted["graph"], replayed["graph"], traces, per_replay)
+    for name, got in (("graph", n), ("op by op", counted["op by op"])):
+        print(f"K1 launches in one generate, {name}: {got['K1']} (expected {cfg.n_layers} "
+              f"layers x {max_new} steps = {want}), all {got}", flush=True)
+        check(got["K1"] == want and got == dict(counted["op by op"]),
+              f"{label}, {name}: launches {got}, expected K1 {want} and the op-by-op "
+              f"{counted['op by op']}")
+    if g.cost is not None:
+        print(f"batch softmax AP cost: {g.cost.describe()}", flush=True)
 
-    # steady-state timing (host clock around synchronized work, 5 runs
-    # each): prefill alone, then whole generates
     tokens = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
 
     def wall(fn):
@@ -1462,32 +1758,68 @@ def phase4_main_path():
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
-    prefill_s = [wall(lambda: model.prefill(params, {"tokens": tokens},
-                                            cache_len=prompt_len + max_new))[0]
-                 for _ in range(5)]
-    gen_s = []
-    for _ in range(5):
-        dt, res2 = wall(lambda: eng.generate(prompts, mode="fused"))
-        check(np.array_equal(res2.tokens, res.tokens), "repeat generate differs")
-        gen_s.append(dt)
-    g_med, p_med = statistics.median(gen_s), statistics.median(prefill_s)
-    step_ms = (g_med - p_med) / (max_new - 1) * 1e3
-    print(f"generate (5 runs): median {g_med * 1e3:.1f} ms [min {min(gen_s) * 1e3:.1f}, "
-          f"max {max(gen_s) * 1e3:.1f}] -> {batch * max_new / g_med:.1f} tok/s; first "
-          f"call {first_s * 1e3:.1f} ms; prefill median {p_med * 1e3:.1f} ms; "
-          f"{step_ms:.2f} ms per decode step (median generate - prefill, / "
-          f"{max_new - 1}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"batch softmax AP cost: {res.cost.describe()}", flush=True)
-    # what a decode step asks of the host: aten ops dispatched (plus the 16
-    # K1 launches, which go through ctypes)
-    _, cache = model.prefill(params, {"tokens": tokens}, cache_len=prompt_len + max_new)
-    counter = _OpCount()
-    with counter:
-        model.decode_step(params, cache, {"token": tokens[:, :1]}, prompt_len)
-    print(f"host work: {counter.n} aten ops per decode step (+{cfg.n_layers} K1 "
-          f"launches) -> {step_ms / counter.n * 1e3:.1f} us of step time per op",
-          flush=True)
+    runs = [("graph", lambda: eng.generate(prompts, mode="fused")),
+            ("op by op", lambda: eng_o.generate(prompts, mode="fused"))]
+    if eager_mode:
+        runs.append(("eager", lambda: eng.generate(prompts, mode="eager")))
+    walls = {name: [] for name in ["prefill"] + [n for n, _ in runs]}
+    for _ in range(rounds):
+        walls["prefill"].append(wall(lambda: model.prefill(
+            params, {"tokens": tokens}, cache_len=prompt_len + max_new))[0])
+        for name, fn in runs:
+            dt, r = wall(fn)
+            check(np.array_equal(r.tokens, g.tokens), f"{label}: repeat {name} differs")
+            walls[name].append(dt)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    step_ms = {n: (med[n] - med["prefill"]) / (max_new - 1) * 1e3 for n, _ in runs}
+    with StepOps("_fused_step") as og:
+        eng.generate(prompts, mode="fused")
+    with StepOps("_fused_step", first_n=2) as oo:
+        eng_o.generate(prompts, mode="fused")
+    rec = {"path": label, "arch": cfg.name, "batch": batch, "prompt": prompt_len,
+           "max_new": max_new, "launches_K1": n["K1"], "launches": n,
+           "replays": sum(replayed["graph"].values()), "captures": captures,
+           "peak_gib": peak, "walls_s": walls, "ms_per_step": step_ms,
+           "tok_s": {n: batch * max_new / med[n] for n, _ in runs},
+           "prefill_ms": med["prefill"] * 1e3,
+           "aten_ops_per_step": {"graph": og.per_step, "op by op": oo.per_step}}
+    line = (f"generate ({rounds} rounds in turns, medians): prefill "
+            f"{med['prefill'] * 1e3:.2f} ms; " + "; ".join(
+                f"{n} {med[n] * 1e3:.1f} ms = {rec['tok_s'][n]:.1f} tok/s, "
+                f"{step_ms[n]:.3f} ms per decode step" for n, _ in runs))
+    if eager_mode:
+        rec["fused_over_eager"] = ((med["eager"] - med["prefill"])
+                                   / (med["graph"] - med["prefill"]))
+        line += (f"; fused / eager decode {rec['fused_over_eager']:.2f}x (the reference's "
+                 "CI contract: >= 3x, benchmarks/decode_bench.py --min-speedup 3; not "
+                 "gated here)")
+    print(line + f" ({card_line()})", flush=True)
+    print(f"host work per decode step: {og.per_step:.1f} aten ops replayed (limit "
+          f"{MAX_REPLAYED_STEP_OPS}; {og.steps} steps) against {oo.per_step:.0f} op by op "
+          f"(+{cfg.n_layers} K1 launches through ctypes)", flush=True)
+    check(og.per_step <= MAX_REPLAYED_STEP_OPS,
+          f"{label}: {og.per_step} aten ops per replayed step")
+    check(step_ms["graph"] < step_ms["op by op"],
+          f"{label}: graph {step_ms['graph']} ms per step not below op by op "
+          f"{step_ms['op by op']}")
+    (rec["trace"],) = traces.values()
+    return rec, g
+
+
+def phase4_main_path():
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    batch, prompt_len, max_new = 4, 512, 32
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"))
+    model = Model(cfg)                       # bf16 on the card
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    corpus = SyntheticCorpus(cfg.vocab, seed=1234)
+    prompts = corpus.sample(batch, prompt_len, seed=777)[:, :prompt_len]
+    rec, res = graphed_generate("main path", model, params, prompts, max_new, rounds=3)
 
     # the same weights with the plain torch Alg. 1 on the card
     plain = Engine(Model(cfg.with_softmax(SoftmaxSpec("int"))), params, max_new=max_new)
@@ -1496,7 +1828,7 @@ def phase4_main_path():
     check(torch.equal(res_int.logits, res.logits), "int vs int_pallas last logits differ")
     print("int_pallas vs int (plain Alg. 1) on the card: tokens and last logits "
           "bitwise equal", flush=True)
-    del eng, plain, params, res, res2, res_int
+    del plain, params, res, res_int
     torch.cuda.empty_cache()
 
     # small input: the card against the CPU, same f32 weights
@@ -1513,7 +1845,20 @@ def phase4_main_path():
     print(f"smoke olmo-1b f32, card (K1) vs CPU (plain): greedy tokens equal, last "
           f"logits max abs diff {err:.3e} (bound 1e-2: a score on a rounding "
           f"boundary may quantize differently)", flush=True)
-    return launches
+    del gpu_params, on_gpu
+
+    # llama2-7b, the paper's own model, at full width through the same path
+    lcfg = get_config("llama2-7b", softmax=SoftmaxSpec("int_pallas"))
+    lmodel = Model(lcfg)
+    lparams = lmodel.init(torch.Generator("cuda").manual_seed(0))
+    lprompts = SyntheticCorpus(lcfg.vocab, seed=1234).sample(batch, prompt_len,
+                                                               seed=777)[:, :prompt_len]
+    lrec, _ = graphed_generate("llama2-7b generate", lmodel, lparams, lprompts, max_new,
+                               rounds=2, eager_mode=False)
+    del lmodel, lparams
+    torch.cuda.empty_cache()
+    rec["llama2-7b"] = lrec
+    return rec
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1691,7 +2036,116 @@ def compare_tokens(label, got, want, prompt_len, model, params, ties):
     ties.append(d)
 
 
-def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit_rms_tol,
+def serve_graph_vs_op(label, reqs, graphed, op):
+    """A serve with its decode steps as CUDA-graph replays against the same
+    serve op by op (each ``(report, recorder rows, engine)``): tokens,
+    every logit row and the final pool bytes bitwise equal, and the same
+    schedule. Prints one line; returns the record (the caller compares the
+    launches once the graphs' replays are traced: ``path_launches``)."""
+    (rep_g, rows_g, eng_g), (rep_o, rows_o, eng_o) = graphed, op
+    keys = [k for k in eng_o._decode_states if k in eng_g._decode_states]
+    eq = {k: caches_equal(eng_g._decode_states[k], eng_o._decode_states[k]) for k in keys}
+    out = {"tokens": all(np.array_equal(a.tokens, b.tokens)
+                         for a, b in zip(rep_g.results, rep_o.results)),
+           "logit_rows": rows_equal(rows_g, rows_o) == len(reqs),
+           "pool_bytes": bool(keys) and all(all(e.values()) for e in eq.values()),
+           "schedule": all(getattr(rep_g, f) == getattr(rep_o, f) for f in (
+               "steps", "preemptions", "resumes", "max_prefill_per_step",
+               "prefill_tokens", "shared_prefill_tokens", "leaked_blocks"))}
+    nbytes = sum(cache_bytes(eng_g._decode_states[k]) for k in keys)
+    print(f"  graph == op by op, {label}: {out} ({sum(len(v) for v in rows_g.values())} "
+          f"logit rows, {nbytes} pool bytes, {rep_g.steps} steps)", flush=True)
+    check(all(out.values()), f"{label}: the graphed serve differs from op by op: {out}")
+    return out
+
+
+def same_launches(label, record, graphed, op):
+    """The graphed serve's launches (``path_launches``) equal op by op's."""
+    record["launches"] = graphed == op
+    check(graphed == op, f"{label}: graphed launches {graphed} != op by op {op}")
+
+
+def serve_timing(label, reqs, plan, graph="graph", op="op by op"):
+    """Warm serves on the host clock, in the order of ``plan`` ((name,
+    engine, options) triples). Per name: ms per step of each run (wall /
+    steps, prefills included) and at the median wall, generated tok/s, the
+    most prompt tokens prefilled in a step, and the time between tokens over
+    every emission of its runs (and over the requests never preempted).
+    The aten ops the host dispatches per decode step: over every step of
+    the last ``graph`` run, and the first two steps of the first ``op`` run
+    (the costly one: one of it between two graphed runs). Every run of one
+    name gives the tokens of its first, and ``graph`` and ``op`` give the
+    same tokens. Gates: at most MAX_REPLAYED_STEP_OPS ops a replayed greedy
+    step; ``graph`` faster than ``op`` per step."""
+    import dataclasses
+
+    gen_tokens = sum(r.max_new for r in reqs)
+    runs, counted = {}, {}
+    last_graph = max(i for i, (m, _, _) in enumerate(plan) if m == graph)
+    first_op = min(i for i, (m, _, _) in enumerate(plan) if m == op)
+    for i, (name, eng, opts) in enumerate(plan):
+        ctx = (StepOps("_serve_decode") if i == last_graph else
+               StepOps("_serve_decode", first_n=2) if i == first_op else
+               contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            rep = eng.serve(reqs, dataclasses.replace(opts, report_cost=False))
+        torch.cuda.synchronize()
+        runs.setdefault(name, []).append((time.perf_counter() - t0, rep))
+        if i in (last_graph, first_op):
+            counted[name] = ctx.per_step
+    card = card_line()
+    out = {}
+    for name, rs in runs.items():
+        first = rs[0][1]
+        for _, r in rs[1:]:
+            check(all(np.array_equal(a.tokens, b.tokens)
+                      for a, b in zip(first.results, r.results)),
+                  f"{label}, {name}: repeat serve differs")
+        med = statistics.median(w for w, _ in rs)
+        t = out[name] = {"walls_ms": [w * 1e3 for w, _ in rs], "steps": first.steps,
+                         "ms_per_step_runs": [w * 1e3 / r.steps for w, r in rs],
+                         "ms_per_step": med * 1e3 / first.steps,
+                         "tok_s": gen_tokens / med, "aten_ops_per_step": counted.get(name),
+                         "max_prompt_tokens_per_step": first.max_prefill_per_step}
+        results = [r for _, rep in rs for r in rep.results]
+        # a preempted request's gap while swapped out is a TBT too: read the
+        # requests never preempted apart
+        for key, sel in (("tbt", results),
+                         ("tbt_never_preempted", [r for r in results if not r.preempts])):
+            tbt = np.concatenate([np.asarray(r.tbt_s) for r in sel]) * 1e3
+            t.update({f"{key}_p50_ms": float(np.percentile(tbt, 50)),
+                      f"{key}_p99_ms": float(np.percentile(tbt, 99)),
+                      f"{key}_max_ms": float(tbt.max())})
+        gaps = [max(r.tbt_s) * 1e3 for r in results if r.preempts]
+        t["preempted_longest_gap_ms"] = max(gaps) if gaps else None
+        gap = ("" if t["preempted_longest_gap_ms"] is None else
+               f"; a preempted request's longest gap {t['preempted_longest_gap_ms']:.2f} ms")
+        print(f"  {label}, {name} ({len(rs)} warm run(s) in the order "
+              f"{[m for m, _, _ in plan]}): walls {[round(x, 1) for x in t['walls_ms']]} ms, "
+              f"{t['ms_per_step']:.3f} ms per step (median wall / {t['steps']} steps, "
+              f"prefills included; runs {[round(x, 3) for x in t['ms_per_step_runs']]}), "
+              f"{t['tok_s']:.1f} generated tok/s, max prompt tokens in a step "
+              f"{t['max_prompt_tokens_per_step']}, time between tokens p50 "
+              f"{t['tbt_p50_ms']:.2f} / p99 {t['tbt_p99_ms']:.2f} / max {t['tbt_max_ms']:.2f} "
+              f"ms, never preempted p50 {t['tbt_never_preempted_p50_ms']:.2f} / p99 "
+              f"{t['tbt_never_preempted_p99_ms']:.2f} / max "
+              f"{t['tbt_never_preempted_max_ms']:.2f} ms{gap} ({card})", flush=True)
+    g, o = runs[graph][0][1], runs[op][0][1]
+    check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(g.results, o.results)),
+          f"{label}: graphed and op-by-op greedy tokens differ")
+    print(f"  {label}, host work per decode step: {counted[graph]:.1f} aten ops replayed "
+          f"(limit {MAX_REPLAYED_STEP_OPS}) against {counted[op]:.0f} op by op", flush=True)
+    check(counted[graph] <= MAX_REPLAYED_STEP_OPS,
+          f"{label}: {counted[graph]} aten ops per replayed step")
+    check(out[graph]["ms_per_step"] < out[op]["ms_per_step"],
+          f"{label}: graph {out[graph]['ms_per_step']} ms per step not below op by op "
+          f"{out[op]['ms_per_step']}")
+    return out
+
+
+def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
                 aligned_tol, aligned_rms_tol, max_new, kv_quant=False):
     """Full-width ``arch`` served through Engine.serve with the paged pool,
     prefix sharing and ``kernel="pallas"``: the fused paged decode
@@ -1702,16 +2156,19 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
     but at near ties; every served logit within ``logit_tol`` (RMS
     ``logit_rms_tol``) of a teacher-forced forward of the served tokens,
     and the pallas and jnp serves' logits within ``aligned_tol`` (RMS
-    ``aligned_rms_tol``) of each other step by step;
-    ``warm_runs`` warm runs per kernel, in turns, and one op-counted serve
-    per kernel. ``kv_quant``: the int8 KV pool (absmax); K2 must then launch
-    on int8 pools every time, and the teacher-forced pass quantizes as
-    the prefill does."""
+    ``aligned_rms_tol``) of each other step by step. The decode steps are
+    CUDA-graph replays (their kernels counted from the device trace:
+    ``path_launches``, which also gives one replayed step's device time);
+    the checked serve equals the same serve op by op bitwise (tokens, logit
+    rows, pool bytes, launches), each engine captures once per step shape,
+    and the greedy serve is timed graphed and op by op in turns
+    (``serve_timing``). ``kv_quant``: the int8 KV pool (absmax); K2 must then
+    launch on int8 pools every time, and the teacher-forced pass quantizes
+    as the prefill does."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
-    from repro_torch.kernels.paged_attention import ops as paged
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
 
@@ -1735,26 +2192,10 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
     # keeps every logits row; the timed runs below use ``eng``
     rec = _LogitRecorder()
     eng_r = Engine(model, params, max_new=max_new, sampler=rec)
-    for f in counters.values():
-        f.launches = 0
-    paged.paged_attention_rows.int8_launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rep = eng_r.serve(reqs, opts)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    n = {k: f.launches for k, f in counters.items()}
-    n["K2 on int8 pools"] = paged.paged_attention_rows.int8_launches
-    rows_pallas, rec.rows = rec.rows, {}
-    want = {k: 0 for k in n}
-    want.update({"K1": cfg.n_layers * len(reqs), name: cfg.n_layers * rep.steps})
-    if kv_quant:
-        want["K2 on int8 pools"] = cfg.n_layers * rep.steps
-    print(f"launches in one serve: {n} (expected {want}: {name} {cfg.n_layers} layers x "
-          f"{rep.steps} steps, K1 {cfg.n_layers} x {len(reqs)} prefills); first serve "
-          f"{first_s * 1e3:.1f} ms, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    check(n == want, f"kernel launches {n} != {want}")
+    rep, counted, rows_pallas, first_s, replayed = counted_serve(eng_r, reqs, opts, rec)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec.rows = {}
     check(len(rep.results) == len(reqs), "not every request completed")
     for r, res in zip(reqs, rep.results):
         check(res.rid == r.rid and res.tokens.shape == (r.prompt_len + r.max_new,),
@@ -1773,6 +2214,27 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
                   for q in (False, True)}
     print(f"KV pool bytes per token: {pool_bytes[cfg.kv_quant]} ({cfg.n_layers} layers; "
           f"int8 pool {pool_bytes[True]}, bf16 pool {pool_bytes[False]})", flush=True)
+    rec_o = _LogitRecorder()
+    eng_ro = op_by_op(Engine(model, params, max_new=max_new, sampler=rec_o))
+    rep_o, n_o, rows_o, _, _ = counted_serve(eng_ro, reqs, opts, rec_o)
+    graph_vs_op = serve_graph_vs_op(f"{cfg.name} serve", reqs,
+                                    (rep, rows_pallas, eng_r), (rep_o, rows_o, eng_ro))
+    del eng_ro, rows_o, rec_o
+    per_replay = {k: 0 for k in counted}
+    per_replay[name] = cfg.n_layers
+    if kv_quant:
+        per_replay["K2 on int8 pools"] = cfg.n_layers
+    traces = replay_trace(f"{cfg.name} serve", replayed_graphs(eng_r, replayed))
+    n = path_launches(f"{cfg.name} serve", counted, replayed, traces, per_replay)
+    same_launches(f"{cfg.name} serve", graph_vs_op, n, n_o)
+    want = {k: 0 for k in n}
+    want.update({"K1": cfg.n_layers * len(reqs), name: cfg.n_layers * rep.steps})
+    if kv_quant:
+        want["K2 on int8 pools"] = cfg.n_layers * rep.steps
+    print(f"launches in one serve: {n} (expected {want}: {name} {cfg.n_layers} layers x "
+          f"{rep.steps} steps, K1 {cfg.n_layers} x {len(reqs)} prefills); first serve "
+          f"{first_s * 1e3:.1f} ms, peak device memory {peak:.2f} GiB", flush=True)
+    check(n == want, f"kernel launches {n} != {want}")
 
     ties = []
     rep_j = eng_r.serve(reqs, dataclasses.replace(opts, kernel="jnp", report_cost=False))
@@ -1815,53 +2277,29 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, warm_runs, logit_tol, logit
                                  Model(dataclasses.replace(cfg, kv_quant=False)), params,
                                  reqs, [res.tokens for res in rep.results], rows_pallas,
                                  float("inf"), float("inf"))
+    captures = len(graph_states(eng_r))
     del rec, eng_r, rows_pallas, rows_jnp
 
-    # warm runs, in turns, median per kernel
-    runs = {"pallas": [], "jnp": []}
-    for _ in range(warm_runs):
-        for kernel in ("pallas", "jnp"):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            r_k = eng.serve(reqs, dataclasses.replace(opts, kernel=kernel, report_cost=False))
-            torch.cuda.synchronize()
-            runs[kernel].append((time.perf_counter() - t0, r_k,
-                                 torch.cuda.max_memory_allocated()))
-    timing = {}
-    for kernel, rs in runs.items():
-        wall = statistics.median(dt for dt, _, _ in rs)
-        r_k = rs[0][1]
-        timing[kernel] = {"wall_ms": wall * 1e3, "tok_s": gen_tokens / wall,
-                          "steps": r_k.steps, "ms_per_step": wall * 1e3 / r_k.steps,
-                          "prefill_tokens": r_k.prefill_tokens,
-                          "shared_tokens": r_k.shared_prefill_tokens,
-                          "cow_copies": r_k.cow_copies,
-                          "peak_gib": max(m for _, _, m in rs) / 2**30,
-                          "wall_ms_runs": [dt * 1e3 for dt, _, _ in rs]}
-        t = timing[kernel]
-        print(f"serve kernel={kernel} ({warm_runs} warm run(s)): median wall "
-              f"{t['wall_ms']:.1f} ms {[round(x, 1) for x in t['wall_ms_runs']]}, "
-              f"{t['tok_s']:.1f} generated tok/s, {t['steps']} decode steps, "
-              f"{t['ms_per_step']:.2f} ms per step (wall / steps, prefills included), prefill "
-              f"{t['prefill_tokens']} tokens vs shared {t['shared_tokens']}, cow copies "
-              f"{t['cow_copies']}, peak device memory {t['peak_gib']:.2f} GiB", flush=True)
-    # what a step asks of the host: aten ops dispatched over one serve
-    # (prefills included), per decode step; the kernels go through ctypes
-    for kernel in ("pallas", "jnp"):
-        counter = _OpCount()
-        with counter:
-            r_k = eng.serve(reqs, dataclasses.replace(opts, kernel=kernel, report_cost=False))
-        timing[kernel]["aten_ops_per_step"] = counter.n / r_k.steps
-        print(f"host work, kernel={kernel}: {counter.n} aten ops in one serve = "
-              f"{counter.n / r_k.steps:.0f} per decode step (prefills included) -> "
-              f"{timing[kernel]['ms_per_step'] / (counter.n / r_k.steps) * 1e3:.1f} us "
-              "of step time per op", flush=True)
+    # the greedy serve graphed and op by op, in turns (one warm graphed
+    # serve first: it captures), and the jnp kernel's graphed serve
+    eng_o = op_by_op(Engine(model, params, max_new=max_new))
+    jnp_opts = dataclasses.replace(opts, kernel="jnp")
+    eng.serve(reqs, dataclasses.replace(opts, report_cost=False))
+    eng.serve(reqs, dataclasses.replace(jnp_opts, report_cost=False))
+    timing = serve_timing(f"{cfg.name} serve", reqs, [
+        ("graph", eng, opts), ("op by op", eng_o, opts), ("graph", eng, opts),
+        ("jnp graph", eng, jnp_opts)])
+    captures += len(graph_states(eng))
+    print(f"  graphs captured in the phase: {captures} (one per engine and step shape: "
+          f"2 engines x the kernels pallas and jnp = 4)", flush=True)
+    check(captures == 4, f"{cfg.name}: {captures} graphs for 4 step shapes")
+    (trace,) = traces.values()
     return {"arch": arch, "kv_pool": "int8 (absmax)" if kv_quant else "bf16",
             "launches": n, "steps": rep.steps, "ties": ties,
             "teacher_forced_logits": logit_checks, "aligned_logits": aligned,
             "int8_vs_bf16_model_logits": to_bf16, "pool_bytes_per_token": pool_bytes,
-            "timing": timing}
+            "graph_vs_op_by_op": graph_vs_op, "captures": captures, "timing": timing,
+            "step_trace": trace}
 
 
 def pool_bytes_per_token(cfg) -> int:
@@ -1882,7 +2320,8 @@ SERVE_OPTIONS = dict(slots=8, paged=True, block_size=16, prefix_share=True, kern
 def phase6_serve(kv_quant=False):
     """Full-width olmo-1b served through Engine.serve with the paged pool,
     prefix sharing and the fused paged decode K2; ``kv_quant``: from an
-    int8 pool (phase 11). One warm serve per kernel."""
+    int8 pool (phase 11). Decode steps as CUDA-graph replays, held against
+    the same serve op by op and timed against it."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.serving.options import ServeOptions
@@ -1891,7 +2330,7 @@ def phase6_serve(kv_quant=False):
     reqs = shared_prefix_trace(32, get_config("olmo-1b").vocab, **SERVE_TRACE)
     opts = ServeOptions(**SERVE_OPTIONS)
     return serve_phase("olmo-1b", reqs, opts, fused=ops.paged_attention_rows, eager_n=4,
-                       warm_runs=1, logit_tol=LOGIT_TOL, logit_rms_tol=LOGIT_RMS_TOL,
+                       logit_tol=LOGIT_TOL, logit_rms_tol=LOGIT_RMS_TOL,
                        aligned_tol=LOGIT_TOL, aligned_rms_tol=ALIGNED_RMS_TOL, max_new=64,
                        kv_quant=kv_quant)
 
@@ -1954,7 +2393,7 @@ def phase8_mla_serve():
     opts = ServeOptions(slots=MLA_SLOTS, paged=True, block_size=MLA_BS, prefix_share=True,
                         kernel="pallas", report_cost=True)
     return serve_phase("minicpm3-4b", reqs, opts, fused=ops.paged_attention_mla_rows,
-                       eager_n=2, warm_runs=1, logit_tol=MLA_LOGIT_TOL,
+                       eager_n=2, logit_tol=MLA_LOGIT_TOL,
                        logit_rms_tol=MLA_LOGIT_RMS_TOL, aligned_tol=MLA_ALIGNED_TOL,
                        aligned_rms_tol=MLA_ALIGNED_RMS_TOL, max_new=32)
 
@@ -1976,6 +2415,23 @@ def _kernel_counters():
 
     return {"K1": k1.int_softmax_rows, "K2": paged.paged_attention_rows,
             "K3": k3.int_attention_rows, "K4": paged.paged_attention_mla_rows}
+
+
+def zero_counters():
+    from repro_torch.kernels.paged_attention import ops as paged
+
+    for f in _kernel_counters().values():
+        f.launches = 0
+    paged.paged_attention_rows.int8_launches = 0
+
+
+def read_counters() -> dict:
+    """The wrappers' launch counts, with K2's on int8 pools."""
+    from repro_torch.kernels.paged_attention import ops as paged
+
+    n = {k: f.launches for k, f in _kernel_counters().items()}
+    n["K2 on int8 pools"] = paged.paged_attention_rows.int8_launches
+    return n
 
 
 def cost_shares_sum(rep) -> bool:
@@ -2016,22 +2472,18 @@ def phase13_options(reqs, chunked=True):
 def counted_serve(eng, reqs, opts, rec):
     """One serve through ``eng`` (sampling through the recorder ``rec``),
     every kernel count set to 0 just before and read just after. Returns
-    the report, the launches, the logit rows and the wall seconds."""
-    from repro_torch.kernels.paged_attention import ops as paged
-
-    counters = _kernel_counters()
-    for f in counters.values():
-        f.launches = 0
-    paged.paged_attention_rows.int8_launches = 0
+    the report, the wrappers' launches (a graphed serve's replays launch
+    without the wrappers: ``path_launches``), the logit rows, the wall
+    seconds and the graph replays by step shape."""
+    before = replay_counts(eng)
+    zero_counters()
     rec.rows = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = eng.serve(reqs, opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = {k: f.launches for k, f in counters.items()}
-    n["K2 on int8 pools"] = paged.paged_attention_rows.int8_launches
-    return rep, n, rec.rows, wall
+    return rep, read_counters(), rec.rows, wall, replays_in(eng, before)
 
 
 def prefill_pieces(reqs, rep):
@@ -2144,12 +2596,15 @@ def swap_round_trip(cfg, num_blocks):
 
 
 def whole_vs_chunked_prefill(model, params, n=2048, chunk=256):
-    """Information only: a prompt of ``n`` tokens prefilled whole and in
-    ``chunk``-token prefill_tail pieces (contiguous layout, slot_prefix_view
-    / slot_scatter): the share of committed K/V bytes that are equal, the
-    largest difference, and the last logits' largest difference. cuBLAS may
-    reduce other row counts in another order, so bitwise equality (which
-    the CPU tests hold) is not asked of the card."""
+    """A prompt of ``n`` tokens prefilled whole and in ``chunk``-token
+    prefill_tail pieces (contiguous layout, slot_prefix_view /
+    slot_scatter): the share of committed K/V bytes that are equal, the
+    largest difference, and the last logits' largest difference. The caller
+    holds them bitwise, as the CPU tests do: the prefill pads its products
+    to PREFILL_MIN_ROWS rows on the card, where cuBLAS would take a split-K
+    kernel for the down projection at 128 rows and fewer and sum its
+    partials in another order (``prefill_products``,
+    ``probes/prefill_rows.py``)."""
     from repro_torch.models import kv_cache
 
     cfg = model.cfg
@@ -2176,43 +2631,85 @@ def whole_vs_chunked_prefill(model, params, n=2048, chunk=256):
     out = {"tokens": n, "chunk": chunk, "equal_byte_share": same / total,
            "max_abs_diff": diff, "last_logits_max_abs_diff": logit_diff}
     print(f"  whole vs chunked prefill ({'int8' if cfg.kv_quant else 'bf16'} K/V, {n} tokens, "
-          f"{chunk}-token prefill_tail chunks; information): {same / total:.6f} of committed "
+          f"{chunk}-token prefill_tail chunks; held bitwise): "
+          f"{same / total:.6f} of committed "
           f"K/V bytes equal, largest difference {diff}, last logits {logit_diff:.4g}",
           flush=True)
     return out
 
 
-def serve_timing(eng, reqs, runs):
-    """Warm serves timed on the host clock, in the order of ``runs``
-    ((label, options) pairs): per label, ms per step (prefills included) of
-    each run, the most prompt tokens prefilled in a step, and the time
-    between tokens over every emission of its runs."""
-    import dataclasses
+def prefill_products(model, params, n=512, chunk=CHUNK):
+    """Chunked == whole on the card: the products of an ``n``-token prefill
+    and of its ``chunk``-token pieces, at olmo-1b's widths with layer 0's
+    weights and seeded bf16 inputs. Each projection, the rows of the pieces
+    against the rows of the whole: whether they are bitwise equal as the
+    pieces' own products give them (x @ w) and as the prefill computes them
+    (``dense_apply`` under ``Model.prefill_ctx``: zero-padded to
+    PREFILL_MIN_ROWS rows), the kernels each launches (torch.profiler,
+    padded sessions), and the device time of one piece's product plain and
+    padded (what the padding costs). The attention products of a piece (its
+    queries against the keys committed so far plus its own, as ``attend``
+    computes scores and PV) against the whole prefill's rows. Gate: every
+    padded projection's rows equal the whole's."""
+    from repro_torch.models.layers import dense_apply
 
-    reps = {}
-    for label, opts in runs:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rep = eng.serve(reqs, dataclasses.replace(opts, report_cost=False))
-        torch.cuda.synchronize()
-        reps.setdefault(label, []).append((time.perf_counter() - t0, rep))
-    out = {}
-    for label, rs in reps.items():
-        results = [r for _, rep in rs for r in rep.results]
-        t = {"ms_per_step": [wall * 1e3 / rep.steps for wall, rep in rs],
-             "steps": rs[0][1].steps,
-             "max_prompt_tokens_per_step": rs[0][1].max_prefill_per_step}
-        # a preempted request's gap while swapped out is a TBT too: read the
-        # requests never preempted apart
-        for key, sel in (("tbt", results),
-                         ("tbt_never_preempted", [r for r in results if not r.preempts])):
-            tbt = np.concatenate([np.asarray(r.tbt_s) for r in sel]) * 1e3
-            t.update({f"{key}_p50_ms": float(np.percentile(tbt, 50)),
-                      f"{key}_p99_ms": float(np.percentile(tbt, 99)),
-                      f"{key}_max_ms": float(tbt.max())})
-        gaps = [max(r.tbt_s) * 1e3 for r in results if r.preempts]
-        t["preempted_longest_gap_ms"] = max(gaps) if gaps else None
-        out[label] = t
+    cfg = model.cfg
+    lp = params["stack"]["layers"]
+    g = torch.Generator("cuda").manual_seed(21)
+    bf = torch.bfloat16
+    ctx = model.prefill_ctx
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    products = {k: lp["attn"][k]["w"][0] for k in ("wq", "wk", "wv", "wo")}
+    products.update({k: lp["ffn"][k]["w"][0] for k in ("gate", "up", "down")})
+    out, calls = {}, []
+    for name, w in products.items():
+        x = rand(1, n, w.shape[0])
+        whole = x @ w
+        pieces = torch.cat([x[:, c:c + chunk] @ w for c in range(0, n, chunk)], 1)
+        padded = torch.cat([dense_apply({"w": w}, x[:, c:c + chunk], ctx)
+                            for c in range(0, n, chunk)], 1)
+        plain_fn = lambda x=x, w=w: x[:, :chunk] @ w                        # noqa: E731
+        padded_fn = lambda x=x, w=w: dense_apply({"w": w}, x[:, :chunk], ctx)  # noqa: E731
+        out[name] = {"shape": [n, w.shape[0], w.shape[1]],
+                     "rows_equal": bool(torch.equal(whole, pieces)),
+                     "max_abs_diff": float((whole.float() - pieces.float()).abs().max()),
+                     "padded_rows_equal": bool(torch.equal(whole, padded)),
+                     "piece_ms": device_ms(plain_fn), "padded_piece_ms": device_ms(padded_fn)}
+        calls += [(f"{name} {chunk} rows", plain_fn), (f"{name} {chunk} rows padded", padded_fn),
+                  (f"{name} {n} rows", lambda x=x, w=w: x @ w)]
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = rand(1, n, kv, h // kv, d), rand(1, n, kv, d), rand(1, n, kv, d)
+    p = torch.rand((1, kv, h // kv, n, n), generator=g, device="cuda").to(bf)
+    c0 = n - chunk                     # the last piece: chunk queries on n keys
+    for name, whole_fn, piece_fn in (
+            ("scores", lambda: torch.einsum("bqkgd,bskd->bkgqs", q, k)[..., c0:, :],
+             lambda: torch.einsum("bqkgd,bskd->bkgqs", q[:, c0:], k)),
+            ("pv", lambda: torch.einsum("bkgqs,bskd->bqkgd", p, v)[:, c0:],
+             lambda: torch.einsum("bkgqs,bskd->bqkgd", p[..., c0:, :], v))):
+        a, b = whole_fn(), piece_fn()
+        out[name] = {"rows_equal": bool(torch.equal(a, b)),
+                     "max_abs_diff": float((a.float() - b.float()).abs().max())}
+        calls += [(f"{name} {chunk} rows", piece_fn), (f"{name} {n} rows", whole_fn)]
+    _, kernels, _, _, _ = traced_kernels("prefill products", calls,
+                                         lambda ks: all(ks.values()))
+    for name, r in out.items():
+        r["kernels"] = {rows: [e.name() for e in kernels[f"{name} {rows}"]]
+                        for rows in (f"{chunk} rows", f"{chunk} rows padded", f"{n} rows")
+                        if f"{name} {rows}" in kernels}
+        padded = ("" if "padded_rows_equal" not in r else
+                  f"; padded to {ctx.min_rows} rows: rows equal {r['padded_rows_equal']}, "
+                  f"a piece {r['piece_ms']:.4f} ms plain, {r['padded_piece_ms']:.4f} ms padded "
+                  f"(device time), kernels {r['kernels'][f'{chunk} rows padded']}")
+        print(f"  prefill product {name} ({n} tokens against {chunk}-token pieces): piece "
+              f"rows bitwise equal {r['rows_equal']} (max diff {r['max_abs_diff']:.4g}); "
+              f"kernels at {chunk} rows {r['kernels'][f'{chunk} rows']}, at {n} rows "
+              f"{r['kernels'][f'{n} rows']}{padded}", flush=True)
+    check(all(r.get("padded_rows_equal", True) for r in out.values()),
+          f"prefill products padded to {ctx.min_rows} rows differ from the whole's: "
+          f"{[k for k, r in out.items() if not r.get('padded_rows_equal', True)]}")
     return out
 
 
@@ -2245,10 +2742,25 @@ def phase13_chunked_preempt():
         model = Model(dataclasses.replace(cfg, kv_quant=kv_quant))
         rt = swap_round_trip(model.cfg, opts.num_blocks)
         check(rt["ok"], f"swap round trip on the {pool} pool: {rt}")
+        label = f"chunked + preempting serve, {pool} pool"
         rec = _LogitRecorder()
         eng = Engine(model, params, max_new=64, sampler=rec)
-        rep, n, rows, first_s = counted_serve(eng, reqs, opts, rec)
-        plain, n_p, rows_p, _ = counted_serve(eng, reqs, plain_opts, rec)
+        rep, counted, rows, first_s, replayed = counted_serve(eng, reqs, opts, rec)
+        rec_o = _LogitRecorder()
+        eng_o = op_by_op(Engine(model, params, max_new=64, sampler=rec_o))
+        rep_o, n_o, rows_o, _, _ = counted_serve(eng_o, reqs, opts, rec_o)
+        graph_vs_op = serve_graph_vs_op(label, reqs, (rep, rows, eng), (rep_o, rows_o, eng_o))
+        del eng_o, rec_o, rows_o
+        plain, counted_p, rows_p, _, replayed_p = counted_serve(eng, reqs, plain_opts, rec)
+        # the replays of both step shapes (chunked, plain) traced in one session
+        per_replay = {k: 0 for k in counted}
+        per_replay["K2"] = cfg.n_layers
+        if kv_quant:
+            per_replay["K2 on int8 pools"] = cfg.n_layers
+        traces = replay_trace(label, replayed_graphs(eng, replayed, replayed_p))
+        n = path_launches(label, counted, replayed, traces, per_replay)
+        n_p = path_launches(f"{label}, plain serve", counted_p, replayed_p, traces, per_replay)
+        same_launches(label, graph_vs_op, n, n_o)
         gates, info = phase13_gates(model.cfg, reqs, rep, n)
         print(f"{pool} pool, chunked + preempting serve: {rep.steps} steps, preemptions "
               f"{rep.preemptions}, resumes {rep.resumes}, preempts per request "
@@ -2270,7 +2782,16 @@ def phase13_chunked_preempt():
                                        params, reqs, rep, rows, plain, rows_p)
         check(not any(failed.values()), f"phase 13, {pool} pool: logit or token checks "
               f"fail: {[k for k, v in failed.items() if v]}")
-        run = {"gates": gates, **info, "launches": n, "plain_launches": n_p,
+        # chunked == whole on the card (the prefill pads its products), and
+        # decode rows independent of the step's other slots: the chunked,
+        # preempting serve equals the plain one bitwise
+        same = (not stats["divergences"] and stats["aligned"]["max"] == 0.0 and all(
+            np.array_equal(a.tokens, b.tokens) for a, b in zip(rep.results, plain.results)))
+        print(f"  chunked + preempting serve == plain serve, {pool} pool, bitwise (tokens and "
+              f"every step-aligned logit row): {same}", flush=True)
+        check(same, f"phase 13, {pool} pool: the chunked, preempting serve differs from the "
+              f"plain serve: {stats['aligned']}, {len(stats['divergences'])} divergences")
+        run = {"gates": gates, "equals_plain_bitwise": same, **info, "launches": n, "plain_launches": n_p,
                "steps": rep.steps, "preemptions": rep.preemptions, "resumes": rep.resumes,
                "evictions": rep.evictions, "max_prefill_per_step": rep.max_prefill_per_step,
                "plain_max_prefill_per_step": plain.max_prefill_per_step,
@@ -2279,26 +2800,31 @@ def phase13_chunked_preempt():
         # chunks of a 512-token prompt
         run["whole_vs_chunked_prefill"] = [whole_vs_chunked_prefill(model, params),
                                            whole_vs_chunked_prefill(model, params, 512, 128)]
+        for w in run["whole_vs_chunked_prefill"]:
+            check(w["equal_byte_share"] == 1.0 and w["last_logits_max_abs_diff"] == 0.0,
+                  f"phase 13, {pool} pool: whole and chunked prefill differ: {w}")
         if not kv_quant:
-            eng_t = Engine(model, params, max_new=64)
-            run["timing"] = serve_timing(eng_t, reqs, [
-                ("plain", plain_opts), ("chunked", opts), ("chunked", opts),
-                ("plain", plain_opts)])
-            card = card_line()
-            for label, t in run["timing"].items():
-                gap = ("" if t["preempted_longest_gap_ms"] is None else
-                       f"; a preempted request's longest gap {t['preempted_longest_gap_ms']:.2f}"
-                       " ms")
-                print(f"  {label} serve, 2 warm runs in turns (plain, chunked, chunked, plain), "
-                      f"{pool} pool: {[round(x, 2) for x in t['ms_per_step']]} ms per step "
-                      f"({t['steps']} steps, prefills included), max prompt tokens in a step "
-                      f"{t['max_prompt_tokens_per_step']}, time between tokens p50 "
-                      f"{t['tbt_p50_ms']:.2f} / p99 {t['tbt_p99_ms']:.2f} / max "
-                      f"{t['tbt_max_ms']:.2f} ms over all requests of both runs, p50 "
-                      f"{t['tbt_never_preempted_p50_ms']:.2f} / p99 "
-                      f"{t['tbt_never_preempted_p99_ms']:.2f} / max "
-                      f"{t['tbt_never_preempted_max_ms']:.2f} ms over those never preempted"
-                      f"{gap} ({card})", flush=True)
+            run["prefill_products"] = prefill_products(model, params)
+        run["graph_vs_op_by_op"] = graph_vs_op
+        run["step_trace"] = traces[next(iter(replayed))]
+        # the greedy serves graphed (chunked and plain) and the chunked one op
+        # by op, in turns (one warm graphed serve of each shape first: it
+        # captures); the bf16 pool's plain serve twice, the int8 pool's once
+        eng_t = Engine(model, params, max_new=64)
+        for o in (opts, plain_opts):
+            eng_t.serve(reqs, dataclasses.replace(o, report_cost=False))
+        eng_to = op_by_op(Engine(model, params, max_new=64))
+        plan = [("chunked", eng_t, opts), ("op by op", eng_to, opts),
+                ("chunked", eng_t, opts), ("plain", eng_t, plain_opts)]
+        if not kv_quant:
+            plan.insert(0, ("plain", eng_t, plain_opts))
+        run["timing"] = serve_timing(label, reqs, plan, graph="chunked")
+        del eng_to
+        run["captures"] = len(graph_states(eng, eng_t))
+        print(f"  graphs captured, {pool} pool: {run['captures']} (one per engine and step "
+              f"shape: 2 engines x the shapes chunked and plain = 4)", flush=True)
+        check(run["captures"] == 4, f"phase 13, {pool} pool: {run['captures']} graphs for 4 "
+              "step shapes")
         out["runs"][pool] = run
         del eng, rec, rows, rows_p
     out["seconds"] = time.perf_counter() - t_phase
@@ -2364,7 +2890,9 @@ def fault_control():
         saved = getattr(mla, attr)
         setattr(mla, attr, fn)
         try:
-            rep = eng.serve(reqs, dataclasses.replace(opts, kernel="jnp"))
+            # a fresh engine: its decode-step graph is captured with the fault
+            rep = Engine(model, params, max_new=32, sampler=rec).serve(
+                reqs, dataclasses.replace(opts, kernel="jnp"))
         finally:
             setattr(mla, attr, saved)
         runs.append((f"{fault}, kernel=jnp", rep, rec.rows))
@@ -2458,8 +2986,8 @@ def phase13_fault_control():
     params = model.init(torch.Generator("cuda").manual_seed(0))
     rec = _LogitRecorder()
     eng = Engine(model, params, max_new=64, sampler=rec)
-    plain, _, plain_rows, _ = counted_serve(eng, reqs, plain_opts, rec)
-    t_plain, _, t_plain_rows, _ = counted_serve(
+    plain, _, plain_rows, _, _ = counted_serve(eng, reqs, plain_opts, rec)
+    t_plain, _, t_plain_rows, _, _ = counted_serve(
         eng, targeted, dataclasses.replace(t_opts, preemption=False), rec)
     victims = []
     swap_read = kv_cache.swap_read
@@ -2480,13 +3008,13 @@ def phase13_fault_control():
         try:
             caught = {"round_trip": not swap_round_trip(model.cfg, opts.num_blocks)["ok"]}
             victims.clear()
-            rep, _, rows, _ = counted_serve(eng, reqs, opts, rec)
+            rep, _, rows, _, _ = counted_serve(eng, reqs, opts, rec)
             held = list(victims)
             _, failed = phase13_logits(f"{label}, phase 13 trace", model, params, reqs, rep,
                                        rows, plain, plain_rows)
             caught.update({f"{k} (trace)": v for k, v in failed.items()})
             victims.clear()
-            rep_t, _, rows_t, _ = counted_serve(eng, targeted, t_opts, rec)
+            rep_t, _, rows_t, _, _ = counted_serve(eng, targeted, t_opts, rec)
             held_t = list(victims)
             _, failed = phase13_logits(f"{label}, targeted trace", model, params, targeted,
                                        rep_t, rows_t, t_plain, t_plain_rows)
@@ -2829,7 +3357,7 @@ def main():
 
     t_all = time.perf_counter()
     recs = timed("phase 3 (K1 against its plain version)", phase3_k1, rate)
-    launches = timed("phase 4 (generate path)", phase4_main_path)
+    generated = timed("phase 4 (generate path, olmo-1b and llama2-7b)", phase4_main_path)
     k2_recs = timed("phase 5 (K2 against its plain version)", phase5_k2, rate)
     served = timed("phase 6 (serve path, olmo-1b)", phase6_serve)
     k4_recs = timed("phase 7 (K4 against its plain version)", phase7_k4, rate)
@@ -2850,7 +3378,9 @@ def main():
     k2_int8_main = next(r for r in k2_int8_recs if r["shape"] == "int8 decode (main path)")
     k3_main = next(r for r in k3_recs if r["shape"] == "olmo-1b prefill (main)")
     k4_main = next(r for r in k4_recs if r["shape"] == "decode (main path)")
-    k1_by_path = {"generate": launches, "serve olmo-1b": served["launches"]["K1"],
+    k1_by_path = {"generate": generated["launches_K1"],
+                  "generate llama2-7b": generated["llama2-7b"]["launches_K1"],
+                  "serve olmo-1b": served["launches"]["K1"],
                   "serve minicpm3-4b": mla["launches"]["K1"],
                   "serve olmo-1b int8": served_int8["launches"]["K1"]}
     kernels = [{
@@ -2923,7 +3453,8 @@ def main():
         "library_ms": None,   # no PyTorch call computes Alg.-1 attention
         "shapes": k4_recs,
     }]
-    print(json.dumps({"serve": {"olmo-1b": served, "minicpm3-4b": mla,
+    print(json.dumps({"generate": generated,
+                      "serve": {"olmo-1b": served, "minicpm3-4b": mla,
                                 "olmo-1b int8": served_int8,
                                 "olmo-1b chunked + preempting": chunked},
                       "kv_quantize_card_vs_cpu": quantize}), flush=True)

@@ -63,8 +63,9 @@ def fp_softmax_lowp(x, mask=None, axis: int = -1):
     """Low-precision softmax: elementwise tensors stay in the input dtype;
     only the sum accumulates in f32."""
     if mask is not None:
-        x = torch.where(mask, x, torch.tensor(-30000.0, dtype=x.dtype,
-                                              device=x.device))
+        # a fill on the device, not a host tensor copied in: capturable
+        x = torch.where(mask, x, torch.full((), -30000.0, dtype=x.dtype,
+                                            device=x.device))
     m = torch.amax(x, dim=axis, keepdim=True).detach()
     e = torch.exp(x - m)
     if mask is not None:

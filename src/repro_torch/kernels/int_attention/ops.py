@@ -19,7 +19,7 @@ import functools
 import torch
 
 from repro_torch.core.precision import BEST, PrecisionConfig
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.int_attention.ref import K3_MAX_D, int_attention_ref, k3_tiles
 from repro_torch.kernels.int_softmax.ops import Alg1Consts, alg1_consts
 
@@ -119,7 +119,7 @@ def int_attention_rows(q, k, v, cfg: PrecisionConfig, *, causal: bool = True,
                                          torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int_attention kernel launch failed: CUDA error {rc}")
-    int_attention_rows.launches += 1
+    count_launch(int_attention_rows)
     return out
 
 

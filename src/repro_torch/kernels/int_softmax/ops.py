@@ -16,7 +16,7 @@ import functools
 import torch
 
 from repro_torch.core.precision import BEST, PrecisionConfig
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.int_softmax.ref import (
     K1_MAX_COLS, K1Plan, int_softmax_ref, k1_split_plan,
 )
@@ -96,7 +96,7 @@ def int_softmax_rows(x, cfg: PrecisionConfig, mask=None):
         plan.cluster, alg1_consts(cfg), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int_softmax kernel launch failed: CUDA error {rc}")
-    int_softmax_rows.launches += 1
+    count_launch(int_softmax_rows)
     return out
 
 

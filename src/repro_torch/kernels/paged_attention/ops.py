@@ -22,7 +22,7 @@ import functools
 import torch
 
 from repro_torch.core.precision import PrecisionConfig
-from repro_torch.kernels import build
+from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.int_softmax.ops import Alg1Consts, alg1_consts
 from repro_torch.kernels.paged_attention.ref import (
     k2_split_plan, k4_split_plan, paged_attention_mla_ref, paged_attention_ref,
@@ -189,8 +189,9 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
     # scores, chunk maxima, sums and PV partials
     _launch("paged_attention", (q, k_pool, v_pool, k_scale, v_scale, table, positions),
             out, debug, shape, cfg, (_scratch("paged_attention", shape, q.device),))
-    paged_attention_rows.launches += 1
-    paged_attention_rows.int8_launches += int(quant)
+    count_launch(paged_attention_rows)
+    if quant:
+        count_launch(paged_attention_rows, "int8_launches")
     return out
 
 
@@ -263,7 +264,7 @@ def paged_attention_mla_rows(q_lat, q_rope, c_pool, kr_pool, table, positions,
     # scores, chunk maxima, sums and PV partials
     _launch("paged_attention_mla", tensors, out, debug, shape, cfg,
             (_scratch("paged_attention_mla", shape, q_lat.device),))
-    paged_attention_mla_rows.launches += 1
+    count_launch(paged_attention_mla_rows)
     return out
 
 

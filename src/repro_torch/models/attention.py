@@ -152,16 +152,21 @@ def cache_write(buf, new, cache_pos):
     IN PLACE (the reference returns a new buffer; updating the one buffer
     saves a cache copy per token). Returns ``buf``.
 
-    ``cache_pos`` an int: one slice shared by the whole batch, clamped to
-    fit like ``lax.dynamic_update_slice``. ``cache_pos`` a ``[B]`` tensor
-    (T == 1): each row lands at its own position; a row whose position is out
-    of range writes nothing."""
+    ``cache_pos`` an int or a 0-d tensor: one slice shared by the whole
+    batch, clamped to fit like ``lax.dynamic_update_slice`` (a tensor on
+    the device, through ``index_copy_``: no host read). ``cache_pos`` a
+    ``[B]`` tensor (T == 1): each row lands at its own position; a row
+    whose position is out of range writes nothing."""
+    t, l_max = new.shape[1], buf.shape[1]
     if isinstance(cache_pos, int):
-        t, l_max = new.shape[1], buf.shape[1]
         start = min(max(cache_pos, 0), l_max - t)
         buf[:, start:start + t] = new.to(buf.dtype)
         return buf
-    l_max = buf.shape[1]
+    if cache_pos.ndim == 0:
+        start = cache_pos.to(torch.long).clamp(0, l_max - t)
+        idx = start + torch.arange(t, dtype=torch.long, device=buf.device)
+        buf.index_copy_(1, idx, new.to(buf.dtype))
+        return buf
     hit = (torch.arange(l_max, dtype=torch.int32, device=buf.device)[None, :]
            == cache_pos.to(torch.int32)[:, None])
     hit = hit.reshape(hit.shape + (1,) * (buf.ndim - 2))
@@ -171,10 +176,11 @@ def cache_write(buf, new, cache_pos):
 
 def valid_upto(l_max: int, cache_pos, window: int = 0, device=None):
     """[1 or B, l_max] validity: positions <= cache_pos (and, with
-    ``window``, within the trailing window). ``cache_pos`` an int (the
-    result broadcasts over the batch) or a per-row [B] tensor."""
+    ``window``, within the trailing window). ``cache_pos`` an int or a 0-d
+    tensor (the result broadcasts over the batch) or a per-row [B]
+    tensor."""
     kv_pos = torch.arange(l_max, dtype=torch.int32, device=device)[None, :]
-    pos = cache_pos if isinstance(cache_pos, int) else cache_pos[:, None]
+    pos = cache_pos if isinstance(cache_pos, int) else cache_pos.reshape(-1, 1)
     valid = kv_pos <= pos
     if window:
         valid &= kv_pos > pos - window
@@ -236,7 +242,7 @@ def _put(pool, target, lands, new):
 
 def paged_write(pool, table, new, cache_pos):
     """Write one entry per batch row into ``pool`` [NB, BS, ...] at
-    ``cache_pos`` (an int or a [B] tensor) through ``table`` [B, n_log], in
+    ``cache_pos`` (an int, a 0-d or a [B] tensor) through ``table`` [B, n_log], in
     place. Rows past the table or on a sentinel entry are dropped."""
     target, lands = _write_target(table, cache_pos, *pool.shape[:2])
     return _put(pool, target, lands, new)
@@ -338,7 +344,7 @@ def attn_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
     """Single-token decode against a contiguous cache {"k","v"} [B, L, KV, D]
     (int8 codes with {"k_scale","v_scale"} [B, L, KV] under ``kv_quant``)
     or a paged one ({"table"} present: pools [NB, BS, KV, D]), written in
-    place. ``cache_pos``: int or per-row [B] tensor."""
+    place. ``cache_pos``: int, 0-d or per-row [B] tensor."""
     if "table" in cache:
         return _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx, positions,
                                   kind)

@@ -20,13 +20,21 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     dtype: torch.dtype = torch.bfloat16
+    # a dense product of fewer rows is zero-padded to this many (0: never):
+    # ``Model.prefill_ctx``
+    min_rows: int = 0
 
     def cast(self, x):
         return x.to(self.dtype)
 
 
 def dense_apply(p, x, ctx: Ctx):
-    y = x @ p["w"]
+    rows = x.numel() // x.shape[-1]
+    if rows < ctx.min_rows:
+        padded = F.pad(x.reshape(rows, x.shape[-1]), (0, 0, 0, ctx.min_rows - rows))
+        y = (padded @ p["w"])[:rows].reshape(*x.shape[:-1], -1)
+    else:
+        y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y

@@ -132,7 +132,7 @@ def mla_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
     """Absorbed single-token decode against the latent cache {"c_kv" [B, L,
     r], "k_rope" [B, L, dr]} or, with a block table present, the paged pool
     {"c_kv" [NB, BS, r], "k_rope" [NB, BS, dr], "table" [B, n_logical]};
-    written in place. ``cache_pos``: int or per-row [B] tensor."""
+    written in place. ``cache_pos``: int, 0-d or per-row [B] tensor."""
     b, s, _ = x.shape  # s == 1
     q_nope, q_rope = _queries(p, x, cfg, ctx, positions)
     c_new, kr_new = _latents(p, x, cfg, ctx, positions)

@@ -17,6 +17,7 @@ Queue 1 item 11.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -32,6 +33,15 @@ from repro_torch.models.mla import mla_dense_shapes
 
 _LOGIT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# Prefill products on the card take at least this many rows, zero-padded.
+# cuBLAS picks a split-K kernel for a product of 128 rows or fewer over a
+# long inner dimension (olmo-1b's and llama2-7b's down projections), which
+# sums in another order, so a prompt committed in chunk pieces would get
+# other K/V than the whole prompt; from 200 rows up each row comes out with
+# the same bits whatever the row count (probes/prefill_rows.py). Decode
+# steps keep their own row count.
+PREFILL_MIN_ROWS = 256
+
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
@@ -44,6 +54,8 @@ class Model:
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
         self.device = resolve_device(device)
+        self.prefill_ctx = dataclasses.replace(
+            self.ctx, min_rows=PREFILL_MIN_ROWS if self.device.type == "cuda" else 0)
 
     # ------------------------------------------------------------------ init
 
@@ -133,7 +145,7 @@ class Model:
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device)
         x, cache = tfm.stack_prefill(p["stack"]["layers"], x, self.cfg,
-                                     self.ctx, positions, cache_len)
+                                     self.prefill_ctx, positions, cache_len)
         return self._head(p, x[:, -1:]), cache
 
     def prefill_tail(self, p, batch, prefix, prefix_len: int):
@@ -149,24 +161,24 @@ class Model:
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device) + prefix_len
         x, cache = tfm.stack_prefill_tail(p["stack"]["layers"], prefix, x,
-                                          self.cfg, self.ctx, positions,
+                                          self.cfg, self.prefill_ctx, positions,
                                           prefix_len)
         return self._head(p, x[:, -1:]), cache
 
     def decode_step(self, p, cache, batch, cache_pos):
-        """``cache_pos``: the filled length — an int (uniform batch) or a [B]
-        int tensor (per-row positions: each serving slot decodes at its own
-        offset). The cache — contiguous, or paged pools with their block
-        table — is written in place and returned."""
+        """``cache_pos``: the filled length — an int or a 0-d int tensor
+        (uniform batch), or a [B] int tensor (per-row positions: each
+        serving slot decodes at its own offset). A tensor stays on its
+        device: the step reads no value back to the host, so a CUDA graph
+        can capture it. The cache — contiguous, or paged pools with their
+        block table — is written in place and returned."""
         token = batch["token"]
         b = token.shape[0]
-        if torch.is_tensor(cache_pos) and cache_pos.ndim == 0:
-            cache_pos = int(cache_pos)
         if isinstance(cache_pos, int):
             positions = torch.full((b, 1), cache_pos, dtype=torch.int32,
                                    device=token.device)
         else:
-            positions = cache_pos.to(torch.int32)[:, None]
+            positions = cache_pos.to(torch.int32).reshape(-1, 1).expand(b, 1)
         x = self._embed(p, token)
         x, cache = tfm.stack_decode(p["stack"]["layers"], cache, x, cache_pos,
                                     self.cfg, self.ctx, positions)

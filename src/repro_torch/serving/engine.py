@@ -5,19 +5,22 @@
 
 Two modes, as in the reference:
 
-* ``"fused"`` keeps everything on the device until the end: sampled tokens
-  and EOS done-flags accumulate in device tensors and the host reads them
-  once. (The reference fuses the loop into one ``lax.scan`` dispatch; a CUDA
-  graph of the decode step is the analogue here, for a later PR.)
+* ``"fused"`` keeps everything on the device until the end: the token,
+  position and EOS flags live in device buffers that the step updates
+  itself, and the host reads the tokens once. On the card the step is one
+  CUDA-graph replay (``serving/graphs.py``), captured once per (batch,
+  cache length): the counterpart of the reference's single ``lax.scan``
+  dispatch. Greedy sampling and the EOS mask run inside the graph; a
+  sampler that draws runs after each replay with the caller's generator.
 * ``"eager"`` brings each sampled token to the host and feeds it back — one
-  host round trip per token; the golden reference for fused.
+  host round trip per token, op by op; the golden reference for fused.
 
 Both run the same ops in the same order, so their tokens are bitwise equal.
 The KV cache is written in place.
 
 ``serve``: a scheduler (``serving/scheduler.py``) admits timed requests into
 a fixed set of decode slots; one slot-batched decode step
-(:func:`make_serve_step_fn`: per-slot positions, per-slot generators, per-slot
+(``Engine._serve_state``: per-slot positions, per-slot generators, per-slot
 EOS) runs between admissions. A contiguous cache keeps one stripe per slot;
 the paged cache keeps a block pool with per-slot tables and, with
 ``prefix_share``, reuses resident prompt blocks across requests
@@ -30,6 +33,15 @@ tokens equal generating it alone with ``mode="eager"``, its own seed and
 the same cache length, chunked or preempted or not. Speculative decoding,
 tensor parallelism and the other families are later slices (ROADMAP.md
 Queue 1 items 10-14); ``ServeOptions`` raises for them.
+
+Fixed storage: the decode step of ``generate`` and of ``serve`` runs over
+a cache and input buffers kept on the engine per step shape (for serve:
+kernel, slots, cache length, block geometry, int8 pool), reset at the start
+of every ``serve`` to what ``kv_cache.*_cache_zeros`` gives. On the card
+the step is a CUDA graph over that storage, replayed every step; admissions,
+prefills, chunk pieces, swap-out and resume stay op by op, as the
+reference's are separate jitted calls. The op-by-op step stays reachable
+for comparison (``Engine._cuda_graphs = False``).
 
 Cost telemetry: ``report_cost=True`` returns the AP :class:`CostReport` —
 the reference's meter, computed by running the model on the ``meta``
@@ -50,6 +62,7 @@ import torch
 from repro_torch.backends import CostReport, telemetry
 from repro_torch.models import kv_cache
 from repro_torch.models.model import Model
+from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.options import ServeOptions
 from repro_torch.serving.sampler import make_sampler, sample_slots
 from repro_torch.serving.scheduler import (
@@ -122,27 +135,49 @@ def _to_meta(tree):
     return torch.empty_like(tree, device="meta")
 
 
-def make_serve_step_fn(model: Model, sample_fn: Callable,
-                       eos_id: Optional[int] = None,
-                       pad_id: Optional[int] = None) -> Callable:
-    """The continuous-batching decode step: (params, cache, tok [S, 1], pos
-    [S], generators, done [S]) -> (tok [S] int32, done [S]), the cache
-    updated in place. Slots decode together at their own positions
-    (``decode_step`` takes the [S] position vector) and sample per slot
-    (:func:`sample_slots`); EOS masking runs per slot. Free slots ride along
-    parked at ``cache_len`` (their writes are dropped) with no generator,
-    and their outputs are ignored."""
-    pad = eos_id if pad_id is None else pad_id
-
-    def serve_step(params, cache, tok, pos, generators, done):
-        logits, _ = model.decode_step(params, cache, {"token": tok}, pos)
-        toks = sample_slots(sample_fn, logits[:, -1], generators)
-        if eos_id is not None:
-            toks = torch.where(done, pad, toks).to(torch.int32)
-            done = done | (toks == eos_id)
+def _eos_mask(toks, done, eos_id: Optional[int], pad: Optional[int]):
+    """Tokens of finished rows become ``pad``; a row emitting EOS is done."""
+    if eos_id is None:
         return toks, done
+    toks = torch.where(done, pad, toks).to(torch.int32)
+    return toks, done | (toks == eos_id)
 
-    return serve_step
+
+class _DecodeState:
+    """The fixed storage of one decode-step shape and its step: ``cache``,
+    the input ``buffers`` the step reads, ``decode()`` -> the last logits
+    over them, and ``post(last, generators)``: sampling, the EOS mask and
+    the step's outputs. A sampler that draws no random numbers (``draws``
+    False) runs ``post`` inside the step (``body``); one that draws runs it
+    after the step with the caller's generators. ``run`` calls the step op
+    by op, or replays it as a CUDA graph (captured at the first graphed
+    run)."""
+
+    def __init__(self, cache, buffers, decode: Callable, post: Callable, draws: bool):
+        self.cache = cache
+        self.buffers = list(buffers)
+        self.post = post
+        self.draws = draws
+        self.body = decode if draws else (lambda: post(decode(), None))
+        self.graph: Optional[StepGraph] = None
+
+    def run(self, graphed: bool, generators=None):
+        if not graphed:
+            out = self.body()
+        else:
+            if self.graph is None:
+                self.graph = StepGraph(self.body, list(self.cache.values()) + self.buffers)
+            out = self.graph()
+        return self.post(out, generators) if self.draws else out
+
+    def reset_cache(self) -> None:
+        """Zeros, and the sentinel table: what ``*_cache_zeros`` gives."""
+        for k, leaf in self.cache.items():
+            if k != "table":
+                leaf.zero_()
+                num_blocks = leaf.shape[1]
+        if "table" in self.cache:
+            self.cache["table"].fill_(num_blocks)
 
 
 class Engine:
@@ -158,8 +193,14 @@ class Engine:
         self._meter_cache: dict = {}  # (batch shapes, cache_len, n_new) -> CostReport
         self._meta_params = None
         self._kernel_models: dict = {}   # decode kernel -> Model variant
-        self._serve_steps: dict = {}     # decode kernel -> serve step
         self._last_alloc: Optional[BlockAllocator] = None  # pool of the last paged serve
+        self._decode_states: dict = {}   # step shape -> _DecodeState
+        # decode steps as CUDA-graph replays on the card; False runs them op
+        # by op (the comparison the tests and chip_smoke.py make)
+        self._cuda_graphs = True
+
+    def _graphed(self) -> bool:
+        return self._cuda_graphs and self.model.device.type == "cuda"
 
     @torch.no_grad()
     def meter_request(self, batch: dict, cache_len: int, cache,
@@ -229,23 +270,69 @@ class Engine:
                                 logits=last)
 
     def _mask_done(self, tok, done):
-        if self.eos_id is None:
-            return tok, done
-        tok = torch.where(done, self.pad_id, tok).to(torch.int32)
-        return tok, done | (tok == self.eos_id)
+        return _eos_mask(tok, done, self.eos_id, self.pad_id)
+
+    def _generate_state(self, prefill_cache, b: int) -> _DecodeState:
+        """The fused decode step at the prefill cache's shape (batch b, its
+        cache length) over its own cache and device buffers: token [b, 1],
+        position (0-d) and EOS flags [b]. It decodes and advances the
+        position; its sampling (with the caller's generator) masks EOS and
+        writes the next token and flags back, and gives (tokens [b], last
+        logits)."""
+        key = ("generate",) + tuple((k, tuple(v.shape), v.dtype)
+                                    for k, v in prefill_cache.items())
+        if key not in self._decode_states:
+            dev = self.model.device
+            cache = {k: torch.empty_like(v) for k, v in prefill_cache.items()}
+            tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+            pos = torch.zeros((), dtype=torch.int32, device=dev)
+            done = torch.zeros((b,), dtype=torch.bool, device=dev)
+            model, params, sample = self.model, self.params, self.sample
+            eos_id, pad = self.eos_id, self.pad_id
+
+            def decode():
+                logits, _ = model.decode_step(params, cache, {"token": tok}, pos)
+                pos.add_(1)
+                return logits[:, -1]
+
+            def post(last, g):
+                new, flags = _eos_mask(sample(last, g), done, eos_id, pad)
+                tok.copy_(new[:, None])
+                done.copy_(flags)
+                return new, last
+
+            self._decode_states[key] = _DecodeState(
+                cache, (tok, pos, done), decode, post, getattr(sample, "draws", True))
+        return self._decode_states[key]
 
     def _generate_fused(self, cache, logits, g, b: int, p: int, n_new: int):
         dev = self.model.device
         toks = torch.empty((b, n_new), dtype=torch.int32, device=dev)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        tok, done = self._mask_done(self.sample(logits[:, -1], g), done)
-        toks[:, 0] = tok
-        for t in range(n_new - 1):
-            logits, cache = self.model.decode_step(
-                self.params, cache, {"token": tok[:, None].long()}, p + t)
-            tok, done = self._mask_done(self.sample(logits[:, -1], g), done)
-            toks[:, t + 1] = tok
-        return toks.cpu().numpy(), done.cpu().numpy(), logits[:, -1]
+        new, done = self._mask_done(self.sample(logits[:, -1], g), done)
+        toks[:, 0] = new
+        last = logits[:, -1]
+        if n_new > 1:
+            st = self._generate_state(cache, b)
+            for k, leaf in cache.items():
+                st.cache[k].copy_(leaf)
+            tok, pos, done_buf = st.buffers
+            tok.copy_(new[:, None])
+            pos.fill_(p)
+            done_buf.copy_(done)
+            graphed = self._graphed()
+            for t in range(1, n_new):
+                last = self._fused_step(st, graphed, g, toks, t)
+            done, last = done_buf.clone(), last.clone()
+        return toks.cpu().numpy(), done.cpu().numpy(), last
+
+    def _fused_step(self, st: _DecodeState, graphed: bool, g, toks, col: int):
+        """One fused decode step: the state's step (a graph replay on the
+        card) and its sampling with the caller's generator, the token into
+        column ``col`` of ``toks``. No host sync. Returns the last logits."""
+        new, last = st.run(graphed, g)
+        toks[:, col] = new
+        return last
 
     def _generate_eager(self, cache, logits, g, b: int, p: int, n_new: int):
         dev = self.model.device
@@ -353,12 +440,54 @@ class Engine:
                 device=self.model.device)
         return self._kernel_models[kernel]
 
-    def _serve_step(self, kernel: str):
-        if kernel not in self._serve_steps:
-            self._serve_steps[kernel] = make_serve_step_fn(
-                self._kernel_model(kernel), self.sample, self.eos_id,
-                self.pad_id)
-        return self._serve_steps[kernel]
+    def _serve_state(self, kernel: str, slots: int, cache_len: int,
+                     paged_geom) -> _DecodeState:
+        """The serve decode step of one shape — (kernel, slots, cache_len,
+        block geometry, int8 pool) — over its own cache, reset here to
+        ``*_cache_zeros``, and one packed int64 input buffer [3, slots]:
+        each slot's token, position and EOS flag. Slots decode together at
+        their own positions and sample per slot (:func:`sample_slots`, with
+        each request's generator); EOS masking runs per slot. Free slots ride
+        along parked at ``cache_len`` (their writes are dropped) with no
+        generator, and their outputs are ignored. The step gives [2, slots]
+        int32: tokens and EOS flags."""
+        cfg, dev = self.model.cfg, self.model.device
+        key = ("serve", kernel, slots, cache_len, paged_geom, cfg.kv_quant)
+        st = self._decode_states.get(key)
+        if st is not None:
+            st.reset_cache()
+            return st
+        if paged_geom is None:
+            cache = kv_cache.cache_zeros(cfg, slots, cache_len, device=dev)
+        else:
+            cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom,
+                                               device=dev)
+        inputs = torch.zeros((3, slots), dtype=torch.long, device=dev)
+        model, params, sample = self._kernel_model(kernel), self.params, self.sample
+        eos_id, pad = self.eos_id, self.pad_id
+
+        def decode():
+            logits, _ = model.decode_step(params, cache, {"token": inputs[0][:, None]},
+                                          inputs[1])
+            return logits[:, -1]
+
+        def post(last, generators):
+            toks = sample_slots(sample, last, generators)
+            toks, flags = _eos_mask(toks, inputs[2].to(torch.bool), eos_id, pad)
+            return torch.stack([toks, flags.to(torch.int32)])
+
+        st = self._decode_states[key] = _DecodeState(
+            cache, (inputs,), decode, post, getattr(sample, "draws", True))
+        return st
+
+    def _serve_decode(self, st: _DecodeState, host_inputs: np.ndarray,
+                      generators) -> np.ndarray:
+        """One serve decode step: the host's [3, slots] lanes into the
+        state's input buffer, the step (a graph replay on the card) with the
+        slots' generators, and the [2, slots] tokens and EOS flags back on
+        the host."""
+        st.buffers[0].copy_(torch.from_numpy(host_inputs))
+        return st.run(self._graphed(), generators).cpu().numpy()
 
     @torch.no_grad()
     def serve(self, requests: Sequence[Request],
@@ -409,7 +538,6 @@ class Engine:
                 "(the reference's staged branch) is not ported: ROADMAP.md "
                 "Queue 1 item 11")
         params = self.params
-        serve_step = self._serve_step(opt.kernel)
         need = max(r.prompt_len + r.max_new for r in reqs)
         C = need if opt.cache_len is None else opt.cache_len
         alloc = None
@@ -436,14 +564,13 @@ class Engine:
                 admit_ok=lambda r: alloc.available() >= alloc.blocks_needed(
                     r.prompt_len, r.max_new),
                 aging=opt.aging, hol_grace=opt.hol_grace)
-            cache = kv_cache.paged_cache_zeros(cfg, slots, C, block_size,
-                                               num_blocks, device=dev)
         else:
             sched = SlotScheduler(reqs, slots, C, policy=policy,
                                   aging=opt.aging, hol_grace=opt.hol_grace)
-            cache = kv_cache.cache_zeros(cfg, slots, C, device=dev)
         attr = telemetry.SlotCostAttributor() if opt.report_cost else None
         geom = (block_size, num_blocks) if paged else None
+        state = self._serve_state(opt.kernel, slots, C, geom)
+        cache = state.cache
         step_cost = (self._meter_serve_step(slots, C, geom)
                      if opt.report_cost else None)
         slot_blocks: Dict[int, List[int]] = {}
@@ -748,15 +875,11 @@ class Engine:
             if active:
                 step_gens = [g if i in active else None
                              for i, g in enumerate(gens)]
-                toks_d, done_d = serve_step(
-                    params, cache, torch.as_tensor(tok, device=dev),
-                    torch.as_tensor(pos, device=dev), step_gens,
-                    torch.as_tensor(done, device=dev))
-                if self.eos_id is not None:
-                    both = torch.stack([toks_d, done_d.to(torch.int32)]).cpu().numpy()
-                    toks_np, done_np = both[0], both[1].astype(bool)
-                else:
-                    toks_np, done_np = toks_d.cpu().numpy(), None
+                both = self._serve_decode(
+                    state, np.stack([tok[:, 0], pos, done]).astype(np.int64),
+                    step_gens)
+                toks_np = both[0]
+                done_np = both[1].astype(bool) if self.eos_id is not None else None
                 steps += 1
                 now = time.perf_counter()
                 if attr is not None:

@@ -1,0 +1,63 @@
+"""One decode step replayed as a CUDA graph: the port's counterpart of the
+reference's ``jax.jit`` around a fixed-shape step function (the serve step
+of ``src/repro/serving/engine.py:make_serve_step_fn``, jitted with the
+cache donated, and the decode step that ``make_generate_fn`` scans).
+
+A :class:`StepGraph` wraps a step ``fn()`` that reads and writes only
+tensors of fixed storage (the cache, and static input buffers that the
+caller fills before each call) and returns its outputs. Its first call
+runs ``fn`` op by op on a side stream. That warm-up builds the kernels and
+the libraries' handles, and it is the first step, effects and kernel
+launches included. Then ``fn`` is captured into a CUDA graph. Every later
+call checks that the fixed tensors kept their storage, replays the graph
+and returns the captured outputs. They are static: the next call
+overwrites them.
+
+The kernels' launch counters count launches only (``kernels.count_launch``):
+the capture adds nothing to them and a replay does not call the wrappers.
+``replays`` counts the graph's launches.
+
+There is no fallback. On a CUDA device a failed capture or replay raises,
+and no CPU path reaches this module.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+
+class StepGraph:
+    """``fn`` captured once as a CUDA graph (after one op-by-op warm-up
+    step), then replayed on every call. ``fixed``: the tensors ``fn`` reads
+    and writes in place, whose storage must not move."""
+
+    def __init__(self, fn: Callable, fixed: Sequence[torch.Tensor]):
+        self.fn = fn
+        self.fixed = list(fixed)
+        self.ptrs = [t.data_ptr() for t in self.fixed]
+        self.graph = None
+        self.out = None
+        self.replays = 0
+
+    def __call__(self):
+        if self.graph is None:
+            return self._warm_up_and_capture()
+        if [t.data_ptr() for t in self.fixed] != self.ptrs:
+            raise RuntimeError("a tensor of the captured step moved since its capture")
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+    def _warm_up_and_capture(self):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            first = self.fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self.fn()
+        self.graph = graph
+        return first
