@@ -31,9 +31,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    generate at batch 4, prompt 512, 32 new tokens: K1 32 x 32 = 1024, the
    same checks and times, and the peak memory;
 5. K2 (the fused paged decode, each row split over CTAs) against its plain
-   PyTorch version at the serve path's decode shape, the reference's
-   paged-kernel matrix and long rows (32768 keys; T 5, GQA 7 and 35 rows
-   at 16384-32768): the plain Alg. 1 on K2's own scores gives its
+   PyTorch version at the serve path's decode shape and its verify shape
+   (T 5, phase 14), the reference's paged-kernel matrix and long rows
+   (32768 keys; T 5, GQA 7 and 35 rows at 16384-32768): the plain Alg. 1 on K2's own scores gives its
    probabilities bitwise; a second run gives the same bits; scores and
    outputs within stated bounds (outputs: of K2's chunked summation tree);
    times and bounds as for K1;
@@ -53,7 +53,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and PV on tensor cores in bf16) against its plain PyTorch version at the
    MLA serve path's decode shape, the reference's MLA kernel matrix,
    4096-token rows, parked slots, f32 compute, deepseek-v2's width at 512
-   and 4096 keys, T 3 at 4096 keys and a 32768-token row, with the checks
+   and 4096 keys, T 3 at 4096 keys, T 5 at the serve shape (200 rows,
+   phase 14's verify round) and a 32768-token row, with the checks
    of phase 5 (outputs: of K4's chunked summation tree, bounded for
    truncating tensor-core sums) and a second run bitwise equal (and K1 at
    the MLA path's shapes in phase 3);
@@ -114,7 +115,29 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     and resumes included), with the chunked and plain serves' ms per
     step, most prompt tokens in a step and time between tokens (p50, p99,
     max), with the card's name and power limit;
-14. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+14. speculative serving (``ServeOptions(speculative=True)``, n-gram drafts
+    of 4 tokens): phase 6's trace and options from the bf16 and the int8
+    pool. Each verify round is one CUDA-graph replay; K2 must launch 16 x
+    rounds times, every call at T 5 (all on int8 pools from the int8
+    pool), K1 16 x 32; greedy tokens equal phase 6's (11's) plain serve's
+    but at near ties, every served logit row within phase 6's
+    teacher-forced and step-aligned limits, the meter's shares summing to
+    the batch meter and its verify and draft phases the step meters times
+    the rounds; on the first 2 requests the graphed serve equals the same
+    serve op by op bitwise (tokens, logit rows, pool bytes, launches), and
+    after every round of the op-by-op run each slot's rejected positions
+    in the pool are zero bitwise. Then (bf16) two warm speculative serves
+    (ms per round, tok/s beside phase 6's plain serve, aten ops a replayed
+    round), the first 8 requests with ``prefill_chunk=128`` bitwise equal
+    to the speculative serve's rows of them, and the first 8 requests with
+    a two-layer olmo-1b draft model and with the target as its own draft
+    (proposal steps graph replays, K1 as the rounds imply). Then
+    minicpm3-4b on phase 8's trace: K4 62 x rounds at 200 query rows and
+    the same checks with phase 8's limits (op by op on 1 request); and
+    phase 8's trace with every fourth request in class 0, chunked (128)
+    and preempting from a pool of 110 blocks, equal to phase 8's plain
+    serve bitwise (tokens, every logit row), with at least one preemption;
+15. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
 
@@ -135,7 +158,11 @@ faults patched into its gather decode, then phase 13's checks (the swap
 round trip, the logit and token checks on phase 13's trace and on a
 targeted trace whose victim holds several private blocks) against two
 faults patched into ``kv_cache`` (``swap_write`` restoring the private
-blocks in reversed order, a chunk committing one position late), and
+blocks in reversed order, a chunk committing one position late), then
+phase 14's checks (the rollback, the logit and token checks) on its first
+8 requests served op by op through the gather path against two faults
+of the verify step (``commit_staged`` leaving the last rejected position
+uncleared, ``verify_mask`` letting query i see position i + 1), and
 prints which checks catch each.
 """
 
@@ -856,6 +883,9 @@ def phase5_k2(rate):
     recs.append(k2_case("sentinel tails + parked slot", gen, rate, qpos=qpos,
                         parked=(0, 5), **main))
     recs.append(k2_case("T 3 (verify rows)", gen, rate, T=3, **main))
+    # phase 14's verify round: K + 1 = 5 rows a slot at the serve shape
+    recs.append(k2_case("T 5 (spec serve verify)", gen, rate, T=5,
+                        qpos=np.minimum(qpos, 576 - 5), **main))
     recs.append(k2_case("f32 compute", gen, rate, dtype=torch.float32, **main))
     recs.append(k2_case("bf16 scores", gen, rate, scores_dtype=torch.bfloat16, **main))
     recs.append(k2_case("32768-token row, rows 1", gen, rate, S=1, KV=16, group=1,
@@ -1459,6 +1489,9 @@ def phase7_k4(rate):
                         qpos=np.array([32767])))
     recs.append(k4_case("T 3 at 4096 keys", gen, rate, S=2, H=40, T=3, NLOG=256,
                         qpos=np.array([4093, 3000])))
+    # phase 14's verify round: 5 x 40 = 200 rows a slot, four head tiles
+    recs.append(k4_case("T 5 (spec serve verify, 200 rows)", gen, rate, T=5,
+                        qpos=np.minimum(qpos, nlog * MLA_BS - 5), **main))
     recs.append(k4_case("deepseek-v2 width, 4096 keys", gen, rate, S=2, H=128, R=512,
                         DR=64, NLOG=256, qpos=np.array([4095, 3000]),
                         scale=(128 + 64) ** -0.5))
@@ -2194,6 +2227,7 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
     eng_r = Engine(model, params, max_new=max_new, sampler=rec)
     torch.cuda.reset_peak_memory_stats()
     rep, counted, rows_pallas, first_s, replayed = counted_serve(eng_r, reqs, opts, rec)
+    PLAIN_SERVES[arch, kv_quant] = {"rep": rep, "rows": rows_pallas}
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec.rows = {}
     check(len(rep.results) == len(reqs), "not every request completed")
@@ -2290,6 +2324,7 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
         ("graph", eng, opts), ("op by op", eng_o, opts), ("graph", eng, opts),
         ("jnp graph", eng, jnp_opts)])
     captures += len(graph_states(eng))
+    PLAIN_SERVES[arch, kv_quant]["timing"] = timing["graph"]
     print(f"  graphs captured in the phase: {captures} (one per engine and step shape: "
           f"2 engines x the kernels pallas and jnp = 4)", flush=True)
     check(captures == 4, f"{cfg.name}: {captures} graphs for 4 step shapes")
@@ -2309,6 +2344,11 @@ def pool_bytes_per_token(cfg) -> int:
     pool = kv_cache.paged_cache_zeros(cfg, 1, 16, 16, 1, device="meta")
     return sum(x.numel() * x.element_size() for k, x in pool.items() if k != "table") // 16
 
+
+# The checked serve of phases 6, 8 and 11 by (arch, int8 pool): its report,
+# every logit row by request seed, and its warm graphed timing; phase 14
+# holds its speculative serves against them.
+PLAIN_SERVES = {}
 
 # Phase 6's trace and serve options (phases 11 and 13 reuse them).
 SERVE_TRACE = dict(prefix_len=384, suffix_lens=(16, 64, 128), max_new_range=(16, 64), seed=0,
@@ -2832,6 +2872,599 @@ def phase13_chunked_preempt():
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+
+# Speculative serving: n-gram drafts of SPEC_K tokens a round on phase 6's
+# and phase 8's traces and options. The chunked composition and the
+# draft-model runs take the first SPEC_SUBSET requests; the graph-vs-op-by-
+# op comparison (with the rollback read) the first SPEC_OP_SUBSET of them,
+# MLA's the first MLA_SPEC_OP_SUBSET: op by op, these are the phase's
+# costliest runs (cut from 8 and 2 requests to fit the phase's budget).
+SPEC_K = 4
+SPEC_SUBSET = 8
+SPEC_OP_SUBSET = 2
+MLA_SPEC_OP_SUBSET = 1
+DRAFT_LAYERS = 2
+# phase 8's trace, every fourth request in class 0 and the rest in class 1,
+# chunked and preempting from a pool this tight: one preemption (the
+# schedule depends on the trace alone; 90 blocks livelock, ROADMAP.md
+# Queue 3)
+MLA_POOL_BLOCKS = 110
+
+
+class SpecRecorder:
+    """Every served logit row of a speculative serve through ``eng``, by the
+    seed of the request's generator: the first token's (the prefill's, which
+    ``eng.sample`` draws greedily) and each verify round's rows that emitted
+    a token (``Engine._serve_decode`` gives the round's logits beside n_emit).
+    ``rollback``: after every round, read the state's cache at each live
+    slot's rejected positions (``pos + n_emit .. pos + K``, those inside the
+    cache and the slot's blocks) and count the entries that are not zero
+    bitwise — run op by op, so the cache is the round's own. ``detach``
+    gives the engine back its own sampler and serve step."""
+
+    def __init__(self, eng, rollback=False):
+        self.rows, self.rollback = {}, {"positions": 0, "nonzero": 0, "rounds": 0}
+        self.eng, self.sample = eng, eng.sample
+        orig = eng._serve_decode
+
+        def sample(logits, generator):
+            self.rows.setdefault(generator.initial_seed(), []).append(logits[0].clone())
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+        def serve_decode(st, host_inputs, generators):
+            packed, logits = orig(st, host_inputs, generators)
+            n_emit = packed[:, -1]
+            for s, g in enumerate(generators):
+                if g is not None:
+                    self.rows.setdefault(g.initial_seed(), []).extend(
+                        logits[s, :int(n_emit[s])].clone())
+            if rollback:
+                self._check(st, host_inputs, generators, n_emit)
+            return packed, logits
+
+        eng.sample = sample
+        eng._serve_decode = serve_decode
+
+    def detach(self):
+        self.eng.sample = self.sample
+        del self.eng._serve_decode
+
+    def _check(self, st, host_inputs, generators, n_emit):
+        t = host_inputs.shape[1] - 1
+        table = st.cache["table"][0].cpu().numpy()
+        pools = [v for k, v in st.cache.items() if k != "table"]
+        nb, bs = pools[0].shape[1:3]
+        c = table.shape[1] * bs
+        pbs, offs = [], []
+        for s, g in enumerate(generators):
+            if g is None:
+                continue
+            for p in range(int(host_inputs[s, t]) + int(n_emit[s]), int(host_inputs[s, t]) + t):
+                if p < c and table[s, p // bs] < nb:
+                    pbs.append(int(table[s, p // bs]))
+                    offs.append(p % bs)
+        self.rollback["rounds"] += 1
+        if pbs:
+            ib = torch.as_tensor(pbs, device=pools[0].device)
+            io = torch.as_tensor(offs, device=pools[0].device)
+            self.rollback["positions"] += len(pbs)
+            self.rollback["nonzero"] += sum(int((leaf[:, ib, io] != 0).sum()) for leaf in pools)
+
+    def trimmed(self, reqs):
+        """The rows of the tokens each request kept (a round's emissions past
+        the budget are recorded, then dropped by the host)."""
+        return {r.seed: self.rows.get(r.seed, [])[:r.max_new] for r in reqs}
+
+
+class KernelWidths:
+    """While active, records (query block width T, query rows) of every call
+    of the fused paged attention wrappers (K2: rows T x group; K4: T x H),
+    capture-time calls included: a replay repeats the captured call."""
+
+    def __enter__(self):
+        from repro_torch.kernels.paged_attention import ops
+
+        self.ops, self.calls = ops, {"K2": [], "K4": []}
+        self.orig = (ops.paged_attend_dense, ops.paged_attend_mla)
+        dense, mla = self.orig
+
+        def k2(q, k_pool, *args, **kw):
+            self.calls["K2"].append((q.shape[1], q.shape[1] * q.shape[2] // k_pool.shape[2]))
+            return dense(q, k_pool, *args, **kw)
+
+        def k4(q_lat, *args, **kw):
+            self.calls["K4"].append((q_lat.shape[1], q_lat.shape[1] * q_lat.shape[2]))
+            return mla(q_lat, *args, **kw)
+
+        ops.paged_attend_dense, ops.paged_attend_mla = k2, k4
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.paged_attend_dense, self.ops.paged_attend_mla = self.orig
+
+    def widths(self, kernel):
+        return sorted(set(self.calls[kernel]))
+
+
+def plain_serve(arch, kv_quant, model, params, reqs, opts):
+    """The plain serve of ``reqs``: phase 6's, 8's or 11's checked serve
+    (report, logit rows, warm graphed timing) when this process ran it,
+    else a fresh one (no timing)."""
+    from repro_torch.serving.engine import Engine
+
+    got = PLAIN_SERVES.get((arch, kv_quant))
+    if got is not None:
+        return got["rep"], got["rows"], got.get("timing")
+    rec = _LogitRecorder()
+    eng = Engine(model, params, max_new=max(r.max_new for r in reqs), sampler=rec)
+    rep, _, rows, _, _ = counted_serve(eng, reqs, opts, rec)
+    return rep, rows, None
+
+
+def spec_cost_gates(eng, rep, opts, draft_round):
+    """The speculative serve's meter: per-request shares sum to the batch
+    meter, the verify phase is the verify step's meter times the rounds,
+    the draft phase the proposer's round meter times the rounds (zero for
+    n-gram drafts), and the prefills are the rest (name -> passed)."""
+    from repro_torch.backends import ZERO_COST
+
+    geom = (opts.block_size, opts.num_blocks or eng._last_alloc.num_blocks)
+    verify = eng._meter_serve_step(opts.slots, rep.cache_len, geom, t=opts.draft_k + 1)
+    draft = draft_round or ZERO_COST
+
+    def close(a, b):
+        return all(abs(float(getattr(a, f)) - float(getattr(b, f)))
+                   <= 1e-9 * max(abs(float(getattr(b, f))), 1e-30)
+                   for f in ("vectors", "cycles", "latency_s", "energy_j"))
+
+    rest = float(rep.cost.cycles) - float(rep.cost_verify.cycles) - float(rep.cost_draft.cycles)
+    return {"cost_shares": cost_shares_sum(rep),
+            "verify_phase": close(rep.cost_verify, verify.scaled(rep.steps)),
+            "draft_phase": close(rep.cost_draft, draft.scaled(rep.steps)),
+            "prefill_rest": 0 < rest < float(rep.cost.cycles)}
+
+
+def spec_serve_checks(label, model, params, reqs, rep, rows, plain, plain_rows, tols):
+    """A speculative serve against the plain serve of its trace: greedy
+    tokens equal but at near ties, every served logit row within the
+    teacher-forced limits, and step by step within the aligned limits
+    (``tols``: phase 6's or phase 8's). Returns the statistics; fails on a
+    check that does not hold."""
+    logit_tol, rms_tol, aligned_tol, aligned_rms_tol = tols
+    base = plain.by_rid()
+    ties = []
+    for a in rep.results:
+        compare_tokens(f"{label} vs plain, request {a.rid}", a.tokens, base[a.rid].tokens,
+                       a.prompt_len, model, params, ties)
+    tf = teacher_forced(label, model, params, reqs, [r.tokens for r in rep.results], rows,
+                        logit_tol, rms_tol)
+    check(max(tf["first_step_max"], tf["decode_max"]) <= logit_tol and tf["rms"] <= rms_tol,
+          f"{label}: served logits differ from the teacher-forced pass beyond the limits: {tf}")
+    al = aligned_logits(f"{label} vs plain", reqs, rep.results,
+                        [base[a.rid] for a in rep.results], rows, plain_rows)
+    check(al["max"] <= aligned_tol and al["rms"] <= aligned_rms_tol,
+          f"{label}: logits differ from the plain serve's step by step beyond the limits "
+          f"({aligned_tol}, RMS {aligned_rms_tol}): {al}")
+    same = not ties and al["max"] == 0.0
+    print(f"  {label}: greedy tokens == plain serve's for {len(reqs) - len(ties)} of "
+          f"{len(reqs)} requests ({len(ties)} near-tie divergences); bitwise equal to the "
+          f"plain serve (tokens, every aligned logit row): {same}", flush=True)
+    return {"ties": ties, "teacher_forced": tf, "aligned": al, "equals_plain_bitwise": same}
+
+
+def spec_run(label, model, params, reqs, opts, plain, plain_rows, tols, kernel, int8=False):
+    """One checked speculative serve (graphed): launches (the wrappers' plus
+    each replay's kernels from the device trace: ``kernel`` n_layers a
+    replay, K2 on int8 pools with ``int8``, nothing else), every call of
+    the fused kernel at T = K + 1, K1 n_layers x the prefills, no leaked
+    blocks, the meter's gates, and ``spec_serve_checks``. Returns (record,
+    engine (its graph kept), logit rows, report)."""
+    from repro_torch.serving.engine import Engine
+
+    n_layers = model.cfg.n_layers
+    eng = Engine(model, params, max_new=max(r.max_new for r in reqs))
+    rec = SpecRecorder(eng)
+    with KernelWidths() as widths:
+        rep, counted, _, first_s, replayed = counted_serve(eng, reqs, opts, rec)
+    rows = rec.trimmed(reqs)
+    rec.detach()
+    check(len(rep.results) == len(reqs) and all(
+        res.tokens.shape == (r.prompt_len + r.max_new,) for r, res in zip(reqs, rep.results)),
+        f"{label}: not every request completed")
+    check(rep.leaked_blocks == 0, f"{label}: {rep.leaked_blocks} pool blocks leaked")
+    gates = spec_cost_gates(eng, rep, opts, None)
+    check(all(gates.values()), f"{label}: meter gates {gates}")
+    per_replay = {k: 0 for k in counted}
+    per_replay[kernel] = n_layers
+    if int8:
+        per_replay["K2 on int8 pools"] = n_layers
+    traces = replay_trace(label, replayed_graphs(eng, replayed))
+    n = path_launches(label, counted, replayed, traces, per_replay)
+    want = {k: 0 for k in n}
+    want.update({"K1": n_layers * len(reqs), kernel: n_layers * rep.steps})
+    if int8:
+        want["K2 on int8 pools"] = n_layers * rep.steps
+    t = opts.draft_k + 1
+    group = (model.cfg.n_heads if kernel == "K4" else
+             model.cfg.n_heads // model.cfg.n_kv_heads)
+    w = widths.widths(kernel)
+    tokens = sum(r.max_new for r in reqs)
+    print(f"{label}: {rep.steps} rounds against the plain serve's {plain.steps} steps "
+          f"({tokens} tokens, {tokens / rep.steps:.3f} a round), drafted "
+          f"{rep.drafted_tokens}, accepted {rep.accepted_tokens}, acceptance rate "
+          f"{rep.acceptance_rate:.4f}; launches {n} (expected {want}); {kernel} calls at "
+          f"(T, rows) {w} (expected [({t}, {t * group})]); meter gates {gates}; first serve "
+          f"{first_s:.2f} s", flush=True)
+    check(n == want, f"{label}: kernel launches {n} != {want}")
+    check(w == [(t, t * group)], f"{label}: {kernel} ran at (T, rows) {w}")
+    stats = spec_serve_checks(label, model, params, reqs, rep, rows, plain, plain_rows, tols)
+    (trace,) = traces.values()
+    return ({"rounds": rep.steps, "plain_steps": plain.steps, "tokens": tokens,
+             "tokens_per_round": tokens / rep.steps, "drafted": rep.drafted_tokens,
+             "accepted": rep.accepted_tokens, "acceptance_rate": rep.acceptance_rate,
+             "launches": n, "kernel_widths": w, "meter_gates": gates, "step_trace": trace,
+             "first_serve_s": first_s, **stats}, eng, rows, rep)
+
+
+def spec_graph_vs_op(label, model, params, reqs, opts, per_replay):
+    """The speculative serve of ``reqs`` graphed against the same serve op
+    by op: tokens, every logit row, pool bytes and launches bitwise equal
+    (``serve_graph_vs_op``; the graphed launches from ``per_replay``, the
+    kernel calls of a replay of this step shape in the device trace); the
+    op-by-op run reads every round's rejected positions in the pool,
+    which must be zero bitwise (the rollback)."""
+    from repro_torch.serving.engine import Engine
+
+    max_new = max(r.max_new for r in reqs)
+    eng_g = Engine(model, params, max_new=max_new)
+    rec_g = SpecRecorder(eng_g)
+    rep_g, n_g, _, _, replayed = counted_serve(eng_g, reqs, opts, rec_g)
+    eng_o = op_by_op(Engine(model, params, max_new=max_new))
+    rec_o = SpecRecorder(eng_o, rollback=True)
+    rep_o, n_o, _, _, _ = counted_serve(eng_o, reqs, opts, rec_o)
+    rec = serve_graph_vs_op(label, reqs, (rep_g, rec_g.trimmed(reqs), eng_g),
+                            (rep_o, rec_o.trimmed(reqs), eng_o))
+    n = path_launches(label, n_g, replayed, {k: {"calls_per_replay": per_replay}
+                                              for k in replayed}, per_replay)
+    same_launches(label, rec, n, n_o)
+    rb = rec_o.rollback
+    print(f"  rollback, {label}, op by op: {rb['rounds']} rounds, {rb['positions']} rejected "
+          f"positions read in the pool, {rb['nonzero']} entries not zero", flush=True)
+    check(rb["positions"] > 0 and rb["nonzero"] == 0,
+          f"{label}: rejected drafts left K/V behind: {rb}")
+    return {**rec, "rollback": rb}
+
+
+def spec_timing(label, eng, reqs, spec, plain_timing):
+    """Two warm greedy speculative serves through ``eng`` (its round already
+    captured) on the host clock: ms per round (wall / rounds, prefills
+    included), generated tok/s, the aten ops per replayed round, beside
+    the plain serve's warm graphed serves of this call (phase 6). Gate: at
+    most MAX_REPLAYED_STEP_OPS ops a replayed round."""
+    import dataclasses
+
+    tokens = sum(r.max_new for r in reqs)
+    walls = []
+    with StepOps("_serve_decode") as ops:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = eng.serve(reqs, dataclasses.replace(spec, report_cost=False))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    med = statistics.median(walls)
+    out = {"walls_ms": [w * 1e3 for w in walls], "rounds": rep.steps,
+           "ms_per_round": med * 1e3 / rep.steps, "tok_s": tokens / med,
+           "aten_ops_per_replayed_round": ops.per_step, "plain": plain_timing}
+    plain = ("" if plain_timing is None else
+             f"; the plain serve (phase 6, this call): {plain_timing['ms_per_step']:.3f} ms "
+             f"per step x {plain_timing['steps']} steps, {plain_timing['tok_s']:.1f} tok/s")
+    print(f"  {label}, warm serves: walls {[round(x, 1) for x in out['walls_ms']]} ms, "
+          f"{out['ms_per_round']:.3f} ms per round x {rep.steps} rounds (prefills included), "
+          f"{out['tok_s']:.1f} generated tok/s{plain}; host work per round: "
+          f"{ops.per_step:.1f} aten ops replayed (limit {MAX_REPLAYED_STEP_OPS}) "
+          f"({card_line()})", flush=True)
+    check(ops.per_step <= MAX_REPLAYED_STEP_OPS,
+          f"{label}: {ops.per_step} aten ops per replayed round")
+    return out
+
+
+def phase14_speculative():
+    """Speculative serving through Engine.serve at full width (phase 14):
+    olmo-1b with n-gram drafts from the bf16 and the int8 pool, composed
+    with chunked prefill, with a two-layer olmo-1b draft model and with
+    itself as draft; minicpm3-4b with n-gram drafts; then minicpm3-4b
+    chunked and preempting (item 9's card leftover). The plain serves held
+    against are phases 6, 8 and 11's."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.options import ServeOptions
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    spec = ServeOptions(**SERVE_OPTIONS, speculative=True, draft="ngram", draft_k=SPEC_K)
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"))
+    reqs = shared_prefix_trace(32, cfg.vocab, **SERVE_TRACE)
+    sub = reqs[:SPEC_SUBSET]
+    params = Model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    tols = (LOGIT_TOL, LOGIT_RMS_TOL, LOGIT_TOL, ALIGNED_RMS_TOL)
+    print(f"speculative serve: {cfg.name} full width, bf16 seeded weights, softmax "
+          f"int_pallas; phase 6's trace of {len(reqs)} requests and options plus speculative, "
+          f"n-gram drafts of {SPEC_K} tokens ({card})", flush=True)
+    out = {"draft_k": SPEC_K, "runs": {}}
+    for kv_quant in (False, True):
+        pool = "int8 (absmax)" if kv_quant else "bf16"
+        model = Model(dataclasses.replace(cfg, kv_quant=kv_quant))
+        label = f"olmo-1b spec serve, {pool} pool"
+        plain, plain_rows, plain_timing = plain_serve("olmo-1b", kv_quant, model, params, reqs,
+                                                      ServeOptions(**SERVE_OPTIONS))
+        run, eng, rows, rep = spec_run(label, model, params, reqs, spec, plain, plain_rows,
+                                       tols, "K2", int8=kv_quant)
+        sub_spec = dataclasses.replace(spec, report_cost=False)
+        if not kv_quant:
+            run["timing"] = spec_timing(label, eng, reqs, spec, plain_timing)
+            # composed with chunked prefill: the first requests served with
+            # prefill_chunk, bitwise equal to the same requests of the run
+            # above
+            rec = SpecRecorder(eng)
+            chunked = counted_serve(eng, sub, dataclasses.replace(sub_spec, prefill_chunk=CHUNK),
+                                    rec)[0]
+            rec.detach()
+            comp = {"tokens": all(np.array_equal(a.tokens, b.tokens)
+                                  for a, b in zip(chunked.results, rep.results)),
+                    "logit_rows": rows_equal(rec.trimmed(sub),
+                                             {r.seed: rows[r.seed] for r in sub}) == len(sub),
+                    "max_prefill_per_step": chunked.max_prefill_per_step}
+            print(f"  spec serve + prefill_chunk {CHUNK}, first {SPEC_SUBSET} requests, == the "
+                  f"spec serve's rows of them, bitwise: {comp}", flush=True)
+            check(comp["tokens"] and comp["logit_rows"] and
+                  comp["max_prefill_per_step"] <= CHUNK,
+                  f"{label}: chunked prefill changes the speculative serve: {comp}")
+            run["chunked_composition"] = comp
+        run["graph_vs_op_by_op"] = spec_graph_vs_op(
+            f"{label}, first {SPEC_OP_SUBSET} requests", model, params, reqs[:SPEC_OP_SUBSET],
+            sub_spec, run["step_trace"]["calls_per_replay"])
+        if not kv_quant:
+            run["draft_model"] = spec_draft_model(model, params, sub, sub_spec, plain,
+                                                  plain_rows)
+        del eng, rows, rep, plain_rows
+        out["runs"][pool] = run
+    out["runs"]["minicpm3-4b"] = spec_mla()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 14 in {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
+def spec_draft_model(model, params, reqs, spec, plain, plain_rows):
+    """olmo-1b served speculatively with a draft model, its proposal steps
+    CUDA-graph replays: olmo-1b's config at DRAFT_LAYERS layers with its own
+    seeded weights (the same vocab), then the target as its own draft,
+    whose proposals the verifier accepts but at near ties (rounds of
+    several emissions, the catch-up step). Tokens and logits as the n-gram
+    serve's checks; K1 launches: n_layers x the target's prefills, plus the
+    draft's layers x its prefills and x its decode steps (K a round, plus
+    at most one catch-up step a round), each replay's kernels counted in
+    one device trace of both runs' graphs."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    dcfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"), n_layers=DRAFT_LAYERS)
+    small = Model(dcfg)
+    drafts = {f"draft model ({dcfg.n_layers} layers)":
+              (small, small.init(torch.Generator("cuda").manual_seed(1))),
+              "the target as its own draft": (model, params)}
+    runs, graphs = {}, {}
+    for name, (draft, dparams) in drafts.items():
+        opts = dataclasses.replace(spec, draft="model", draft_model=draft,
+                                   draft_params=dparams, report_cost=True)
+        eng = Engine(model, params, max_new=64)
+        rec = SpecRecorder(eng)
+        rep, counted, _, _, replayed = counted_serve(eng, reqs, opts, rec)
+        (proposer, _, _), = eng._proposers.values()
+        (dstate,) = proposer._states.values()
+        runs[name] = (draft, opts, eng, rep, counted, replayed, rec.trimmed(reqs), proposer,
+                      dstate)
+        for k in replayed:
+            graphs[f"{name}: verify round"] = eng._decode_states[k].graph
+        graphs[f"{name}: proposal step"] = dstate.graph
+    traces = replay_trace("olmo-1b spec serve, draft models", graphs)
+    out = {}
+    for name, (draft, opts, eng, rep, counted, replayed, rows, proposer, dstate) in runs.items():
+        label = f"olmo-1b spec serve, {name}, first {len(reqs)} requests"
+        check(rep.leaked_blocks == 0 and len(rep.results) == len(reqs),
+              f"{label}: leaked blocks or lost requests")
+        gates = spec_cost_gates(eng, rep, opts, proposer.meter_round())
+        check(all(gates.values()), f"{label}: meter gates {gates}")
+        per_replay = {k: 0 for k in counted}
+        per_replay["K2"] = model.cfg.n_layers
+        n = path_launches(label, counted, replayed,
+                          {k: traces[f"{name}: verify round"] for k in replayed}, per_replay)
+        dlayers = draft.cfg.n_layers
+        dcalls = traces[f"{name}: proposal step"]["calls_per_replay"]
+        check(dcalls == {**{k: 0 for k in dcalls}, "K1": dlayers},
+              f"{label}: the draft step's kernel calls per replay {dcalls}")
+        draft_steps = 1 + dstate.graph.replays          # the warm-up step, then replays
+        n["K1"] += dstate.graph.replays * dlayers
+        want_k1 = model.cfg.n_layers * len(reqs) + dlayers * (len(reqs) + draft_steps)
+        catch_ups = draft_steps - SPEC_K * rep.steps
+        print(f"{label}: {rep.steps} rounds, acceptance rate {rep.acceptance_rate:.4f} "
+              f"(drafted {rep.drafted_tokens}, accepted {rep.accepted_tokens}); draft decode "
+              f"steps {draft_steps} = {SPEC_K} x {rep.steps} rounds + {catch_ups} catch-ups; "
+              f"launches {n} (K1 expected {want_k1} = {model.cfg.n_layers} x {len(reqs)} "
+              f"target prefills + {dlayers} x ({len(reqs)} draft prefills + {draft_steps} "
+              f"draft steps), K2 {model.cfg.n_layers} x {rep.steps}); meter gates {gates}",
+              flush=True)
+        check(n["K1"] == want_k1 and 0 <= catch_ups <= rep.steps and
+              n["K2"] == model.cfg.n_layers * rep.steps,
+              f"{label}: launches {n}, draft steps {draft_steps}")
+        if draft is model:
+            check(rep.accepted_tokens > 0, f"{label}: no draft accepted")
+        stats = spec_serve_checks(label, model, params, reqs, rep, rows, plain, plain_rows,
+                                  (LOGIT_TOL, LOGIT_RMS_TOL, LOGIT_TOL, ALIGNED_RMS_TOL))
+        out[name] = {"draft_layers": dlayers, "rounds": rep.steps,
+                     "acceptance_rate": rep.acceptance_rate, "draft_steps": draft_steps,
+                     "catch_ups": catch_ups, "launches": n, "meter_gates": gates,
+                     "verify_round_trace": traces[f"{name}: verify round"],
+                     "proposal_step_trace": traces[f"{name}: proposal step"], **stats}
+    return out
+
+
+def spec_mla():
+    """minicpm3-4b served speculatively (n-gram drafts) on phase 8's trace
+    and options, K4 at T = K + 1 (200 query rows), against phase 8's plain
+    serve; then the trace with priorities, chunked and preempting (not
+    speculative), against the same plain serve, bitwise."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+
+    model = Model(get_config("minicpm3-4b", softmax=SoftmaxSpec("int_pallas")))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    reqs = _mla_trace()
+    plain_opts = ServeOptions(slots=MLA_SLOTS, paged=True, block_size=MLA_BS,
+                              prefix_share=True, kernel="pallas", report_cost=True)
+    spec = dataclasses.replace(plain_opts, speculative=True, draft="ngram", draft_k=SPEC_K)
+    plain, plain_rows, _ = plain_serve("minicpm3-4b", False, model, params, reqs, plain_opts)
+    label = "minicpm3-4b spec serve"
+    run, eng, rows, _ = spec_run(
+        label, model, params, reqs, spec, plain, plain_rows,
+        (MLA_LOGIT_TOL, MLA_LOGIT_RMS_TOL, MLA_ALIGNED_TOL, MLA_ALIGNED_RMS_TOL), "K4")
+    del eng, rows
+    run["graph_vs_op_by_op"] = spec_graph_vs_op(
+        f"{label}, first {MLA_SPEC_OP_SUBSET} requests", model, params,
+        reqs[:MLA_SPEC_OP_SUBSET], dataclasses.replace(spec, report_cost=False),
+        run["step_trace"]["calls_per_replay"])
+    # item 9's leftover: MLA chunked prefill and preemption on the card
+    prio = [dataclasses.replace(r, priority=0 if r.rid % 4 == 0 else 1) for r in reqs]
+    rec = _LogitRecorder()
+    ch, _, ch_rows, _, _ = counted_serve(
+        Engine(model, params, max_new=32, sampler=rec), prio,
+        dataclasses.replace(plain_opts, prefill_chunk=CHUNK, preemption=True,
+                            num_blocks=MLA_POOL_BLOCKS), rec)
+    al = aligned_logits("minicpm3-4b chunked + preempting vs plain", prio, ch.results,
+                        plain.results, ch_rows, plain_rows)
+    same = {"tokens": all(np.array_equal(a.tokens, b.tokens)
+                          for a, b in zip(ch.results, plain.results)),
+            "logit_rows": rows_equal(ch_rows, {r.seed: plain_rows[r.seed] for r in prio})
+            == len(prio),
+            "preempted": ch.preemptions >= 1 and ch.resumes == ch.preemptions,
+            "no_leaked_blocks": ch.leaked_blocks == 0,
+            "prefill_per_step": ch.max_prefill_per_step <= CHUNK}
+    print(f"  minicpm3-4b chunked (prefill_chunk {CHUNK}) + preempting serve, every fourth "
+          f"request in class 0, pool of {MLA_POOL_BLOCKS} blocks: {ch.steps} steps (plain "
+          f"{plain.steps}), preemptions {ch.preemptions}, resumes {ch.resumes}, max prompt "
+          f"tokens in a step {ch.max_prefill_per_step}; == the plain serve (phase 8) bitwise: "
+          f"{same}", flush=True)
+    check(all(same.values()), f"minicpm3-4b chunked + preempting serve: {same}, {al}")
+    run["chunked_preempting"] = {**same, "steps": ch.steps, "preemptions": ch.preemptions,
+                                 "resumes": ch.resumes, "aligned": al}
+    return run
+def _commit_keeps_last(commit_staged):
+    """A rollback that leaves the block's last rejected position uncleared."""
+    def commit(staged, n_accept, cache_pos, t):
+        return commit_staged(staged, n_accept, cache_pos, t - 1)
+    return commit
+
+
+def _mask_sees_next(verify_mask):
+    """A verify mask under which query i also sees position i + 1."""
+    def mask(l_max, q_pos, window=0):
+        return verify_mask(l_max, q_pos + 1, window)
+    return mask
+
+
+# Known faults of the verify step and its rollback, patched into the port
+# for a run: (module, attribute, wrapper of the original).
+PHASE14_FAULTS = {
+    "commit_staged leaves the last rejected position uncleared": (
+        "repro_torch.models.kv_cache", "commit_staged", _commit_keeps_last),
+    "verify_mask lets query i see position i + 1": (
+        "repro_torch.models.attention", "verify_mask", _mask_sees_next),
+}
+
+
+def phase14_fault_control():
+    """Phase 14's checks against known faults of the verify step: the first
+    SPEC_SUBSET requests of phase 6's trace served speculatively op by op
+    through the gather path (kernel="jnp": the path that reads
+    ``verify_mask``) cleanly and once per fault in PHASE14_FAULTS (a fresh
+    engine each), each run read by the rollback check, its teacher-forced
+    and step-aligned logits and its greedy tokens against the plain serve,
+    with phase 6's limits. Fails if a clean run fails a check or a fault
+    passes them all; prints which checks catch each."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    model = Model(get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas")))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    reqs = shared_prefix_trace(32, model.cfg.vocab, **SERVE_TRACE)[:SPEC_SUBSET]
+    plain_opts = ServeOptions(**{**SERVE_OPTIONS, "kernel": "jnp", "report_cost": False})
+    spec = dataclasses.replace(plain_opts, speculative=True, draft="ngram", draft_k=SPEC_K)
+    rec_p = _LogitRecorder()
+    plain, _, plain_rows, _, _ = counted_serve(Engine(model, params, max_new=64, sampler=rec_p),
+                                               reqs, plain_opts, rec_p)
+    results = []
+    for fault in [None] + list(PHASE14_FAULTS):
+        label = fault or "clean"
+        saved = None
+        if fault is not None:
+            mod, attr, wrap = PHASE14_FAULTS[fault]
+            mod = importlib.import_module(mod)
+            saved = getattr(mod, attr)
+            setattr(mod, attr, wrap(saved))
+        try:
+            eng = op_by_op(Engine(model, params, max_new=64))
+            rec = SpecRecorder(eng, rollback=True)
+            rep = eng.serve(reqs, spec)
+        finally:
+            if saved is not None:
+                setattr(mod, attr, saved)
+        rows = rec.trimmed(reqs)
+        tf = teacher_forced(f"{label}, phase 14", model, params, reqs,
+                            [r.tokens for r in rep.results], rows, LOGIT_TOL, LOGIT_RMS_TOL)
+        al = aligned_logits(f"{label}, phase 14 vs plain", reqs, rep.results, plain.results,
+                            rows, plain_rows)
+        divs = [first_divergence(f"{label} vs plain, request {a.rid}", a.tokens, b.tokens,
+                                 a.prompt_len, model, params)
+                for a, b in zip(rep.results, plain.results)]
+        divs = [d for d in divs if d is not None]
+        caught = {"rollback": rec.rollback["nonzero"] > 0,
+                  "logit_max": max(tf["first_step_max"], tf["decode_max"]) > LOGIT_TOL,
+                  "logit_rms": tf["rms"] > LOGIT_RMS_TOL,
+                  "tokens": any(not d["near_tie"] for d in divs),
+                  "aligned_max": al["max"] > LOGIT_TOL,
+                  "aligned_rms": al["rms"] > ALIGNED_RMS_TOL}
+        results.append({"run": label, "rounds": rep.steps, "rollback": rec.rollback,
+                        "diverged": len(divs), "caught_by": [k for k, v in caught.items() if v]})
+        print(f"  phase 14, {label}: {rep.steps} rounds, rollback {rec.rollback}, {len(divs)} "
+              f"of {len(reqs)} requests diverge from the plain serve; caught by "
+              f"{results[-1]['caught_by'] or 'nothing'}", flush=True)
+    check(not results[0]["caught_by"], f"a clean phase-14 run fails a check: {results[0]}")
+    check(all(r["caught_by"] for r in results[1:]),
+          f"a phase-14 fault passes every check: {results[1:]}")
+    return results
+
+
 def _bf16_score_add(q_lat, q_rope, c_kv, k_rope, scale):
     # the two products added in bf16 before the cast: the "semi" error
     s1 = torch.einsum("bqhr,blr->bhql", q_lat, c_kv)
@@ -3330,11 +3963,13 @@ def main():
         k3_results = k3_fault_control()
         results = fault_control()
         p13_results = phase13_fault_control()
+        p14_results = phase14_fault_control()
         print(f"fault control: {time.perf_counter() - t0:.1f} s", flush=True)
         print(card, flush=True)
         print(json.dumps({"k1_fault_control": k1_results, "k2_fault_control": k2_results,
                           "k4_fault_control": k4_results, "k3_fault_control": k3_results,
-                          "fault_control": results, "phase13_fault_control": p13_results}),
+                          "fault_control": results, "phase13_fault_control": p13_results,
+                          "phase14_fault_control": p14_results}),
               flush=True)
         return
 
@@ -3370,9 +4005,12 @@ def main():
                                  phase12_k3, rate)
     chunked = timed("phase 13 (chunked prefill and preemption, olmo-1b, bf16 and int8 pools)",
                     phase13_chunked_preempt)
-    print(f"phases 3-13: {time.perf_counter() - t_all:.1f} s", flush=True)
+    spec = timed("phase 14 (speculative serve: olmo-1b with n-gram drafts from bf16 and int8 "
+                 "pools and with draft models, minicpm3-4b with n-gram drafts; minicpm3-4b "
+                 "chunked and preempting)", phase14_speculative)
+    print(f"phases 3-14: {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    # phase 14
+    # phase 15
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
     k2_main = next(r for r in k2_recs if r["shape"] == "decode (main path)")
     k2_int8_main = next(r for r in k2_int8_recs if r["shape"] == "int8 decode (main path)")
@@ -3403,6 +4041,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:145",
         "launches": served["launches"]["K2"],
+        "launches_by_path": {"serve olmo-1b": served["launches"]["K2"],
+                             "spec serve olmo-1b": spec["runs"]["bf16"]["launches"]["K2"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_recs),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -3413,6 +4053,10 @@ def main():
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:145",
         "launches": served_int8["launches"]["K2 on int8 pools"],
+        "launches_by_path": {
+            "serve olmo-1b int8": served_int8["launches"]["K2 on int8 pools"],
+            "spec serve olmo-1b int8":
+                spec["runs"]["int8 (absmax)"]["launches"]["K2 on int8 pools"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_int8_recs),
         "ms": k2_int8_main["ms"], "plain_ms": k2_int8_main["plain_ms"],
         "bound_ms": k2_int8_main["bound_ms"], "bound_by": k2_int8_main["bound_by"],
@@ -3447,6 +4091,8 @@ def main():
         "chunk_pages": k4_main["chunk_pages"],
         "chunk_keys": k4_main["chunk_pages"] * k4_main["BS"],
         "launches": mla["launches"]["K4"],
+        "launches_by_path": {"serve minicpm3-4b": mla["launches"]["K4"],
+                             "spec serve minicpm3-4b": spec["runs"]["minicpm3-4b"]["launches"]["K4"]},
         "max_abs_err": max(r["max_abs_err"] for r in k4_recs),
         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
@@ -3456,7 +4102,8 @@ def main():
     print(json.dumps({"generate": generated,
                       "serve": {"olmo-1b": served, "minicpm3-4b": mla,
                                 "olmo-1b int8": served_int8,
-                                "olmo-1b chunked + preempting": chunked},
+                                "olmo-1b chunked + preempting": chunked,
+                                "speculative": spec},
                       "kv_quantize_card_vs_cpu": quantize}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,8 @@ serve a seeded trace of requests through ``Engine.serve`` (``--paged``,
 ``--prefix-share``, ``--kernel pallas`` for the fused paged decode K2, or
 K4 for an MLA architecture such as ``--arch minicpm3-4b``; ``--kv-quant``
 for the int8 KV cache; ``--prefill-chunk N`` and ``--preemption`` for
-chunked prefill and priority preemption) —
+chunked prefill and priority preemption; ``--speculative --draft-k N`` for
+draft-and-verify decoding with n-gram drafts) —
 with any ported softmax backend, and report throughput and the AP softmax
 cost (port of ``src/repro/launch/serve.py``, same flags).
 
@@ -16,6 +17,9 @@ cost (port of ``src/repro/launch/serve.py``, same flags).
         --softmax int_pallas --warm-steps 0 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --smoke --continuous --paged --prefill-chunk 8 --preemption \\
+        --softmax int_pallas --warm-steps 0 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --smoke --continuous --paged --speculative --draft-k 4 \\
         --softmax int_pallas --warm-steps 0 --device cpu
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path. Flags of
@@ -49,7 +53,6 @@ LATER_SLICES = {
     "ckpt_dir": (None, "Queue 1 item 13 (training and checkpoints)"),
     "warm_steps": (0, "Queue 1 item 13 (training: warm steps); pass "
                       "--warm-steps 0 to serve seeded weights"),
-    "speculative": (False, "Queue 1 item 10 (speculative decoding)"),
     "shards": (0, "Queue 1 item 14 (tensor-parallel serving)"),
 }
 
@@ -83,8 +86,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefix-share", action="store_true")
-    ap.add_argument("--speculative", action="store_true")
-    ap.add_argument("--draft-k", type=int, default=4)
+    ap.add_argument("--speculative", action="store_true",
+                    help="--continuous: draft-and-verify decoding (n-gram "
+                         "prompt-lookup drafts, one verify step a round)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="--speculative: draft tokens per verify round")
     ap.add_argument("--kernel", default="jnp", choices=("jnp", "pallas"))
     ap.add_argument("--shards", type=int, default=0)
     ap.add_argument("--prefill-chunk", type=int, default=None)
@@ -114,6 +120,7 @@ def main(argv=None):
         serve_options = ServeOptions(
             slots=args.slots, policy=args.policy, paged=args.paged,
             block_size=args.block_size, prefix_share=args.prefix_share,
+            speculative=args.speculative, draft_k=args.draft_k,
             kernel=args.kernel, prefill_chunk=args.prefill_chunk,
             preemption=args.preemption)
     except ValueError as e:
@@ -175,9 +182,11 @@ def serve_trace(eng: Engine, args, serve_options: ServeOptions):
     lat = [r.latency_s for r in rep.results]
     paged_note = (f", paged bs={rep.block_size} (prefill {rep.prefill_tokens} "
                   f"tok, shared {rep.shared_prefill_tokens})" if rep.paged else "")
+    spec_note = (f", speculative k={rep.draft_k} (acceptance {rep.acceptance_rate:.2f})"
+                 if rep.speculative else "")
     print(f"{args.policy} serving: {len(reqs)} requests / {args.slots} slots, "
           f"{gen} tokens in {rep.steps} decode steps, {rep.wall_s * 1e3:.1f} ms "
-          f"({gen / rep.wall_s:.0f} tok/s){paged_note}")
+          f"({gen / rep.wall_s:.0f} tok/s){paged_note}{spec_note}")
     print(f"request latency p50={np.percentile(lat, 50) * 1e3:.1f} ms "
           f"p99={np.percentile(lat, 99) * 1e3:.1f} ms")
     if args.prefill_chunk is not None or args.preemption:
@@ -202,6 +211,10 @@ def serve_trace(eng: Engine, args, serve_options: ServeOptions):
               f"lat={r.latency_s * 1e3:.1f} ms{cost}")
     if rep.cost is not None and rep.cost.cycles:
         print(f"batch softmax AP cost: {rep.cost.describe()}")
+        if rep.speculative and rep.cost_verify is not None:
+            print(f"  verify phase: {rep.cost_verify.describe()}")
+        if rep.speculative and rep.cost_draft is not None and rep.cost_draft.cycles:
+            print(f"  draft phase: {rep.cost_draft.describe()}")
     return rep
 
 

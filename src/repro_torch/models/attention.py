@@ -2,10 +2,12 @@
 (port of the dense paths of ``src/repro/models/attention.py``).
 
 Causal, sliding-window or full masking, query-chunked prefill, tail-only
-prefill against a shared prefix, and single-token decode against a
-contiguous or a paged cache. Paged decode gathers the logical cache and
-attends, or — for a backend with ``fused_paged_decode`` — runs the fused
-paged kernel K2 (``kernels/paged_attention``). Caches are written in place.
+prefill against a shared prefix, single-token decode and the speculative
+verify step (T tokens at once, each query masked as its own decode step)
+against a contiguous or a paged cache. Paged decode and verify gather the
+logical cache and attend, or — for a backend with ``fused_paged_decode`` —
+run the fused paged kernel K2 (``kernels/paged_attention``). Caches are
+written in place.
 Under ``cfg.kv_quant`` the caches hold int8 codes with one f32 scale per
 (position, head) (``kv_quantize``): prefill and tail prefill attend the
 dequantized values they cache, decode dequantizes what it reads, and K2
@@ -155,8 +157,9 @@ def cache_write(buf, new, cache_pos):
     ``cache_pos`` an int or a 0-d tensor: one slice shared by the whole
     batch, clamped to fit like ``lax.dynamic_update_slice`` (a tensor on
     the device, through ``index_copy_``: no host read). ``cache_pos`` a
-    ``[B]`` tensor (T == 1): each row lands at its own position; a row
-    whose position is out of range writes nothing."""
+    ``[B]`` tensor: each row lands at its own position
+    (:func:`cache_write_block`); a row whose position is out of range
+    writes nothing."""
     t, l_max = new.shape[1], buf.shape[1]
     if isinstance(cache_pos, int):
         start = min(max(cache_pos, 0), l_max - t)
@@ -167,11 +170,7 @@ def cache_write(buf, new, cache_pos):
         idx = start + torch.arange(t, dtype=torch.long, device=buf.device)
         buf.index_copy_(1, idx, new.to(buf.dtype))
         return buf
-    hit = (torch.arange(l_max, dtype=torch.int32, device=buf.device)[None, :]
-           == cache_pos.to(torch.int32)[:, None])
-    hit = hit.reshape(hit.shape + (1,) * (buf.ndim - 2))
-    buf.copy_(torch.where(hit, new.to(buf.dtype), buf))
-    return buf
+    return cache_write_block(buf, new, cache_pos)
 
 
 def valid_upto(l_max: int, cache_pos, window: int = 0, device=None):
@@ -203,41 +202,111 @@ def paged_gather(pool, table):
 
 
 def _write_target(table, cache_pos, nb: int, bs: int):
-    """Where one-entry-per-row writes through ``table`` land: the flat pool
-    row ``pb * bs + off`` of each batch row and whether it lands. A row whose
-    position is past the table (a parked slot at ``cache_len``) or whose
-    entry is a sentinel does not land."""
+    """Where writes through ``table`` land: the flat pool row ``pb * bs +
+    off`` of each entry and whether it lands, flattened over [B, T].
+    ``cache_pos``: an int, a 0-d or a [B] tensor (one entry per batch row)
+    or a [B, T] tensor of positions (a verify block). An entry whose
+    position is past the table (a parked slot at ``cache_len``, an
+    over-draft tail) or whose table entry is a sentinel does not land."""
     b, n_log = table.shape
     if isinstance(cache_pos, int):
-        pos = torch.full((b,), cache_pos, dtype=torch.long, device=table.device)
+        pos = torch.full((b, 1), cache_pos, dtype=torch.long, device=table.device)
     else:
-        pos = cache_pos.to(torch.long).expand(b)
+        pos = cache_pos.to(torch.long)
+        pos = pos.reshape(-1, 1).expand(b, 1) if pos.ndim < 2 else pos
     lb, off = pos // bs, pos % bs
-    pb = table.gather(1, lb.clamp(0, n_log - 1)[:, None])[:, 0].to(torch.long)
+    pb = table.gather(1, lb.clamp(0, n_log - 1)).to(torch.long)
     lands = (lb >= 0) & (lb < n_log) & (pb >= 0) & (pb < nb)
-    return pb * bs + off, lands
+    return (pb * bs + off).reshape(-1), lands.reshape(-1)
 
 
-def _put(pool, target, lands, new):
-    """Write ``new`` [B, ...] at flat pool rows ``target`` where ``lands``.
-    A row that does not land repeats the first landing row's write (same
-    index, same value — so the duplicate is harmless), or rewrites flat row
-    0 with its own value when none lands: the reference's dropped writes
-    without a data-dependent shape or a host sync."""
-    nb, bs = pool.shape[:2]
-    flat = pool.view((nb * bs,) + tuple(pool.shape[2:]))
-    new = new.to(pool.dtype)
-    # first landing row, else 0 (index_select: a tensor index would sync)
+def _put_rows(flat, target, lands, new):
+    """Write ``new`` [N, ...] at rows ``target`` [N] of ``flat`` [*lead, R,
+    ...] (the row axis after ``flat.ndim - new.ndim`` leading axes, over
+    which ``new`` broadcasts) where ``lands``, in place. An entry that does
+    not land repeats the first landing entry's write (same index, same
+    value — so the duplicate is harmless), or rewrites row 0 with its own
+    value when none lands: the reference's dropped writes without a
+    data-dependent shape or a host sync."""
+    lead = flat.ndim - new.ndim
+    new = new.to(flat.dtype)
+    # first landing entry, else 0 (index_select: a tensor index would sync)
     first = torch.argmax(lands.to(torch.int32), dim=0, keepdim=True)
     any_lands = lands.index_select(0, first)
     idx = torch.where(lands, target,
                       torch.where(any_lands, target.index_select(0, first), 0))
     bcast = (1,) * (new.ndim - 1)
     fill = torch.where(any_lands.reshape((1,) + bcast),
-                       new.index_select(0, first), flat[:1])
+                       new.index_select(0, first), flat.narrow(lead, 0, 1))
     keep = lands.reshape((-1,) + bcast)
-    flat.index_put_((idx,), torch.where(keep, new, fill))
+    flat.index_copy_(lead, idx, torch.where(keep, new, fill))
+    return flat
+
+
+def _put(pool, target, lands, new):
+    """``_put_rows`` on a pool [NB, BS, ...] seen as its NB * BS rows."""
+    nb, bs = pool.shape[:2]
+    _put_rows(pool.view((nb * bs,) + tuple(pool.shape[2:])), target, lands, new)
     return pool
+
+
+def _block_target(cache_pos, b: int, t: int, l_max: int, device):
+    """Rows ``row * l_max + p`` of a contiguous [B, L, ...] buffer seen as
+    its B * L rows, for the positions ``p = cache_pos + i`` (i < T), and
+    whether each lands (``0 <= p < l_max``): [B * T] each."""
+    pos = block_positions(cache_pos, b, t, device).to(torch.long)
+    lands = (pos >= 0) & (pos < l_max)
+    rows = torch.arange(b, dtype=torch.long, device=device)[:, None] * l_max
+    return (rows + pos).reshape(-1), lands.reshape(-1)
+
+
+def block_positions(cache_pos, b: int, t: int, device):
+    """[B, T] int32 positions ``cache_pos + i`` (i < T) of a verify block;
+    ``cache_pos`` an int, a 0-d or a [B] tensor, kept on its device."""
+    steps = torch.arange(t, dtype=torch.int32, device=device)[None, :]
+    if isinstance(cache_pos, int):
+        return (steps + cache_pos).expand(b, t)
+    return cache_pos.to(torch.int32).reshape(-1, 1).expand(b, 1) + steps
+
+
+def cache_write_block(buf, new, cache_pos):
+    """Write a BLOCK of T entries per batch row into ``buf`` [B, L, ...] at
+    positions ``cache_pos + i`` (i < T), in place: the multi-token
+    counterpart of :func:`cache_write` used by the speculative verify
+    step. ``new`` [B, T, ...]; ``cache_pos`` an int, a 0-d or a [B]
+    tensor. Positions past the buffer (parked slots at ``cache_len``,
+    over-draft tails near the end of a request's budget) drop instead of
+    writing. Returns ``buf``."""
+    b, t = new.shape[:2]
+    l_max = buf.shape[1]
+    target, lands = _block_target(cache_pos, b, t, l_max, buf.device)
+    _put_rows(buf.view((b * l_max,) + tuple(buf.shape[2:])), target, lands,
+              new.reshape((b * t,) + tuple(new.shape[2:])))
+    return buf
+
+
+def paged_write_block(pool, table, new, cache_pos):
+    """Multi-token :func:`paged_write`: scatter ``new`` [B, T, ...] through
+    the block table at positions ``cache_pos + i``, in place. Entries past
+    the table (sentinel entries, parked slots, over-draft tails) drop."""
+    b, t = new.shape[:2]
+    pos = block_positions(cache_pos, b, t, table.device)
+    target, lands = _write_target(table, pos, *pool.shape[:2])
+    return _put(pool, target, lands, new.reshape((b * t,) + tuple(new.shape[2:])))
+
+
+def verify_mask(l_max: int, q_pos, window: int = 0):
+    """[B, T, l_max] validity for a multi-token verify step: query ``i`` of
+    row ``b`` sits at absolute position ``q_pos[b, i]`` and may attend every
+    cache position ``<= q_pos[b, i]`` (within the trailing ``window`` when
+    set) — exactly the masks T successive single-token decode steps would
+    apply, so verify attention rows match the autoregressive ones."""
+    kv = torch.arange(l_max, dtype=torch.int32, device=q_pos.device)[None, None, :]
+    q = q_pos.to(torch.int32)[:, :, None]
+    valid = kv <= q
+    if window:
+        valid &= kv > q - window
+    return valid
 
 
 def paged_write(pool, table, new, cache_pos):
@@ -364,3 +433,45 @@ def attn_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
     out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx)
     y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
     return y, new_cache
+
+
+def attn_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
+                kind: str = "causal"):
+    """Multi-token decode for speculative verification: write K/V for all T
+    tokens at positions ``cache_pos .. cache_pos + T-1`` (in place) and
+    attend the T queries in one pass, query ``i`` masked as the decode step
+    at its position would mask it, so its logits — and the written entries
+    — match the autoregressive stream; rejected tail entries are cleared
+    afterwards by ``Model.verify_commit``. ``positions`` [B, T] are the
+    absolute positions (also the rope inputs). Contiguous, int8 and paged
+    (bf16 or int8) caches; a paged cache goes to K2 with the T rows when
+    the backend sets ``fused_paged_decode``."""
+    b, t, _ = x.shape
+    q, k_new, v_new = project_qkv(p, x, cfg, ctx, positions)
+    quant = "k_scale" in cache
+    entries = _cache_entries(k_new, v_new, cfg, quant)
+    window = cfg.window if kind == "window" else 0
+    if "table" in cache:
+        table = cache["table"]
+        target, lands = _write_target(table, positions, *cache["k"].shape[:2])
+        for name, val in entries.items():
+            _put(cache[name], target, lands, val.reshape((b * t,) + tuple(val.shape[2:])))
+        backend = spec_backend(cfg.softmax)
+        if getattr(backend, "fused_paged_decode", False):
+            return _attend_paged_fused(p, q, cache, positions.to(torch.int32), cfg, ctx,
+                                       kind, backend), cache
+        k = paged_gather(cache["k"], table)
+        v = paged_gather(cache["v"], table)
+        if quant:
+            k = kv_dequantize(k, paged_gather(cache["k_scale"], table), ctx.dtype)
+            v = kv_dequantize(v, paged_gather(cache["v_scale"], table), ctx.dtype)
+    else:
+        for name, val in entries.items():
+            cache_write_block(cache[name], val, cache_pos)
+        k, v = cache["k"], cache["v"]
+        if quant:
+            k = kv_dequantize(k, cache["k_scale"], ctx.dtype)
+            v = kv_dequantize(v, cache["v_scale"], ctx.dtype)
+    mask = verify_mask(k.shape[1], positions, window)
+    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx)
+    return dense_apply(p["wo"], out.reshape(b, t, -1), ctx), cache

@@ -17,8 +17,9 @@ Layouts, as the reference's:
                leaf slices by layer the same way.
 
 The pool operations treat every leaf but the table alike, so scatter,
-copy-on-write and the prefix view serve both families and carry the int8
-scales with their codes. Unlike the reference (pure functions returning
+copy-on-write, the prefix view and the speculative rollback
+(``commit_staged``) serve both families and carry the int8 scales with
+their codes. Unlike the reference (pure functions returning
 new buffers), they write the cache IN
 PLACE and return it: one pool exists per serve, and copying it per
 admission would double its memory traffic. The other families come with
@@ -29,6 +30,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models.attention import _block_target, _put_rows, _write_target, block_positions
 
 KV_DTYPE = torch.bfloat16
 
@@ -182,3 +185,45 @@ def swap_write(cache, payload, slot: int, ids, table_row):
             idx = torch.as_tensor(ids, device=leaf.device)
             leaf[:, idx] = payload[k].to(device=leaf.device, dtype=leaf.dtype)
     return cache
+
+
+def commit_staged(staged, n_accept, cache_pos, t: int):
+    """Resolve a staged speculative-verify cache at accepted depth
+    ``n_accept`` [B] (a device tensor), in place: the positional leaves —
+    contiguous ``[L, B, C, ...]`` buffers, or pools ``[L, NB, BS, ...]``
+    behind the block table, int8 codes with their scales — hold entries
+    for all ``t`` verify tokens, and the rejected tail (positions
+    ``cache_pos + n_accept + 1 .. cache_pos + t - 1``) is CLEARED to zero,
+    so no drafted K/V outlives its rejection and the committed cache is
+    bit-identical to one built by stepping only the accepted tokens.
+    Out-of-range positions (parked slots at ``cache_len``, over-draft tails
+    at the end of a request's budget, sentinel table entries) drop; a paged
+    clear only ever lands in the slot's own private blocks, since decode
+    positions sit strictly past any shared prefix. No host sync and no
+    data-dependent shape, so it runs inside the captured step. The
+    recurrent families' "select the snapshot" branch (SSM state, hybrid
+    rings) is not ported: ROADMAP.md Queue 1 item 11."""
+    if any(k in staged for k in ("state", "pos")) or any(
+            isinstance(v, dict) for v in staged.values()):
+        raise NotImplementedError(
+            "commit_staged of recurrent snapshots (SSM state, hybrid rings) is not "
+            "ported: ROADMAP.md Queue 1 item 11")
+    b = n_accept.shape[0]
+    dev = n_accept.device
+    steps = torch.arange(t, dtype=torch.int32, device=dev)
+    rej = (steps[None, :] > n_accept.to(torch.int32)[:, None]).reshape(-1)   # [B * T]
+    if "table" in staged:
+        pool = staged[_pools(staged)[0]]
+        nb, bs = pool.shape[1:3]
+        target, lands = _write_target(staged["table"][0], block_positions(cache_pos, b, t, dev),
+                                      nb, bs)
+    else:
+        c = staged[_pools(staged)[0]].shape[2]
+        target, lands = _block_target(cache_pos, b, t, c, dev)
+    lands = lands & rej
+    for k in _pools(staged):
+        leaf = staged[k]
+        flat = leaf.view((leaf.shape[0], leaf.shape[1] * leaf.shape[2]) + tuple(leaf.shape[3:]))
+        zero = torch.zeros((b * t,) + tuple(leaf.shape[3:]), dtype=leaf.dtype, device=dev)
+        _put_rows(flat, target, lands, zero)
+    return staged

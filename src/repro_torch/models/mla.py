@@ -5,7 +5,8 @@ Prefill and training up-project the latents to full per-head K/V and run
 ``attend_chunked`` like MHA, with the scale (dn + dr)^-1/2 and a V of width
 dv. Decode is the absorbed form: W_uk folds into the query and W_uv into
 the output, so attention runs against the cached latent c_kv [B, L, r] and
-the shared rope key [B, L, dr] — r + dr per token instead of 2 H dh. On a
+the shared rope key [B, L, dr] — r + dr per token instead of 2 H dh. The
+speculative verify step (``mla_verify``) is the same over T tokens. On a
 paged cache the latents are written through the block table (in place) and
 attended by gathering the logical cache, or — for a backend with
 ``fused_paged_decode`` — with K4 (``kernels/paged_attention``), which walks
@@ -26,7 +27,8 @@ from repro_torch.backends import telemetry
 from repro_torch.core.softmax_variants import spec_backend
 from repro_torch.kernels.paged_attention.ref import mla_pv, mla_scores
 from repro_torch.models.attention import (
-    _put, _write_target, attend_chunked, cache_write, paged_gather, valid_upto,
+    _put, _write_target, attend_chunked, cache_write, cache_write_block, paged_gather,
+    valid_upto, verify_mask,
 )
 from repro_torch.models.layers import Ctx, apply_rope, dense_apply, norm_apply
 
@@ -160,8 +162,34 @@ def mla_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
 
 
 def mla_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
-    raise NotImplementedError(
-        "MLA speculative verification is not ported: ROADMAP.md Queue 1 item 10")
+    """Multi-token absorbed decode for speculative verification: write the T
+    latents at positions ``cache_pos .. cache_pos + T-1`` (contiguous, or
+    through the block table; in place) and attend all T queries, query
+    ``i`` masked as the decode step at its position — each query row
+    reproduces that step. ``positions`` [B, T] absolute. The paged cache
+    goes to K4 with T * H query rows when the backend sets
+    ``fused_paged_decode``. Rejected tail entries are cleared by
+    ``Model.verify_commit``."""
+    b, t, _ = x.shape
+    q_nope, q_rope = _queries(p, x, cfg, ctx, positions)
+    c_new, kr_new = _latents(p, x, cfg, ctx, positions)
+    if "table" in cache:
+        table = cache["table"]
+        target, lands = _write_target(table, positions, *cache["c_kv"].shape[:2])
+        _put(cache["c_kv"], target, lands, c_new.reshape(b * t, -1))
+        _put(cache["k_rope"], target, lands, kr_new.reshape(b * t, -1))
+        backend = spec_backend(cfg.softmax)
+        if getattr(backend, "fused_paged_decode", False):
+            return _mla_attend_paged_fused(p, q_nope, q_rope, cache,
+                                           positions.to(torch.int32), cfg, ctx,
+                                           backend, b, t), cache
+        c_kv = paged_gather(cache["c_kv"], table)
+        k_rope = paged_gather(cache["k_rope"], table)
+    else:
+        c_kv = cache_write_block(cache["c_kv"], c_new, cache_pos)
+        k_rope = cache_write_block(cache["k_rope"], kr_new[:, :, 0], cache_pos)
+    mask = verify_mask(c_kv.shape[1], positions)
+    return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg, ctx, b, t), cache
 
 
 def _absorb_queries(p, q_nope, cfg, ctx: Ctx):

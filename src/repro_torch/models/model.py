@@ -6,9 +6,12 @@
   prefill(params, batch, cache_len)        -> (last_logits [B, 1, V], cache)
   prefill_tail(params, batch, prefix, s)   -> (last_logits [B, 1, V], tail cache)
   decode_step(params, cache, batch, pos)   -> (logits [B, 1, V], cache)
+  verify_step(params, cache, batch, pos)   -> (logits [B, T, V], staged cache)
+  verify_commit(staged, n_accept, pos, T)  -> cache (rejected tail cleared)
 
 Batches hold int token tensors on the model's device: {"tokens": [B, S]}
-for prefill, {"token": [B, 1]} for a decode step. The cache is updated in
+for prefill, {"token": [B, 1]} for a decode step, {"token": [B, T]} for a
+verify step. The cache is updated in
 place. Under ``cfg.kv_quant`` the GQA caches hold int8 codes and f32
 scales (MLA keeps its bf16 latent cache, as the reference). Other
 families (MoE, SSM, hybrid, encdec, M-RoPE) are later slices: ROADMAP.md
@@ -25,7 +28,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import kv_cache
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import block_positions
 from repro_torch.models.layers import (
     Ctx, dense_apply, embed_apply, embed_logits, norm_apply, positions_for,
 )
@@ -183,3 +188,32 @@ class Model:
         x, cache = tfm.stack_decode(p["stack"]["layers"], cache, x, cache_pos,
                                     self.cfg, self.ctx, positions)
         return self._head(p, x), cache
+
+    def verify_step(self, p, cache, batch, cache_pos):
+        """Multi-token decode for speculative verification: ``batch``
+        {"token": [B, T]} (entry 0 the last committed token, entries 1..T-1
+        draft proposals) in ONE forward pass at positions ``cache_pos ..
+        cache_pos + T-1`` (``cache_pos`` an int, a 0-d or a [B] tensor,
+        kept on its device as in ``decode_step``). Returns (logits [B, T,
+        V], staged cache): ``logits[:, j]`` is the next-token distribution
+        after token j — equal to what T successive ``decode_step`` calls
+        give — and the staged cache (the cache, written in place) holds
+        every token's entries until :meth:`verify_commit`."""
+        token = batch["token"]
+        b, t = token.shape
+        positions = block_positions(cache_pos, b, t, token.device)
+        x = self._embed(p, token)
+        x, staged = tfm.stack_verify(p["stack"]["layers"], cache, x, cache_pos,
+                                     self.cfg, self.ctx, positions)
+        return self._head(p, x), staged
+
+    def verify_commit(self, staged, n_accept, cache_pos, t: int):
+        """Resolve a staged verify cache once the accepted draft depth is
+        known, in place: ``n_accept`` [B] int counts accepted draft tokens
+        per row (0..t-1; entry 0 of the block is always kept). The rejected
+        tail entries (positions ``cache_pos + n_accept + 1 .. cache_pos +
+        t - 1``, contiguous or through the block table) are cleared, so the
+        committed cache equals one built by stepping only the accepted
+        tokens; the next write position is ``cache_pos + n_accept + 1``
+        (``kv_cache.commit_staged``)."""
+        return kv_cache.commit_staged(staged, n_accept, cache_pos, t)

@@ -17,11 +17,14 @@ from repro_torch.models.attention import (
     attn_apply,
     attn_decode,
     attn_prefill_tail,
+    attn_verify,
     kv_fake_quant,
     project_qkv,
 )
 from repro_torch.models.layers import Ctx, dense_apply, mlp_apply, norm_apply
-from repro_torch.models.mla import mla_apply, mla_decode, mla_prefill, mla_prefill_tail
+from repro_torch.models.mla import (
+    mla_apply, mla_decode, mla_prefill, mla_prefill_tail, mla_verify,
+)
 
 
 def layer_params(stacked, i: int):
@@ -113,15 +116,27 @@ def block_prefill_tail(p, x, cfg, ctx: Ctx, positions, prefix,
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
 
 
-def block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
-    """Single-token decode step. Returns (x, cache) — the cache updated in
-    place."""
+def _block_step(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, attn):
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
-    decode = mla_decode if cfg.attention == "mla" else attn_decode
-    a, c = decode(p["attn"], h, cache, cache_pos, cfg, ctx, positions)
+    a, c = attn(p["attn"], h, cache, cache_pos, cfg, ctx, positions)
     x = x + a
     h = norm_apply(p["norm2"], x, cfg.norm, ctx)
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
+
+
+def block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
+    """Single-token decode step. Returns (x, cache) — the cache updated in
+    place."""
+    return _block_step(p, x, cache, cache_pos, cfg, ctx, positions,
+                       mla_decode if cfg.attention == "mla" else attn_decode)
+
+
+def block_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
+    """Multi-token (draft-verify) decode step over T tokens at ``positions``
+    [B, T]. Returns (x, cache): every token's entry written in place (the
+    rejected tail is cleared later by ``Model.verify_commit``)."""
+    return _block_step(p, x, cache, cache_pos, cfg, ctx, positions,
+                       mla_verify if cfg.attention == "mla" else attn_verify)
 
 
 # ----------------------------------------------------------------- layer loops
@@ -156,12 +171,22 @@ def stack_prefill_tail(params, prefix, x, cfg, ctx: Ctx, positions,
     return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
+def _stack_step(params, caches, x, cache_pos, cfg, ctx: Ctx, positions, block):
+    for i in telemetry.scan_range(n_stacked(params)):
+        x, _ = block(layer_params(params, i), x, layer_params(caches, i), cache_pos, cfg,
+                     ctx, positions)
+    return x, caches
+
+
 def stack_decode(params, caches, x, cache_pos, cfg, ctx: Ctx, positions):
     """One decode step through every layer; each layer writes its slice of
     the stacked cache (contiguous, or paged pools and table) in place, so
     the returned cache is ``caches``."""
-    for i in telemetry.scan_range(n_stacked(params)):
-        x, _ = block_decode(layer_params(params, i), x,
-                            layer_params(caches, i), cache_pos, cfg, ctx,
-                            positions)
-    return x, caches
+    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_decode)
+
+
+def stack_verify(params, caches, x, cache_pos, cfg, ctx: Ctx, positions):
+    """One verify step over a T-token block through every layer (the
+    reference's ``scan_verify`` for the positional families), written in
+    place like ``stack_decode``: the returned staged cache is ``caches``."""
+    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_verify)

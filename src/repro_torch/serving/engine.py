@@ -30,15 +30,22 @@ commits long prompts in bounded ``prefill_tail`` pieces between decode
 steps; ``preemption`` swaps a lower-priority request out to host memory
 for a blocked higher class and resumes it later. Each served request's
 tokens equal generating it alone with ``mode="eager"``, its own seed and
-the same cache length, chunked or preempted or not. Speculative decoding,
-tensor parallelism and the other families are later slices (ROADMAP.md
-Queue 1 items 10-14); ``ServeOptions`` raises for them.
+the same cache length, chunked or preempted or not. ``speculative``
+decodes in draft-and-verify rounds: a proposer (``serving/speculative.py``:
+n-gram lookup or a draft model) guesses K tokens per slot, one verify step
+(``Model.verify_step``) scores the K+1-token block of every slot, the
+verifier accepts a prefix, and ``Model.verify_commit`` clears the rejected
+drafts' K/V; greedy speculative tokens equal the plain serve's. Tensor
+parallelism and the other families are later slices (ROADMAP.md Queue 1
+items 11-14); ``ServeOptions`` raises for them.
 
 Fixed storage: the decode step of ``generate`` and of ``serve`` runs over
 a cache and input buffers kept on the engine per step shape (for serve:
-kernel, slots, cache length, block geometry, int8 pool), reset at the start
-of every ``serve`` to what ``kv_cache.*_cache_zeros`` gives. On the card
-the step is a CUDA graph over that storage, replayed every step; admissions,
+kernel, slots, cache length, block geometry, int8 pool, and the draft depth
+of a verify step), reset at the start of every ``serve`` to what
+``kv_cache.*_cache_zeros`` gives. On the card the step is a CUDA graph over
+that storage, replayed every step (a greedy verify round too: verify step,
+verifier and rollback in one replay); admissions,
 prefills, chunk pieces, swap-out and resume stay op by op, as the
 reference's are separate jitted calls. The op-by-op step stays reachable
 for comparison (``Engine._cuda_graphs = False``).
@@ -54,7 +61,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,12 +69,13 @@ import torch
 from repro_torch.backends import CostReport, telemetry
 from repro_torch.models import kv_cache
 from repro_torch.models.model import Model
-from repro_torch.serving.graphs import StepGraph
+from repro_torch.serving.graphs import DecodeState
 from repro_torch.serving.options import ServeOptions
-from repro_torch.serving.sampler import make_sampler, sample_slots
+from repro_torch.serving.sampler import make_sampler, make_spec_verifier, sample_slots
 from repro_torch.serving.scheduler import (
     BlockAllocator, Request, SlotScheduler, prefix_keys,
 )
+from repro_torch.serving.speculative import make_proposer
 
 
 @dataclasses.dataclass
@@ -94,6 +102,8 @@ class RequestResult:
     latency_s: float            # wall seconds, queue entry -> completion
     cost: Optional[CostReport] = None   # this request's attributed share
     shared_prefix: int = 0      # prompt tokens served from shared blocks
+    drafted: int = 0            # speculative: draft tokens proposed for it
+    accepted: int = 0           # speculative: draft tokens the verifier accepted
     priority: int = 0           # static class (0 = most urgent)
     deadline: Optional[float] = None    # relative completion budget (steps)
     deadline_met: Optional[bool] = None  # None when no deadline was set
@@ -118,12 +128,23 @@ class ServeReport:
     shared_prefill_tokens: int = 0      # prompt tokens served from shared blocks
     cow_copies: int = 0
     evictions: int = 0
+    speculative: bool = False
+    draft_k: int = 0
+    drafted_tokens: int = 0             # draft tokens proposed (all rounds)
+    accepted_tokens: int = 0            # draft tokens the verifier accepted
+    cost_draft: Optional[CostReport] = None    # batch meter, draft phase
+    cost_verify: Optional[CostReport] = None   # batch meter, verify phase
     prefill_chunk: int = 0              # 0: whole prefill per admission
     max_prefill_per_step: int = 0       # most prompt tokens prefilled in a step
     preemptions: int = 0
     resumes: int = 0
     leaked_blocks: int = 0              # pool blocks unaccounted after drain
     class_latency: Optional[dict] = None  # per-priority-class latency/SLA
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Accepted / proposed draft tokens (0.0 when not speculative)."""
+        return self.accepted_tokens / max(self.drafted_tokens, 1)
 
     def by_rid(self) -> Dict[int, RequestResult]:
         return {r.rid: r for r in self.results}
@@ -143,43 +164,6 @@ def _eos_mask(toks, done, eos_id: Optional[int], pad: Optional[int]):
     return toks, done | (toks == eos_id)
 
 
-class _DecodeState:
-    """The fixed storage of one decode-step shape and its step: ``cache``,
-    the input ``buffers`` the step reads, ``decode()`` -> the last logits
-    over them, and ``post(last, generators)``: sampling, the EOS mask and
-    the step's outputs. A sampler that draws no random numbers (``draws``
-    False) runs ``post`` inside the step (``body``); one that draws runs it
-    after the step with the caller's generators. ``run`` calls the step op
-    by op, or replays it as a CUDA graph (captured at the first graphed
-    run)."""
-
-    def __init__(self, cache, buffers, decode: Callable, post: Callable, draws: bool):
-        self.cache = cache
-        self.buffers = list(buffers)
-        self.post = post
-        self.draws = draws
-        self.body = decode if draws else (lambda: post(decode(), None))
-        self.graph: Optional[StepGraph] = None
-
-    def run(self, graphed: bool, generators=None):
-        if not graphed:
-            out = self.body()
-        else:
-            if self.graph is None:
-                self.graph = StepGraph(self.body, list(self.cache.values()) + self.buffers)
-            out = self.graph()
-        return self.post(out, generators) if self.draws else out
-
-    def reset_cache(self) -> None:
-        """Zeros, and the sentinel table: what ``*_cache_zeros`` gives."""
-        for k, leaf in self.cache.items():
-            if k != "table":
-                leaf.zero_()
-                num_blocks = leaf.shape[1]
-        if "table" in self.cache:
-            self.cache["table"].fill_(num_blocks)
-
-
 class Engine:
     def __init__(self, model: Model, params, max_new: int = 64,
                  sampler: str = "greedy", eos_id: Optional[int] = None,
@@ -190,11 +174,16 @@ class Engine:
         self.eos_id = eos_id
         self.pad_id = eos_id if pad_id is None else pad_id
         self.sample = make_sampler(sampler, **sampler_kw)
+        # a registry sampler's name and options give speculative serving the
+        # target distribution; a callable sampler's is opaque
+        self._sampler_kind = sampler if isinstance(sampler, str) else None
+        self._sampler_kw = dict(sampler_kw)
+        self._proposers: dict = {}       # draft-model proposers, kept with their states
         self._meter_cache: dict = {}  # (batch shapes, cache_len, n_new) -> CostReport
         self._meta_params = None
         self._kernel_models: dict = {}   # decode kernel -> Model variant
         self._last_alloc: Optional[BlockAllocator] = None  # pool of the last paged serve
-        self._decode_states: dict = {}   # step shape -> _DecodeState
+        self._decode_states: dict = {}   # step shape -> DecodeState
         # decode steps as CUDA-graph replays on the card; False runs them op
         # by op (the comparison the tests and chip_smoke.py make)
         self._cuda_graphs = True
@@ -272,7 +261,7 @@ class Engine:
     def _mask_done(self, tok, done):
         return _eos_mask(tok, done, self.eos_id, self.pad_id)
 
-    def _generate_state(self, prefill_cache, b: int) -> _DecodeState:
+    def _generate_state(self, prefill_cache, b: int) -> DecodeState:
         """The fused decode step at the prefill cache's shape (batch b, its
         cache length) over its own cache and device buffers: token [b, 1],
         position (0-d) and EOS flags [b]. It decodes and advances the
@@ -301,7 +290,7 @@ class Engine:
                 done.copy_(flags)
                 return new, last
 
-            self._decode_states[key] = _DecodeState(
+            self._decode_states[key] = DecodeState(
                 cache, (tok, pos, done), decode, post, getattr(sample, "draws", True))
         return self._decode_states[key]
 
@@ -326,7 +315,7 @@ class Engine:
             done, last = done_buf.clone(), last.clone()
         return toks.cpu().numpy(), done.cpu().numpy(), last
 
-    def _fused_step(self, st: _DecodeState, graphed: bool, g, toks, col: int):
+    def _fused_step(self, st: DecodeState, graphed: bool, g, toks, col: int):
         """One fused decode step: the state's step (a graph replay on the
         card) and its sampling with the caller's generator, the token into
         column ``col`` of ``toks``. No host sync. Returns the last logits."""
@@ -368,11 +357,13 @@ class Engine:
         return self._meter_cache[key]
 
     def _meter_serve_step(self, slots: int, cache_len: int,
-                          paged_geom=None) -> CostReport:
-        """Softmax AP cost of ONE slot-batched decode step (shapes only,
-        memoized). ``paged_geom``: (block_size, num_blocks) meters the
-        paged layout — the same softmax shapes, kept honest."""
-        key = ("serve_step", slots, cache_len, paged_geom)
+                          paged_geom=None, t: int = 1) -> CostReport:
+        """Softmax AP cost of ONE slot-batched step (shapes only, memoized).
+        ``t=1`` meters the plain decode step, ``t>1`` the speculative verify
+        step over a ``t``-token block (the softmax rows grow from 1 to t
+        queries per head). ``paged_geom``: (block_size, num_blocks) meters
+        the paged layout — the same softmax shapes, kept honest."""
+        key = ("serve_step", slots, cache_len, paged_geom, t)
         if key not in self._meter_cache:
             cfg = self.model.cfg
             if paged_geom is None:
@@ -380,10 +371,11 @@ class Engine:
             else:
                 struct = kv_cache.paged_cache_zeros(cfg, slots, cache_len,
                                                     *paged_geom, device="meta")
-            step_in = {"token": torch.zeros((slots, 1), dtype=torch.long,
+            step_in = {"token": torch.zeros((slots, t), dtype=torch.long,
                                             device="meta")}
+            fn = self.model.decode_step if t == 1 else self.model.verify_step
             with telemetry.collect() as acc:
-                self.model.decode_step(
+                fn(
                     self._params_meta(), struct, step_in,
                     torch.zeros((slots,), dtype=torch.int32, device="meta"))
             self._meter_cache[key] = acc.total()
@@ -441,7 +433,7 @@ class Engine:
         return self._kernel_models[kernel]
 
     def _serve_state(self, kernel: str, slots: int, cache_len: int,
-                     paged_geom) -> _DecodeState:
+                     paged_geom) -> DecodeState:
         """The serve decode step of one shape — (kernel, slots, cache_len,
         block geometry, int8 pool) — over its own cache, reset here to
         ``*_cache_zeros``, and one packed int64 input buffer [3, slots]:
@@ -450,7 +442,7 @@ class Engine:
         each request's generator); EOS masking runs per slot. Free slots ride
         along parked at ``cache_len`` (their writes are dropped) with no
         generator, and their outputs are ignored. The step gives [2, slots]
-        int32: tokens and EOS flags."""
+        int32 (tokens and EOS flags) and the last logits [slots, V]."""
         cfg, dev = self.model.cfg, self.model.device
         key = ("serve", kernel, slots, cache_len, paged_geom, cfg.kv_quant)
         st = self._decode_states.get(key)
@@ -474,20 +466,96 @@ class Engine:
         def post(last, generators):
             toks = sample_slots(sample, last, generators)
             toks, flags = _eos_mask(toks, inputs[2].to(torch.bool), eos_id, pad)
-            return torch.stack([toks, flags.to(torch.int32)])
+            return torch.stack([toks, flags.to(torch.int32)]), last
 
-        st = self._decode_states[key] = _DecodeState(
+        st = self._decode_states[key] = DecodeState(
             cache, (inputs,), decode, post, getattr(sample, "draws", True))
         return st
 
-    def _serve_decode(self, st: _DecodeState, host_inputs: np.ndarray,
-                      generators) -> np.ndarray:
-        """One serve decode step: the host's [3, slots] lanes into the
-        state's input buffer, the step (a graph replay on the card) with the
-        slots' generators, and the [2, slots] tokens and EOS flags back on
-        the host."""
+    def _spec_state(self, kernel: str, slots: int, cache_len: int, paged_geom,
+                    k: int) -> DecodeState:
+        """The speculative verify round of one shape — (kernel, slots,
+        cache_len, block geometry, int8 pool, draft depth ``k``) — over its
+        own cache, reset here to ``*_cache_zeros``, and one packed int64
+        input buffer [slots, k + 2]: each slot's last committed token, its
+        ``k`` drafts and its position. The round is ``verify_step`` over
+        the [slots, k + 1] block, the verifier (``make_spec_verifier``:
+        greedy on the device, else per slot with its generator) and
+        ``verify_commit`` at the accepted depth, all without a host sync:
+        greedy, one replay on the card. Parked slots (position
+        ``cache_len``) write nothing. It gives [slots, k + 2] int32 (the
+        emitted tokens, pad-filled, then n_emit) and the block's logits
+        [slots, k + 1, V]."""
+        cfg, dev = self.model.cfg, self.model.device
+        key = ("spec", kernel, slots, cache_len, paged_geom, cfg.kv_quant, k)
+        st = self._decode_states.get(key)
+        if st is not None:
+            st.reset_cache()
+            return st
+        if paged_geom is None:
+            cache = kv_cache.cache_zeros(cfg, slots, cache_len, device=dev)
+        else:
+            cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom,
+                                               device=dev)
+        inputs = torch.zeros((slots, k + 2), dtype=torch.long, device=dev)
+        model, params, t = self._kernel_model(kernel), self.params, k + 1
+        verify = make_spec_verifier(self._sampler_kind,
+                                    pad_id=0 if self.pad_id is None else self.pad_id,
+                                    **self._sampler_kw)
+
+        def decode():
+            logits, _ = model.verify_step(params, cache, {"token": inputs[:, :t]},
+                                          inputs[:, t])
+            return logits
+
+        def post(logits, generators):
+            out, n_emit = verify(logits, inputs[:, 1:t], generators)
+            model.verify_commit(cache, n_emit - 1, inputs[:, t], t)
+            return torch.cat([out, n_emit[:, None]], dim=1), logits
+
+        st = self._decode_states[key] = DecodeState(cache, (inputs,), decode, post,
+                                                    verify.draws)
+        return st
+
+    def _serve_decode(self, st: DecodeState, host_inputs: np.ndarray, generators):
+        """One serve step (a decode step, or a verify round): the host's
+        lanes into the state's input buffer, the step (a graph replay on the
+        card) with the slots' generators, and its packed int32 outputs back
+        on the host. Returns them with the step's logits (left on the
+        device)."""
         st.buffers[0].copy_(torch.from_numpy(host_inputs))
-        return st.run(self._graphed(), generators).cpu().numpy()
+        packed, logits = st.run(self._graphed(), generators)
+        return packed.cpu().numpy(), logits
+
+    def _proposer(self, opt: ServeOptions):
+        """The draft proposer of a speculative serve. A draft-model proposer
+        is kept on the engine per (model, params, depth), so its proposal
+        step's storage (and graph) serves every later serve."""
+        if self._sampler_kind is None:
+            raise ValueError(
+                "speculative serving needs a registry sampler (the "
+                "verifier must know the target distribution); this "
+                "engine was built with a callable sampler")
+        key = None
+        if opt.draft == "model":
+            key = (id(opt.draft_model), id(opt.draft_params), opt.draft_k)
+            kept = self._proposers.get(key)
+            if kept is not None:
+                kept[0].cuda_graphs = self._cuda_graphs
+                return kept[0]
+        proposer = make_proposer(opt.draft, opt.draft_k, max_ngram=opt.max_ngram,
+                                 draft_model=opt.draft_model,
+                                 draft_params=opt.draft_params)
+        draft_model = getattr(proposer, "model", None)
+        if draft_model is not None:
+            if draft_model.cfg.vocab != self.model.cfg.vocab:
+                raise ValueError(f"draft model vocab {draft_model.cfg.vocab} != "
+                                 f"target vocab {self.model.cfg.vocab}")
+            proposer.cuda_graphs = self._cuda_graphs
+        if key is not None:
+            # the model and params ride along so their ids stay theirs
+            self._proposers[key] = (proposer, opt.draft_model, opt.draft_params)
+        return proposer
 
     @torch.no_grad()
     def serve(self, requests: Sequence[Request],
@@ -522,11 +590,24 @@ class Engine:
         them by content key, or re-prefills the evicted ones), its private
         written blocks are copied to host memory, and its token, position,
         EOS flag and generator are banked, so the resumed stream equals an
-        uninterrupted run."""
+        uninterrupted run.
+
+        ``speculative=True`` runs draft-and-verify rounds in place of decode
+        steps: the proposer (``draft="ngram"``: prompt lookup; ``"model"``:
+        ``draft_model`` / ``draft_params`` propose greedily) guesses
+        ``draft_k`` tokens per live slot, and one verify round (``Engine.
+        _spec_state``) scores every slot's last token plus drafts, accepts
+        a prefix with the verifier, and clears the rejected drafts' K/V.
+        The host commits the emissions, truncated at EOS or the request's
+        budget exactly where the plain loop would stop. Greedy tokens equal
+        the plain serve's; a sampler that draws is exact in distribution.
+        It composes with every option above; the report counts drafted and
+        accepted tokens and meters the draft and verify phases apart."""
         opt = ServeOptions() if options is None else options
         slots, policy = opt.slots, opt.policy
         paged, block_size = opt.paged, opt.block_size
         prefill_chunk = opt.prefill_chunk
+        speculative, draft_k = opt.speculative, opt.draft_k
         reqs = list(requests)
         if not reqs:
             return ServeReport([], 0, 0.0, slots, opt.cache_len or 0, None)
@@ -569,10 +650,20 @@ class Engine:
                                   aging=opt.aging, hol_grace=opt.hol_grace)
         attr = telemetry.SlotCostAttributor() if opt.report_cost else None
         geom = (block_size, num_blocks) if paged else None
-        state = self._serve_state(opt.kernel, slots, C, geom)
+        proposer = None
+        if speculative:
+            proposer = self._proposer(opt)
+            proposer.begin(slots, C)
+            state = self._spec_state(opt.kernel, slots, C, geom, draft_k)
+        else:
+            state = self._serve_state(opt.kernel, slots, C, geom)
         cache = state.cache
         step_cost = (self._meter_serve_step(slots, C, geom)
-                     if opt.report_cost else None)
+                     if opt.report_cost and not speculative else None)
+        verify_cost = (self._meter_serve_step(slots, C, geom, t=draft_k + 1)
+                       if opt.report_cost and speculative else None)
+        draft_cost = (proposer.meter_round()
+                      if opt.report_cost and speculative else None)
         slot_blocks: Dict[int, List[int]] = {}
         shared_of: Dict[int, int] = {}
         tok = np.zeros((slots, 1), np.int64)
@@ -610,6 +701,8 @@ class Engine:
             if alloc is not None:
                 for b in slot_blocks.pop(slot, ()):
                     alloc.release_block(b)
+            if proposer is not None:
+                proposer.release(slot)
             q0 = queued_wall.get(r.rid, wall0)
             ew = emit_wall.pop(r.rid, [])
             results[r.rid] = RequestResult(
@@ -618,6 +711,7 @@ class Engine:
                 latency_s=time.perf_counter() - q0,
                 cost=attr.report_for(r.rid) if attr else None,
                 shared_prefix=shared_of.get(r.rid, 0),
+                drafted=st.drafted, accepted=st.accepted,
                 priority=r.priority, deadline=r.deadline,
                 deadline_met=(None if r.deadline is None
                               else (t - r.arrival) <= r.deadline),
@@ -728,6 +822,9 @@ class Engine:
             g = torch.Generator(dev).manual_seed(req.seed)
             first = int(self.sample(logits[:, -1], g)[0])
             done0 = self.eos_id is not None and first == self.eos_id
+            if proposer is not None:
+                proposer.admit(slot, np.asarray(req.prompt, np.int32), first,
+                               req.prompt_len)
             sched.slots[slot].prefilling = False
             sched.install(slot, first, done0)
             tok[slot, 0] = first
@@ -762,6 +859,8 @@ class Engine:
             sched.preempt(slot, t)
             swap_store[r.rid] = {"payload": payload, "nreg": nreg,
                                  "nwritten": nwritten, "gen": gens[slot]}
+            if proposer is not None:
+                proposer.release(slot)
             gens[slot] = None
             pos[slot] = C
             done[slot] = True
@@ -793,6 +892,11 @@ class Engine:
                 paged_commit(slot, req, adm, got * bs, meta["nreg"] * bs)
                 for i in range(got, meta["nreg"]):
                     alloc.register(pk[i], ids[i])
+            if proposer is not None:
+                proposer.admit(slot, np.asarray(req.prompt, np.int32),
+                               st.generated[0], req.prompt_len)
+                if len(st.generated) > 1:
+                    proposer.observe(slot, st.generated[1:])
             tok[slot, 0] = st.generated[-1]
             pos[slot] = st.pos
             gens[slot] = meta["gen"]
@@ -872,10 +976,52 @@ class Engine:
                 advance_chunks()
                 progressed = True
             active = sched.active_slots()
-            if active:
-                step_gens = [g if i in active else None
-                             for i, g in enumerate(gens)]
-                both = self._serve_decode(
+            step_gens = [g if i in active else None for i, g in enumerate(gens)]
+            if active and speculative:
+                drafts = proposer.propose(active, tok, pos)
+                both, _ = self._serve_decode(
+                    state, np.concatenate([tok, drafts, pos[:, None]], 1).astype(np.int64),
+                    step_gens)
+                out_np, n_np = both[:, :draft_k + 1], both[:, draft_k + 1]
+                steps += 1
+                now = time.perf_counter()
+                if attr is not None:
+                    rids = sched.active_requests()
+                    attr.record_step(verify_cost, rids, kind="verify")
+                    if draft_cost is not None:
+                        attr.record_step(draft_cost, rids, kind="draft")
+                for slot in active:
+                    st = sched.slots[slot]
+                    r = st.request
+                    n_emit = int(n_np[slot])
+                    budget = r.max_new - len(st.generated)
+                    # commit emissions host-side, truncated at EOS or the
+                    # request's budget: exactly where the plain loop would
+                    # have stopped stepping this slot
+                    used = 0
+                    ew = emit_wall.setdefault(r.rid, [])
+                    for tk in out_np[slot, :n_emit]:
+                        st.generated.append(int(tk))
+                        ew.append(now)
+                        used += 1
+                        if self.eos_id is not None and int(tk) == self.eos_id:
+                            st.done = True
+                            done[slot] = True
+                            break
+                        if len(st.generated) >= r.max_new:
+                            break
+                    # only drafts that could have been committed (the budget
+                    # is known up front) and were count as proposed and
+                    # accepted: acceptance measures useful drafting
+                    sched.record_draft(slot, min(draft_k, budget), min(used, n_emit - 1))
+                    proposer.observe(slot, out_np[slot, :used])
+                    tok[slot, 0] = st.generated[-1]
+                    pos[slot] += n_emit
+                    if sched.slot_done(slot):
+                        finish(slot)
+                t += 1.0
+            elif active:
+                both, _ = self._serve_decode(
                     state, np.stack([tok[:, 0], pos, done]).astype(np.int64),
                     step_gens)
                 toks_np = both[0]
@@ -916,6 +1062,11 @@ class Engine:
             shared_prefill_tokens=counts["shared"],
             cow_copies=alloc.cow_copies if alloc else 0,
             evictions=alloc.evictions if alloc else 0,
+            speculative=speculative, draft_k=draft_k if speculative else 0,
+            drafted_tokens=sum(r.drafted for r in ordered),
+            accepted_tokens=sum(r.accepted for r in ordered),
+            cost_draft=attr.total_kind("draft") if attr and speculative else None,
+            cost_verify=attr.total_kind("verify") if attr and speculative else None,
             prefill_chunk=prefill_chunk or 0,
             max_prefill_per_step=counts["max"],
             preemptions=sched.preemptions, resumes=sched.resumes,

@@ -17,13 +17,18 @@ The kernels' launch counters count launches only (``kernels.count_launch``):
 the capture adds nothing to them and a replay does not call the wrappers.
 ``replays`` counts the graph's launches.
 
+A :class:`DecodeState` holds one step shape's fixed storage (its cache and
+input buffers) with its step, and runs the step op by op or as a
+``StepGraph``: the engine's decode and verify steps and the draft model's
+proposal step each keep one.
+
 There is no fallback. On a CUDA device a failed capture or replay raises,
-and no CPU path reaches this module.
+and no CPU path reaches the capture.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -61,3 +66,40 @@ class StepGraph:
             self.out = self.fn()
         self.graph = graph
         return first
+
+
+class DecodeState:
+    """The fixed storage of one step shape and its step: ``cache``, the
+    input ``buffers`` the step reads, ``decode()`` -> the step's logits over
+    them, and ``post(logits, generators)``: sampling or verification (and
+    for a verify round the rollback) and the step's outputs. A sampler that
+    draws no random numbers (``draws`` False) runs ``post`` inside the step
+    (``body``); one that draws runs it after the step with the caller's
+    generators. ``run`` calls the step op by op, or replays it as a CUDA
+    graph (captured at the first graphed run)."""
+
+    def __init__(self, cache, buffers, decode: Callable, post: Callable, draws: bool):
+        self.cache = cache
+        self.buffers = list(buffers)
+        self.post = post
+        self.draws = draws
+        self.body = decode if draws else (lambda: post(decode(), None))
+        self.graph: Optional[StepGraph] = None
+
+    def run(self, graphed: bool, generators=None):
+        if not graphed:
+            out = self.body()
+        else:
+            if self.graph is None:
+                self.graph = StepGraph(self.body, list(self.cache.values()) + self.buffers)
+            out = self.graph()
+        return self.post(out, generators) if self.draws else out
+
+    def reset_cache(self) -> None:
+        """Zeros, and the sentinel table: what ``*_cache_zeros`` gives."""
+        for k, leaf in self.cache.items():
+            if k != "table":
+                leaf.zero_()
+                num_blocks = leaf.shape[1]
+        if "table" in self.cache:
+            self.cache["table"].fill_(num_blocks)

@@ -88,9 +88,7 @@ class ServeOptions:
                 raise ValueError(
                     f"unknown softmax_kind {self.softmax_kind!r}; registered "
                     f"backends: {', '.join(names)}")
-        later = [("speculative", self.speculative,
-                  "Queue 1 item 10 (speculative decoding)"),
-                 ("mesh/shards", self.mesh is not None or self.shards is not None,
+        later = [("mesh/shards", self.mesh is not None or self.shards is not None,
                   "Queue 1 item 14 (tensor-parallel serving)"),
                  ("softmax_kind", self.softmax_kind is not None,
                   "Queue 1 item 12 (softmax-variant zoo)")]

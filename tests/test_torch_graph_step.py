@@ -113,14 +113,18 @@ def test_decode_and_serve_steps_run_on_meta(case, kernel):
         logits, out = meta.decode_step(mparams, cache, {"token": tok}, pos)
         assert logits.shape == (slots, 1, cfg.vocab) and logits.device.type == "meta"
         assert out is cache
-    # the serve step the engine replays, greedy (sampled inside) and with a
-    # sampler that draws (the step returns the last logits)
+    # the serve step the engine replays, greedy (sampled inside: tokens and
+    # flags beside the last logits) and with a sampler that draws (the step
+    # returns the last logits)
     for sampler, kw in (("greedy", {}), ("temperature", {"temp": 0.7})):
         eng = Engine(Model(m.cfg, dtype=torch.bfloat16, device="meta"), mparams,
                      sampler=sampler, eos_id=3, **kw)
         st = eng._serve_state(kernel, slots, C, geom)
         assert st.cache[next(iter(st.cache))].device.type == "meta"
         out = st.body()
+        if sampler == "greedy":
+            out, last = out
+            assert tuple(last.shape) == (slots, m.cfg.vocab)
         want = (2, slots) if sampler == "greedy" else (slots, m.cfg.vocab)
         assert tuple(out.shape) == want and st.draws == (sampler != "greedy")
 

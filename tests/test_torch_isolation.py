@@ -50,17 +50,32 @@ def test_entry_points_default_to_the_card():
         serve.main(["--arch", "olmo-1b", "--warm-steps", "0"])
 
 
-@pytest.mark.parametrize("flag", [["--continuous", "--speculative"], ["--warm-steps", "5"],
+@pytest.mark.parametrize("flag", [["--warm-steps", "5"],
                                   ["--ckpt-dir", "x"], ["--shards", "2"],
-                                  ["--continuous", "--paged", "--prefill-chunk", "8",
-                                   "--speculative"],
                                   ["--continuous", "--paged", "--preemption", "--shards", "2"],
-                                  ["--continuous", "--paged", "--kv-quant", "--speculative"],
                                   ["--serve-softmax", "fp"]])
 def test_later_slice_flags_name_roadmap_item(flag):
     args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu"] + flag
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve.main(args)
+
+
+def test_speculative_with_shards_still_names_item_14():
+    args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu", "--continuous",
+            "--paged", "--speculative", "--shards", "2"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
+        serve.main(args)
+
+
+def test_launcher_speculative_serve_prints_draft_verify_split(capsys):
+    rep = serve.main(["--arch", "olmo-1b", "--smoke", "--continuous", "--paged",
+                      "--speculative", "--draft-k", "3", "--softmax", "int_pallas",
+                      "--warm-steps", "0", "--device", "cpu", "--requests", "4",
+                      "--max-new", "8"])
+    out = capsys.readouterr().out
+    assert rep.speculative and rep.draft_k == 3 and rep.drafted_tokens > 0
+    assert "speculative k=3 (acceptance" in out and "verify phase: CostReport" in out
+    assert rep.cost_verify.cycles > 0 and rep.cost_draft.cycles == 0
 
 
 def test_serve_cli_runs_on_cpu_when_asked():

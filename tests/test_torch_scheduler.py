@@ -163,13 +163,18 @@ def test_serve_options_validation_matches_reference(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(speculative=True), "item 10"),
     (dict(shards=2), "item 14"),
     (dict(softmax_kind="int"), "item 12"),
 ])
 def test_later_slice_options_name_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         topt.ServeOptions(**kw)
+
+
+def test_speculative_options_construct():
+    opts = topt.ServeOptions(speculative=True, draft_k=3, paged=True)
+    want = jopt.ServeOptions(speculative=True, draft_k=3, paged=True)
+    assert dataclasses.astuple(opts) == dataclasses.astuple(want)
 
 
 def test_chunked_prefill_and_preemption_options_construct():
