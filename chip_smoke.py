@@ -33,10 +33,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 5. K2 (the fused paged decode, each row split over CTAs) against its plain
    PyTorch version at the serve path's decode shape and its verify shape
    (T 5, phase 14), the reference's paged-kernel matrix and long rows
-   (32768 keys; T 5, GQA 7 and 35 rows at 16384-32768): the plain Alg. 1 on K2's own scores gives its
-   probabilities bitwise; a second run gives the same bits; scores and
-   outputs within stated bounds (outputs: of K2's chunked summation tree);
-   times and bounds as for K1;
+   (32768 keys; T 5, GQA 7 and 35 rows at 16384-32768; T 5 at 32768 keys
+   in row groups): the plain Alg. 1 on K2's own scores gives its
+   probabilities bitwise; a second run gives the same bits; each entry of
+   a verify block (T > 1) gives the bits of a T-1 call at its position;
+   scores and outputs within stated bounds (outputs: of K2's chunked
+   summation tree); times and bounds as for K1;
 6. the serve path: full-width olmo-1b through ``Engine.serve`` (paged pool,
    prefix sharing, ``kernel="pallas"``) on a 32-request shared-prefix
    trace. K2 must launch 16 x steps times (the replays' launches counted
@@ -55,7 +57,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    4096-token rows, parked slots, f32 compute, deepseek-v2's width at 512
    and 4096 keys, T 3 at 4096 keys, T 5 at the serve shape (200 rows,
    phase 14's verify round) and a 32768-token row, with the checks
-   of phase 5 (outputs: of K4's chunked summation tree, bounded for
+   of phase 5 (verify blocks against T-1 calls bitwise too; outputs: of
+   K4's chunked summation tree, bounded for
    truncating tensor-core sums) and a second run bitwise equal (and K1 at
    the MLA path's shapes in phase 3);
 8. the MLA serve path: full-width minicpm3-4b (62 layers, d_model 2560, 40
@@ -119,9 +122,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     of 4 tokens): phase 6's trace and options from the bf16 and the int8
     pool. Each verify round is one CUDA-graph replay; K2 must launch 16 x
     rounds times, every call at T 5 (all on int8 pools from the int8
-    pool), K1 16 x 32; greedy tokens equal phase 6's (11's) plain serve's
-    but at near ties, every served logit row within phase 6's
-    teacher-forced and step-aligned limits, the meter's shares summing to
+    pool), K1 16 x 32; greedy tokens and every served logit row bitwise
+    equal to phase 6's (11's) plain serve's (K2 and K4 split a verify
+    block's rows at the decode step's chunks, and the decode and verify
+    steps pad the down projection and the norms to one row count), every
+    served logit
+    row within phase 6's teacher-forced limits, the meter's shares summing to
     the batch meter and its verify and draft phases the step meters times
     the rounds; on the first 2 requests the graphed serve equals the same
     serve op by op bitwise (tokens, logit rows, pool bytes, launches), and
@@ -131,13 +137,32 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     round), the first 8 requests with ``prefill_chunk=128`` bitwise equal
     to the speculative serve's rows of them, and the first 8 requests with
     a two-layer olmo-1b draft model and with the target as its own draft
-    (proposal steps graph replays, K1 as the rounds imply). Then
+    (proposal steps graph replays through K2, launches as the rounds
+    imply; the target as its own draft accepts every proposal). Then
     minicpm3-4b on phase 8's trace: K4 62 x rounds at 200 query rows and
     the same checks with phase 8's limits (op by op on 1 request); and
     phase 8's trace with every fourth request in class 0, chunked (128)
     and preempting from a pool of 110 blocks, equal to phase 8's plain
     serve bitwise (tokens, every logit row), with at least one preemption;
-15. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+15. the softmax-variant zoo and the functional AP simulator (item 12): on
+    the scores of olmo-1b's first prefill layer (512 tokens), ConSmax's
+    integer codes on the card bitwise equal to the CPU's, each variant's
+    probabilities within ``VARIANT_CARD_CPU_TOL`` of the CPU's, ap_sim's
+    (a host round trip) bitwise equal to ``int``'s; then full-width
+    olmo-1b (seeded bf16 weights through ``convert.params_from_numpy``)
+    serving phase 6's trace cut to 8 requests with phase 6's options and
+    ``kernel="jnp"`` under ``softmax_kind`` consmax, sole and mive: decode
+    steps CUDA-graph replays, the first 2 requests graphed == op by op
+    bitwise (tokens, logit rows, pool bytes), greedy tokens equal to an
+    eager generate of the variant model (the first request) but at near ties,
+    every logit within phase 6's limits of a teacher-forced pass,
+    ``kernel="pallas"`` rejected, ms per step of a warm graphed serve, the
+    AP meter's cycles ordered mive < sole < consmax < int; ap_sim serving
+    2 requests (prompt 64, 8 new tokens) op by op (0 replays, the reason
+    in the report) bitwise equal to the int serve op by op, with the same
+    meter; a ConSmax model with seeded non-default beta and gamma,
+    converted with its ``smx`` leaves, serving 1 request;
+16. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
 
@@ -583,7 +608,8 @@ def k2_key_chunks(table, pos, *, KV, rows, BS, window):
 
     S, nlog = table.shape
     cp = k2_split_plan(S, KV, rows, nlog, BS,
-                       torch.cuda.get_device_properties(0).multi_processor_count)
+                       torch.cuda.get_device_properties(0).multi_processor_count,
+                       pos.shape[1])
     spans = [k2_span(p, nlog, BS, window) for p in pos.cpu().tolist()]
     return cp, [[(a * BS, b * BS) for a, b in k2_chunks(lo, hi, cp)] for lo, hi in spans]
 
@@ -762,7 +788,7 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     the bounds hold against the dequantized K and V. Returns its record."""
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.paged_attention import ops
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.paged_attention.ref import k2_row_group, paged_attention_ref
     from repro_torch.models.attention import kv_quantize
 
     NB = NB or S * NLOG + 4
@@ -796,6 +822,17 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
           f"K2 {label}: a second run gave other bits")
     del again
     cp, chunks = k2_key_chunks(table, pos, KV=KV, rows=rows, BS=BS, window=window)
+    rg = k2_row_group(rows, cp, BS)
+    # a verify block's rows against the decode step's: each entry t alone
+    # (T 1 at its position) must give its rows bitwise (the split is the
+    # decode step's, row groups change no bit)
+    per_t = [torch.equal(ops.paged_attention_rows(
+        q[:, :, t * group:(t + 1) * group].contiguous(), k, v, table,
+        pos[:, t:t + 1].contiguous(), BEST, **kw), got[0][:, :, t * group:(t + 1) * group])
+        for t in range(T)] if T > 1 else None
+    if per_t is not None:
+        check(all(per_t), f"K2 {label}: verify rows differ from the decode step's at "
+              f"entries {[t for t, ok in enumerate(per_t) if not ok]}")
     res = k2_checks(got, q=q, k=k, v=v, table=table, pos=pos, kw=kw, group=group,
                     chunks=chunks, want=want, want_sc=want_sc, want_pr=want_pr)
     worst, out_units = res["score_bound_units"], res["output_bound_units"]
@@ -840,7 +877,9 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
            "NLOG": NLOG, "window": window, "dtype": str(dtype).split(".")[-1],
            "pools": f"int8 ({quant})" if quant else str(dtype).split(".")[-1],
            "scores_dtype": str(scores_dtype).split(".")[-1],
-           "keys_read": keys_read, "chunk_pages": cp, "live_ctas": n_chunks * KV,
+           "keys_read": keys_read, "chunk_pages": cp, "row_group": rg,
+           "live_ctas": n_chunks * KV * -(-rows // rg),
+           "verify_rows_equal_decode": None if per_t is None else all(per_t),
            "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
            "scores_differing": res["scores_differing"],
            "outputs_differing": res["outputs_differing"], "repeat_bitwise": True,
@@ -849,8 +888,9 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
            "call_ms": call_ms(kernel, 20), "bound_ms": max(bytes_ms, op_ms),
            "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
     print(f"K2 {label:<34} S={S} KV={KV} rows={rows} D={D} BS={BS} NLOG={NLOG} "
-          f"w={window} {rec['dtype']}, pools {rec['pools']}, chunks of {cp} pages "
-          f"({n_chunks * KV} CTAs): Alg. 1 on own scores bitwise; repeat bitwise; "
+          f"w={window} {rec['dtype']}, pools {rec['pools']}, chunks of {cp} pages, rows in "
+          f"groups of {rg} ({rec['live_ctas']} CTAs): Alg. 1 on own scores bitwise; repeat "
+          f"bitwise; {'' if per_t is None else 'each entry of the block == T 1 at its position, bitwise; '}"
           f"scores differing {res['scores_differing']} (worst, in units of the bound: "
           f"{worst}), outputs differing {res['outputs_differing']} (worst, in units of "
           f"the bound: {out_units}), max abs err {err:.3e} = {err / rms:.3e} of the "
@@ -897,6 +937,10 @@ def phase5_k2(rate):
                         NLOG=1024, qpos=np.array([16383, 9000])))
     recs.append(k2_case("rows 35 (group 7 x T 5), 32768", gen, rate, S=1, KV=4, group=7,
                         T=5, NLOG=2048, qpos=np.array([32763])))
+    # a verify block whose decode-step chunk (256 pages) holds a score tile
+    # of 3 rows only: the 5 rows go in two groups under the same chunk
+    recs.append(k2_case("T 5 in row groups, 32768 keys", gen, rate, S=8, KV=8, group=1,
+                        T=5, NLOG=2048, qpos=np.arange(8) * 4000 + 3000))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -1266,7 +1310,8 @@ def k4_key_chunks(table, pos, *, rows, BS):
 
     S, nlog = table.shape
     cp = k4_split_plan(S, rows, nlog, BS,
-                       torch.cuda.get_device_properties(0).multi_processor_count)
+                       torch.cuda.get_device_properties(0).multi_processor_count,
+                       pos.shape[1])
     spans = [k2_span(p, nlog, BS) for p in pos.cpu().tolist()]
     return cp, [[(a * BS, b * BS) for a, b in k2_chunks(lo, hi, cp)] for lo, hi in spans]
 
@@ -1392,6 +1437,14 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
           f"K4 {label}: a second run gave other bits")
     del again
     cp, chunks = k4_key_chunks(table, pos, rows=rows, BS=BS)
+    # a verify block's rows against the decode step's, as in phase 5
+    per_t = [torch.equal(ops.paged_attention_mla_rows(
+        q_lat[:, t * H:(t + 1) * H].contiguous(), q_rope[:, t * H:(t + 1) * H].contiguous(),
+        c, kr, table, pos[:, t:t + 1].contiguous(), BEST, scale=scale),
+        got[0][:, t * H:(t + 1) * H]) for t in range(T)] if T > 1 else None
+    if per_t is not None:
+        check(all(per_t), f"K4 {label}: verify rows differ from the decode step's at "
+              f"entries {[t for t, ok in enumerate(per_t) if not ok]}")
     res = k4_checks(got, q_lat=q_lat, q_rope=q_rope, c=c, kr=kr, table=table, pos=pos,
                     scale=scale, chunks=chunks, want=want, want_sc=want_sc, want_pr=want_pr)
     worst, out_units = res["score_bound_units"], res["output_bound_units"]
@@ -1432,6 +1485,7 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
     n_chunks = sum(len(ch) for ch in chunks)
     rec = {"shape": label, "S": S, "H": H, "T": T, "rows": rows, "R": R, "DR": DR,
            "BS": BS, "NLOG": NLOG, "dtype": str(dtype).split(".")[-1], "chunk_pages": cp,
+           "verify_rows_equal_decode": None if per_t is None else all(per_t),
            "live_ctas": n_chunks * tiles, "pv_ctas": n_chunks * tiles * groups,
            "keys_read": keys_read,
            "max_abs_err": err, "max_err_over_rms": err / rms, "out_rms": rms,
@@ -1444,7 +1498,8 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
            "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
     print(f"K4 {label:<34} S={S} H={H} T={T} R={R} DR={DR} BS={BS} NLOG={NLOG} "
           f"{rec['dtype']}, chunks of {cp} pages ({rec['live_ctas']} CTAs, PV "
-          f"{rec['pv_ctas']}): Alg. 1 on own scores bitwise; repeat bitwise; scores "
+          f"{rec['pv_ctas']}): Alg. 1 on own scores bitwise; repeat bitwise; "
+          f"{'' if per_t is None else 'each entry of the block == T 1 at its position, bitwise; '}scores "
           f"differing {res['scores_differing']} (worst, in units of the bound: {worst}; "
           f"share differing from the exactly rounded dots' f32 sum {share['vs_exact']:.4%}, "
           f"a bf16 add's {share['bf16_add_vs_exact']:.2%}), outputs differing "
@@ -3027,10 +3082,12 @@ def spec_cost_gates(eng, rep, opts, draft_round):
 
 def spec_serve_checks(label, model, params, reqs, rep, rows, plain, plain_rows, tols):
     """A speculative serve against the plain serve of its trace: greedy
-    tokens equal but at near ties, every served logit row within the
-    teacher-forced limits, and step by step within the aligned limits
-    (``tols``: phase 6's or phase 8's). Returns the statistics; fails on a
-    check that does not hold."""
+    tokens and every served logit row bitwise equal to the plain serve's
+    (a verify block's rows get the decode step's bits: K2 and K4 split
+    them at the decode step's chunks, and the down projection and the norms
+    pad both to one row count), and every served logit row within the teacher-forced
+    limits (``tols``: phase 6's or phase 8's). Returns the statistics;
+    fails on a check that does not hold."""
     logit_tol, rms_tol, aligned_tol, aligned_rms_tol = tols
     base = plain.by_rid()
     ties = []
@@ -3046,10 +3103,13 @@ def spec_serve_checks(label, model, params, reqs, rep, rows, plain, plain_rows, 
     check(al["max"] <= aligned_tol and al["rms"] <= aligned_rms_tol,
           f"{label}: logits differ from the plain serve's step by step beyond the limits "
           f"({aligned_tol}, RMS {aligned_rms_tol}): {al}")
-    same = not ties and al["max"] == 0.0
+    same = (not ties and all(np.array_equal(a.tokens, base[a.rid].tokens) for a in rep.results)
+            and rows_equal(rows, {r.seed: plain_rows[r.seed] for r in reqs}) == len(reqs))
     print(f"  {label}: greedy tokens == plain serve's for {len(reqs) - len(ties)} of "
           f"{len(reqs)} requests ({len(ties)} near-tie divergences); bitwise equal to the "
-          f"plain serve (tokens, every aligned logit row): {same}", flush=True)
+          f"plain serve (tokens, every logit row): {same}", flush=True)
+    check(same, f"{label}: the speculative serve differs from the plain serve: {len(ties)} "
+          f"divergences, step-aligned logits {al}")
     return {"ties": ties, "teacher_forced": tf, "aligned": al, "equals_plain_bitwise": same}
 
 
@@ -3247,9 +3307,12 @@ def spec_draft_model(model, params, reqs, spec, plain, plain_rows):
     whose proposals the verifier accepts but at near ties (rounds of
     several emissions, the catch-up step). Tokens and logits as the n-gram
     serve's checks; K1 launches: n_layers x the target's prefills, plus the
-    draft's layers x its prefills and x its decode steps (K a round, plus
-    at most one catch-up step a round), each replay's kernels counted in
-    one device trace of both runs' graphs."""
+    draft's layers x its prefills; K2: n_layers x rounds, plus the draft's
+    layers x its decode steps (K a round, plus at most one catch-up step a
+    round), each replay's kernels counted in
+    one device trace of both runs' graphs. The draft decodes through the
+    serve's kernel (K2 over its stripes seen as a pool), so the target as
+    its own draft proposes the target's tokens: acceptance exactly 1."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -3271,14 +3334,17 @@ def spec_draft_model(model, params, reqs, spec, plain, plain_rows):
         rep, counted, _, _, replayed = counted_serve(eng, reqs, opts, rec)
         (proposer, _, _), = eng._proposers.values()
         (dstate,) = proposer._states.values()
+        # the serve's proposal-step replays, read before the device trace
+        # below replays each graph again
         runs[name] = (draft, opts, eng, rep, counted, replayed, rec.trimmed(reqs), proposer,
-                      dstate)
+                      dstate.graph.replays)
         for k in replayed:
             graphs[f"{name}: verify round"] = eng._decode_states[k].graph
         graphs[f"{name}: proposal step"] = dstate.graph
     traces = replay_trace("olmo-1b spec serve, draft models", graphs)
     out = {}
-    for name, (draft, opts, eng, rep, counted, replayed, rows, proposer, dstate) in runs.items():
+    for name, (draft, opts, eng, rep, counted, replayed, rows, proposer, draft_replays) in \
+            runs.items():
         label = f"olmo-1b spec serve, {name}, first {len(reqs)} requests"
         check(rep.leaked_blocks == 0 and len(rep.results) == len(reqs),
               f"{label}: leaked blocks or lost requests")
@@ -3290,24 +3356,25 @@ def spec_draft_model(model, params, reqs, spec, plain, plain_rows):
                           {k: traces[f"{name}: verify round"] for k in replayed}, per_replay)
         dlayers = draft.cfg.n_layers
         dcalls = traces[f"{name}: proposal step"]["calls_per_replay"]
-        check(dcalls == {**{k: 0 for k in dcalls}, "K1": dlayers},
+        check(dcalls == {**{k: 0 for k in dcalls}, "K2": dlayers},
               f"{label}: the draft step's kernel calls per replay {dcalls}")
-        draft_steps = 1 + dstate.graph.replays          # the warm-up step, then replays
-        n["K1"] += dstate.graph.replays * dlayers
-        want_k1 = model.cfg.n_layers * len(reqs) + dlayers * (len(reqs) + draft_steps)
+        draft_steps = 1 + draft_replays                 # the warm-up step, then replays
+        n["K2"] += draft_replays * dlayers
+        want_k1 = (model.cfg.n_layers + dlayers) * len(reqs)
+        want_k2 = model.cfg.n_layers * rep.steps + dlayers * draft_steps
         catch_ups = draft_steps - SPEC_K * rep.steps
         print(f"{label}: {rep.steps} rounds, acceptance rate {rep.acceptance_rate:.4f} "
               f"(drafted {rep.drafted_tokens}, accepted {rep.accepted_tokens}); draft decode "
               f"steps {draft_steps} = {SPEC_K} x {rep.steps} rounds + {catch_ups} catch-ups; "
-              f"launches {n} (K1 expected {want_k1} = {model.cfg.n_layers} x {len(reqs)} "
-              f"target prefills + {dlayers} x ({len(reqs)} draft prefills + {draft_steps} "
-              f"draft steps), K2 {model.cfg.n_layers} x {rep.steps}); meter gates {gates}",
-              flush=True)
-        check(n["K1"] == want_k1 and 0 <= catch_ups <= rep.steps and
-              n["K2"] == model.cfg.n_layers * rep.steps,
+              f"launches {n} (K1 expected {want_k1} = ({model.cfg.n_layers} + {dlayers}) x "
+              f"{len(reqs)} target and draft prefills, K2 {want_k2} = {model.cfg.n_layers} x "
+              f"{rep.steps} rounds + {dlayers} x {draft_steps} draft steps); meter gates "
+              f"{gates}", flush=True)
+        check(n["K1"] == want_k1 and 0 <= catch_ups <= rep.steps and n["K2"] == want_k2,
               f"{label}: launches {n}, draft steps {draft_steps}")
         if draft is model:
-            check(rep.accepted_tokens > 0, f"{label}: no draft accepted")
+            check(rep.acceptance_rate == 1.0, f"{label}: the target as its own draft "
+                  f"accepted {rep.acceptance_rate:.4f} of its proposals, not all")
         stats = spec_serve_checks(label, model, params, reqs, rep, rows, plain, plain_rows,
                                   (LOGIT_TOL, LOGIT_RMS_TOL, LOGIT_TOL, ALIGNED_RMS_TOL))
         out[name] = {"draft_layers": dlayers, "rounds": rep.steps,
@@ -3372,6 +3439,308 @@ def spec_mla():
     run["chunked_preempting"] = {**same, "steps": ch.steps, "preemptions": ch.preemptions,
                                  "resumes": ch.resumes, "aligned": al}
     return run
+
+# ----------------------------------------------------------------- phase 15
+
+# The softmax-variant zoo and the functional AP simulator through
+# Engine.serve at olmo-1b's full width: phase 6's trace cut to
+# VARIANT_REQUESTS requests, its options with kernel="jnp" (the fused paged
+# kernels run Alg. 1 only); the graph-vs-op-by-op comparison takes the first
+# VARIANT_OP_REQUESTS of them, the eager comparison and the learnable
+# ConSmax serve the first VARIANT_EAGER_REQUESTS (op by op, the phase's
+# costliest runs: cut from 2 to keep the phase near 60 s).
+VARIANTS = ("consmax", "sole", "mive")
+VARIANT_REQUESTS = 8
+VARIANT_OP_REQUESTS = 2
+VARIANT_EAGER_REQUESTS = 1
+# A variant's probabilities on the card against its plain version on the
+# CPU, on the same f32 scores: the integer codes are bitwise (ConSmax's exp
+# codes), the float steps around them are each an IEEE operation but for
+# exp (ConSmax's straight-through y_fp), exp2 and log2 (SOLE's and MIVE's
+# reciprocals), whose card and CPU versions may differ by an ulp or two. A
+# probability (at most gamma = 1 here) may differ by 2^-20, 8 f32 ulps at 1.
+VARIANT_CARD_CPU_TOL = 2.0 ** -20
+# ap_sim's serve: AP_REQUESTS requests of AP_PROMPT random tokens, AP_NEW
+# new tokens each (the simulator runs on the host, every decode step op by
+# op).
+AP_REQUESTS, AP_PROMPT, AP_NEW = 2, 64, 8
+
+
+def _tree_np(tree):
+    """A parameter tree of tensors as numpy f32 arrays (the reference's
+    layout, which ``convert.params_from_numpy`` reads)."""
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return tree.float().cpu().numpy()
+
+
+def prefill_layer_scores(model, params, n=512):
+    """The f32 attention scores [1, KV, G, n, n] of layer 0 of ``model``'s
+    prefill of an n-token prompt, as ``attention.attend`` forms them, and
+    their causal mask."""
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models.attention import _SCORE_DTYPES, project_qkv
+    from repro_torch.models.layers import norm_apply, positions_for
+    from repro_torch.models.transformer import layer_params
+
+    cfg = model.cfg
+    prompt = SyntheticCorpus(cfg.vocab, seed=1234).sample(1, n, seed=777)[:, :n]
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")
+    p = layer_params(params["stack"]["layers"], 0)
+    h = norm_apply(p["norm1"], model._embed(params, tokens), cfg.norm, model.ctx)
+    q, k, _ = project_qkv(p["attn"], h, cfg, model.ctx,
+                          positions_for(tokens.shape, device="cuda"))
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    qg = q.reshape(1, n, kv, cfg.n_heads // kv, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(
+        _SCORE_DTYPES[cfg.scores_dtype]).float() * dh ** -0.5
+    mask = torch.tril(torch.ones((n, n), dtype=torch.bool, device="cuda"))
+    return scores, mask
+
+
+def variants_card_vs_cpu(model, params):
+    """Each variant on one full-width prefill layer's scores on the card
+    against the port's plain version of the same scores on the CPU:
+    ConSmax's integer exp codes bitwise, every variant's probabilities
+    within VARIANT_CARD_CPU_TOL; ap_sim (the functional AP simulator, a
+    host round trip) against ``int`` (plain torch Alg. 1) on the card,
+    bitwise."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core.softmax_variants import consmax_codes
+
+    scores, mask = prefill_layer_scores(model, params)
+    m = mask[None, None, None]
+    out = {"scores_shape": list(scores.shape)}
+    codes = consmax_codes(scores)
+    codes_cpu = consmax_codes(scores.cpu())
+    out["consmax_codes_differing"] = int((codes.cpu() != codes_cpu).sum())
+    for kind in VARIANTS:
+        b = get_backend(kind)
+        card, cpu = b.apply(scores, mask=m), b.apply(scores.cpu(), mask=m.cpu())
+        d = (card.cpu() - cpu).abs()
+        out[kind] = {"max_abs_diff": float(d.max()), "differing": int((d > 0).sum())}
+    ap = get_backend("ap_sim").apply(scores, mask=m)
+    alg1 = get_backend("int").apply(scores, mask=m)
+    out["ap_sim_vs_int_differing"] = int((ap != alg1).sum())
+    print(f"  variants on olmo-1b's layer-0 prefill scores {out['scores_shape']} (512 tokens, "
+          f"causal), card vs CPU: consmax codes differing {out['consmax_codes_differing']} "
+          f"of {codes.numel()}; probabilities "
+          f"{ {k: out[k] for k in VARIANTS} } (limit {VARIANT_CARD_CPU_TOL:.3g}); ap_sim vs "
+          f"int on the card: {out['ap_sim_vs_int_differing']} probabilities differ",
+          flush=True)
+    check(out["consmax_codes_differing"] == 0, "consmax codes differ between card and CPU")
+    for kind in VARIANTS:
+        check(out[kind]["max_abs_diff"] <= VARIANT_CARD_CPU_TOL,
+              f"{kind}: card and CPU probabilities differ by {out[kind]['max_abs_diff']}")
+    check(out["ap_sim_vs_int_differing"] == 0, "ap_sim's codes differ from int's")
+    return out
+
+
+def variant_serve(model, params, reqs, opts, kind):
+    """One variant served at full width (``opts`` with ``softmax_kind``
+    ``kind``): decode steps CUDA-graph replays; its first
+    VARIANT_OP_REQUESTS requests graphed == op by op bitwise (tokens, logit
+    rows, pool bytes); greedy tokens equal a per-request eager generate of
+    a model built with the variant (the first VARIANT_EAGER_REQUESTS) but
+    at near ties; every
+    served logit within phase 6's limits of a teacher-forced pass of the
+    variant model; ``kernel="pallas"`` raises; ms per step of a warm
+    graphed serve."""
+    import dataclasses
+
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    label = f"olmo-1b serve, softmax_kind {kind}"
+    vopts = dataclasses.replace(opts, softmax_kind=kind)
+    vm = Model(model.cfg.with_softmax(SoftmaxSpec(kind)))
+    max_new = max(r.max_new for r in reqs)
+    rec = _LogitRecorder()
+    eng = Engine(model, params, max_new=max_new, sampler=rec)
+    rep, _, rows, first_s, _ = counted_serve(eng, reqs, vopts, rec)
+    check(rep.softmax_kind == kind and rep.step_replays > 0 and rep.op_by_op is None,
+          f"{label}: {rep.step_replays} replays ({rep.op_by_op})")
+    check(rep.leaked_blocks == 0 and cost_shares_sum(rep) and rep.cost.cycles > 0
+          and rep.cost.backend == kind, f"{label}: pool or meter: {rep.cost.describe()}")
+    sub = reqs[:VARIANT_OP_REQUESTS]
+    rec_g, rec_o = _LogitRecorder(), _LogitRecorder()
+    eng_g = Engine(model, params, max_new=max_new, sampler=rec_g)
+    eng_o = op_by_op(Engine(model, params, max_new=max_new, sampler=rec_o))
+    rep_g, _, rows_g, _, _ = counted_serve(eng_g, sub, vopts, rec_g)
+    rep_o, _, rows_o, _, _ = counted_serve(eng_o, sub, vopts, rec_o)
+    check(rep_o.step_replays == 0 and rep_o.op_by_op is not None,
+          f"{label}: the op-by-op serve replayed")
+    graph_vs_op = serve_graph_vs_op(f"{label}, first {len(sub)} requests", sub,
+                                    (rep_g, rows_g, eng_g), (rep_o, rows_o, eng_o))
+    del eng_g, eng_o, rows_g, rows_o
+    ties = []
+    veng = Engine(vm, params, max_new=max_new)
+    for r, res in list(zip(reqs, rep.results))[:VARIANT_EAGER_REQUESTS]:
+        ref = veng.generate(r.prompt[None], generator=torch.Generator("cuda").manual_seed(r.seed),
+                            mode="eager", max_new=r.max_new, cache_len=rep.cache_len)
+        compare_tokens(f"{label} vs eager, request {r.rid}", res.tokens, ref.tokens[0],
+                       r.prompt_len, vm, params, ties)
+    tf = teacher_forced(label, vm, params, reqs, [res.tokens for res in rep.results], rows,
+                        LOGIT_TOL, LOGIT_RMS_TOL)
+    check(max(tf["first_step_max"], tf["decode_max"]) <= LOGIT_TOL and
+          tf["rms"] <= LOGIT_RMS_TOL, f"{label}: served logits differ from the teacher-forced "
+          f"pass beyond the limits: {tf}")
+    try:
+        eng.serve(sub, dataclasses.replace(vopts, kernel="pallas"))
+        rejected = None
+    except ValueError as e:
+        rejected = str(e)
+    check(rejected is not None and "not an Alg.-1 dataflow" in rejected,
+          f"{label}: kernel='pallas' did not reject the variant ({rejected})")
+    del eng
+    # warm graphed serves (the first captures), timed on the host clock
+    eng_t = Engine(model, params, max_new=max_new)
+    plain = dataclasses.replace(vopts, report_cost=False)
+    eng_t.serve(reqs, plain)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep_t = eng_t.serve(reqs, plain)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = wall * 1e3 / rep_t.steps
+    print(f"{label}: {rep.steps} decode steps, {rep.step_replays} replays; graph == op by "
+          f"op on {len(sub)} requests; {VARIANT_EAGER_REQUESTS} eager generate(s), {len(ties)} "
+          f"near-tie divergence(s); pallas rejects it; {rep.cost.describe()}; warm graphed serve "
+          f"{wall * 1e3:.1f} ms, {ms:.3f} ms per step (prefills included), "
+          f"{sum(r.max_new for r in reqs) / wall:.1f} generated tok/s; first serve "
+          f"{first_s:.2f} s ({card_line()})", flush=True)
+    return {"steps": rep.steps, "replays": rep.step_replays, "cost": dataclasses.asdict(rep.cost),
+            "graph_vs_op_by_op": graph_vs_op, "ties": ties, "teacher_forced": tf,
+            "pallas_rejects": rejected, "ms_per_step": ms, "wall_ms": wall * 1e3,
+            "rows": rows}
+
+
+def ap_sim_serve(model, params, opts):
+    """ap_sim (the functional AP simulator) served at full width: AP_REQUESTS
+    requests of AP_PROMPT tokens, AP_NEW new tokens each, through an engine
+    whose steps would be graphed: the backend declares itself not
+    capturable, so the serve runs op by op (0 replays, the reason in the
+    report) and equals the ``int`` serve of the same requests run op by op
+    bitwise (tokens, every logit row), with the same AP meter."""
+    import dataclasses
+
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(0, model.cfg.vocab, AP_PROMPT).astype(np.int32),
+                    max_new=AP_NEW, arrival=float(i), seed=100 + i) for i in range(AP_REQUESTS)]
+    aopts = dataclasses.replace(opts, slots=AP_REQUESTS, softmax_kind="ap_sim")
+    rec_a, rec_i = _LogitRecorder(), _LogitRecorder()
+    t0 = time.perf_counter()
+    rep_a, _, rows_a, _, _ = counted_serve(Engine(model, params, max_new=AP_NEW, sampler=rec_a),
+                                           reqs, aopts, rec_a)
+    wall = time.perf_counter() - t0
+    rep_i, _, rows_i, _, _ = counted_serve(
+        op_by_op(Engine(model, params, max_new=AP_NEW, sampler=rec_i)), reqs,
+        dataclasses.replace(aopts, softmax_kind="int"), rec_i)
+    same = {"tokens": all(np.array_equal(a.tokens, b.tokens)
+                          for a, b in zip(rep_a.results, rep_i.results)),
+            "logit_rows": rows_equal(rows_a, rows_i) == len(reqs),
+            "meter": all(getattr(rep_a.cost, f) == getattr(rep_i.cost, f)
+                         for f in ("vectors", "cycles", "latency_s", "energy_j")),
+            "op_by_op": rep_a.step_replays == 0 and "ap_sim" in (rep_a.op_by_op or "")}
+    print(f"olmo-1b serve, softmax_kind ap_sim: {len(reqs)} requests x {AP_PROMPT} prompt "
+          f"tokens, {AP_NEW} new, {rep_a.steps} steps in {wall:.2f} s, {rep_a.step_replays} "
+          f"replays ({rep_a.op_by_op}); == the int serve op by op, bitwise: {same}; "
+          f"{rep_a.cost.describe()}", flush=True)
+    check(all(same.values()), f"ap_sim serve: {same}")
+    return {**same, "steps": rep_a.steps, "wall_s": wall, "op_by_op_reason": rep_a.op_by_op}
+
+
+def learnable_consmax_serve(cfg, tree, reqs, opts, default_rows):
+    """A ConSmax model with learned (here: seeded, non-default) per-head
+    beta and gamma, its parameters converted from the reference layout with
+    their ``smx`` leaves, served once at full width: every request
+    completes, its decode steps replay, and its logits differ from the
+    default operating point's (``default_rows``: the softmax_kind consmax
+    serve of the same model), so the learned values reach the softmax."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    lcfg = cfg.with_softmax(SoftmaxSpec("consmax"))
+    rng = np.random.default_rng(3)
+    shape = (cfg.n_layers, cfg.n_heads)
+    smx = {"beta": rng.uniform(-1.5, 0.5, shape).astype(np.float32),
+           "gamma": rng.uniform(0.5, 1.5, shape).astype(np.float32)}
+    layers = tree["stack"]["layers"]
+    ltree = {**tree, "stack": {**tree["stack"], "layers": {
+        **layers, "attn": {**layers["attn"], "smx": smx}}}}
+    lparams = params_from_numpy(ltree, lcfg, "cuda")
+    got = lparams["stack"]["layers"]["attn"]["smx"]
+    carried = all(got[k].dtype == torch.float32 and
+                  np.array_equal(got[k].cpu().numpy(), smx[k]) for k in smx)
+    rec = _LogitRecorder()
+    rep, _, rows, _, _ = counted_serve(Engine(Model(lcfg), lparams, max_new=64, sampler=rec),
+                                       reqs, opts, rec)
+    finite = all(bool(torch.isfinite(x).all()) for rs in rows.values() for x in rs)
+    moved = any(not torch.equal(rows[r.seed][0], default_rows[r.seed][0]) for r in reqs)
+    out = {"smx_carried_f32": carried, "completed": len(rep.results) == len(reqs),
+           "replays": rep.step_replays, "finite": finite, "differs_from_default": moved}
+    print(f"olmo-1b with learnable ConSmax (seeded beta in [-1.5, 0.5], gamma in [0.5, 1.5] "
+          f"per head and layer, converted with its smx leaves), {len(reqs)} request(s): {out}; "
+          f"{rep.cost.describe()}", flush=True)
+    check(carried and out["completed"] and rep.step_replays > 0 and finite and moved,
+          f"learnable ConSmax serve: {out}")
+    del lparams
+    return out
+
+
+def phase15_variants():
+    """The softmax-variant zoo and ap_sim at olmo-1b's full width (phase
+    15): the variants and ap_sim on one prefill layer's scores, card
+    against CPU; each variant served (``variant_serve``), their AP meters
+    ordered mive < sole < consmax < int; ap_sim's serve against int's;
+    a learnable ConSmax model served."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    t_phase = time.perf_counter()
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int"))
+    model = Model(cfg)
+    tree = _tree_np(model.init(torch.Generator("cuda").manual_seed(0)))
+    params = params_from_numpy(tree, cfg, "cuda")
+    reqs = shared_prefix_trace(32, cfg.vocab, **SERVE_TRACE)[:VARIANT_REQUESTS]
+    opts = ServeOptions(**{**SERVE_OPTIONS, "kernel": "jnp"})
+    print(f"softmax variants: {cfg.name} full width, bf16 seeded weights through "
+          f"convert.params_from_numpy, softmax int; phase 6's trace cut to {len(reqs)} "
+          f"requests, phase 6's options with kernel jnp ({card_line()})", flush=True)
+    out = {"card_vs_cpu": variants_card_vs_cpu(model, params)}
+    rec = _LogitRecorder()
+    rep_int = counted_serve(Engine(model, params, max_new=64, sampler=rec), reqs, opts, rec)[0]
+    out["int_cycles"] = rep_int.cost.cycles
+    rows = {}
+    for kind in VARIANTS:
+        out[kind] = variant_serve(model, params, reqs, opts, kind)
+        rows[kind] = out[kind].pop("rows")
+    cycles = [out[k]["cost"]["cycles"] for k in ("mive", "sole", "consmax")] + [rep_int.cost.cycles]
+    print(f"  AP meter cycles of the serve: mive {cycles[0]} < sole {cycles[1]} < consmax "
+          f"{cycles[2]} < int {cycles[3]}: {cycles == sorted(set(cycles))}", flush=True)
+    check(all(c > 0 for c in cycles) and cycles == sorted(set(cycles)),
+          f"the variants' AP cycles are not ordered mive < sole < consmax < int: {cycles}")
+    out["ap_sim"] = ap_sim_serve(model, params, opts)
+    out["learnable_consmax"] = learnable_consmax_serve(cfg, tree, reqs[:VARIANT_EAGER_REQUESTS],
+                                                       opts, rows["consmax"])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15 in {out['seconds']:.1f} s ({card_line()})", flush=True)
+    return out
+
+
 def _commit_keeps_last(commit_staged):
     """A rollback that leaves the block's last rejected position uncleared."""
     def commit(staged, n_accept, cache_pos, t):
@@ -4008,9 +4377,11 @@ def main():
     spec = timed("phase 14 (speculative serve: olmo-1b with n-gram drafts from bf16 and int8 "
                  "pools and with draft models, minicpm3-4b with n-gram drafts; minicpm3-4b "
                  "chunked and preempting)", phase14_speculative)
-    print(f"phases 3-14: {time.perf_counter() - t_all:.1f} s", flush=True)
+    variants = timed("phase 15 (the softmax-variant zoo and ap_sim, olmo-1b)",
+                     phase15_variants)
+    print(f"phases 3-15: {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    # phase 15
+    # phase 16
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
     k2_main = next(r for r in k2_recs if r["shape"] == "decode (main path)")
     k2_int8_main = next(r for r in k2_int8_recs if r["shape"] == "int8 decode (main path)")
@@ -4103,7 +4474,7 @@ def main():
                       "serve": {"olmo-1b": served, "minicpm3-4b": mla,
                                 "olmo-1b int8": served_int8,
                                 "olmo-1b chunked + preempting": chunked,
-                                "speculative": spec},
+                                "speculative": spec, "variants": variants},
                       "kv_quantize_card_vs_cpu": quantize}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

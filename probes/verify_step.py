@@ -1,0 +1,193 @@
+"""Which op of a full-width decode step gives a speculative verify block's
+row other bits than the decode step at the same position? What
+``probes/verify_rows.py`` measures product by product, here inside the
+model's own step, op by op.
+
+    python3 probes/verify_step.py
+
+Full-width olmo-1b (seeded random bf16 weights, softmax ``int_pallas_paged``:
+paged decode and verify through K2, as phase 14 serves them) with 8 slots
+holding 64-token prompts. One ``Model.verify_step`` over a block of 5
+tokens a slot, then the same tokens through 5 ``Model.decode_step`` calls
+from the same cache. Every norm, dense product, activation, K2 call and
+the head is recorded in call order (the two runs make the same calls); the
+lines give, for each op name, how many of its calls give the block's rows
+bitwise equal to the decode steps' and the first call that does not. Run
+with the step's padding as the model sets it on the card
+(``Model.step_ctx``: the down projection and the norms at
+``model.STEP_MIN_ROWS`` rows), with the down projection padded and the
+norms not, and without padding (``step_ctx = ctx``), each op by op and
+then as the serve runs the steps: each a CUDA-graph replay
+(``serving.graphs.StepGraph``), where only the logits are compared. Then
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "src"))
+
+S, T, P, BS = 8, 5, 64, 16
+
+
+class Recorder:
+    """Wraps the model's ops where the model looks them up, recording each
+    call's output (the first tensor of a tuple) under the op's name."""
+
+    def __init__(self):
+        from repro_torch.kernels.paged_attention import ops
+        from repro_torch.models import attention, layers, mla, model, transformer
+
+        self.calls = []
+        self.patches = []
+        for mod, names in ((layers, ("dense_apply", "norm_apply")),
+                           (attention, ("dense_apply",)), (mla, ("dense_apply", "norm_apply")),
+                           (transformer, ("dense_apply", "norm_apply")),
+                           (model, ("dense_apply", "norm_apply", "embed_logits")),
+                           (ops, ("paged_attend_dense",))):
+            for name in names:
+                self._wrap(mod, name, name)
+        self._wrap(layers._ACTS, "silu", "silu", item=True)
+
+    def _wrap(self, owner, attr, label, item=False):
+        orig = owner[attr] if item else getattr(owner, attr)
+
+        def recorded(*args, **kw):
+            out = orig(*args, **kw)
+            x = out[0] if isinstance(out, tuple) else out
+            if self.on and x.dim() >= 3:    # the model's [B, T, ...] (not a padded inner call)
+                self.calls.append((label, x.clone()))
+            return out
+
+        if item:
+            owner[attr] = recorded
+        else:
+            setattr(owner, attr, recorded)
+        self.patches.append((owner, attr, orig, item))
+
+    on = False
+
+    def run(self, fn):
+        self.calls, self.on = [], True
+        try:
+            fn()
+        finally:
+            self.on = False
+        return self.calls
+
+    def restore(self):
+        for owner, attr, orig, item in reversed(self.patches):
+            if item:
+                owner[attr] = orig
+            else:
+                setattr(owner, attr, orig)
+
+
+def compare(label, model, params, cache, tokens, pos, rec):
+    """The verify block against T decode steps from copies of ``cache``."""
+    staged = {k: v.clone() for k, v in cache.items()}
+    verify = rec.run(lambda: model.verify_step(params, staged, {"token": tokens}, pos))
+    steps = []
+    stepped = {k: v.clone() for k, v in cache.items()}
+    for t in range(T):
+        steps.append(rec.run(lambda t=t: model.decode_step(
+            params, stepped, {"token": tokens[:, t:t + 1]}, pos + t)))
+    assert all(len(s) == len(verify) for s in steps), "the runs made different calls"
+    by_op = {}
+    for i, (name, out) in enumerate(verify):
+        ok = all(torch.equal(out[:, t], steps[t][i][1][:, 0]) for t in range(T))
+        seen = by_op.setdefault(name, {"calls": 0, "equal": 0, "first_differing_call": None})
+        seen["calls"] += 1
+        seen["equal"] += ok
+        if not ok and seen["first_differing_call"] is None:
+            seen["first_differing_call"] = i
+    first = min((v["first_differing_call"] for v in by_op.values()
+                 if v["first_differing_call"] is not None), default=None)
+    print(f"{label}, op by op: {len(verify)} recorded calls; by op {by_op}; first differing "
+          f"call {first}{'' if first is None else ' (' + verify[first][0] + ')'}", flush=True)
+    print(f"{label}, graphed: logit rows of the replayed verify block bitwise equal to the "
+          f"replayed decode steps': {graphed(model, params, cache, tokens, pos)}", flush=True)
+
+
+def graphed(model, params, cache, tokens, pos):
+    """The verify step and the decode step each captured once and replayed
+    (the warm-up run first, as the serve's ``StepGraph``): the block's
+    logits against T decode steps'."""
+    from repro_torch.serving.graphs import StepGraph
+
+    cache_v = {k: v.clone() for k, v in cache.items()}
+    tok_v, pos_v = tokens.clone(), pos.clone()
+    verify = StepGraph(lambda: model.verify_step(params, cache_v, {"token": tok_v}, pos_v)[0],
+                       list(cache_v.values()) + [tok_v, pos_v])
+    verify()
+    block = verify().clone()
+    cache_d = {k: v.clone() for k, v in cache.items()}
+    tok_d, pos_d = tokens[:, :1].clone(), pos.clone()
+    decode = StepGraph(lambda: model.decode_step(params, cache_d, {"token": tok_d}, pos_d)[0],
+                       list(cache_d.values()) + [tok_d, pos_d])
+    decode()
+    rows = []
+    for t in range(T):
+        tok_d.copy_(tokens[:, t:t + 1])
+        pos_d.copy_(pos + t)
+        rows.append(decode().clone())
+    return all(torch.equal(block[:, t], rows[t][:, 0]) for t in range(T))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("verify_step: no CUDA device visible to torch")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models import kv_cache, layers, mla, transformer
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.model import STEP_MIN_ROWS, Model
+
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas_paged"))
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(1)
+    cache_len = 128
+    stripes = kv_cache.cache_zeros(cfg, S, cache_len, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (S, P), generator=g, device="cuda")
+    for s in range(S):
+        _, c = model.prefill(params, {"tokens": prompts[s:s + 1]}, cache_len=cache_len)
+        for k, leaf in stripes.items():
+            leaf[:, s] = c[k][:, 0]
+    cache = kv_cache.contiguous_as_paged(stripes, BS)
+    tokens = torch.randint(0, cfg.vocab, (S, T), generator=g, device="cuda")
+    pos = torch.full((S,), P, dtype=torch.int32, device="cuda")
+    rec = Recorder()
+    try:
+        with torch.no_grad():
+            compare(f"olmo-1b, step padding to {STEP_MIN_ROWS} rows (Model.step_ctx)", model,
+                    params, cache, tokens, pos, rec)
+            # every module's norm_apply, called with the norms' padding off
+            saved = {m: m.norm_apply for m in (layers, mla, transformer, model_mod)}
+            for m, f in saved.items():
+                m.norm_apply = lambda p, x, kind, ctx, eps=1e-5, f=f: f(
+                    p, x, kind, dataclasses.replace(ctx, step_min_rows=0), eps)
+            try:
+                compare(f"olmo-1b, the down projection padded to {STEP_MIN_ROWS} rows, the "
+                        "norms not", model, params, cache, tokens, pos, rec)
+            finally:
+                for m, f in saved.items():
+                    m.norm_apply = f
+            model.step_ctx = model.ctx
+            compare("olmo-1b, no step padding", model, params, cache, tokens, pos, rec)
+    finally:
+        rec.restore()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

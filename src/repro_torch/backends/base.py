@@ -90,6 +90,10 @@ class SoftmaxBackend:
     # False for substrates apply() cannot differentiate through (the CUDA
     # kernel); training paths must then swap in a differentiable spec
     differentiable: bool = True
+    # False for substrates whose apply() reads the device back on the host
+    # (the functional AP simulator): a CUDA graph cannot capture them, so
+    # the engine runs their steps op by op
+    capturable: bool = True
     # canonical config substituted for cfg=None by the registry, so
     # get_backend(name) and get_backend(name, <default>) share one instance
     default_cfg = None

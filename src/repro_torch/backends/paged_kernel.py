@@ -17,6 +17,10 @@ from __future__ import annotations
 from repro_torch.backends.registry import register_backend
 from repro_torch.backends.torch_backends import IntPallasBackend
 
+#: the softmax kinds that run Alg. 1, so that ``int_pallas_paged`` (and its
+#: fused paged kernels) computes the same thing at their paged decode sites
+ALG1_KINDS = ("int", "int_jax", "int_pallas", "int_pallas_paged")
+
 
 @register_backend("int_pallas_paged")
 class IntPallasPagedBackend(IntPallasBackend):

@@ -66,7 +66,9 @@ def _load_builtins(strict: bool) -> bool:
         return False
     _LOADING = True
     try:
-        from repro_torch.backends import paged_kernel, torch_backends  # noqa: F401
+        from repro_torch.backends import (  # noqa: F401
+            ap_backend, paged_kernel, torch_backends, variant_backends,
+        )
         return True
     except ImportError:
         if strict:

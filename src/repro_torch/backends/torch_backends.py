@@ -73,6 +73,17 @@ class IntBackendBase(SoftmaxBackend):
     def __init__(self, cfg: Optional[PrecisionConfig] = None):
         super().__init__(cfg or BEST)
 
+    @property
+    def cell_energy_fj(self) -> float:
+        """16 nm per-cell-per-cycle energy underlying the meter."""
+        return cm.E_CELL_FJ
+
+    def _vector_cost(self, seq_len: int):
+        """(cycles, latency_s, energy_j, design) for one softmax vector. The
+        variant backends (``variant_backends``) override this hook with their
+        own Table-II schedule and keep the vectors/heads accounting below."""
+        return cm.softmax_vector_cost(self.cfg, seq_len)
+
     def meter(self, shape: Sequence[int], axis: int = -1,
               heads: int = 1) -> Optional[CostReport]:
         shape = tuple(int(d) for d in shape)
@@ -85,13 +96,18 @@ class IntBackendBase(SoftmaxBackend):
         vectors //= max(seq_len, 1)
         if vectors == 0 or seq_len == 0:
             return CostReport(backend=self.name)
-        cycles_v, lat_v, e_v, _ = cm.softmax_vector_cost(self.cfg, seq_len)
+        cycles_v, lat_v, e_v, _ = self._vector_cost(seq_len)
         # One AP per head (Sec. V-B): a head-AP runs its vectors sequentially
         # (word-parallel inside each vector); distinct heads run in parallel.
         per_ap = -(-vectors // max(int(heads), 1))  # ceil
         return CostReport(backend=self.name, vectors=vectors,
                           cycles=cycles_v * per_ap, latency_s=lat_v * per_ap,
                           energy_j=e_v * vectors)
+
+    def design(self, seq_len: int) -> cm.APDesign:
+        """The AP instance provisioned for ``seq_len``-word vectors (area)."""
+        return cm.APDesign(rows=max(seq_len // 2, 1),
+                           row_bits=cm.row_bits_for(self.cfg))
 
 
 @register_backend("int", "int_jax")

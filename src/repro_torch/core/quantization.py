@@ -1,7 +1,7 @@
 """Quantization helpers for the integer-only softmax path (port of
-``src/repro/core/quantization.py``: the Alg.-1 quantizer and the EXAQ
-power-of-two KV scales; ``quantize_raw_scores`` and ``affine_*`` come with
-ROADMAP.md Queue 1 items 12-13).
+``src/repro/core/quantization.py``: the Alg.-1 quantizer, the calibrated
+absolute quantizer the AP dataflow validation uses, the EXAQ power-of-two
+KV scales and the generic affine grid).
 
     x -> (x - max(x))      stabilization (shift-invariant)
       -> clip to [T_C, 0]  calibrated clipping (Sec. V-A)
@@ -53,6 +53,17 @@ def quantize_against(x, row_max, cfg: PrecisionConfig):
     return torch.clamp(v, -(2 ** (cfg.M - 1)), 0)
 
 
+def quantize_raw_scores(x, cfg: PrecisionConfig, calib_max: float, axis: int = -1):
+    """Absolute (calibrated) quantization: codes share the grid of ``S`` but
+    are offset by a calibrated maximum, so the integer max-subtract of Alg. 1
+    line 4 does real work. Used by tests and the AP dataflow validation."""
+    x = x.to(torch.float32)
+    lo = calib_max + cfg.T_C
+    x = torch.clamp(x, lo, calib_max)
+    s = torch.full((), cfg.S, dtype=torch.float32, device=x.device)
+    return torch.round(x / s).to(torch.int32)
+
+
 def dequantize_probs(p_codes, cfg: PrecisionConfig):
     """Fixed-point probability codes -> float32 probabilities."""
     return p_codes.to(torch.float32) * (2.0 ** (-cfg.P_out))
@@ -100,3 +111,31 @@ def exaq_scale_clamped(amax, exp_bits: int, floor: float = 1e-8):
     s = torch.clamp_min(amax.to(torch.float32) * KV_RECIP_127, floor)
     lo, hi = -(2 ** (exp_bits - 1)), 2 ** (exp_bits - 1) - 1
     return _pow2(torch.clamp(_ceil_log2(s), lo, hi))
+
+
+# ---- generic affine quantizer ------------------------------------------------
+
+
+def affine_qparams(lo: float, hi: float, bits: int, symmetric: bool = False):
+    """Return (scale, zero_point) for an affine integer grid."""
+    if symmetric:
+        amax = max(abs(lo), abs(hi))
+        scale = amax / float(2 ** (bits - 1) - 1)
+        return scale, 0
+    qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    scale = (hi - lo) / float(qmax - qmin)
+    zero = round(qmin - lo / scale) if scale > 0 else 0
+    return scale, int(zero)
+
+
+def affine_quantize(x, scale: float, zero: int, bits: int):
+    """Round-half-even of ``x / scale`` (a true division by the f32 scale)
+    plus ``zero``, clipped to the signed ``bits`` grid, as int32."""
+    qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    s = torch.full((), scale, dtype=torch.float32, device=x.device)
+    q = torch.round(x.to(torch.float32) / s) + zero
+    return torch.clamp(q, qmin, qmax).to(torch.int32)
+
+
+def affine_dequantize(q, scale: float, zero: int):
+    return (q - zero).to(torch.float32) * scale

@@ -36,8 +36,13 @@
 // are visited (the span, from the page of min(qpos) - window + 1 to the
 // page of max(qpos)); a masked key is out of the row max and adds 0 to the
 // sum, so leaving the others out is exact. The span is cut into chunks of
-// a.chunk_pages pages (ref.py:k2_split_plan), one CTA per (chunk, head,
-// slot), in launches on one stream:
+// a.chunk_pages pages (ref.py:k2_split_plan), planned for the decode step's
+// rows (group): a verify block of T queries is cut at the same page
+// boundaries as T single-query steps. A CTA takes the rows of its chunk in
+// a.row_group rows (ref.py:k2_row_group: all of them while their score tile
+// fits the plan's budget, else a group of rows under the same chunk; rows
+// never interact, so grouping changes no bit). One CTA per (chunk, head and
+// row group, slot), in launches on one stream:
 //   1. scores: q staged as f32; the chunk's K rows come in 64-key stages by
 //      16-byte cp.async into a double-buffered ring (int8 codes too, with
 //      their scales, then dequantized in shared memory sixteen codes a
@@ -56,14 +61,14 @@
 //      come in as K did, started before the kernel waits for the one before
 //      it; each output column sums p * v in f32 in key order from 0, giving
 //      an f32 partial [S, KV, NC, ROWS, Dv]. The CTA that finishes last (an
-//      atomic ticket per (slot, head), reset by launch 1) adds the partials
+//      atomic ticket per (slot, head, row group), reset by launch 1) adds the partials
 //      in chunk order from 0 and rounds once to cdt.
 // Launches 2 and 3 are programmatic dependent launches: their CTAs start
 // while the launch before runs and wait in griddepcontrol.wait. No float
 // atomics: the same call gives the same bits run after run. The wrapper
 // allocates the scratch (paged_attention_scratch_bytes); nothing here
-// allocates. Shared memory grows with ROWS x chunk keys, which the plan
-// bounds; the context is bounded by the scratch alone.
+// allocates. Shared memory grows with a row group x chunk keys, which the
+// plan bounds; the context is bounded by the scratch alone.
 // scores_out / probs_out ([S, KV, ROWS, NLOG * BS] f32, may be null) take
 // the scores and probabilities of the span for the chip smoke test's
 // bitwise check of the Alg.-1 step; positions outside the span are left as
@@ -95,6 +100,7 @@ struct PagedShape {
   int scores_bf16;  // scores dtype: 1 bfloat16, 0 float32
   int quant;        // 1: int8 pools with f32 scales
   int chunk_pages;  // pages per chunk (one CTA each)
+  int row_group;    // rows of a chunk one CTA takes (<= rows)
   float scale;
 };
 
@@ -124,11 +130,27 @@ struct Scratch {
   float* cmax;        // [S, KV, NC, ROWS] chunk max over valid keys
   long long* csum;    // [S, KV, NC, ROWS] chunk sum of exp codes
   float* part;        // [S, KV, NC, ROWS, Dv] chunk PV partials
-  int* ticket;        // [S, KV] chunks of launch 3 finished
+  int* ticket;        // [S, KV, NG] chunks of launch 3 finished
 };
 
 __host__ __device__ __forceinline__ int n_chunks(const PagedShape& a) {
   return (a.NLOG + a.chunk_pages - 1) / a.chunk_pages;
+}
+
+// Row groups of a (slot, head): the grid's y is head * NG + group.
+__host__ __device__ __forceinline__ int n_groups(const PagedShape& a) {
+  return (a.rows + a.row_group - 1) / a.row_group;
+}
+
+// The (slot, head) and the rows [r0, r0 + nr) of this CTA.
+struct Rows {
+  int h, grp, r0, nr;
+};
+__device__ __forceinline__ Rows cta_rows(const PagedShape& a) {
+  const int ng = n_groups(a);
+  const int h = blockIdx.y / ng, grp = blockIdx.y - h * ng;
+  const int r0 = grp * a.row_group;
+  return {h, grp, r0, min(a.row_group, a.rows - r0)};
 }
 
 // Byte offsets of the scratch regions (256-byte aligned); returns the size.
@@ -136,7 +158,8 @@ __host__ __device__ inline size_t scratch_layout(const PagedShape& a, size_t off
   const size_t sh = static_cast<size_t>(a.S) * a.KV;
   const size_t nc = static_cast<size_t>(n_chunks(a));
   const size_t sizes[5] = {sh * a.rows * a.NLOG * a.BS * 4, sh * nc * a.rows * 4,
-                           sh * nc * a.rows * 8, sh * nc * a.rows * a.Dv * 4, sh * 4};
+                           sh * nc * a.rows * 8, sh * nc * a.rows * a.Dv * 4,
+                           sh * n_groups(a) * 4};
   size_t at = 0;
   for (int i = 0; i < 5; ++i) {
     off[i] = at;
@@ -184,21 +207,22 @@ __host__ __device__ inline size_t row_stats_bytes(int rows) {
          round_up(static_cast<size_t>(rows) * 8, 16);
 }
 
-// Launch 1: q [ROWS, D] f32, chunk scores [ROWS, chunk keys] f32, ring.
+// Launch 1: q [RG, D] f32, chunk scores [RG, chunk keys] f32, ring (RG: a
+// row group).
 __host__ __device__ inline size_t scores_smem(const PagedShape& a, int esz_p, int esz_t) {
   const size_t ck = static_cast<size_t>(a.chunk_pages) * a.BS;
-  return round_up(static_cast<size_t>(a.rows) * a.D * 4, 16) +
-         round_up(static_cast<size_t>(a.rows) * ck * 4, 16) +
+  return round_up(static_cast<size_t>(a.row_group) * a.D * 4, 16) +
+         round_up(static_cast<size_t>(a.row_group) * ck * 4, 16) +
          ring_layout(a.D, esz_p, esz_t, a.quant).bytes;
 }
 
-// Launch 3: row statistics, totals [ROWS] int, probabilities [ROWS, chunk keys] f32,
-// accumulators [ROWS, Dv] f32, ring.
+// Launch 3: row statistics, totals [RG] int, probabilities [RG, chunk keys] f32,
+// accumulators [RG, Dv] f32, ring.
 __host__ __device__ inline size_t pv_smem(const PagedShape& a, int esz_p, int esz_t) {
   const size_t ck = static_cast<size_t>(a.chunk_pages) * a.BS;
-  return row_stats_bytes(a.rows) + round_up(static_cast<size_t>(a.rows) * 4, 16) +
-         round_up(static_cast<size_t>(a.rows) * ck * 4, 16) +
-         round_up(static_cast<size_t>(a.rows) * a.Dv * 4, 16) +
+  const size_t rg = static_cast<size_t>(a.row_group);
+  return row_stats_bytes(a.row_group) + round_up(rg * 4, 16) + round_up(rg * ck * 4, 16) +
+         round_up(rg * a.Dv * 4, 16) +
          ring_layout(a.Dv, esz_p, esz_t, a.quant).bytes;
 }
 
@@ -340,10 +364,10 @@ __device__ __forceinline__ const unsigned char* values_of(const unsigned char* r
 
 // ------------------------------------------------------------ row statistics
 
-// Per row of (slot, head), in shared memory: the guarded row max (the max of
-// the chunk maxima, order-free), the integer row max (the code of the row
-// max: 0 unless the row is fully masked, since quantize is monotone) and a
-// zeroed exact sum.
+// Per row of the CTA's rows [r0, r0 + nr) of (slot, head), in shared memory
+// at local index r - r0: the guarded row max (the max of the chunk maxima,
+// order-free), the integer row max (the code of the row max: 0 unless the
+// row is fully masked, since quantize is monotone) and a zeroed exact sum.
 struct RowStats {
   float* m;
   int* vmax;
@@ -352,14 +376,15 @@ struct RowStats {
 
 __device__ __forceinline__ RowStats row_stats(unsigned char* at, const Scratch& w,
                                               const PagedShape& a, size_t sh, int n_live,
-                                              const Alg1Consts& cst) {
-  const size_t r4 = round_up(static_cast<size_t>(a.rows) * 4, 16);
+                                              const Alg1Consts& cst, const Rows& rw) {
+  const size_t r4 = round_up(static_cast<size_t>(a.row_group) * 4, 16);
   RowStats st{reinterpret_cast<float*>(at), reinterpret_cast<int*>(at + r4),
               reinterpret_cast<unsigned long long*>(at + 2 * r4)};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nc = n_chunks(a);
-  for (int r = warp; r < a.rows; r += kWarps) {
+  for (int r = warp; r < rw.nr; r += kWarps) {
     float m = ALG1_NEG_INF;
-    for (int cc = lane; cc < n_live; cc += 32) m = fmaxf(m, w.cmax[(sh * nc + cc) * a.rows + r]);
+    for (int cc = lane; cc < n_live; cc += 32)
+      m = fmaxf(m, w.cmax[(sh * nc + cc) * a.rows + rw.r0 + r]);
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
     if (lane == 0) {
       const float mu = m <= ALG1_NEG_INF ? 0.0f : m;  // fully masked row
@@ -372,31 +397,33 @@ __device__ __forceinline__ RowStats row_stats(unsigned char* at, const Scratch& 
   return st;
 }
 
-// The exp code of the score of row r at key position kpos (0 if masked).
+// The exp code of the score of local row r (row r0 + r) at key position
+// kpos (0 if masked).
 __device__ __forceinline__ int exp_code(float x, int r, int kpos, const int* prow,
                                         const PagedShape& a, const RowStats& st,
-                                        const Alg1Consts& cst) {
-  return valid_pos(kpos, prow[r / a.group], a.window)
+                                        const Alg1Consts& cst, int r0) {
+  return valid_pos(kpos, prow[(r0 + r) / a.group], a.window)
              ? alg1_exp(alg1_quantize(x, st.m[r], cst) - st.vmax[r], cst)
              : 0;
 }
 
-// Adds the exp codes of keys [k0, k0 + nk) of every row into st.sum
-// (integer: exact in any order): all threads over the keys of a row, a
-// warp sum, one shared atomic per warp. The codes of keys [c0, c0 + cn)
-// also go to own[r * ck + key - c0] (as int bits) when `own` is set. Ends
+// Adds the exp codes of keys [k0, k0 + nk) of each of the CTA's rows into
+// st.sum (integer: exact in any order): all threads over the keys of a
+// row, a warp sum, one shared atomic per warp. `scores` is the (slot,
+// head)'s [ROWS, l_full]. The codes of keys [c0, c0 + cn) also go to
+// own[r * ck + key - c0] (as int bits, r local) when `own` is set. Ends
 // with a barrier.
 __device__ __forceinline__ void add_exp_sums(const float* scores, int l_full, int k0, int nk,
                                              const int* prow, const PagedShape& a,
                                              const RowStats& st, const Alg1Consts& cst,
-                                             float* own = nullptr, int c0 = 0, int cn = 0,
-                                             int ck = 0) {
-  for (int r = 0; r < a.rows; ++r) {
-    const float* row = scores + static_cast<size_t>(r) * l_full + k0;
+                                             const Rows& rw, float* own = nullptr, int c0 = 0,
+                                             int cn = 0, int ck = 0) {
+  for (int r = 0; r < rw.nr; ++r) {
+    const float* row = scores + static_cast<size_t>(rw.r0 + r) * l_full + k0;
     unsigned long long acc = 0;
 #pragma unroll 4
     for (int jj = threadIdx.x; jj < nk; jj += kThreads) {
-      const int va = exp_code(row[jj], r, k0 + jj, prow, a, st, cst);
+      const int va = exp_code(row[jj], r, k0 + jj, prow, a, st, cst, rw.r0);
       acc += va;
       const int o = k0 + jj - c0;
       if (own != nullptr && o >= 0 && o < cn) own[r * ck + o] = __int_as_float(va);
@@ -416,12 +443,14 @@ k2_scores(const T* __restrict__ q, const P* __restrict__ k_pool,
           const int* __restrict__ positions, float* __restrict__ scores_out, Scratch w,
           PagedShape a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int c = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int c = blockIdx.x, s = blockIdx.z;
+  const Rows rw = cta_rows(a);
+  const int h = rw.h;
   const size_t sh = static_cast<size_t>(s) * a.KV + h;
   const int* trow = table + static_cast<size_t>(s) * a.NLOG;
   const int* prow = positions + static_cast<size_t>(s) * a.T;
   start_next_grid();
-  if (c == 0 && threadIdx.x == 0) w.ticket[sh] = 0;  // launch 3 counts from 0
+  if (c == 0 && threadIdx.x == 0) w.ticket[sh * n_groups(a) + rw.grp] = 0;  // launch 3 counts from 0
   const Span sp = live_span(prow, a);
   const int pg0 = sp.lo + c * a.chunk_pages;
   if (pg0 >= sp.hi) return;
@@ -430,10 +459,10 @@ k2_scores(const T* __restrict__ q, const P* __restrict__ k_pool,
   const int l_full = a.NLOG * a.BS, nc = n_chunks(a);
 
   const Ring rg = ring_layout(a.D, sizeof(P), sizeof(T), a.quant);
-  float* qs = reinterpret_cast<float*>(smem);                                  // [rows, D]
-  float* sct = reinterpret_cast<float*>(smem + round_up(size_t(a.rows) * a.D * 4, 16));
+  float* qs = reinterpret_cast<float*>(smem);                                  // [nr, D]
+  float* sct = reinterpret_cast<float*>(smem + round_up(size_t(a.row_group) * a.D * 4, 16));
   unsigned char* ring = reinterpret_cast<unsigned char*>(sct) +
-                        round_up(size_t(a.rows) * ck * 4, 16);
+                        round_up(size_t(a.row_group) * ck * 4, 16);
   float* sscale = reinterpret_cast<float*>(ring + rg.raw);
   unsigned char* tile = ring + rg.raw + rg.scales;
 
@@ -446,8 +475,8 @@ k2_scores(const T* __restrict__ q, const P* __restrict__ k_pool,
                   sscale + st * kStageKeys, rg);
     cp_async_commit();
   }
-  const T* qb = q + sh * a.rows * a.D;
-  for (int i = threadIdx.x; i < a.rows * a.D; i += kThreads) qs[i] = to_f(qb[i]);
+  const T* qb = q + (sh * a.rows + rw.r0) * a.D;
+  for (int i = threadIdx.x; i < rw.nr * a.D; i += kThreads) qs[i] = to_f(qb[i]);
 
   constexpr int kPiece = 16 / sizeof(T);  // values per 16-byte piece
   const int pieces = a.D / kPiece;
@@ -460,7 +489,7 @@ k2_scores(const T* __restrict__ q, const P* __restrict__ k_pool,
                                               sscale + (st & 1) * kStageKeys, tile, a.D, n, rg);
     const int stride = a.quant ? rg.stride_t : rg.stride_p;
     const T* krow = reinterpret_cast<const T*>(kt + static_cast<size_t>(j) * stride);
-    for (int r = 0; r < a.rows; ++r) {
+    for (int r = 0; r < rw.nr; ++r) {
       const float* qr = qs + r * a.D;
       float acc = 0.0f;
       for (int pc = part; pc < pieces; pc += kLanesPerDot)
@@ -483,21 +512,21 @@ k2_scores(const T* __restrict__ q, const P* __restrict__ k_pool,
   }
 
   // the scores to the scratch (and the debug rows), each row's chunk max
-  for (int i = threadIdx.x; i < a.rows * nk; i += kThreads) {
+  for (int i = threadIdx.x; i < rw.nr * nk; i += kThreads) {
     const int r = i / nk, jj = i - r * nk;
-    const size_t at = (sh * a.rows + r) * l_full + k0 + jj;
+    const size_t at = (sh * a.rows + rw.r0 + r) * l_full + k0 + jj;
     const float x = sct[r * ck + jj];
     w.scores[at] = x;
     if (scores_out != nullptr) scores_out[at] = x;
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < a.rows; r += kWarps) {
-    const int qpos = prow[r / a.group];
+  for (int r = warp; r < rw.nr; r += kWarps) {
+    const int qpos = prow[(rw.r0 + r) / a.group];
     float m = ALG1_NEG_INF;
     for (int jj = lane; jj < nk; jj += 32)
       if (valid_pos(k0 + jj, qpos, a.window)) m = fmaxf(m, sct[r * ck + jj]);
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) w.cmax[(sh * nc + c) * a.rows + r] = m;
+    if (lane == 0) w.cmax[(sh * nc + c) * a.rows + rw.r0 + r] = m;
   }
 }
 
@@ -508,8 +537,9 @@ k2_scores(const T* __restrict__ q, const P* __restrict__ k_pool,
 __global__ void __launch_bounds__(kThreads)
 k2_sums(const int* __restrict__ positions, Scratch w, PagedShape a, Alg1Consts cst) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int c = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
-  const size_t sh = static_cast<size_t>(s) * a.KV + h;
+  const int c = blockIdx.x, s = blockIdx.z;
+  const Rows rw = cta_rows(a);
+  const size_t sh = static_cast<size_t>(s) * a.KV + rw.h;
   const int* prow = positions + static_cast<size_t>(s) * a.T;
   start_next_grid();
   wait_previous_grid();
@@ -519,10 +549,10 @@ k2_sums(const int* __restrict__ positions, Scratch w, PagedShape a, Alg1Consts c
   const int k0 = pg0 * a.BS, nk = min(pg0 + a.chunk_pages, sp.hi) * a.BS - k0;
   const int l_full = a.NLOG * a.BS;
   const int n_live = (sp.hi - sp.lo + a.chunk_pages - 1) / a.chunk_pages;
-  const RowStats st = row_stats(smem, w, a, sh, n_live, cst);
-  add_exp_sums(w.scores + sh * a.rows * l_full, l_full, k0, nk, prow, a, st, cst);
-  for (int r = threadIdx.x; r < a.rows; r += kThreads)
-    w.csum[(sh * n_chunks(a) + c) * a.rows + r] = static_cast<long long>(st.sum[r]);
+  const RowStats st = row_stats(smem, w, a, sh, n_live, cst, rw);
+  add_exp_sums(w.scores + sh * a.rows * l_full, l_full, k0, nk, prow, a, st, cst, rw);
+  for (int r = threadIdx.x; r < rw.nr; r += kThreads)
+    w.csum[(sh * n_chunks(a) + c) * a.rows + rw.r0 + r] = static_cast<long long>(st.sum[r]);
 }
 
 // ------------------------------------------------------------ launch 3: PV
@@ -535,13 +565,16 @@ k2_pv(const P* __restrict__ v_pool, const float* __restrict__ v_scale,
       int sums_here) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
-  const int c = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int c = blockIdx.x, s = blockIdx.z;
+  const Rows rw = cta_rows(a);
+  const int h = rw.h;
   const size_t sh = static_cast<size_t>(s) * a.KV + h;
   const int* trow = table + static_cast<size_t>(s) * a.NLOG;
   const int* prow = positions + static_cast<size_t>(s) * a.T;
   const Span sp = live_span(prow, a);
-  const int n_out = a.rows * a.Dv;
-  T* ob = out + sh * n_out;
+  const int n_out = rw.nr * a.Dv;   // this CTA's outputs: rows [r0, r0 + nr)
+  const size_t n_all = static_cast<size_t>(a.rows) * a.Dv;
+  T* ob = out + sh * n_all + static_cast<size_t>(rw.r0) * a.Dv;
   if (sp.lo >= sp.hi) {  // no live page: the sum is empty
     wait_previous_grid();
     if (c == 0)
@@ -557,12 +590,12 @@ k2_pv(const P* __restrict__ v_pool, const float* __restrict__ v_scale,
 
   const Ring rg = ring_layout(a.Dv, sizeof(P), sizeof(T), a.quant);
   unsigned char* stats = smem;
-  int* tot = reinterpret_cast<int*>(smem + row_stats_bytes(a.rows));           // [rows]
+  int* tot = reinterpret_cast<int*>(smem + row_stats_bytes(a.row_group));      // [nr]
   float* pt = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(tot) +
-                                       round_up(size_t(a.rows) * 4, 16));      // [rows, ck]
-  float* acc = pt + round_up(size_t(a.rows) * ck * 4, 16) / 4;                  // [rows, Dv]
+                                       round_up(size_t(a.row_group) * 4, 16));  // [nr, ck]
+  float* acc = pt + round_up(size_t(a.row_group) * ck * 4, 16) / 4;             // [nr, Dv]
   unsigned char* ring = reinterpret_cast<unsigned char*>(acc) +
-                        round_up(size_t(n_out) * 4, 16);
+                        round_up(size_t(a.row_group) * a.Dv * 4, 16);
   float* sscale = reinterpret_cast<float*>(ring + rg.raw);
   unsigned char* tile = ring + rg.raw + rg.scales;
 
@@ -580,32 +613,33 @@ k2_pv(const P* __restrict__ v_pool, const float* __restrict__ v_scale,
   wait_previous_grid();  // launch 1's scores, or launch 2's sums
 
   const float* scores = w.scores + sh * a.rows * l_full;
-  const RowStats st = row_stats(stats, w, a, sh, n_live, cst);
+  const RowStats st = row_stats(stats, w, a, sh, n_live, cst, rw);
   if (sums_here) {
     // the whole span's sums, keeping this chunk's codes in pt
-    add_exp_sums(scores, l_full, sp.lo * a.BS, (sp.hi - sp.lo) * a.BS, prow, a, st, cst, pt,
-                 k0, nk, ck);
+    add_exp_sums(scores, l_full, sp.lo * a.BS, (sp.hi - sp.lo) * a.BS, prow, a, st, cst, rw,
+                 pt, k0, nk, ck);
   } else {
-    for (int r = threadIdx.x; r < a.rows; r += kThreads) {
+    for (int r = threadIdx.x; r < rw.nr; r += kThreads) {
       long long sum = 0;
-      for (int cc = 0; cc < n_live; ++cc) sum += w.csum[(sh * nc + cc) * a.rows + r];
+      for (int cc = 0; cc < n_live; ++cc) sum += w.csum[(sh * nc + cc) * a.rows + rw.r0 + r];
       st.sum[r] = static_cast<unsigned long long>(sum);
     }
     __syncthreads();
   }
-  for (int r = threadIdx.x; r < a.rows; r += kThreads) {
+  for (int r = threadIdx.x; r < rw.nr; r += kThreads) {
     const long long sum = static_cast<long long>(st.sum[r]);
     const long long clipped = sum < cst.sum_sat ? sum : cst.sum_sat;
     tot[r] = clipped > 1 ? static_cast<int>(clipped) : 1;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < a.rows * nk; i += kThreads) {
+  for (int i = threadIdx.x; i < rw.nr * nk; i += kThreads) {
     const int r = i / nk, jj = i - r * nk;
-    const int va = sums_here ? __float_as_int(pt[r * ck + jj])
-                             : exp_code(scores[static_cast<size_t>(r) * l_full + k0 + jj], r,
-                                        k0 + jj, prow, a, st, cst);
+    const int va = sums_here
+                       ? __float_as_int(pt[r * ck + jj])
+                       : exp_code(scores[static_cast<size_t>(rw.r0 + r) * l_full + k0 + jj], r,
+                                  k0 + jj, prow, a, st, cst, rw.r0);
     const float p = alg1_prob(va, tot[r], cst);
-    if (probs_out != nullptr) probs_out[(sh * a.rows + r) * l_full + k0 + jj] = p;
+    if (probs_out != nullptr) probs_out[(sh * a.rows + rw.r0 + r) * l_full + k0 + jj] = p;
     pt[r * ck + jj] = round_to<T>(p);
   }
 
@@ -634,14 +668,15 @@ k2_pv(const P* __restrict__ v_pool, const float* __restrict__ v_scale,
     cp_async_commit();
   }
 
-  // this chunk's partial; the last chunk of (slot, head) to finish adds
-  // them in chunk order and rounds once
-  float* part = w.part + sh * nc * n_out;
+  // this chunk's partial of the CTA's rows; the last chunk of (slot, head,
+  // row group) to finish adds them in chunk order and rounds once
+  float* part = w.part + sh * nc * n_all + static_cast<size_t>(rw.r0) * a.Dv;
   for (int i = threadIdx.x; i < n_out; i += kThreads)
-    part[static_cast<size_t>(c) * n_out + i] = acc[i];
+    part[static_cast<size_t>(c) * n_all + i] = acc[i];
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(w.ticket + sh, 1) == n_live - 1;
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(w.ticket + sh * n_groups(a) + rw.grp, 1) == n_live - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
@@ -658,7 +693,7 @@ k2_pv(const P* __restrict__ v_pool, const float* __restrict__ v_scale,
         for (int u = 0; u < kBatch; ++u) {
           const int i = i0 + o * kThreads;
           v[o][u] = (i < n_out && c0 + u < n_live)
-                        ? __ldcg(part + static_cast<size_t>(c0 + u) * n_out + i)
+                        ? __ldcg(part + static_cast<size_t>(c0 + u) * n_all + i)
                         : 0.0f;
         }
 #pragma unroll
@@ -685,7 +720,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const float* k
   int rc = smem_optin(&optin);
   if (rc != 0) return rc;
   const size_t sm1 = scores_smem(a, sizeof(P), sizeof(T));
-  const size_t sm2 = row_stats_bytes(a.rows);
+  const size_t sm2 = row_stats_bytes(a.row_group);
   const size_t sm3 = pv_smem(a, sizeof(P), sizeof(T));
   if (sm1 > static_cast<size_t>(optin) || sm3 > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -695,7 +730,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const float* k
   // launch 3 sums the exp codes itself for short rows: no launch 2
   const int sums_here = static_cast<size_t>(a.rows) * a.NLOG * a.BS <= kSumsHereScores;
   const Scratch w = carve(a, scratch);
-  const dim3 grid(n_chunks(a), a.KV, a.S);
+  const dim3 grid(n_chunks(a), a.KV * n_groups(a), a.S);
   k2_scores<T, P><<<grid, kThreads, sm1, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k_pool), k_scale, table, positions,
       scores_out, w, a);
@@ -743,7 +778,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
                                       int dtype, PagedShape a, Alg1Consts c, void* stream) {
   if (a.S < 1 || a.KV < 1 || a.rows < 1 || a.T < 1 || a.rows != a.T * a.group || a.D < 1 ||
       a.D > kMaxD || a.Dv < 1 || a.Dv > kMaxD || a.NB < 1 || a.BS < 1 || a.NLOG < 1 ||
-      a.chunk_pages < 1 || scratch == nullptr)
+      a.chunk_pages < 1 || a.row_group < 1 || a.row_group > a.rows || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.quant && (k_scale == nullptr || v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -25,7 +25,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.int_softmax.ops import Alg1Consts, alg1_consts
 from repro_torch.kernels.paged_attention.ref import (
-    k2_split_plan, k4_split_plan, paged_attention_mla_ref, paged_attention_ref,
+    k2_row_group, k2_split_plan, k4_split_plan, paged_attention_mla_ref, paged_attention_ref,
 )
 
 MAX_D = 256
@@ -40,7 +40,8 @@ class PagedShape(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "KV", "rows", "group", "T", "D", "Dv", "NB", "BS", "NLOG",
-        "window", "scores_bf16", "quant", "chunk_pages")] + [("scale", ctypes.c_float)]
+        "window", "scores_bf16", "quant", "chunk_pages", "row_group")] + [
+        ("scale", ctypes.c_float)]
 
 
 class MlaShape(ctypes.Structure):
@@ -139,9 +140,11 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
     ``scores_out`` / ``probs_out``: optional f32 [S, KV, ROWS, NLOG * BS]
     tensors the kernel fills with the scores and Alg.-1 probabilities of
     the pages it visits (zero them first; the chip smoke test's check).
-    The kernel splits each row over ``k2_split_plan`` chunks of pages; the
-    context is bounded by the scratch this call allocates, not by shared
-    memory."""
+    The kernel splits each row over ``k2_split_plan`` chunks of pages,
+    planned for the decode step's rows (``rows // T``), so a verify block's
+    row takes the chunks the decode step at its position takes, and a CTA
+    takes ``k2_row_group`` rows of its chunk; the context is bounded by the
+    scratch this call allocates, not by shared memory."""
     tensors = (q, k_pool, v_pool, table, positions)
     debug = (scores_out, probs_out)
     quant = k_scale is not None or v_scale is not None
@@ -179,12 +182,11 @@ def paged_attention_rows(q, k_pool, v_pool, table, positions,
                          f"a multiple of 16 bytes ({esz} B a value)")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("the pools must be 16-byte aligned")
-    dev = q.device.index
+    cp = k2_split_plan(s_, kvh, rows, nlog, bs, _sm_count(q.device.index), t)
     shape = PagedShape(S=s_, KV=kvh, rows=rows, group=rows // t, T=t, D=d, Dv=dv,
                        NB=nb, BS=bs, NLOG=nlog, window=window,
                        scores_bf16=int(scores_dtype == torch.bfloat16), quant=int(quant),
-                       chunk_pages=k2_split_plan(s_, kvh, rows, nlog, bs, _sm_count(dev)),
-                       scale=scale)
+                       chunk_pages=cp, row_group=k2_row_group(rows, cp, bs), scale=scale)
     out = torch.empty((s_, kvh, rows, dv), dtype=q.dtype, device=q.device)
     # scores, chunk maxima, sums and PV partials
     _launch("paged_attention", (q, k_pool, v_pool, k_scale, v_scale, table, positions),
@@ -232,9 +234,10 @@ def paged_attention_mla_rows(q_lat, q_rope, c_pool, kr_pool, table, positions,
     ``scores_out`` / ``probs_out``: optional f32 [S, ROWS, NLOG * BS]
     tensors the kernel fills with the scores and Alg.-1 probabilities of
     the pages it visits (zero them first; the chip smoke test's check).
-    The kernel splits each row over ``k4_split_plan`` chunks of pages; the
-    context is bounded by the scratch this call allocates, not by shared
-    memory."""
+    The kernel splits each row over ``k4_split_plan`` chunks of pages,
+    planned for the decode step's rows (``rows // T``, the heads) as K2's;
+    the context is bounded by the scratch this call allocates, not by
+    shared memory."""
     tensors = (q_lat, q_rope, c_pool, kr_pool, table, positions)
     debug = (scores_out, probs_out)
     if q_lat.device.type != "cuda":
@@ -257,7 +260,7 @@ def paged_attention_mla_rows(q_lat, q_rope, c_pool, kr_pool, table, positions,
                          f"within {MAX_R} and {MAX_DR}")
     if any(x.data_ptr() % 16 for x in (q_lat, q_rope, c_pool, kr_pool)):
         raise ValueError("the queries and latent pools must be 16-byte aligned")
-    cp = k4_split_plan(s_, rows, nlog, bs, _sm_count(q_lat.device.index))
+    cp = k4_split_plan(s_, rows, nlog, bs, _sm_count(q_lat.device.index), t)
     shape = MlaShape(S=s_, rows=rows, heads=rows // t, T=t, R=r, DR=dr, NB=nb, BS=bs,
                      NLOG=nlog, chunk_pages=cp, scale=scale)
     out = torch.empty((s_, rows, r), dtype=q_lat.dtype, device=q_lat.device)

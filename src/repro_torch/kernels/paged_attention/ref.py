@@ -16,7 +16,11 @@ K2 and K4 split each row over CTAs in exact Alg.-1 passes
 (``csrc/paged_attention.cu``, ``csrc/paged_attention_mla.cu``). Their
 partition lives here as pure functions — ``k2_span`` (the pages holding
 some row's valid position), ``k2_split_plan`` and ``k4_split_plan`` (pages
-per chunk) and ``k2_chunks`` — and ``paged_attention_ref(...,
+per chunk, planned for the decode step's rows: a verify block of T queries
+per slot is cut at the page boundaries of T single-query steps, so each of
+its rows gets the bits the decode step at its position gets),
+``k2_row_group`` (the rows of a chunk one K2 CTA takes) and ``k2_chunks`` —
+and ``paged_attention_ref(...,
 chunk_pages=p)`` and ``paged_attention_mla_ref(..., chunk_pages=p)`` mirror
 it: per-chunk row maxima combined into the row max (``split_row_max``),
 per-chunk exact integer sums, per-chunk f32 PV partials added in chunk
@@ -57,12 +61,16 @@ def k2_span(positions_row, nlog: int, bs: int, window: int = 0):
     return lo, hi
 
 
-def k2_split_plan(slots: int, kv: int, rows: int, nlog: int, bs: int, sms: int) -> int:
+def k2_split_plan(slots: int, kv: int, rows: int, nlog: int, bs: int, sms: int,
+                  t: int = 1) -> int:
     """Pages per chunk of K2's split (one CTA per chunk, kv-head and slot):
     the smallest power of two holding ``K2_STAGE_KEYS`` keys, doubled while
     the grid still has ``K2_CTAS_PER_SM`` CTAs per SM, the chunk stays
     within the table and the score tile within ``K2_TILE_BYTES``; at least
-    one page."""
+    one page. Planned for the decode step's ``rows // t`` rows (``t``: query
+    positions per slot), whatever ``t`` is: the chunk boundaries, and with
+    them each row's partial sums, are the decode step's."""
+    rows = rows // t
     p = 1
     while p * bs < K2_STAGE_KEYS and p < nlog:
         p *= 2
@@ -72,6 +80,15 @@ def k2_split_plan(slots: int, kv: int, rows: int, nlog: int, bs: int, sms: int) 
     while p > 1 and 4 * rows * p * bs > K2_TILE_BYTES:
         p //= 2
     return p
+
+
+def k2_row_group(rows: int, chunk_pages: int, bs: int) -> int:
+    """Rows of a chunk one K2 CTA takes: all ``rows`` while their f32 score
+    tile fits ``K2_TILE_BYTES``, else as many as fit (at least one). A
+    verify block of T queries may exceed the tile its decode-step plan was
+    sized for; its rows then go in groups under the same chunk, which is
+    never shrunk. Rows never interact, so a group changes no bit."""
+    return max(1, min(rows, K2_TILE_BYTES // (4 * chunk_pages * bs)))
 
 
 # K4's partition. A head tile holds up to K4_TILE_ROWS rows of a slot (the
@@ -86,13 +103,15 @@ K4_CTAS_PER_SM = 1
 K4_MAX_CHUNKS = 128
 
 
-def k4_split_plan(slots: int, rows: int, nlog: int, bs: int, sms: int) -> int:
+def k4_split_plan(slots: int, rows: int, nlog: int, bs: int, sms: int,
+                  t: int = 1) -> int:
     """Pages per chunk of K4's split (one CTA of launch 1 per chunk, head
     tile and slot): the smallest power of two holding ``K4_STAGE_KEYS``
     keys, doubled while the chunk stays within the table and the grid still
     has ``K4_CTAS_PER_SM`` CTAs per SM, then while the table has more than
-    ``K4_MAX_CHUNKS`` chunks; at least one page."""
-    tiles = math.ceil(rows / K4_TILE_ROWS)
+    ``K4_MAX_CHUNKS`` chunks; at least one page. Planned, as K2's, for the
+    decode step's ``rows // t`` rows (the heads)."""
+    tiles = math.ceil(rows // t / K4_TILE_ROWS)
     p = 1
     while p * bs < K4_STAGE_KEYS and p < nlog:
         p *= 2

@@ -5,9 +5,11 @@ serve a seeded trace of requests through ``Engine.serve`` (``--paged``,
 K4 for an MLA architecture such as ``--arch minicpm3-4b``; ``--kv-quant``
 for the int8 KV cache; ``--prefill-chunk N`` and ``--preemption`` for
 chunked prefill and priority preemption; ``--speculative --draft-k N`` for
-draft-and-verify decoding with n-gram drafts) —
-with any ported softmax backend, and report throughput and the AP softmax
-cost (port of ``src/repro/launch/serve.py``, same flags).
+draft-and-verify decoding with n-gram drafts; ``--serve-softmax KIND`` to
+serve a softmax variant with the model's params) — with any registered
+softmax backend (the variant zoo ``consmax`` / ``sole`` / ``mive`` and the
+functional AP simulator ``ap_sim`` among them), and report throughput and
+the AP softmax cost (port of ``src/repro/launch/serve.py``, same flags).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --softmax int_pallas --warm-steps 0 --no-smoke --batch 4 \\
@@ -21,6 +23,11 @@ cost (port of ``src/repro/launch/serve.py``, same flags).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --smoke --continuous --paged --speculative --draft-k 4 \\
         --softmax int_pallas --warm-steps 0 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --smoke --continuous --paged --prefix-share --softmax int \\
+        --serve-softmax consmax --warm-steps 0 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --softmax sole --warm-steps 0 --device cpu --max-new 4
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path. Flags of
 later slices are accepted and raise with the ROADMAP.md item that ports them.
@@ -49,7 +56,6 @@ from repro_torch.serving.scheduler import random_trace
 
 # flag -> (value that means "unset", ROADMAP.md item of the slice that ports it)
 LATER_SLICES = {
-    "serve_softmax": (None, "Queue 1 item 12 (softmax-variant zoo)"),
     "ckpt_dir": (None, "Queue 1 item 13 (training and checkpoints)"),
     "warm_steps": (0, "Queue 1 item 13 (training: warm steps); pass "
                       "--warm-steps 0 to serve seeded weights"),
@@ -64,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True, help="reduced config (--no-smoke: full width)")
     names = available_backends()
     ap.add_argument("--softmax", default="int", choices=names)
-    ap.add_argument("--serve-softmax", default=None, choices=names)
+    ap.add_argument("--serve-softmax", default=None, choices=names,
+                    help="--continuous: the softmax variant Engine.serve runs "
+                         "(ServeOptions.softmax_kind), sharing the model's "
+                         "params; e.g. consmax, sole, mive, ap_sim")
     ap.add_argument("--M", type=int, default=6)
     ap.add_argument("--N", type=int, default=16)
     ap.add_argument("--ckpt-dir", default=None)
@@ -114,6 +123,9 @@ def main(argv=None):
     if args.prefill_chunk is not None and not args.continuous:
         ap.error("--prefill-chunk requires --continuous (it paces "
                  "Engine.serve admissions)")
+    if args.serve_softmax is not None and not args.continuous:
+        ap.error("--serve-softmax requires --continuous (it overrides the "
+                 "softmax variant for Engine.serve)")
     # cross-field serve constraints (--prefix-share, --kernel pallas and
     # --preemption require --paged, ...) fail here, before a model is built
     try:
@@ -121,8 +133,8 @@ def main(argv=None):
             slots=args.slots, policy=args.policy, paged=args.paged,
             block_size=args.block_size, prefix_share=args.prefix_share,
             speculative=args.speculative, draft_k=args.draft_k,
-            kernel=args.kernel, prefill_chunk=args.prefill_chunk,
-            preemption=args.preemption)
+            kernel=args.kernel, softmax_kind=args.serve_softmax,
+            prefill_chunk=args.prefill_chunk, preemption=args.preemption)
     except ValueError as e:
         ap.error(str(e))
 

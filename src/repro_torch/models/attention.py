@@ -56,10 +56,12 @@ def _mask(q_pos, kv_pos, kind: str, window: int):
     return m
 
 
-def attend(q, k, v, mask, cfg, ctx: Ctx, scale=None):
+def attend(q, k, v, mask, cfg, ctx: Ctx, scale=None, smx=None):
     """q [B,Sq,H,D], k [B,Skv,KV,D], v [B,Skv,KV,Dv] -> [B,Sq,H,Dv]. mask
     [B?,Sq,Skv] or None; ``scale`` defaults to D^-1/2 (MLA passes
-    (dn + dr)^-1/2 with a V narrower than Q).
+    (dn + dr)^-1/2 with a V narrower than Q). ``smx``: the layer's learned
+    softmax parameters ({"beta", "gamma"} [H] f32) when the backend is
+    learnable (ConSmax); None applies the backend cfg's defaults.
 
     Scores round like the reference's: the einsum of compute-dtype operands
     yields the compute dtype, which is cast to ``cfg.scores_dtype`` and then
@@ -77,24 +79,30 @@ def attend(q, k, v, mask, cfg, ctx: Ctx, scale=None):
     # one AP per attention head (KV*G of them)
     telemetry.record_softmax(backend, scores.shape, heads=kvh * group)
     m = None if mask is None else mask[:, None, None, :, :]
-    w = backend.apply(scores, mask=m).to(ctx.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    if smx is not None and getattr(backend, "learnable", False):
+        # head h = kv_head * group + g: the order qg unpacked above
+        w = backend.apply(scores, mask=m, params={
+            "beta": smx["beta"].reshape(kvh, group, 1, 1),
+            "gamma": smx["gamma"].reshape(kvh, group, 1, 1)})
+    else:
+        w = backend.apply(scores, mask=m)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(ctx.dtype), v)
     return out.reshape(b, sq, h, v.shape[-1])
 
 
-def attend_chunked(q, k, v, q_pos, kv_pos, kind, cfg, ctx: Ctx, scale=None):
+def attend_chunked(q, k, v, q_pos, kv_pos, kind, cfg, ctx: Ctx, scale=None, smx=None):
     """Query-chunked attention: bounds live score memory to
     [B, H, chunk, Skv]. Exact (full rows per chunk)."""
     b, sq, h, dh = q.shape
     chunk = cfg.attn_chunk
     if chunk <= 0 or sq <= chunk or sq % chunk != 0:
         return attend(q, k, v, _mask(q_pos, kv_pos, kind, cfg.window), cfg, ctx,
-                      scale)
+                      scale, smx)
     outs = []
     for i in telemetry.scan_range(sq // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         mask = _mask(q_pos[:, sl], kv_pos, kind, cfg.window)
-        outs.append(attend(q[:, sl], k, v, mask, cfg, ctx, scale))
+        outs.append(attend(q[:, sl], k, v, mask, cfg, ctx, scale, smx))
     return torch.cat(outs, dim=1)
 
 
@@ -102,7 +110,7 @@ def attn_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "causal"):
     """Training / prefill self-attention. kind: causal | window | none."""
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, ctx, positions)
-    out = attend_chunked(q, k, v, positions, positions, kind, cfg, ctx)
+    out = attend_chunked(q, k, v, positions, positions, kind, cfg, ctx, smx=p.get("smx"))
     return dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
 
 
@@ -371,7 +379,7 @@ def _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind):
     valid = valid_upto(l_max, cache_pos, cfg.window if kind == "window" else 0,
                        device=x.device)
     mask = valid[:, None, :].expand(b, 1, l_max)
-    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx)
+    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx, smx=p.get("smx"))
     return dense_apply(p["wo"], out.reshape(b, s, -1), ctx), cache
 
 
@@ -403,7 +411,7 @@ def attn_prefill_tail(p, x, prefix_k, prefix_v, cfg, ctx: Ctx, positions,
     v = torch.cat([pv, v_t], dim=1)
     kv_pos = torch.arange(prefix_len + t, dtype=torch.int32,
                           device=x.device)[None, :]
-    out = attend_chunked(q, k, v, positions, kv_pos, "causal", cfg, ctx)
+    out = attend_chunked(q, k, v, positions, kv_pos, "causal", cfg, ctx, smx=p.get("smx"))
     y = dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
     return y, tail
 
@@ -430,7 +438,7 @@ def attn_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
     valid = valid_upto(l_max, cache_pos, cfg.window if kind == "window" else 0,
                        device=x.device)
     mask = valid[:, None, :].expand(b, 1, l_max)
-    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx)
+    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx, smx=p.get("smx"))
     y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
     return y, new_cache
 
@@ -473,5 +481,5 @@ def attn_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
             k = kv_dequantize(k, cache["k_scale"], ctx.dtype)
             v = kv_dequantize(v, cache["v_scale"], ctx.dtype)
     mask = verify_mask(k.shape[1], positions, window)
-    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx)
+    out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx, smx=p.get("smx"))
     return dense_apply(p["wo"], out.reshape(b, t, -1), ctx), cache

@@ -82,6 +82,25 @@ def _pools(cache):
     return [k for k in cache if k != "table"]
 
 
+def contiguous_as_paged(cache, block_size: int):
+    """A contiguous cache ({leaf: [L, B, C, ...]}, C a multiple of
+    ``block_size``) seen as a paged one over the same storage: each leaf
+    viewed as a pool [L, B * C // BS, BS, ...] and an identity table [L, B,
+    C // BS] (slot b's logical block j is block ``b * C // BS + j``).
+    Decoding through it writes and reads the contiguous stripes, through
+    the paged decode path (K2 or K4 under ``int_pallas_paged``)."""
+    _, b, c = next(iter(cache.values())).shape[:3]
+    if c % block_size != 0:
+        raise ValueError(f"cache_len {c} not a multiple of block_size {block_size}")
+    n_log = c // block_size
+    out = {k: leaf.view((leaf.shape[0], b * n_log, block_size) + tuple(leaf.shape[3:]))
+           for k, leaf in cache.items()}
+    leaf = next(iter(cache.values()))
+    ident = torch.arange(b * n_log, dtype=torch.int32, device=leaf.device).reshape(b, n_log)
+    out["table"] = ident.expand(leaf.shape[0], b, n_log).contiguous()
+    return out
+
+
 def paged_scatter(cache, values, slot: int, table_row, pb, offs, t0: int,
                   t1: int):
     """Install one request's prefilled entries into the paged cache, in

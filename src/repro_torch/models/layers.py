@@ -23,15 +23,22 @@ class Ctx:
     # a dense product of fewer rows is zero-padded to this many (0: never):
     # ``Model.prefill_ctx``
     min_rows: int = 0
+    # the same for the MLP's down projection and the norms alone:
+    # ``Model.step_ctx``
+    step_min_rows: int = 0
 
     def cast(self, x):
         return x.to(self.dtype)
 
 
-def dense_apply(p, x, ctx: Ctx):
+def dense_apply(p, x, ctx: Ctx, min_rows: int = 0):
+    """``x @ w (+ b)``. A product of fewer than ``max(ctx.min_rows,
+    min_rows)`` rows is zero-padded to that many and sliced back: each row
+    gets the bits of the padded product's kernel whatever the row count."""
     rows = x.numel() // x.shape[-1]
-    if rows < ctx.min_rows:
-        padded = F.pad(x.reshape(rows, x.shape[-1]), (0, 0, 0, ctx.min_rows - rows))
+    min_rows = max(ctx.min_rows, min_rows)
+    if rows < min_rows:
+        padded = F.pad(x.reshape(rows, x.shape[-1]), (0, 0, 0, min_rows - rows))
         y = (padded @ p["w"])[:rows].reshape(*x.shape[:-1], -1)
     else:
         y = x @ p["w"]
@@ -40,9 +47,22 @@ def dense_apply(p, x, ctx: Ctx):
     return y
 
 
+def _padded_rows(x, rows: int):
+    """``x`` as [max(n, rows), d] (its n rows, zero rows after them)."""
+    flat = x.reshape(-1, x.shape[-1])
+    return F.pad(flat, (0, 0, 0, rows - flat.shape[0])) if flat.shape[0] < rows else flat
+
+
 def norm_apply(p, x, kind: str, ctx: Ctx, eps: float = 1e-5):
     """rmsnorm | layernorm | layernorm_np (OLMo: non-parametric), in f32,
-    cast back to the input dtype."""
+    cast back to the input dtype. Fewer than ``ctx.step_min_rows`` rows are
+    zero-padded to that many first: the row reductions then run at one
+    shape whatever the row count, so each row gets the same bits (a zero
+    row normalizes to zero and is dropped)."""
+    if ctx.step_min_rows:
+        n = x.numel() // x.shape[-1]
+        return norm_apply(p, _padded_rows(x, ctx.step_min_rows), kind,
+                          Ctx(dtype=ctx.dtype), eps)[:n].reshape(x.shape)
     xf = x.to(torch.float32)
     if kind == "rmsnorm":
         y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
@@ -73,7 +93,7 @@ _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
 def mlp_apply(p, x, act: str, ctx: Ctx):
     """Gated (GLU) MLP: act(x @ gate) * (x @ up) @ down."""
     h = _ACTS[act](dense_apply(p["gate"], x, ctx)) * dense_apply(p["up"], x, ctx)
-    return dense_apply(p["down"], h, ctx)
+    return dense_apply(p["down"], h, ctx, ctx.step_min_rows)
 
 
 def rope_freqs(d_half: int, theta: float, device=None):

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.softmax_variants import spec_backend
 from repro_torch.device import resolve_device
 from repro_torch.models import kv_cache
 from repro_torch.models import transformer as tfm
@@ -43,9 +44,19 @@ _LOGIT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # long inner dimension (olmo-1b's and llama2-7b's down projections), which
 # sums in another order, so a prompt committed in chunk pieces would get
 # other K/V than the whole prompt; from 200 rows up each row comes out with
-# the same bits whatever the row count (probes/prefill_rows.py). Decode
-# steps keep their own row count.
+# the same bits whatever the row count (probes/prefill_rows.py).
 PREFILL_MIN_ROWS = 256
+# The down projection and the norms of a decode step and of a speculative
+# verify block take at least this many rows on the card, zero-padded, so a
+# verified token gets the bits the plain decode step gives it. At a verify
+# block's 40 rows olmo-1b's down projection splits its sum in another order
+# than at the decode step's 8 (cuBLAS's split-K; probes/verify_rows.py).
+# Padding it alone left served rows apart on the card, and padding the
+# norms too made them bitwise (chip_smoke.py phase 14; probes/verify_step.py
+# compares the step op by op and graphed). 64 is the cheapest count the
+# probe shows bitwise for phase 14's blocks (8 slots x 5 tokens): a block of
+# more rows keeps its own. The step's other products keep their rows.
+STEP_MIN_ROWS = 64
 
 
 class Model:
@@ -59,8 +70,11 @@ class Model:
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
         self.device = resolve_device(device)
+        cuda = self.device.type == "cuda"
         self.prefill_ctx = dataclasses.replace(
-            self.ctx, min_rows=PREFILL_MIN_ROWS if self.device.type == "cuda" else 0)
+            self.ctx, min_rows=PREFILL_MIN_ROWS if cuda else 0)
+        self.step_ctx = dataclasses.replace(
+            self.ctx, step_min_rows=STEP_MIN_ROWS if cuda else 0)
 
     # ------------------------------------------------------------------ init
 
@@ -110,6 +124,15 @@ class Model:
                     "wk": dense(d, kv * dh, cfg.qkv_bias),
                     "wv": dense(d, kv * dh, cfg.qkv_bias),
                     "wo": dense(h * dh, d)}
+            backend = spec_backend(cfg.softmax)
+            if getattr(backend, "learnable", False):
+                # learnable softmax parameters (ConSmax beta/gamma): one f32
+                # scalar per query head and layer, at the backend cfg's
+                # operating point (MLA carries none, as the reference)
+                c = backend.cfg
+                attn["smx"] = {
+                    "beta": torch.full((cfg.n_layers, h), c.beta, device=dev),
+                    "gamma": torch.full((cfg.n_layers, h), c.gamma, device=dev)}
         p["stack"] = {"layers": {
             "norm1": norm(cfg.n_layers), "norm2": norm(cfg.n_layers),
             "attn": attn,
@@ -123,8 +146,8 @@ class Model:
     def _embed(self, p, tokens):
         return embed_apply(p["embed"], tokens, self.ctx)
 
-    def _head(self, p, x):
-        cfg, ctx = self.cfg, self.ctx
+    def _head(self, p, x, ctx: Optional[Ctx] = None):
+        cfg, ctx = self.cfg, self.ctx if ctx is None else ctx
         x = norm_apply(p["final_norm"], x, cfg.norm, ctx)
         if cfg.tie_embeddings:
             logits = embed_logits(p["embed"], x, ctx)
@@ -186,8 +209,8 @@ class Model:
             positions = cache_pos.to(torch.int32).reshape(-1, 1).expand(b, 1)
         x = self._embed(p, token)
         x, cache = tfm.stack_decode(p["stack"]["layers"], cache, x, cache_pos,
-                                    self.cfg, self.ctx, positions)
-        return self._head(p, x), cache
+                                    self.cfg, self.step_ctx, positions)
+        return self._head(p, x, self.step_ctx), cache
 
     def verify_step(self, p, cache, batch, cache_pos):
         """Multi-token decode for speculative verification: ``batch``
@@ -204,8 +227,8 @@ class Model:
         positions = block_positions(cache_pos, b, t, token.device)
         x = self._embed(p, token)
         x, staged = tfm.stack_verify(p["stack"]["layers"], cache, x, cache_pos,
-                                     self.cfg, self.ctx, positions)
-        return self._head(p, x), staged
+                                     self.cfg, self.step_ctx, positions)
+        return self._head(p, x, self.step_ctx), staged
 
     def verify_commit(self, staged, n_accept, cache_pos, t: int):
         """Resolve a staged verify cache once the accepted draft depth is

@@ -74,7 +74,8 @@ def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
         leaves = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         leaves = {"k": k, "v": v}
-    out = attend_chunked(q, k, v, positions, positions, "causal", cfg, ctx)
+    out = attend_chunked(q, k, v, positions, positions, "causal", cfg, ctx,
+                         smx=p.get("smx"))
     y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
     cache = {}
     for name, t in leaves.items():

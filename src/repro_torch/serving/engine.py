@@ -35,20 +35,26 @@ decodes in draft-and-verify rounds: a proposer (``serving/speculative.py``:
 n-gram lookup or a draft model) guesses K tokens per slot, one verify step
 (``Model.verify_step``) scores the K+1-token block of every slot, the
 verifier accepts a prefix, and ``Model.verify_commit`` clears the rejected
-drafts' K/V; greedy speculative tokens equal the plain serve's. Tensor
-parallelism and the other families are later slices (ROADMAP.md Queue 1
-items 11-14); ``ServeOptions`` raises for them.
+drafts' K/V; greedy speculative tokens equal the plain serve's.
+``softmax_kind`` serves a softmax variant (the zoo ``consmax`` / ``sole`` /
+``mive``, or ``ap_sim``, the functional AP simulator) with the engine's
+params: prefills, decode and verify steps and the meter all run under it.
+Tensor parallelism and the other families are later slices (ROADMAP.md
+Queue 1 items 11 and 14); ``ServeOptions`` raises for them.
 
 Fixed storage: the decode step of ``generate`` and of ``serve`` runs over
 a cache and input buffers kept on the engine per step shape (for serve:
-kernel, slots, cache length, block geometry, int8 pool, and the draft depth
-of a verify step), reset at the start of every ``serve`` to what
-``kv_cache.*_cache_zeros`` gives. On the card the step is a CUDA graph over
-that storage, replayed every step (a greedy verify round too: verify step,
-verifier and rollback in one replay); admissions,
+kernel, softmax variant, slots, cache length, block geometry, int8 pool,
+and the draft depth of a verify step), reset at the start of every
+``serve`` to what ``kv_cache.*_cache_zeros`` gives. On the card the step is
+a CUDA graph over that storage, replayed every step (a greedy verify round
+too: verify step, verifier and rollback in one replay); admissions,
 prefills, chunk pieces, swap-out and resume stay op by op, as the
-reference's are separate jitted calls. The op-by-op step stays reachable
-for comparison (``Engine._cuda_graphs = False``).
+reference's are separate jitted calls. A softmax backend that reads the
+device back on the host (``capturable = False``: ``ap_sim``) cannot be
+captured: its steps run op by op, and the serve report says so
+(``ServeReport.step_replays`` 0, ``op_by_op`` the reason). The op-by-op
+step stays reachable for comparison (``Engine._cuda_graphs = False``).
 
 Cost telemetry: ``report_cost=True`` returns the AP :class:`CostReport` —
 the reference's meter, computed by running the model on the ``meta``
@@ -67,6 +73,8 @@ import numpy as np
 import torch
 
 from repro_torch.backends import CostReport, telemetry
+from repro_torch.backends.paged_kernel import ALG1_KINDS
+from repro_torch.core.softmax_variants import SoftmaxSpec, spec_backend
 from repro_torch.models import kv_cache
 from repro_torch.models.model import Model
 from repro_torch.serving.graphs import DecodeState
@@ -140,6 +148,9 @@ class ServeReport:
     resumes: int = 0
     leaked_blocks: int = 0              # pool blocks unaccounted after drain
     class_latency: Optional[dict] = None  # per-priority-class latency/SLA
+    softmax_kind: Optional[str] = None  # the serve's variant (None: the model's own)
+    step_replays: int = 0               # decode steps (or rounds) replayed as CUDA graphs
+    op_by_op: Optional[str] = None      # why the steps ran op by op (None: graphed)
 
     @property
     def acceptance_rate(self) -> float:
@@ -188,8 +199,24 @@ class Engine:
         # by op (the comparison the tests and chip_smoke.py make)
         self._cuda_graphs = True
 
-    def _graphed(self) -> bool:
-        return self._cuda_graphs and self.model.device.type == "cuda"
+    def _graphed(self, model: Optional[Model] = None) -> bool:
+        return self._op_by_op_reason(model) is None
+
+    def _op_by_op_reason(self, model: Optional[Model] = None) -> Optional[str]:
+        """Why ``model``'s (default: the engine's) decode steps run op by op,
+        or None when they are CUDA-graph replays. A softmax backend that
+        reads the device back on the host (``capturable = False``: the
+        functional AP simulator) cannot be captured."""
+        model = self.model if model is None else model
+        if model.device.type != "cuda":
+            return f"the model is on {model.device.type}, not a CUDA device"
+        if not self._cuda_graphs:
+            return "CUDA graphs are off (Engine._cuda_graphs = False)"
+        backend = spec_backend(model.cfg.softmax)
+        if not backend.capturable:
+            return (f"softmax backend {backend.name!r} reads the device back on the host "
+                    "in every call: a CUDA graph cannot capture it")
+        return None
 
     @torch.no_grad()
     def meter_request(self, batch: dict, cache_len: int, cache,
@@ -291,7 +318,8 @@ class Engine:
                 return new, last
 
             self._decode_states[key] = DecodeState(
-                cache, (tok, pos, done), decode, post, getattr(sample, "draws", True))
+                cache, (tok, pos, done), decode, post, getattr(sample, "draws", True),
+                model=model)
         return self._decode_states[key]
 
     def _generate_fused(self, cache, logits, g, b: int, p: int, n_new: int):
@@ -345,27 +373,36 @@ class Engine:
 
     # ------------------------------------------------- continuous batching
 
-    def _meter_prefill(self, p_len: int, cache_len: int) -> CostReport:
-        key = ("prefill", p_len, cache_len)
+    @staticmethod
+    def _spec_kind(model: Model) -> Optional[str]:
+        spec = model.cfg.softmax
+        return None if spec is None else spec.kind
+
+    def _meter_prefill(self, p_len: int, cache_len: int,
+                       model: Optional[Model] = None) -> CostReport:
+        model = self.model if model is None else model
+        key = ("prefill", p_len, cache_len, self._spec_kind(model))
         if key not in self._meter_cache:
             batch = {"tokens": torch.zeros((1, p_len), dtype=torch.long,
                                            device="meta")}
             with telemetry.collect() as acc:
-                self.model.prefill(self._params_meta(), batch,
-                                   cache_len=cache_len)
+                model.prefill(self._params_meta(), batch, cache_len=cache_len)
             self._meter_cache[key] = acc.total()
         return self._meter_cache[key]
 
     def _meter_serve_step(self, slots: int, cache_len: int,
-                          paged_geom=None, t: int = 1) -> CostReport:
+                          paged_geom=None, t: int = 1,
+                          model: Optional[Model] = None) -> CostReport:
         """Softmax AP cost of ONE slot-batched step (shapes only, memoized).
         ``t=1`` meters the plain decode step, ``t>1`` the speculative verify
         step over a ``t``-token block (the softmax rows grow from 1 to t
         queries per head). ``paged_geom``: (block_size, num_blocks) meters
-        the paged layout — the same softmax shapes, kept honest."""
-        key = ("serve_step", slots, cache_len, paged_geom, t)
+        the paged layout — the same softmax shapes, kept honest. ``model``:
+        the serve's variant (default: the engine's model)."""
+        model = self.model if model is None else model
+        key = ("serve_step", slots, cache_len, paged_geom, t, self._spec_kind(model))
         if key not in self._meter_cache:
-            cfg = self.model.cfg
+            cfg = model.cfg
             if paged_geom is None:
                 struct = kv_cache.cache_zeros(cfg, slots, cache_len, device="meta")
             else:
@@ -373,7 +410,7 @@ class Engine:
                                                     *paged_geom, device="meta")
             step_in = {"token": torch.zeros((slots, t), dtype=torch.long,
                                             device="meta")}
-            fn = self.model.decode_step if t == 1 else self.model.verify_step
+            fn = model.decode_step if t == 1 else model.verify_step
             with telemetry.collect() as acc:
                 fn(
                     self._params_meta(), struct, step_in,
@@ -390,35 +427,58 @@ class Engine:
                                             device="meta")
         return kv_cache.paged_prefix_view(struct, [0], s)
 
-    def _meter_prefill_tail(self, s: int, tail: int) -> CostReport:
+    def _meter_prefill_tail(self, s: int, tail: int,
+                            model: Optional[Model] = None) -> CostReport:
         """Softmax AP cost of a tail-only prefill (``tail`` tokens over ``s``
         shared-prefix positions)."""
-        key = ("prefill_tail", s, tail)
+        model = self.model if model is None else model
+        key = ("prefill_tail", s, tail, self._spec_kind(model))
         if key not in self._meter_cache:
             batch = {"tokens": torch.zeros((1, tail), dtype=torch.long,
                                            device="meta")}
             with telemetry.collect() as acc:
-                self.model.prefill_tail(self._params_meta(), batch,
-                                        self._prefix_struct(s), prefix_len=s)
+                model.prefill_tail(self._params_meta(), batch,
+                                   self._prefix_struct(s), prefix_len=s)
             self._meter_cache[key] = acc.total()
         return self._meter_cache[key]
 
-    _INT_KINDS = ("int", "int_jax", "int_pallas", "int_pallas_paged")
+    _INT_KINDS = ALG1_KINDS
 
-    def _kernel_model(self, kernel: str) -> Model:
-        """The Model decoding under ``kernel``: ``"jnp"`` is the engine's
-        own; ``"pallas"`` swaps the softmax kind to ``int_pallas_paged`` —
-        the same Alg. 1 everywhere, with paged decode through K2 (K4 for
-        MLA) — and
-        shares ``self.params``. Only the Alg.-1 integer family has a fused
-        counterpart."""
-        if kernel == "jnp":
+    def _variant_model(self, softmax_kind: Optional[str]) -> Model:
+        """The Model serving under ``ServeOptions.softmax_kind``: the
+        engine's config with the softmax kind swapped (precision point
+        kept), sharing ``self.params``. Params without learned softmax state
+        (``p["smx"]``) serve a learnable variant at the backend cfg's
+        default operating point; ``smx`` leaves ride along unused under a
+        variant that is not learnable."""
+        if softmax_kind is None:
             return self.model
+        key = ("softmax", softmax_kind)
+        if key not in self._kernel_models:
+            spec = self.model.cfg.softmax or SoftmaxSpec()
+            var = (spec if spec.kind == softmax_kind
+                   else dataclasses.replace(spec, kind=softmax_kind))
+            self._kernel_models[key] = Model(
+                self.model.cfg.with_softmax(var), dtype=self.model.ctx.dtype,
+                device=self.model.device)
+        return self._kernel_models[key]
+
+    def _kernel_model(self, kernel: str, softmax_kind: Optional[str] = None) -> Model:
+        """The Model decoding under ``kernel``: ``"jnp"`` is the engine's
+        own (or its ``softmax_kind`` variant); ``"pallas"`` swaps the softmax
+        kind to ``int_pallas_paged`` — the same Alg. 1 everywhere, with
+        paged decode through K2 (K4 for MLA) — and shares ``self.params``.
+        Only the Alg.-1 integer family has a fused counterpart: any other
+        effective softmax raises."""
+        base = self._variant_model(softmax_kind)
+        if kernel == "jnp":
+            return base
         if kernel != "pallas":
             raise ValueError(
                 f"unknown decode kernel {kernel!r} (expected jnp | pallas)")
-        if kernel not in self._kernel_models:
-            spec = self.model.cfg.softmax
+        key = ("pallas", softmax_kind)
+        if key not in self._kernel_models:
+            spec = base.cfg.softmax
             if spec is None or spec.kind not in self._INT_KINDS:
                 kind = None if spec is None else spec.kind
                 raise ValueError(
@@ -427,15 +487,14 @@ class Engine:
                     f"softmax {kind!r} is not an Alg.-1 dataflow — serve "
                     "it with kernel='jnp'")
             var = dataclasses.replace(spec, kind="int_pallas_paged")
-            self._kernel_models[kernel] = Model(
-                self.model.cfg.with_softmax(var), dtype=self.model.ctx.dtype,
-                device=self.model.device)
-        return self._kernel_models[kernel]
+            self._kernel_models[key] = Model(
+                base.cfg.with_softmax(var), dtype=base.ctx.dtype, device=base.device)
+        return self._kernel_models[key]
 
     def _serve_state(self, kernel: str, slots: int, cache_len: int,
-                     paged_geom) -> DecodeState:
-        """The serve decode step of one shape — (kernel, slots, cache_len,
-        block geometry, int8 pool) — over its own cache, reset here to
+                     paged_geom, softmax_kind: Optional[str] = None) -> DecodeState:
+        """The serve decode step of one shape — (kernel, softmax variant,
+        slots, cache_len, block geometry, int8 pool) — over its own cache, reset here to
         ``*_cache_zeros``, and one packed int64 input buffer [3, slots]:
         each slot's token, position and EOS flag. Slots decode together at
         their own positions and sample per slot (:func:`sample_slots`, with
@@ -444,7 +503,7 @@ class Engine:
         generator, and their outputs are ignored. The step gives [2, slots]
         int32 (tokens and EOS flags) and the last logits [slots, V]."""
         cfg, dev = self.model.cfg, self.model.device
-        key = ("serve", kernel, slots, cache_len, paged_geom, cfg.kv_quant)
+        key = ("serve", kernel, softmax_kind, slots, cache_len, paged_geom, cfg.kv_quant)
         st = self._decode_states.get(key)
         if st is not None:
             st.reset_cache()
@@ -455,7 +514,8 @@ class Engine:
             cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom,
                                                device=dev)
         inputs = torch.zeros((3, slots), dtype=torch.long, device=dev)
-        model, params, sample = self._kernel_model(kernel), self.params, self.sample
+        model = self._kernel_model(kernel, softmax_kind)
+        params, sample = self.params, self.sample
         eos_id, pad = self.eos_id, self.pad_id
 
         def decode():
@@ -469,13 +529,14 @@ class Engine:
             return torch.stack([toks, flags.to(torch.int32)]), last
 
         st = self._decode_states[key] = DecodeState(
-            cache, (inputs,), decode, post, getattr(sample, "draws", True))
+            cache, (inputs,), decode, post, getattr(sample, "draws", True), model=model)
         return st
 
     def _spec_state(self, kernel: str, slots: int, cache_len: int, paged_geom,
-                    k: int) -> DecodeState:
-        """The speculative verify round of one shape — (kernel, slots,
-        cache_len, block geometry, int8 pool, draft depth ``k``) — over its
+                    k: int, softmax_kind: Optional[str] = None) -> DecodeState:
+        """The speculative verify round of one shape — (kernel, softmax
+        variant, slots, cache_len, block geometry, int8 pool, draft depth
+        ``k``) — over its
         own cache, reset here to ``*_cache_zeros``, and one packed int64
         input buffer [slots, k + 2]: each slot's last committed token, its
         ``k`` drafts and its position. The round is ``verify_step`` over
@@ -487,7 +548,7 @@ class Engine:
         emitted tokens, pad-filled, then n_emit) and the block's logits
         [slots, k + 1, V]."""
         cfg, dev = self.model.cfg, self.model.device
-        key = ("spec", kernel, slots, cache_len, paged_geom, cfg.kv_quant, k)
+        key = ("spec", kernel, softmax_kind, slots, cache_len, paged_geom, cfg.kv_quant, k)
         st = self._decode_states.get(key)
         if st is not None:
             st.reset_cache()
@@ -498,7 +559,8 @@ class Engine:
             cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom,
                                                device=dev)
         inputs = torch.zeros((slots, k + 2), dtype=torch.long, device=dev)
-        model, params, t = self._kernel_model(kernel), self.params, k + 1
+        model = self._kernel_model(kernel, softmax_kind)
+        params, t = self.params, k + 1
         verify = make_spec_verifier(self._sampler_kind,
                                     pad_id=0 if self.pad_id is None else self.pad_id,
                                     **self._sampler_kw)
@@ -514,7 +576,7 @@ class Engine:
             return torch.cat([out, n_emit[:, None]], dim=1), logits
 
         st = self._decode_states[key] = DecodeState(cache, (inputs,), decode, post,
-                                                    verify.draws)
+                                                    verify.draws, model=model)
         return st
 
     def _serve_decode(self, st: DecodeState, host_inputs: np.ndarray, generators):
@@ -524,7 +586,7 @@ class Engine:
         on the host. Returns them with the step's logits (left on the
         device)."""
         st.buffers[0].copy_(torch.from_numpy(host_inputs))
-        packed, logits = st.run(self._graphed(), generators)
+        packed, logits = st.run(self._graphed(st.model), generators)
         return packed.cpu().numpy(), logits
 
     def _proposer(self, opt: ServeOptions):
@@ -602,7 +664,12 @@ class Engine:
         budget exactly where the plain loop would stop. Greedy tokens equal
         the plain serve's; a sampler that draws is exact in distribution.
         It composes with every option above; the report counts drafted and
-        accepted tokens and meters the draft and verify phases apart."""
+        accepted tokens and meters the draft and verify phases apart.
+
+        ``softmax_kind`` serves the trace under another registered softmax
+        (``_variant_model``: the engine's config with the kind swapped, the
+        engine's params), metered by that backend; ``kernel="pallas"``
+        rejects a kind that is not Alg. 1."""
         opt = ServeOptions() if options is None else options
         slots, policy = opt.slots, opt.policy
         paged, block_size = opt.paged, opt.block_size
@@ -611,7 +678,11 @@ class Engine:
         reqs = list(requests)
         if not reqs:
             return ServeReport([], 0, 0.0, slots, opt.cache_len or 0, None)
-        cfg, dev = self.model.cfg, self.model.device
+        smx_kind = opt.softmax_kind
+        model = self._variant_model(smx_kind)
+        cfg, dev = model.cfg, model.device
+        if opt.kernel != "jnp":
+            self._kernel_model(opt.kernel, smx_kind)    # rejects a non-Alg.-1 kind
         if prefill_chunk is not None and not (cfg.family in ("dense", "moe")
                                               and cfg.rope_type != "mrope"):
             raise NotImplementedError(
@@ -653,14 +724,15 @@ class Engine:
         proposer = None
         if speculative:
             proposer = self._proposer(opt)
-            proposer.begin(slots, C)
-            state = self._spec_state(opt.kernel, slots, C, geom, draft_k)
+            proposer.begin(slots, C, opt.kernel, block_size if paged else None)
+            state = self._spec_state(opt.kernel, slots, C, geom, draft_k, smx_kind)
         else:
-            state = self._serve_state(opt.kernel, slots, C, geom)
+            state = self._serve_state(opt.kernel, slots, C, geom, smx_kind)
         cache = state.cache
-        step_cost = (self._meter_serve_step(slots, C, geom)
+        replays0 = 0 if state.graph is None else state.graph.replays
+        step_cost = (self._meter_serve_step(slots, C, geom, model=model)
                      if opt.report_cost and not speculative else None)
-        verify_cost = (self._meter_serve_step(slots, C, geom, t=draft_k + 1)
+        verify_cost = (self._meter_serve_step(slots, C, geom, t=draft_k + 1, model=model)
                        if opt.report_cost and speculative else None)
         draft_cost = (proposer.meter_round()
                       if opt.report_cost and speculative else None)
@@ -770,12 +842,12 @@ class Engine:
             bs = block_size
             id_arr = np.asarray(adm["ids"], np.int64)
             if c0 == 0:
-                logits, slot_cache = self.model.prefill(
+                logits, slot_cache = model.prefill(
                     params, tokens_of(req, 0, c1), cache_len=C)
             else:
                 prefix = kv_cache.paged_prefix_view(
                     cache, id_arr[:-(-c0 // bs)], c0)
-                logits, slot_cache = self.model.prefill_tail(
+                logits, slot_cache = model.prefill_tail(
                     params, tokens_of(req, c0, c1), prefix, prefix_len=c0)
             wpos = np.arange(c0, c1)
             kv_cache.paged_scatter(cache, slot_cache, slot, adm["row"],
@@ -784,33 +856,33 @@ class Engine:
             counts["step"] += c1 - c0
             if attr is not None:
                 if c0 == 0:
-                    attr.record_request(req.rid, self._meter_prefill(c1, C))
+                    attr.record_request(req.rid, self._meter_prefill(c1, C, model))
                 elif c0 == adm["s"]:
                     # the first piece past a shared prefix: log the sharing
                     # savings once
                     attr.record_shared_prefill(
-                        req.rid, self._meter_prefill_tail(c0, c1 - c0),
-                        self._meter_prefill(c0, C), c0)
+                        req.rid, self._meter_prefill_tail(c0, c1 - c0, model),
+                        self._meter_prefill(c0, C, model), c0)
                 else:
                     attr.record_request(
-                        req.rid, self._meter_prefill_tail(c0, c1 - c0))
+                        req.rid, self._meter_prefill_tail(c0, c1 - c0, model))
             return logits
 
         def contig_commit(slot: int, req: Request, c0: int, c1: int):
             """Contiguous-layout chunk commit: prefill [c0, c1) and write it
             into the slot's stripe."""
             if c0 == 0:
-                logits, slot_cache = self.model.prefill(
+                logits, slot_cache = model.prefill(
                     params, tokens_of(req, 0, c1), cache_len=C)
                 if attr is not None:
-                    attr.record_request(req.rid, self._meter_prefill(c1, C))
+                    attr.record_request(req.rid, self._meter_prefill(c1, C, model))
             else:
                 prefix = kv_cache.slot_prefix_view(cache, slot, c0)
-                logits, slot_cache = self.model.prefill_tail(
+                logits, slot_cache = model.prefill_tail(
                     params, tokens_of(req, c0, c1), prefix, prefix_len=c0)
                 if attr is not None:
                     attr.record_request(
-                        req.rid, self._meter_prefill_tail(c0, c1 - c0))
+                        req.rid, self._meter_prefill_tail(c0, c1 - c0, model))
             kv_cache.slot_scatter(cache, slot_cache, slot, c0, 0, c1 - c0)
             counts["prefill"] += c1 - c0
             counts["step"] += c1 - c0
@@ -926,14 +998,14 @@ class Engine:
                     sched.slots[slot].prefilling = True
                     chunk_jobs[slot] = {"req": req, "adm": None, "committed": 0}
                     return
-                logits, slot_cache = self.model.prefill(
+                logits, slot_cache = model.prefill(
                     params, tokens_of(req, 0, P), cache_len=C)
                 for k, leaf in cache.items():    # the slot's stripe
                     leaf[:, slot] = slot_cache[k][:, 0].to(leaf.dtype)
                 counts["prefill"] += P
                 counts["step"] += P
                 if attr is not None:
-                    attr.record_request(req.rid, self._meter_prefill(P, C))
+                    attr.record_request(req.rid, self._meter_prefill(P, C, model))
             activate(slot, req, logits)
 
         def advance_chunks() -> None:
@@ -1072,4 +1144,7 @@ class Engine:
             preemptions=sched.preemptions, resumes=sched.resumes,
             leaked_blocks=(alloc.num_blocks - alloc.available())
             if alloc else 0,
-            class_latency=telemetry.class_latency_summary(ordered))
+            class_latency=telemetry.class_latency_summary(ordered),
+            softmax_kind=smx_kind,
+            step_replays=(0 if state.graph is None else state.graph.replays) - replays0,
+            op_by_op=self._op_by_op_reason(state.model))

@@ -76,10 +76,16 @@ class DecodeState:
     draws no random numbers (``draws`` False) runs ``post`` inside the step
     (``body``); one that draws runs it after the step with the caller's
     generators. ``run`` calls the step op by op, or replays it as a CUDA
-    graph (captured at the first graphed run)."""
+    graph (captured at the first graphed run). ``model``: the Model whose
+    step this is; the engine reads its softmax backend's ``capturable``
+    (a backend that reads the device back on the host, the functional AP
+    simulator, runs op by op and is never captured)."""
 
-    def __init__(self, cache, buffers, decode: Callable, post: Callable, draws: bool):
+    def __init__(self, cache, buffers, decode: Callable, post: Callable, draws: bool,
+                 model=None):
         self.cache = cache
+        self.model = model
+        self._table = cache["table"].clone() if "table" in cache else None
         self.buffers = list(buffers)
         self.post = post
         self.draws = draws
@@ -96,10 +102,11 @@ class DecodeState:
         return self.post(out, generators) if self.draws else out
 
     def reset_cache(self) -> None:
-        """Zeros, and the sentinel table: what ``*_cache_zeros`` gives."""
+        """Zeros, and the table the state was built with: what
+        ``*_cache_zeros`` gives (a sentinel table), or the identity table of
+        ``kv_cache.contiguous_as_paged``."""
         for k, leaf in self.cache.items():
             if k != "table":
                 leaf.zero_()
-                num_blocks = leaf.shape[1]
-        if "table" in self.cache:
-            self.cache["table"].fill_(num_blocks)
+        if self._table is not None:
+            self.cache["table"].copy_(self._table)

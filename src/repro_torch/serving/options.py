@@ -50,6 +50,8 @@ class ServeOptions:
     mesh: Any = None
     shards: Optional[int] = None
     # -- softmax variant --
+    # registry backend name overriding the model's softmax for THIS serve
+    # call (the variant shares the engine's params); None = the model's own
     softmax_kind: Optional[str] = None
     # -- SLA scheduling --
     prefill_chunk: Optional[int] = None
@@ -88,12 +90,7 @@ class ServeOptions:
                 raise ValueError(
                     f"unknown softmax_kind {self.softmax_kind!r}; registered "
                     f"backends: {', '.join(names)}")
-        later = [("mesh/shards", self.mesh is not None or self.shards is not None,
-                  "Queue 1 item 14 (tensor-parallel serving)"),
-                 ("softmax_kind", self.softmax_kind is not None,
-                  "Queue 1 item 12 (softmax-variant zoo)")]
-        for name, on, item in later:
-            if on:
-                raise NotImplementedError(
-                    f"ServeOptions.{name} is not ported to repro_torch yet: "
-                    f"ROADMAP.md {item}")
+        if self.mesh is not None or self.shards is not None:
+            raise NotImplementedError(
+                "ServeOptions.mesh/shards is not ported to repro_torch yet: "
+                "ROADMAP.md Queue 1 item 14 (tensor-parallel serving)")

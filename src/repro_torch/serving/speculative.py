@@ -15,7 +15,9 @@ so a bad proposer costs throughput, never correctness.
 
 ``DraftModelProposer`` — two-model speculation: a small model of the same
     vocab greedily proposes K tokens through its own slot-batched
-    contiguous KV cache. The target only commits a prefix of the
+    contiguous KV cache (seen as a paged pool with an identity table when
+    the serve decodes through the fused paged kernel, so the draft runs
+    the target's attention kernel). The target only commits a prefix of the
     proposals, so the draft cache needs no rollback: accepted positions
     already hold the right K/V, and rejected ones are masked by the
     position rule and overwritten as positions advance — which is why the
@@ -25,13 +27,17 @@ so a bad proposer costs throughput, never correctness.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.backends import CostReport, telemetry
+from repro_torch.backends.paged_kernel import ALG1_KINDS
+from repro_torch.core.softmax_variants import spec_backend
 from repro_torch.models import kv_cache
+from repro_torch.models.model import Model
 from repro_torch.serving.graphs import DecodeState
 
 
@@ -117,7 +123,8 @@ class NgramProposer:
         self.k = k
         self.max_ngram = max_ngram
 
-    def begin(self, slots: int, cache_len: int) -> None:
+    def begin(self, slots: int, cache_len: int, kernel: str = "jnp",
+              block_size: Optional[int] = None) -> None:
         self._slots = slots
         self._index: Dict[int, _NgramIndex] = {}
 
@@ -174,26 +181,53 @@ class DraftModelProposer:
         self.k = k
         self.cuda_graphs = True     # the engine's setting: False runs op by op
         self._states: Dict[tuple, DecodeState] = {}
+        self._paged = None          # the int_pallas_paged variant, built on first use
+        self._stripes: Dict[tuple, dict] = {}   # state key -> its contiguous cache
         self._meter: dict = {}
 
-    def begin(self, slots: int, cache_len: int) -> None:
-        """A zeroed cache for a serve of ``slots`` x ``cache_len``: the state
-        of that shape, kept across serves (its storage fixed for the
-        graph), reset to ``cache_zeros``."""
+    def begin(self, slots: int, cache_len: int, kernel: str = "jnp",
+              block_size: Optional[int] = None) -> None:
+        """A zeroed cache for a serve of ``slots`` x ``cache_len`` with the
+        serve's decode ``kernel`` (and, for ``"pallas"``, its
+        ``block_size``): the state of that shape, kept across serves (its
+        storage fixed for the graph), reset to ``cache_zeros``."""
         self._slots, self._cache_len = slots, cache_len
-        key = (slots, cache_len)
+        paged = kernel == "pallas" and self._paged_model() is not None
+        key = (slots, cache_len, block_size if paged else None)
         st = self._states.get(key)
         if st is None:
-            st = self._states[key] = self._new_state(slots, cache_len)
+            st = self._states[key] = self._new_state(slots, cache_len, key[2])
         else:
             st.reset_cache()
-        self._st = st
+        self._st, self._st_stripes = st, self._stripes[key]
         self._written: Dict[int, int] = {}       # per slot: positions < w written
         self._tail: Dict[int, List[int]] = {}    # last two committed tokens
 
-    def _new_state(self, slots: int, cache_len: int) -> DecodeState:
+    def _paged_model(self):
+        """The draft model with ``int_pallas_paged`` (its paged decode
+        through K2, or K4 for MLA), sharing its params, when its softmax is
+        Alg. 1; else None (it decodes as it is)."""
+        spec = self.model.cfg.softmax
+        if spec is None or spec.kind not in ALG1_KINDS:
+            return None
+        if self._paged is None:
+            var = dataclasses.replace(spec, kind="int_pallas_paged")
+            self._paged = Model(self.model.cfg.with_softmax(var),
+                                dtype=self.model.ctx.dtype, device=self.model.device)
+        return self._paged
+
+    def _new_state(self, slots: int, cache_len: int, block_size: Optional[int]) -> DecodeState:
+        """The proposal step's state. With a ``block_size`` (a serve whose
+        target decodes through the fused paged kernel) the draft decodes
+        through it too, over its contiguous stripes seen as a pool with an
+        identity table (``kv_cache.contiguous_as_paged``): a draft that is
+        the target then computes the bits the target's decode step does."""
         model, params, dev = self.model, self.params, self.model.device
-        cache = kv_cache.cache_zeros(model.cfg, slots, cache_len, device=dev)
+        stripes = kv_cache.cache_zeros(model.cfg, slots, cache_len, device=dev)
+        cache = stripes
+        if block_size is not None:
+            model = self._paged_model()
+            cache = kv_cache.contiguous_as_paged(stripes, block_size)
         lanes = torch.zeros((2, slots), dtype=torch.long, device=dev)   # token, position
         outs = torch.zeros((slots, self.k), dtype=torch.long, device=dev)
 
@@ -206,16 +240,19 @@ class DraftModelProposer:
             outs.copy_(torch.cat([outs[:, 1:], nxt[:, None]], dim=1))
             return outs
 
-        return DecodeState(cache, (lanes, outs), step, lambda out, g: out, draws=False)
+        self._stripes[(slots, cache_len, block_size)] = stripes
+        return DecodeState(cache, (lanes, outs), step, lambda out, g: out, draws=False,
+                           model=model)
 
     def _graphed(self) -> bool:
-        return self.cuda_graphs and self.model.device.type == "cuda"
+        return (self.cuda_graphs and self.model.device.type == "cuda"
+                and spec_backend(self._st.model.cfg.softmax).capturable)
 
     def admit(self, slot: int, prompt: np.ndarray, first_token: int, pos: int) -> None:
         tokens = torch.as_tensor(np.asarray(prompt, np.int64)[None], device=self.model.device)
         _, slot_cache = self.model.prefill(self.params, {"tokens": tokens},
                                            cache_len=self._cache_len)
-        for k, leaf in self._st.cache.items():      # the slot's stripe
+        for k, leaf in self._st_stripes.items():    # the slot's stripe
             leaf[:, slot] = slot_cache[k][:, 0].to(leaf.dtype)
         self._written[slot] = pos            # prefill covered 0 .. P-1
         self._tail[slot] = [int(prompt[-1]), int(first_token)]

@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.backends import available_backends as javailable_backends
 from repro.backends import get_backend as jget_backend
 from repro.core import precision as jprec
 from repro_torch.ap import cost_model as tcm
@@ -22,14 +23,17 @@ from repro_torch.core.softmax_variants import SoftmaxSpec, get_softmax
 torch.set_num_threads(2)
 
 PORTED = ["fp", "fp_lowp", "clipped_fp", "int", "int_jax", "int_ste", "int_pallas",
-          "int_pallas_paged"]
-INT_KINDS = ["int", "int_jax", "int_ste", "int_pallas", "int_pallas_paged"]
+          "int_pallas_paged", "ap_sim", "consmax", "sole", "mive"]
+INT_KINDS = ["int", "int_jax", "int_ste", "int_pallas", "int_pallas_paged", "ap_sim"]
+VARIANT_KINDS = ["consmax", "sole", "mive"]
 
 
 def test_ported_kinds_registered():
-    assert set(available_backends()) == set(PORTED)
+    """Every kind of the reference's registry is ported (the variant zoo
+    and ap_sim since ROADMAP item 12), and no other."""
+    assert set(available_backends()) == set(PORTED) == set(javailable_backends())
     with pytest.raises(ValueError, match="unknown softmax kind"):
-        SoftmaxSpec("consmax")
+        SoftmaxSpec("nope")
 
 
 @pytest.mark.parametrize("kind", PORTED)
@@ -63,7 +67,7 @@ SHAPES = [((2, 4, 1, 64), 4), ((4, 16, 1, 1, 544), 16), ((4, 16, 1, 512, 512), 1
           ((3, 2, 2, 8, 8), 4), ((1, 1, 1, 1, 1), 1), ((0, 4, 1, 8), 4)]
 
 
-@pytest.mark.parametrize("kind", INT_KINDS + ["fp"])
+@pytest.mark.parametrize("kind", INT_KINDS + VARIANT_KINDS + ["fp"])
 @pytest.mark.parametrize("cfg_kw", [dict(M=6, N=16), dict(M=4, T_C=-4.0),
                                     dict(M=8, N=12, v_corr_extra=2)])
 def test_meter_equals_reference(kind, cfg_kw):

@@ -52,12 +52,24 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("flag", [["--warm-steps", "5"],
                                   ["--ckpt-dir", "x"], ["--shards", "2"],
-                                  ["--continuous", "--paged", "--preemption", "--shards", "2"],
-                                  ["--serve-softmax", "fp"]])
+                                  ["--continuous", "--paged", "--preemption", "--shards", "2"]])
 def test_later_slice_flags_name_roadmap_item(flag):
     args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu"] + flag
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve.main(args)
+
+
+def test_serve_softmax_flag_runs(capsys):
+    """``--serve-softmax`` (item 12) serves the variant with the model's
+    params; without ``--continuous`` it is a usage error, as in the
+    reference."""
+    rep = serve.main(["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu",
+                      "--continuous", "--serve-softmax", "fp", "--requests", "2",
+                      "--max-new", "4"])
+    assert rep.softmax_kind == "fp" and len(rep.results) == 2
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu",
+                    "--serve-softmax", "fp"])
 
 
 def test_speculative_with_shards_still_names_item_14():

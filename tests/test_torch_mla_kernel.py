@@ -300,7 +300,7 @@ def _k4_tree(p, c, pos, bs, nlog, rows, mma):
 
     B = p.shape[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cp = k4_split_plan(B, rows, nlog, bs, sms)
+    cp = k4_split_plan(B, rows, nlog, bs, sms, pos.shape[1])
     exact = torch.zeros(p.shape[:2] + c.shape[-1:], dtype=torch.float64, device=p.device)
     bound = torch.zeros_like(exact)
     for b, prow in enumerate(pos.tolist()):

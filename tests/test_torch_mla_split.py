@@ -308,7 +308,8 @@ def test_k4_kernel_matches_plain_split_on_card(scenario, dtype):
     again = int_softmax_ref(sc.reshape(-1, L), BEST, valid.reshape(-1, L)).reshape(sc.shape)
     assert torch.equal(again, pr)
     cp = k4_split_plan(b, rows, c["nlog"], c["bs"],
-                       torch.cuda.get_device_properties(0).multi_processor_count)
+                       torch.cuda.get_device_properties(0).multi_processor_count,
+                       args[5].shape[1])
     prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     try:

@@ -355,7 +355,8 @@ def test_k2_kernel_matches_plain_on_card(dtype, bs, t, kvh, window):
     # the kernel's summation tree: key order inside each chunk of its split,
     # then the chunk partials in chunk order
     cp = k2_split_plan(S, kvh, q.shape[2], nlog, bs,
-                       torch.cuda.get_device_properties(0).multi_processor_count)
+                       torch.cuda.get_device_properties(0).multi_processor_count,
+                       pos.shape[1])
     exact = torch.zeros_like(terms[:, :, :, 0])
     recursive = torch.zeros_like(exact)
     for s, prow in enumerate(pos.cpu().tolist()):

@@ -158,17 +158,26 @@ def test_serve_options_validation_matches_reference(kw):
         jopt.ServeOptions(**kw)
     with pytest.raises(ValueError) as got:
         topt.ServeOptions(**kw)
-    if "softmax_kind" not in kw:     # the registries list different names
-        assert str(got.value) == str(want.value)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw,item", [
     (dict(shards=2), "item 14"),
-    (dict(softmax_kind="int"), "item 12"),
 ])
 def test_later_slice_options_name_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         topt.ServeOptions(**kw)
+
+
+def test_softmax_kind_option_constructs():
+    """``softmax_kind`` (item 12) constructs as the reference's, for every
+    name both registries list."""
+    from repro_torch.backends import available_backends
+
+    for kind in available_backends():
+        opts = topt.ServeOptions(softmax_kind=kind)
+        want = jopt.ServeOptions(softmax_kind=kind)
+        assert dataclasses.astuple(opts) == dataclasses.astuple(want)
 
 
 def test_speculative_options_construct():
