@@ -34,7 +34,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    PyTorch version at the serve path's decode shape and its verify shape
    (T 5, phase 14), the reference's paged-kernel matrix and long rows
    (32768 keys; T 5, GQA 7 and 35 rows at 16384-32768; T 5 at 32768 keys
-   in row groups): the plain Alg. 1 on K2's own scores gives its
+   in row groups) and dbrx-132b's serve shapes (GQA 48/8 at T 1 and
+   T 5): the plain Alg. 1 on K2's own scores gives its
    probabilities bitwise; a second run gives the same bits; each entry of
    a verify block (T > 1) gives the bits of a T-1 call at its position;
    scores and outputs within stated bounds (outputs: of K2's chunked
@@ -56,7 +57,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    MLA serve path's decode shape, the reference's MLA kernel matrix,
    4096-token rows, parked slots, f32 compute, deepseek-v2's width at 512
    and 4096 keys, T 3 at 4096 keys, T 5 at the serve shape (200 rows,
-   phase 14's verify round) and a 32768-token row, with the checks
+   phase 14's verify round), a 32768-token row and deepseek-v2-236b's
+   serve shapes (8 slots, H 128, R 512, DR 64 at T 1 and T 5), with the checks
    of phase 5 (verify blocks against T-1 calls bitwise too; outputs: of
    K4's chunked summation tree, bounded for
    truncating tensor-core sums) and a second run bitwise equal (and K1 at
@@ -162,7 +164,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     in the report) bitwise equal to the int serve op by op, with the same
     meter; a ConSmax model with seeded non-default beta and gamma,
     converted with its ``smx`` leaves, serving 1 request;
-16. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+16. the MoE family (item 11) at full width, 4 layers, seeded bf16
+    weights with the embedding at std 1 (``MOE_EMBED_STD``): (a) dbrx-132b
+    (d_model 6144, 48 / 8 heads, 16 experts top-4) through the graphed
+    ``Engine.generate(mode="fused")`` at batch 4, prompt 512, 32 new tokens:
+    K1 4 x 32, graph == op by op == eager bitwise, ``int`` == ``int_pallas``
+    bitwise, ms a step beside the weight-read bound, peak memory; (b)
+    dbrx-132b serving phase 6's trace cut to 8 requests with phase 6's
+    options: K2 4 x steps all at GQA group 6, K1 4 x 8, graph == op by op
+    bitwise on 2 requests, every served token the argmax of a teacher-forced
+    pass that routes as the serve did (``moe_forced_rows``) but at near
+    ties, its first rows bitwise, the logits within ``MOE_LOGIT_TOL``, and
+    a control serve (K2 leaving out each sequence's first page) failing
+    those checks; then speculatively (n-gram drafts of 4, K2 at T 5), op by op with every
+    verify round's dropped assignments counted and graphed, graph == op by
+    op bitwise on all 8, each request no drop reached bitwise equal to the
+    plain serve, the others held to the forced pass's limits; (d) one dbrx
+    MoE layer on 512 tokens against the port's CPU path at both embedding
+    scales (expert ids over a top-k margin of 1e-3, slots and drops, the
+    output within a stated bound; at std 0.02 dropped assignments among
+    those compared); (c) deepseek-v2-236b (MLA at 128 heads, kv_lora 512,
+    160 experts top-6, 2 shared, a dense prefix layer) serving (b)'s
+    requests: K4 4 x steps at (1, 128), K2 never, (b)'s plain-serve checks
+    and control (K4 leaving out the first page);
+17. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
 
@@ -941,6 +966,12 @@ def phase5_k2(rate):
     # of 3 rows only: the 5 rows go in two groups under the same chunk
     recs.append(k2_case("T 5 in row groups, 32768 keys", gen, rate, S=8, KV=8, group=1,
                         T=5, NLOG=2048, qpos=np.arange(8) * 4000 + 3000))
+    # phase 16's dbrx-132b serve: GQA 48/8 (group 6) at the serve's pool, its
+    # decode step and its verify round
+    dbrx = {**main, "KV": 8, "group": 6}
+    recs.append(k2_case("dbrx-132b decode (GQA 48/8)", gen, rate, qpos=qpos, **dbrx))
+    recs.append(k2_case("dbrx-132b verify T 5 (GQA 48/8)", gen, rate, T=5,
+                        qpos=np.minimum(qpos, 576 - 5), **dbrx))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -1550,6 +1581,13 @@ def phase7_k4(rate):
     recs.append(k4_case("deepseek-v2 width, 4096 keys", gen, rate, S=2, H=128, R=512,
                         DR=64, NLOG=256, qpos=np.array([4095, 3000]),
                         scale=(128 + 64) ** -0.5))
+    # phase 16's deepseek-v2-236b serve: 8 slots over phase 6's pool (576
+    # tokens a slot), its decode step and a verify round's 5 x 128 rows
+    ds = dict(S=8, H=128, R=512, DR=64, BS=16, NLOG=36, NB=9 * 36, scale=(128 + 64) ** -0.5)
+    dpos = np.random.default_rng(1).integers(400, 576, size=8)
+    recs.append(k4_case("deepseek-v2-236b serve decode (H 128)", gen, rate, qpos=dpos, **ds))
+    recs.append(k4_case("deepseek-v2-236b verify T 5 (640 rows)", gen, rate, T=5,
+                        qpos=np.minimum(dpos, 576 - 5), **ds))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -3741,6 +3779,624 @@ def phase15_variants():
     return out
 
 
+# ----------------------------------------------------------------- phase 16
+
+# The MoE family (ROADMAP.md item 11) at full width, its depth cut to
+# MOE_LAYERS layers: all 40 of dbrx-132b's layers are about 264 GB of bf16
+# weights and all 60 of deepseek-v2-236b's about 472 GB (item 14). Four
+# layers: dbrx 28.5 GB, deepseek-v2 26.6 GB (its dense prefix layer and 3
+# MoE layers).
+MOE_LAYERS = 4
+MOE_REQUESTS = 8
+# Model.init draws the embedding at std 0.02, as the reference's init does.
+# With random weights the attention output, alike for every token of a
+# sequence, then swamps the embedding and the tokens of a sequence route to
+# the same experts: the reference's capacity drops a quarter to a third of
+# a prompt's assignments ((d) prints the share). The phase's models draw
+# the embedding at std MOE_EMBED_STD, where the tokens of a sequence route
+# apart and the prefills drop no assignment ((d) compares both inputs).
+MOE_EMBED_STD = 1.0
+# The MoE serves against their teacher-forced passes (``moe_forced_rows``).
+# Phase 6's floor, a serve without the fused kernel against the forced
+# pass, is 0 here: the jnp serve equals its forced pass bitwise on the H100
+# (the prefills are the same calls, and every dense product of an MoE step
+# pads to 64 rows, so a step of 8 slots and one of 8 forced rows run the
+# same shapes). What is left is K2's (K4's) rounding, within its
+# per-element bounds (phases 5, 7), carried through the router: where a
+# token's k-th and (k+1)-th probabilities are near, a last-ulp change
+# picks another expert and moves that token's FFN output by O(1), which
+# reads as a few large logit differences beside a small RMS. The limits
+# are 1.3 times the plain serve's reading on the H100 (phase 16; equal in
+# every call), and each lies between two readings: the sound runs' largest
+# (max, RMS: dbrx-132b 0.877, 0.0297, the RMS of the spec serve's request
+# a verify round's drop reached; deepseek-v2-236b 0.625, 0.02888) and the
+# control's, the serve with the fused kernel leaving out each sequence's
+# first page (``_first_page_left_out``; dbrx-132b 1.461, 0.08368,
+# deepseek-v2-236b 0.9219, 0.07225), which phase 16 requires to fail.
+MOE_LOGIT_TOL = {"dbrx-132b": 1.3 * 0.877, "deepseek-v2-236b": 1.3 * 0.625}
+MOE_LOGIT_RMS_TOL = {"dbrx-132b": 1.3 * 0.02631, "deepseek-v2-236b": 1.3 * 0.02888}
+# (d): the MoE layer on the card against the port's CPU path, both bf16, on
+# the same input and weights: experts compared wherever the CPU router's
+# top-k margin exceeds MOE_MARGIN (an f32 CPU path would not do: the bf16
+# router product alone moves a probability by ~2e-3); the output over the
+# tokens routed alike within MOE_LAYER_RMS_TOL of the CPU output's RMS,
+# five bf16 roundings (2^-8 each): the two sides round the same products
+# summed in other orders.
+MOE_MARGIN = 1e-3
+MOE_LAYER_RMS_TOL = 5 * 2.0 ** -8
+
+
+def moe_model(arch):
+    """Full-width ``arch`` at MOE_LAYERS layers, softmax int_pallas, seeded
+    random bf16 weights on the card, the embedding at MOE_EMBED_STD."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch, softmax=SoftmaxSpec("int_pallas"), n_layers=MOE_LAYERS)
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    params["embed"]["w"].mul_(MOE_EMBED_STD / 0.02)
+    return model, params
+
+
+def weight_read_bound_ms(params) -> float:
+    """A decode step reads every weight once but the embedding table (it
+    reads B rows of it): those bytes at the card's HBM rate."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    rest = {k: v for k, v in params.items() if k != "embed"}
+    return nbytes(rest) / hbm_rate(torch.cuda.get_device_name(0)) * 1e3
+
+
+class RouteDrops:
+    """While active, counts the assignments each MoE routing call drops
+    (``moe._route``'s targets at the sentinel row E * C), all of them, and,
+    inside ``eng``'s serve steps of more than one token a row (the verify
+    rounds), by request seed of each slot's generator: the assignments
+    dropped, and the rounds whose drop reaches an emitted row. Slots go in
+    token order, so a block drops its later tokens' assignments; a row of
+    the block sees the tokens up to it (their routing, then their K/V in
+    the next layer), so the round's emitted rows (the first n_emit) keep
+    the decode step's bits unless a token among them dropped one. ``eng``
+    must run op by op: a graph replay calls no Python."""
+
+    def __init__(self, eng=None):
+        self.eng, self.total, self.generators = eng, 0, None
+        self.verify_by_seed, self.reaching_by_seed = {}, {}
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe._route
+
+        def counted(p, x, cfg, ctx):
+            out = self.route(p, x, cfg, ctx)
+            if x.device.type != "meta":
+                dropped = out[1] == cfg.n_experts * out[0]          # [B, S * k]
+                self.total += int(dropped.sum())
+                if self.generators is not None and x.shape[1] > 1:
+                    k = cfg.moe_top_k
+                    pos = torch.arange(dropped.shape[1], device=x.device) // k
+                    first = torch.where(dropped, pos, dropped.shape[1]).min(-1).values
+                    self.first = torch.minimum(self.first, first.cpu())
+                    for g, n in zip(self.generators, dropped.sum(-1).tolist()):
+                        if g is not None and n:
+                            s = g.initial_seed()
+                            self.verify_by_seed[s] = self.verify_by_seed.get(s, 0) + n
+            return out
+
+        moe._route = counted
+        if self.eng is not None:
+            self.orig = self.eng._serve_decode
+
+            def serve_decode(st, host_inputs, generators):
+                self.generators = generators
+                self.first = torch.full((len(generators),), 1 << 30)
+                try:
+                    packed, logits = self.orig(st, host_inputs, generators)
+                finally:
+                    self.generators = None
+                for g, f, n_emit in zip(generators, self.first.tolist(), packed[:, -1]):
+                    if g is not None and f < int(n_emit):
+                        s = g.initial_seed()
+                        self.reaching_by_seed[s] = self.reaching_by_seed.get(s, 0) + 1
+                return packed, logits
+
+            self.eng._serve_decode = serve_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+        if self.eng is not None:
+            self.eng._serve_decode = self.orig
+
+
+def moe_forced_rows(model, params, reqs, results, cache_len):
+    """Teacher-forced logits of a serve's tokens that route as the serve
+    did. One causal pass over the served tokens (phase 6's teacher-forced
+    pass) would route each sequence as one group, whose capacity differs
+    from the serve's prefill's and decode steps', and so drop other
+    assignments: the reference's semantics, not a rounding. Here each
+    request's prompt is prefilled as the serve prefilled it (whole, or as a
+    tail over the shared prefix of the request that registered it, whose
+    whole prefill is rerun), and the served tokens are fed back through
+    decode steps of all the requests at once (contiguous cache, the gather
+    decode and K1, op by op). Returns the rows by request seed: the
+    prefill's last logits, then each step's."""
+    from repro_torch.models import kv_cache
+
+    by_rid = {r.rid: r for r in reqs}
+    whole = [res for res in results if res.shared_prefix == 0]
+    first = min(res.admitted_at for res in whole)
+    owners = [res for res in whole if res.admitted_at == first]
+    check(len(owners) == 1, f"{len(owners)} requests prefilled first, whole")
+    owner = by_rid[owners[0].rid]
+    dev = model.device
+    tok = lambda a: torch.as_tensor(np.asarray(a)[None], dtype=torch.long, device=dev)
+    rows, caches = {}, []
+    owner_cache = None
+    for res in results:
+        r, s = by_rid[res.rid], res.shared_prefix
+        if s == 0:
+            logits, c = model.prefill(params, {"tokens": tok(r.prompt)}, cache_len=cache_len)
+        else:
+            check(np.array_equal(r.prompt[:s], owner.prompt[:s]),
+                  f"request {r.rid}: its shared prefix is not request {owner.rid}'s")
+            if owner_cache is None:
+                owner_cache = model.prefill(params, {"tokens": tok(owner.prompt)},
+                                            cache_len=cache_len)[1]
+            prefix = {k: v[:, :, :s] for k, v in owner_cache.items()}
+            logits, tail = model.prefill_tail(params, {"tokens": tok(r.prompt[s:])}, prefix, s)
+            c = {k: torch.zeros_like(v) for k, v in owner_cache.items()}
+            for k in c:
+                c[k][:, :, :s] = prefix[k]
+                c[k][:, :, s:r.prompt_len] = tail[k]
+        rows[r.seed] = [logits[0, -1].float()]
+        caches.append(c)
+    cache = {k: torch.cat([c[k] for c in caches], dim=1) for k in caches[0]}
+    steps = max(r.max_new for r in reqs) - 1
+    plen = np.array([by_rid[res.rid].prompt_len for res in results])
+    nnew = np.array([by_rid[res.rid].max_new for res in results])
+    width = max(len(res.tokens) for res in results) + steps
+    toks = np.stack([np.pad(res.tokens, (0, width - len(res.tokens))) for res in results])
+    for t in range(steps):
+        live = t < nnew - 1
+        pos = np.where(live, plen + t, cache_len)           # a parked row writes nothing
+        step_tok = torch.as_tensor(toks[np.arange(len(results)), plen + t][:, None],
+                                   dtype=torch.long, device=dev)
+        logits, cache = model.decode_step(params, cache, {"token": step_tok},
+                                          torch.as_tensor(pos, dtype=torch.int32, device=dev))
+        for i, res in enumerate(results):
+            if live[i]:
+                rows[by_rid[res.rid].seed].append(logits[i, -1].float())
+    return rows
+
+
+def moe_forced_checks(label, reqs, results, rows, forced, tol, rms_tol, gate=True):
+    """A serve's rows against its forced pass (``moe_forced_rows``): the
+    first row of each request (its prefill's, the same function on the same
+    inputs) bitwise equal; each served token the argmax of its forced row,
+    or that row's top-2 margin below NEAR_TIE_ULPS bf16 ulps of its top
+    logit; every served logit within ``tol`` of the forced one and the RMS
+    within ``rms_tol``. Returns the statistics with the checks that fail
+    (``caught_by``); with ``gate`` a failing check fails the phase."""
+    by_rid = {r.rid: r for r in reqs}
+    top = sq = 0.0
+    n = first_equal = 0
+    ties, beyond, tops = [], [], []
+    for res in results:
+        r = by_rid[res.rid]
+        got, want = torch.stack(rows[r.seed]), torch.stack(forced[r.seed])
+        check(len(got) == len(want) == r.max_new, f"{label}, request {r.rid}: rows "
+              f"{len(got)} / {len(want)} for {r.max_new} tokens")
+        first_equal += bool(torch.equal(got[0].float(), want[0]))
+        d = (got.float() - want).abs()
+        top = max(top, float(d.max()))
+        sq += float(d.double().pow(2).sum())
+        n += d.numel()
+        served = torch.as_tensor(res.tokens[r.prompt_len:], device=want.device)
+        best = want.topk(2, dim=-1)
+        tops.append(best.values[:, 0].abs().cpu())
+        off = torch.nonzero(best.indices[:, 0] != served).flatten().tolist()
+        for t in off:
+            t1, t2 = float(best.values[t, 0]), float(best.values[t, 1])
+            bound = NEAR_TIE_ULPS * 2.0 ** (float(np.floor(np.log2(abs(t1)))) - 7)
+            (ties if t1 - t2 < bound else beyond).append(
+                {"request": r.rid, "step": t, "margin": t1 - t2, "top": t1,
+                 "near_tie_bound": bound})
+    tops = torch.cat(tops)
+    rms = (sq / n) ** 0.5
+    caught = {"first_rows": first_equal < len(results), "tokens": bool(beyond),
+              "logit_max": top > tol, "logit_rms": rms > rms_tol}
+    stats = {"run": label, "requests": len(results), "max": top, "rms": rms,
+             "first_rows_bitwise": first_equal, "near_ties": ties,
+             "tokens_beyond_near_tie": beyond,
+             "top_logit_p50": float(tops.median()), "top_logit_max": float(tops.max()),
+             "caught_by": [k for k, v in caught.items() if v]}
+    print(f"  forced pass, {label}: {len(results)} requests, first rows bitwise equal "
+          f"{first_equal}, served tokens == the forced argmax but at {len(ties)} near tie(s) "
+          f"(margins {sorted(round(t['margin'], 4) for t in ties)[-5:]} at most) and "
+          f"{len(beyond)} beyond; logits max |diff| {top:.4g}, RMS {rms:.4g} (limits {tol}, "
+          f"RMS {rms_tol}); top logits |p50| {stats['top_logit_p50']:.4g}, max "
+          f"{stats['top_logit_max']:.4g}; failing checks: {stats['caught_by'] or 'none'}",
+          flush=True)
+    check(not gate or not stats["caught_by"], f"{label}: fails {stats['caught_by']}: {stats}")
+    return stats
+
+
+def _first_page_left_out(attend, at):
+    """``attend`` (K2's or K4's model-layout wrapper: its block table is
+    argument ``at``, the positions the next, the pool the one two before)
+    with each sequence's first page left out of its keys: the table
+    shifted one page left and the positions one page back, so each query
+    sees its keys but the first BS. The control of phase 16's serves."""
+    def left_out(*args, **kw):
+        args = list(args)
+        table, positions = args[at], args[at + 1]
+        bs = args[at - 2].shape[1]
+        args[at] = torch.cat([table[:, 1:], table[:, -1:]], dim=1)
+        args[at + 1] = (positions - bs).clamp(min=0)
+        return attend(*args, **kw)
+    return left_out
+
+
+# the fused kernel -> its wrapper in kernels/paged_attention/ops.py and the
+# argument that is its block table
+MOE_CONTROL = {"K2": ("paged_attend_dense", 3), "K4": ("paged_attend_mla", 4)}
+
+
+def moe_generate(model, params):
+    """(a) ``Engine.generate(mode="fused")`` at batch 4, prompt 512, 32 new
+    tokens (``graphed_generate``: K1 n_layers x 32, graph == op by op and
+    == eager bitwise), then the plain Alg. 1 (``int``) bitwise equal."""
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    cfg = model.cfg
+    batch, prompt_len, max_new = 4, 512, 32
+    prompts = SyntheticCorpus(cfg.vocab, seed=1234).sample(batch, prompt_len,
+                                                           seed=777)[:, :prompt_len]
+    rec, res = graphed_generate(f"{cfg.name} generate", model, params, prompts, max_new,
+                                rounds=1, eager_mode=False)
+    res_int = Engine(Model(cfg.with_softmax(SoftmaxSpec("int"))), params,
+                     max_new=max_new).generate(prompts, mode="fused")
+    same = (np.array_equal(res_int.tokens, res.tokens)
+            and torch.equal(res_int.logits, res.logits))
+    bound = weight_read_bound_ms(params)
+    print(f"  {cfg.name} generate: int_pallas vs int (plain Alg. 1) on the card, tokens and "
+          f"last logits bitwise equal: {same}; {rec['ms_per_step']['graph']:.3f} ms per "
+          f"decode step graphed ({rec['ms_per_step']['op by op']:.3f} op by op) against a "
+          f"weight-read bound of {bound:.3f} ms (every weight but the embedding at the "
+          f"card's HBM rate); peak {rec['peak_gib']:.2f} GiB ({card_line()})", flush=True)
+    check(same, f"{cfg.name}: int and int_pallas generate differ")
+    rec["weight_read_bound_ms"] = bound
+    rec.pop("walls_s")
+    return rec
+
+
+def moe_serve(model, params, reqs, fused, group):
+    """(b) / (c): the plain serve of ``reqs`` with phase 6's options,
+    graphed: the fused kernel ``fused`` ("K2" / "K4") n_layers x steps,
+    every call at (T 1, ``group`` rows), K1 n_layers x requests, nothing
+    else; graph == op by op bitwise on 2 requests; the forced-pass checks
+    (``moe_forced_checks``) of the pallas serve, and of the jnp serve as the
+    floor; a control serve, ``fused`` leaving out each sequence's first
+    page (``_first_page_left_out``), failing them; a warm graphed serve's
+    ms per step beside the weight-read bound. Returns (record, report,
+    rows)."""
+    import dataclasses
+
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+
+    cfg, arch = model.cfg, model.cfg.name
+    opts = ServeOptions(**SERVE_OPTIONS)
+    max_new = max(r.max_new for r in reqs)
+    rec = _LogitRecorder()
+    eng = Engine(model, params, max_new=max_new, sampler=rec)
+    torch.cuda.reset_peak_memory_stats()
+    with KernelWidths() as widths:
+        rep, counted, rows, first_s, replayed = counted_serve(eng, reqs, opts, rec)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(rep.results) == len(reqs) and rep.leaked_blocks == 0
+          and rep.shared_prefill_tokens > 0 and cost_shares_sum(rep),
+          f"{arch} serve: results {len(rep.results)}, leaked {rep.leaked_blocks}, shared "
+          f"{rep.shared_prefill_tokens}, cost shares {cost_shares_sum(rep)}")
+    per_replay = {k: 0 for k in counted}
+    per_replay[fused] = cfg.n_layers
+    traces = replay_trace(f"{arch} serve", replayed_graphs(eng, replayed))
+    n = path_launches(f"{arch} serve", counted, replayed, traces, per_replay)
+    want = {k: 0 for k in n}
+    want.update({"K1": cfg.n_layers * len(reqs), fused: cfg.n_layers * rep.steps})
+    w = widths.widths(fused)
+    print(f"{arch} serve: {len(reqs)} requests, {rep.steps} decode steps, prefill "
+          f"{rep.prefill_tokens} tokens + shared {rep.shared_prefill_tokens}; launches {n} "
+          f"(expected {want}); {fused} calls at (T, rows) {w} (expected [(1, {group})]); "
+          f"first serve {first_s:.2f} s, peak {peak:.2f} GiB", flush=True)
+    check(n == want, f"{arch} serve: kernel launches {n} != {want}")
+    check(w == [(1, group)], f"{arch} serve: {fused} ran at (T, rows) {w}")
+    # graph == op by op on the first 2 requests
+    sub = reqs[:2]
+    runs = []
+    for graphed in (True, False):
+        r2 = _LogitRecorder()
+        e2 = Engine(model, params, max_new=max_new, sampler=r2)
+        if not graphed:
+            op_by_op(e2)
+        runs.append((counted_serve(e2, sub, opts, r2)[0], r2.rows, e2))
+    graph_vs_op = serve_graph_vs_op(f"{arch} serve, first 2 requests", sub, *runs)
+    del runs
+    tol, rms_tol = MOE_LOGIT_TOL[arch], MOE_LOGIT_RMS_TOL[arch]
+    forced = moe_forced_rows(model, params, reqs, rep.results, rep.cache_len)
+    pallas = moe_forced_checks(f"{arch} serve kernel=pallas", reqs, rep.results, rows, forced,
+                               tol, rms_tol)
+    rec.rows = {}
+    rep_j = eng.serve(reqs, dataclasses.replace(opts, kernel="jnp", report_cost=False))
+    rows_j, rec.rows = rec.rows, {}
+    forced_j = moe_forced_rows(model, params, reqs, rep_j.results, rep_j.cache_len)
+    floor = moe_forced_checks(f"{arch} serve kernel=jnp (the floor)", reqs, rep_j.results,
+                              rows_j, forced_j, tol, rms_tol)
+    del forced, forced_j, rows_j
+    # the control: the same serve, graphed, with the first page of every
+    # sequence left out of the fused kernel's keys; the checks must fail it
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    attr, at = MOE_CONTROL[fused]
+    sound = getattr(paged_ops, attr)
+    setattr(paged_ops, attr, _first_page_left_out(sound, at))
+    rec.rows = {}
+    try:
+        # a fresh engine: its step graph is captured with the fault
+        rep_c = Engine(model, params, max_new=max_new, sampler=rec).serve(
+            reqs, dataclasses.replace(opts, report_cost=False))
+    finally:
+        setattr(paged_ops, attr, sound)
+    rows_c, rec.rows = rec.rows, {}
+    forced_c = moe_forced_rows(model, params, reqs, rep_c.results, rep_c.cache_len)
+    control = moe_forced_checks(f"{arch} serve kernel=pallas, control: {fused} leaves out "
+                                f"each sequence's first page", reqs, rep_c.results, rows_c,
+                                forced_c, tol, rms_tol, gate=False)
+    check(control["caught_by"], f"{arch}: the control serve passes every forced-pass check")
+    del forced_c, rows_c
+    # a warm graphed serve with the registry's greedy sampler
+    timed = Engine(model, params, max_new=max_new)
+    timed.serve(reqs, dataclasses.replace(opts, report_cost=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = timed.serve(reqs, dataclasses.replace(opts, report_cost=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bound = weight_read_bound_ms(params)
+    (trace,) = traces.values()
+    print(f"  {arch} serve, warm graphed: {wall * 1e3 / warm.steps:.3f} ms per step "
+          f"({warm.steps} steps, prefills included; one replayed step's device span "
+          f"{trace['span_ms']:.3f} ms) against a weight-read bound of {bound:.3f} ms a step "
+          f"({card_line()})", flush=True)
+    out = {"arch": arch, "layers": cfg.n_layers, "requests": len(reqs), "steps": rep.steps,
+           "launches": n, "kernel_widths": w, "graph_vs_op_by_op": graph_vs_op,
+           "forced_pallas": pallas, "forced_jnp_floor": floor, "forced_control": control,
+           "peak_gib": peak,
+           "ms_per_step": wall * 1e3 / warm.steps, "weight_read_bound_ms": bound,
+           "step_trace": trace}
+    return out, rep, rows
+
+
+def moe_spec(model, params, reqs, plain, plain_rows):
+    """(b)'s speculative serve (n-gram drafts of SPEC_K, K2 at T 5): op by op
+    with every verify round's dropped assignments counted by request, then
+    graphed: graph == op by op bitwise (tokens, every row, pool bytes); K2
+    n_layers x rounds all at (5, 5 x group), K1 n_layers x requests; every
+    request no verify round's drop reached (``RouteDrops``) bitwise equal to
+    the plain serve (tokens and every row); the others listed and held to
+    the forced-pass limits."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+
+    cfg, arch = model.cfg, model.cfg.name
+    group = cfg.n_heads // cfg.n_kv_heads
+    opts = ServeOptions(**{**SERVE_OPTIONS, "report_cost": False}, speculative=True,
+                        draft="ngram", draft_k=SPEC_K)
+    max_new = max(r.max_new for r in reqs)
+    eng_o = op_by_op(Engine(model, params, max_new=max_new))
+    rec_o = SpecRecorder(eng_o)
+    with RouteDrops(eng_o) as drops:
+        rep_o = counted_serve(eng_o, reqs, opts, rec_o)[0]
+    rows_o = rec_o.trimmed(reqs)
+    rec_o.detach()
+    eng_g = Engine(model, params, max_new=max_new)
+    rec_g = SpecRecorder(eng_g)
+    with KernelWidths() as widths:
+        rep_g, counted, _, first_s, replayed = counted_serve(eng_g, reqs, opts, rec_g)
+    rows_g = rec_g.trimmed(reqs)
+    rec_g.detach()
+    graph_vs_op = serve_graph_vs_op(f"{arch} spec serve", reqs, (rep_g, rows_g, eng_g),
+                                    (rep_o, rows_o, eng_o))
+    per_replay = {k: 0 for k in counted}
+    per_replay["K2"] = cfg.n_layers
+    traces = replay_trace(f"{arch} spec serve", replayed_graphs(eng_g, replayed))
+    n = path_launches(f"{arch} spec serve", counted, replayed, traces, per_replay)
+    want = {k: 0 for k in n}
+    want.update({"K1": cfg.n_layers * len(reqs), "K2": cfg.n_layers * rep_g.steps})
+    t = SPEC_K + 1
+    w = widths.widths("K2")
+    dropped = {r.rid: drops.verify_by_seed[r.seed] for r in reqs if r.seed in drops.verify_by_seed}
+    reaching = {r.rid: drops.reaching_by_seed[r.seed] for r in reqs
+                if r.seed in drops.reaching_by_seed}
+    print(f"{arch} spec serve: {rep_g.steps} rounds against the plain serve's {plain.steps} "
+          f"steps, drafted {rep_g.drafted_tokens}, accepted {rep_g.accepted_tokens}, "
+          f"acceptance rate {rep_g.acceptance_rate:.4f}; launches {n} (expected {want}); K2 "
+          f"calls at (T, rows) {w} (expected [({t}, {t * group})]); verify rounds dropped "
+          f"{sum(dropped.values())} assignments (by request {dropped}), rounds whose drop "
+          f"reached an emitted row by request {reaching}; first serve {first_s:.2f} s",
+          flush=True)
+    check(n == want, f"{arch} spec serve: kernel launches {n} != {want}")
+    check(w == [(t, t * group)], f"{arch} spec serve: K2 ran at (T, rows) {w}")
+    base = plain.by_rid()
+    clean = [r for r in reqs if r.rid not in reaching]
+    same = {r.rid: bool(np.array_equal(rep_g.by_rid()[r.rid].tokens, base[r.rid].tokens)
+                        and rows_equal({r.seed: rows_g[r.seed]},
+                                       {r.seed: plain_rows[r.seed]}) == 1)
+            for r in clean}
+    print(f"  {arch} spec serve: requests no verify round's drop reached "
+          f"({len(clean)} of {len(reqs)}) bitwise equal to the plain serve (tokens, every "
+          f"logit row): {same}", flush=True)
+    check(all(same.values()), f"{arch} spec serve differs from the plain serve on drop-free "
+          f"requests: {same}")
+    out = {"rounds": rep_g.steps, "plain_steps": plain.steps,
+           "acceptance_rate": rep_g.acceptance_rate, "launches": n, "kernel_widths": w,
+           "verify_drops_by_request": dropped, "rounds_drop_reached_by_request": reaching,
+           "clean_equal_plain": same,
+           "graph_vs_op_by_op": graph_vs_op, "step_trace": next(iter(traces.values()))}
+    if reaching:
+        sub = [r for r in reqs if r.rid in reaching]
+        res = [rep_g.by_rid()[r.rid] for r in sub]
+        forced = moe_forced_rows(model, params, reqs, rep_g.results, rep_g.cache_len)
+        out["dropped_forced"] = moe_forced_checks(
+            f"{arch} spec serve, requests a verify round's drop reached", sub, res, rows_g,
+            forced, MOE_LOGIT_TOL[arch], MOE_LOGIT_RMS_TOL[arch])
+    return out
+
+
+def moe_layer_card_vs_cpu(model, params):
+    """(d) One full-width MoE layer (dbrx-132b's first) on the card
+    against the port's CPU path (bf16, the same weights) on the same bf16
+    input: the layer's input on a 512-token prompt (its norm2 output after
+    the layer's attention), at the phase's embedding (MOE_EMBED_STD; no
+    assignment drops) and at Model.init's (std 0.02; a share drops). At
+    each: expert ids equal wherever the CPU router's top-k margin exceeds
+    MOE_MARGIN, each assignment's slot (or drop) equal wherever no token up
+    to it routed an expert differently, and at std 0.02 dropped assignments
+    among those compared (the card's drop path held against the CPU's);
+    the output's RMS difference over the tokens routed alike within
+    MOE_LAYER_RMS_TOL of the CPU output's RMS."""
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models import moe
+    from repro_torch.models.attention import attn_apply
+    from repro_torch.models.layers import Ctx, norm_apply, positions_for
+    from repro_torch.models.transformer import layer_params
+
+    cfg = model.cfg
+    k, e = cfg.moe_top_k, cfg.n_experts
+    lp = layer_params(params["stack"]["layers"], 0)
+    prompt = SyntheticCorpus(cfg.vocab, seed=1234).sample(1, 512, seed=778)[:, :512]
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")
+    ctx = model.prefill_ctx
+    pos = positions_for(tokens.shape, device="cuda")
+    ffn_cpu = _tree_to(lp["ffn"], "cpu")
+    cpu_ctx = Ctx(dtype=torch.bfloat16)
+
+    def layer_input(scale):
+        x = params["embed"]["w"][tokens] * scale
+        h = norm_apply(lp["norm1"], x, cfg.norm, ctx)
+        x = x + attn_apply(lp["attn"], h, cfg, ctx, pos)
+        return norm_apply(lp["norm2"], x, cfg.norm, ctx)
+
+    def compare(std):
+        with torch.no_grad():
+            h = layer_input(std / MOE_EMBED_STD)
+            y_card, aux_card = moe.moe_apply(lp["ffn"], h, cfg, ctx)
+            c, t_card, _, _ = moe._route(lp["ffn"], h, cfg, ctx)
+            probs_card = torch.softmax((h @ lp["ffn"]["router"]["w"]).float(), -1)
+            ids_card = moe._top_k(probs_card, k)[1].cpu()[0]
+            t0 = time.perf_counter()
+            x_cpu = h.cpu()
+            y_cpu, aux_cpu = moe.moe_apply(ffn_cpu, x_cpu, cfg, cpu_ctx)
+            _, t_cpu, _, _ = moe._route(ffn_cpu, x_cpu, cfg, cpu_ctx)
+            y_cpu = y_cpu.float()
+            probs_cpu = torch.softmax((x_cpu @ ffn_cpu["router"]["w"]).float(), -1)
+            cpu_s = time.perf_counter() - t0
+        top = torch.sort(probs_cpu[0], -1, descending=True).values
+        wide = top[:, k - 1] - top[:, k] > MOE_MARGIN
+        ids_cpu = moe._top_k(probs_cpu, k)[1][0]
+        ids_equal = bool(torch.equal(ids_card[wide], ids_cpu[wide]))
+        member = lambda ids: torch.zeros((ids.shape[0], e), dtype=torch.bool).scatter_(1, ids, True)
+        differs = torch.cumsum((member(ids_card) != member(ids_cpu)).int(), 0) > 0
+        alike = (ids_card == ids_cpu) & ~differs.gather(1, ids_card)        # [512, k]
+        tc, th = t_card.cpu()[0].reshape(-1, k), t_cpu[0].reshape(-1, k)
+        slots_equal = bool(torch.equal(tc[alike], th[alike]))
+        tok_alike = alike.all(-1)
+        d = (y_card.float().cpu()[0] - y_cpu[0])[tok_alike]
+        rms = float(d.pow(2).mean().sqrt()) / float(y_cpu[0][tok_alike].pow(2).mean().sqrt())
+        out = {"embed_std": std, "tokens": 512, "capacity": c,
+               "drop_share": float((t_cpu == e * c).float().mean()),
+               "under_margin": int((~wide).sum()), "ids_equal_over_margin": ids_equal,
+               "assignments_compared": int(alike.sum()),
+               "drops_compared": int((th[alike] == e * c).sum()),
+               "slots_equal": slots_equal, "tokens_routed_alike": int(tok_alike.sum()),
+               "max_abs_diff": float(d.abs().max()), "rms_rel": rms,
+               "aux_card": float(aux_card), "aux_cpu": float(aux_cpu), "cpu_s": cpu_s}
+        print(f"  {cfg.name} MoE layer, card vs CPU (bf16) on 512 tokens, embedding std {std}: "
+              f"C {c}; {out['drop_share']:.2%} of the assignments dropped; "
+              f"{out['under_margin']} tokens under a top-{k} margin of {MOE_MARGIN}; expert ids "
+              f"equal over it: {ids_equal}; slots and drops equal on the "
+              f"{out['assignments_compared']} assignments routed alike up to them "
+              f"({out['drops_compared']} dropped): {slots_equal}; output over the "
+              f"{out['tokens_routed_alike']} tokens routed alike: max |diff| "
+              f"{out['max_abs_diff']:.4g}, RMS {rms:.4g} of the CPU output's (limit "
+              f"{MOE_LAYER_RMS_TOL}); aux {out['aux_card']:.6g} / {out['aux_cpu']:.6g}; CPU "
+              f"{cpu_s:.1f} s", flush=True)
+        check(ids_equal and slots_equal and rms <= MOE_LAYER_RMS_TOL,
+              f"{cfg.name} MoE layer, embedding std {std}: card and CPU disagree: {out}")
+        return out
+
+    runs = [compare(MOE_EMBED_STD), compare(0.02)]
+    check(runs[1]["drops_compared"] > 0, f"{cfg.name} MoE layer at embedding std 0.02: no "
+          f"dropped assignment among those compared: {runs[1]}")
+    return runs
+
+
+def phase16_moe():
+    """The MoE family at full width, MOE_LAYERS layers (phase 16): (a)
+    dbrx-132b generate, (b) dbrx-132b served plain and speculatively
+    (GQA 48/8 on K2), (d) its MoE layer card against CPU, (c)
+    deepseek-v2-236b served (MLA at 128 heads on K4)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {}
+    model, params = moe_model("dbrx-132b")
+    cfg = model.cfg
+    print(f"MoE: {cfg.name} full width ({cfg.param_count() / 1e9:.3f} B parameters at "
+          f"{cfg.n_layers} of {get_config(cfg.name).n_layers} layers; d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads, {cfg.n_experts} experts top-"
+          f"{cfg.moe_top_k}, d_ff_expert {cfg.d_ff_expert}), bf16 seeded weights, embedding "
+          f"std {MOE_EMBED_STD}, softmax int_pallas ({card})", flush=True)
+    out["dbrx generate"] = moe_generate(model, params)
+    reqs = shared_prefix_trace(32, cfg.vocab, **SERVE_TRACE)[:MOE_REQUESTS]
+    rec, plain, rows = moe_serve(model, params, reqs, "K2", cfg.n_heads // cfg.n_kv_heads)
+    out["dbrx serve"] = rec
+    out["dbrx spec serve"] = moe_spec(model, params, reqs, plain, rows)
+    del plain, rows
+    out["dbrx layer card vs cpu"] = moe_layer_card_vs_cpu(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    model, params = moe_model("deepseek-v2-236b")
+    cfg = model.cfg
+    print(f"MoE: {cfg.name} full width ({cfg.param_count() / 1e9:.3f} B parameters at "
+          f"{cfg.n_layers} of {get_config(cfg.name).n_layers} layers: {cfg.n_dense_prefix} dense, "
+          f"{cfg.n_layers - cfg.n_dense_prefix} MoE; MLA {cfg.n_heads} heads, kv_lora "
+          f"{cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank}, rope {cfg.qk_rope_dim}; "
+          f"{cfg.n_experts} experts top-{cfg.moe_top_k}, {cfg.n_shared_experts} shared, "
+          f"d_ff_expert {cfg.d_ff_expert}), bf16 seeded weights, embedding std "
+          f"{MOE_EMBED_STD}, softmax int_pallas ({card})", flush=True)
+    reqs = shared_prefix_trace(32, cfg.vocab, **SERVE_TRACE)[:MOE_REQUESTS]
+    out["deepseek-v2 serve"] = moe_serve(model, params, reqs, "K4", cfg.n_heads)[0]
+    del model, params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16 in {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
+
 def _commit_keeps_last(commit_staged):
     """A rollback that leaves the block's last rejected position uncleared."""
     def commit(staged, n_accept, cache_pos, t):
@@ -4379,9 +5035,12 @@ def main():
                  "chunked and preempting)", phase14_speculative)
     variants = timed("phase 15 (the softmax-variant zoo and ap_sim, olmo-1b)",
                      phase15_variants)
-    print(f"phases 3-15: {time.perf_counter() - t_all:.1f} s", flush=True)
+    moe = timed("phase 16 (the MoE family: dbrx-132b generate, serve and spec serve on K2 at "
+                "GQA 48/8, its MoE layer card vs CPU; deepseek-v2-236b serve on K4 at 128 "
+                "heads)", phase16_moe)
+    print(f"phases 3-16: {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    # phase 16
+    # phase 17
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
     k2_main = next(r for r in k2_recs if r["shape"] == "decode (main path)")
     k2_int8_main = next(r for r in k2_int8_recs if r["shape"] == "int8 decode (main path)")
@@ -4391,7 +5050,10 @@ def main():
                   "generate llama2-7b": generated["llama2-7b"]["launches_K1"],
                   "serve olmo-1b": served["launches"]["K1"],
                   "serve minicpm3-4b": mla["launches"]["K1"],
-                  "serve olmo-1b int8": served_int8["launches"]["K1"]}
+                  "serve olmo-1b int8": served_int8["launches"]["K1"],
+                  "generate dbrx-132b": moe["dbrx generate"]["launches_K1"],
+                  "serve dbrx-132b": moe["dbrx serve"]["launches"]["K1"],
+                  "serve deepseek-v2-236b": moe["deepseek-v2 serve"]["launches"]["K1"]}
     kernels = [{
         "name": "int_softmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_softmax.cu",
@@ -4413,7 +5075,10 @@ def main():
         "replaces": "src/repro/kernels/paged_attention/kernel.py:145",
         "launches": served["launches"]["K2"],
         "launches_by_path": {"serve olmo-1b": served["launches"]["K2"],
-                             "spec serve olmo-1b": spec["runs"]["bf16"]["launches"]["K2"]},
+                             "spec serve olmo-1b": spec["runs"]["bf16"]["launches"]["K2"],
+                             "serve dbrx-132b": moe["dbrx serve"]["launches"]["K2"],
+                             "spec serve dbrx-132b":
+                                 moe["dbrx spec serve"]["launches"]["K2"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_recs),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -4463,7 +5128,9 @@ def main():
         "chunk_keys": k4_main["chunk_pages"] * k4_main["BS"],
         "launches": mla["launches"]["K4"],
         "launches_by_path": {"serve minicpm3-4b": mla["launches"]["K4"],
-                             "spec serve minicpm3-4b": spec["runs"]["minicpm3-4b"]["launches"]["K4"]},
+                             "spec serve minicpm3-4b": spec["runs"]["minicpm3-4b"]["launches"]["K4"],
+                             "serve deepseek-v2-236b":
+                                 moe["deepseek-v2 serve"]["launches"]["K4"]},
         "max_abs_err": max(r["max_abs_err"] for r in k4_recs),
         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
@@ -4475,6 +5142,7 @@ def main():
                                 "olmo-1b int8": served_int8,
                                 "olmo-1b chunked + preempting": chunked,
                                 "speculative": spec, "variants": variants},
+                      "moe": moe,
                       "kv_quantize_card_vs_cpu": quantize}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

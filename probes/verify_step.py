@@ -4,9 +4,12 @@ row other bits than the decode step at the same position? What
 model's own step, op by op.
 
     python3 probes/verify_step.py
+    python3 probes/verify_step.py --arch dbrx-132b --layers 4 --embed-std 1
+    python3 probes/verify_step.py --arch deepseek-v2-236b --layers 4
 
-Full-width olmo-1b (seeded random bf16 weights, softmax ``int_pallas_paged``:
-paged decode and verify through K2, as phase 14 serves them) with 8 slots
+Full-width olmo-1b (or ``--arch``, at ``--layers`` layers; seeded random
+bf16 weights, softmax ``int_pallas_paged``: paged decode and verify through
+K2, or K4 for MLA, as phase 14 serves them) with 8 slots
 holding 64-token prompts. One ``Model.verify_step`` over a block of 5
 tokens a slot, then the same tokens through 5 ``Model.decode_step`` calls
 from the same cache. Every norm, dense product, activation, K2 call and
@@ -18,8 +21,18 @@ with the step's padding as the model sets it on the card
 ``model.STEP_MIN_ROWS`` rows), with the down projection padded and the
 norms not, and without padding (``step_ctx = ctx``), each op by op and
 then as the serve runs the steps: each a CUDA-graph replay
-(``serving.graphs.StepGraph``), where only the logits are compared. Then
-the card's name and power limit.
+(``serving.graphs.StepGraph``), where only the logits are compared. For an
+MoE architecture the MoE layer's router product and output are recorded
+too (``moe.dense_apply``, ``moe_apply``; ``Model.step_ctx`` pads every
+dense product of an MoE model's step; the expert products run at their
+own [E, 32, d]), a fourth run pads only what the dense
+family pads (the down projection and the norms), and each run first counts the
+verify block's dropped assignments (``moe._route``): a block whose slot
+sends all its tokens to one expert past the capacity of 4 drops one, which
+a decode step never does, so its rows differ by the reference's semantics,
+not by rounding; the block's tokens are drawn again (up to 32 draws, the
+count printed) until the block drops nothing. Then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -43,18 +56,31 @@ class Recorder:
 
     def __init__(self):
         from repro_torch.kernels.paged_attention import ops
-        from repro_torch.models import attention, layers, mla, model, transformer
+        from repro_torch.models import attention, layers, mla, model, moe, transformer
 
         self.calls = []
         self.patches = []
+        self.drops = 0
         for mod, names in ((layers, ("dense_apply", "norm_apply")),
                            (attention, ("dense_apply",)), (mla, ("dense_apply", "norm_apply")),
-                           (transformer, ("dense_apply", "norm_apply")),
+                           (transformer, ("dense_apply", "norm_apply", "moe_apply")),
                            (model, ("dense_apply", "norm_apply", "embed_logits")),
-                           (ops, ("paged_attend_dense",))):
+                           (moe, ("dense_apply",)),
+                           (ops, ("paged_attend_dense", "paged_attend_mla"))):
             for name in names:
                 self._wrap(mod, name, name)
         self._wrap(layers._ACTS, "silu", "silu", item=True)
+        route = moe._route
+
+        def counted_route(p, x, cfg, ctx):
+            out = route(p, x, cfg, ctx)
+            if self.on:
+                c, target = out[0], out[1]
+                self.drops += int((target == cfg.n_experts * c).sum())
+            return out
+
+        moe._route = counted_route
+        self.patches.append((moe, "_route", route, False))
 
     def _wrap(self, owner, attr, label, item=False):
         orig = owner[attr] if item else getattr(owner, attr)
@@ -62,7 +88,9 @@ class Recorder:
         def recorded(*args, **kw):
             out = orig(*args, **kw)
             x = out[0] if isinstance(out, tuple) else out
-            if self.on and x.dim() >= 3:    # the model's [B, T, ...] (not a padded inner call)
+            # the model's [B, T, ...] (not a padded inner call, nor an MoE
+            # layer's expert activations [E, B * C, f])
+            if self.on and x.dim() >= 3 and x.shape[0] == S:
                 self.calls.append((label, x.clone()))
             return out
 
@@ -93,7 +121,9 @@ class Recorder:
 def compare(label, model, params, cache, tokens, pos, rec):
     """The verify block against T decode steps from copies of ``cache``."""
     staged = {k: v.clone() for k, v in cache.items()}
+    rec.drops = 0
     verify = rec.run(lambda: model.verify_step(params, staged, {"token": tokens}, pos))
+    drops = rec.drops
     steps = []
     stepped = {k: v.clone() for k, v in cache.items()}
     for t in range(T):
@@ -110,8 +140,9 @@ def compare(label, model, params, cache, tokens, pos, rec):
             seen["first_differing_call"] = i
     first = min((v["first_differing_call"] for v in by_op.values()
                  if v["first_differing_call"] is not None), default=None)
-    print(f"{label}, op by op: {len(verify)} recorded calls; by op {by_op}; first differing "
-          f"call {first}{'' if first is None else ' (' + verify[first][0] + ')'}", flush=True)
+    print(f"{label}, op by op: {len(verify)} recorded calls, {drops} dropped assignments in "
+          f"the verify block; by op {by_op}; first differing call {first}"
+          f"{'' if first is None else ' (' + verify[first][0] + ')'}", flush=True)
     print(f"{label}, graphed: logit rows of the replayed verify block bitwise equal to the "
           f"replayed decode steps': {graphed(model, params, cache, tokens, pos)}", flush=True)
 
@@ -142,6 +173,15 @@ def graphed(model, params, cache, tokens, pos):
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description="verify block vs decode steps, op by op")
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth (0: full)")
+    ap.add_argument("--embed-std", type=float, default=0.0,
+                    help="redraw the embedding at this std (0: Model.init's 0.02); at "
+                         "0.02 an MoE model's tokens of one sequence route alike")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("verify_step: no CUDA device visible to torch")
     from repro_torch.configs.registry import get_config
@@ -150,9 +190,14 @@ def main():
     from repro_torch.models import model as model_mod
     from repro_torch.models.model import STEP_MIN_ROWS, Model
 
-    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas_paged"))
+    depth = {"n_layers": args.layers} if args.layers else {}
+    cfg = get_config(args.arch, softmax=SoftmaxSpec("int_pallas_paged"), **depth)
+    name = f"{cfg.name} ({cfg.n_layers} layers)"
     model = Model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0))
+    if args.embed_std:
+        params["embed"]["w"].mul_(args.embed_std / 0.02)
+        name += f", embedding std {args.embed_std}"
     g = torch.Generator("cuda").manual_seed(1)
     cache_len = 128
     stripes = kv_cache.cache_zeros(cfg, S, cache_len, device="cuda")
@@ -162,26 +207,45 @@ def main():
         for k, leaf in stripes.items():
             leaf[:, s] = c[k][:, 0]
     cache = kv_cache.contiguous_as_paged(stripes, BS)
-    tokens = torch.randint(0, cfg.vocab, (S, T), generator=g, device="cuda")
     pos = torch.full((S,), P, dtype=torch.int32, device="cuda")
     rec = Recorder()
+    for draws in range(1, 33):
+        tokens = torch.randint(0, cfg.vocab, (S, T), generator=g, device="cuda")
+        if cfg.family != "moe":
+            break
+        rec.drops = 0
+        with torch.no_grad():
+            rec.run(lambda: model.verify_step(params, {k: v.clone() for k, v in cache.items()},
+                                              {"token": tokens}, pos))
+        if rec.drops == 0:
+            break
+    print(f"{name}: verify block drawn {draws} time(s); it drops {rec.drops} assignments",
+          flush=True)
     try:
         with torch.no_grad():
-            compare(f"olmo-1b, step padding to {STEP_MIN_ROWS} rows (Model.step_ctx)", model,
+            compare(f"{name}, step padding to {STEP_MIN_ROWS} rows (Model.step_ctx)", model,
                     params, cache, tokens, pos, rec)
+            if cfg.family == "moe":
+                step_ctx = model.step_ctx
+                model.step_ctx = dataclasses.replace(step_ctx, min_rows=0)
+                compare(f"{name}, the dense family's step padding (the down projection and "
+                        f"the norms at {STEP_MIN_ROWS} rows, the other products not)",
+                        model, params, cache, tokens, pos, rec)
+                model.step_ctx = step_ctx
             # every module's norm_apply, called with the norms' padding off
             saved = {m: m.norm_apply for m in (layers, mla, transformer, model_mod)}
             for m, f in saved.items():
                 m.norm_apply = lambda p, x, kind, ctx, eps=1e-5, f=f: f(
                     p, x, kind, dataclasses.replace(ctx, step_min_rows=0), eps)
             try:
-                compare(f"olmo-1b, the down projection padded to {STEP_MIN_ROWS} rows, the "
-                        "norms not", model, params, cache, tokens, pos, rec)
+                padded = "every dense product" if cfg.family == "moe" else "the down projection"
+                compare(f"{name}, {padded} padded to {STEP_MIN_ROWS} rows, the norms not",
+                        model, params, cache, tokens, pos, rec)
             finally:
                 for m, f in saved.items():
                     m.norm_apply = f
             model.step_ctx = model.ctx
-            compare("olmo-1b, no step padding", model, params, cache, tokens, pos, rec)
+            compare(f"{name}, no step padding", model, params, cache, tokens, pos, rec)
     finally:
         rec.restore()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,7 +2,8 @@
 
 One ``ModelConfig`` covers every architecture family of the reference, so
 configs compare field for field across the two packages; the port runs the
-dense family so far (``configs/registry.py`` names what is not ported).
+dense and MoE families so far (``configs/registry.py`` names what is not
+ported).
 """
 
 from __future__ import annotations

@@ -1,7 +1,13 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke presets
 (port of ``src/repro/configs/registry.py``; same configs, same shrink
 rules). An architecture whose family the port does not run yet raises and
-names its ROADMAP.md item."""
+names its ROADMAP.md item.
+
+The MoE family's full depth does not fit one card: dbrx-132b's 40 layers
+are about 264 GB of bf16 weights and deepseek-v2-236b's 60 about 472 GB,
+so on the H100 both run at full width with their depth cut
+(``get_config(name, n_layers=4)``); full depth waits for ROADMAP.md Queue
+1 item 14 (tensor-parallel serving)."""
 
 from __future__ import annotations
 
@@ -16,18 +22,16 @@ ARCHS = {
     "olmo-1b": "olmo_1b",
     "minicpm3-4b": "minicpm3_4b",
     "llama2-7b": "llama2_7b",
+    "deepseek-7b": "deepseek_7b",
+    "dbrx-132b": "dbrx_132b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 # reference architectures not ported yet -> the ROADMAP.md item that ports them
 NOT_PORTED = {
     "qwen2.5-32b": "Queue 1 item 14 (tensor-parallel serving: 32B does not "
                    "fit one card)",
-    "deepseek-7b": "Queue 1 item 15 (a config copy and its parity test: "
-                   "the dense llama-arch MHA family it runs is ported)",
     "mamba2-780m": "Queue 1 item 11 (SSM)",
-    "dbrx-132b": "Queue 1 item 11 (MoE)",
-    "deepseek-v2-236b": "Queue 1 items 11 (MoE) and 14 (tensor-parallel "
-                        "serving: 236B does not fit one card)",
     "hymba-1.5b": "Queue 1 item 11 (hybrid)",
     "whisper-base": "Queue 1 item 11 (encdec)",
     "qwen2-vl-7b": "Queue 1 item 11 (M-RoPE)",
@@ -54,7 +58,7 @@ def get_config(name: str, softmax: Optional[SoftmaxSpec] = None,
 def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfig:
     """Reduced config of the same family: small widths/layers/vocab,
     runnable on CPU. The reference's shrink rules for the ported families
-    (dense GQA and dense MLA)."""
+    (dense and MoE, GQA or MLA attention)."""
     full = get_config(name)
     shrink: Dict = dict(
         n_layers=min(full.n_layers, 3),
@@ -67,6 +71,10 @@ def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfi
         shrink.update(q_lora_rank=(64 if full.q_lora_rank else 0),
                       kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
                       v_head_dim=32, d_head=48)
+    if full.family == "moe":
+        shrink.update(n_experts=4, moe_top_k=min(2, full.moe_top_k),
+                      d_ff_expert=128, d_ff=256,
+                      n_shared_experts=min(1, full.n_shared_experts))
     cfg = dataclasses.replace(full, name=full.name + "-smoke", **shrink)
     if softmax is not None:
         cfg = cfg.with_softmax(softmax)

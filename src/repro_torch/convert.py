@@ -9,6 +9,10 @@ device: weight matrices and dense biases (``"w"``, ``"b"``) to the compute
 dtype, where the reference casts them at every use; norm parameters
 (``"scale"``, ``"bias"``) and learnable softmax parameters (``"smx"``:
 ConSmax's ``"beta"``, ``"gamma"``) stay f32, as the reference reads them.
+The MoE family's leaves are of the same kinds: the router ``[L, d, E]``,
+the stacked expert matrices ``gate`` / ``up`` ``[L, E, d, f]`` and
+``down`` ``[L, E, f, d]``, the shared GLU, and the dense ``prefix``
+stack beside ``layers``.
 """
 
 from __future__ import annotations
@@ -20,10 +24,13 @@ import torch
 def params_from_numpy(tree, cfg, device, dtype: torch.dtype = torch.bfloat16):
     """Nested dict of numpy arrays (reference layout) -> nested dict of
     tensors on ``device`` for ``repro_torch.models.model.Model(cfg, dtype)``.
-    Raises on a leaf the dense port does not know."""
-    if cfg.family != "dense":
+    Raises on a leaf or a stack segment the port does not know."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.family} parameters are not ported: ROADMAP.md Queue 1 item 11")
+    segments = {"layers", "prefix"} if cfg.family == "moe" else {"layers"}
+    if not set(tree["stack"]) <= segments:
+        raise ValueError(f"unexpected stack segments {sorted(set(tree['stack']) - segments)}")
 
     def walk(node, key):
         if isinstance(node, dict):

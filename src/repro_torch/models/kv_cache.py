@@ -1,5 +1,5 @@
-"""Decode-cache structure (port of the dense GQA and MLA families of
-``src/repro/models/kv_cache.py``).
+"""Decode-cache structure (port of the dense and MoE families, GQA and MLA
+attention, of ``src/repro/models/kv_cache.py``).
 
 Layouts, as the reference's:
   contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``; under
@@ -37,7 +37,9 @@ KV_DTYPE = torch.bfloat16
 
 
 def _dense_only(cfg):
-    if cfg.family != "dense" or cfg.attention not in ("gqa", "mla"):
+    """The positional-cache families: dense and MoE (whose caches are the
+    dense GQA or MLA leaves, one per layer, the dense prefix's first)."""
+    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches are not ported: ROADMAP.md "
             "Queue 1 item 11")

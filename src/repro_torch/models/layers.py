@@ -90,9 +90,15 @@ def embed_logits(p, x, ctx: Ctx):
 _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
+def act_fn(name: str):
+    """The GLU activation by name (the reference's ``jax.nn.silu`` /
+    ``jax.nn.gelu``, whose default is the tanh approximation)."""
+    return _ACTS[name]
+
+
 def mlp_apply(p, x, act: str, ctx: Ctx):
     """Gated (GLU) MLP: act(x @ gate) * (x @ up) @ down."""
-    h = _ACTS[act](dense_apply(p["gate"], x, ctx)) * dense_apply(p["up"], x, ctx)
+    h = act_fn(act)(dense_apply(p["gate"], x, ctx)) * dense_apply(p["up"], x, ctx)
     return dense_apply(p["down"], h, ctx, ctx.step_min_rows)
 
 

@@ -1,5 +1,5 @@
-"""Model facade for the dense family, GQA or MLA attention (port of
-``src/repro/models/model.py``).
+"""Model facade for the dense and MoE families, GQA or MLA attention (port
+of ``src/repro/models/model.py``).
 
   init(generator)                          -> params (nested dict of tensors)
   train_logits(params, batch)              -> (logits [B, S, V], aux)
@@ -13,9 +13,13 @@ Batches hold int token tensors on the model's device: {"tokens": [B, S]}
 for prefill, {"token": [B, 1]} for a decode step, {"token": [B, T]} for a
 verify step. The cache is updated in
 place. Under ``cfg.kv_quant`` the GQA caches hold int8 codes and f32
-scales (MLA keeps its bf16 latent cache, as the reference). Other
-families (MoE, SSM, hybrid, encdec, M-RoPE) are later slices: ROADMAP.md
-Queue 1 item 11.
+scales (MLA keeps its bf16 latent cache, as the reference).
+
+The MoE family's stack is ``{"layers": the MoE layers, "prefix": the
+cfg.n_dense_prefix dense layers}`` (deepseek-v2-236b has one), as the
+reference's: every entry point runs the prefix, then the MoE layers, over
+one cache whose layer axis holds the prefix's layers first. Other families
+(SSM, hybrid, encdec, M-RoPE) are later slices: ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from repro_torch.models.layers import (
     Ctx, dense_apply, embed_apply, embed_logits, norm_apply, positions_for,
 )
 from repro_torch.models.mla import mla_dense_shapes
+from repro_torch.models.moe import moe_shapes
 
 _LOGIT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -55,36 +60,49 @@ PREFILL_MIN_ROWS = 256
 # norms too made them bitwise (chip_smoke.py phase 14; probes/verify_step.py
 # compares the step op by op and graphed). 64 is the cheapest count the
 # probe shows bitwise for phase 14's blocks (8 slots x 5 tokens): a block of
-# more rows keeps its own. The step's other products keep their rows.
+# more rows keeps its own. The dense family's other products keep their
+# rows. An MoE model's step pads every dense product to 64 rows: with the
+# dense family's padding alone, the verify blocks of dbrx-132b and
+# deepseek-v2-236b left the decode step's bits at an early projection, and
+# with every dense product padded each op of their steps was bitwise, op
+# by op and graphed (probes/verify_step.py --arch <moe> --layers 4,
+# PERF.md). The expert products (``moe._experts_ffn``) take no padding: a
+# decode step and a verify block both route C = 4 slots an expert, so
+# they run at one shape ([E, 32, d] at 8 slots). Nor do they in prefill,
+# where C follows the call's length (MoE chunking is not run on the card).
 STEP_MIN_ROWS = 64
 
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device=None):
-        if (cfg.family != "dense" or cfg.attention not in ("gqa", "mla")
+        if (cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "mla")
                 or cfg.rope_type not in ("rope", "none")):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family (GQA or MLA) with plain rope "
-                "is ported; the others follow ROADMAP.md Queue 1 item 11")
+                f"{cfg.name}: only the dense and MoE families (GQA or MLA) with "
+                "plain rope are ported; the others follow ROADMAP.md Queue 1 item 11")
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
         self.device = resolve_device(device)
         cuda = self.device.type == "cuda"
         self.prefill_ctx = dataclasses.replace(
             self.ctx, min_rows=PREFILL_MIN_ROWS if cuda else 0)
+        step_rows = STEP_MIN_ROWS if cuda else 0
         self.step_ctx = dataclasses.replace(
-            self.ctx, step_min_rows=STEP_MIN_ROWS if cuda else 0)
+            self.ctx, step_min_rows=step_rows,
+            min_rows=step_rows if cfg.family == "moe" else 0)
 
     # ------------------------------------------------------------------ init
 
     def init(self, generator: Optional[torch.Generator] = None):
         """Random parameters with the reference's init distributions (normal,
-        std 0.02 for the embedding and 1/sqrt(d_in) for each dense layer),
-        drawn from ``generator`` (on the model's device; seed 0 when None).
-        Weight matrices are stored in the compute dtype, norm parameters in
-        f32. The torch and JAX generators differ, so parity tests load the
-        reference's parameters through ``convert.params_from_numpy``."""
+        std 0.02 for the embedding and 1/sqrt(d_in) for each dense layer and
+        expert matrix), drawn from ``generator`` (on the model's device;
+        seed 0 when None). Weight matrices are stored in the compute dtype,
+        norm parameters in f32; expert matrices are drawn one layer at a
+        time (a stacked f32 draw of dbrx-132b's ``gate`` alone would take
+        16.9 GB). The torch and JAX generators differ, so parity tests load
+        the reference's parameters through ``convert.params_from_numpy``."""
         cfg, dev, dt = self.cfg, self.device, self.ctx.dtype
         g = generator
         if g is None:
@@ -94,11 +112,17 @@ class Model:
             w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
             return (w * std).to(dt)
 
-        def dense(d_in, d_out, bias=False):
-            p = {"w": normal((cfg.n_layers, d_in, d_out), 1.0 / math.sqrt(d_in))}
+        def dense(n, d_in, d_out, bias=False):
+            p = {"w": normal((n, d_in, d_out), 1.0 / math.sqrt(d_in))}
             if bias:
-                p["b"] = torch.zeros((cfg.n_layers, d_out), dtype=dt, device=dev)
+                p["b"] = torch.zeros((n, d_out), dtype=dt, device=dev)
             return p
+
+        def experts(n, shape, std):
+            w = torch.empty((n,) + shape, dtype=dt, device=dev)
+            for i in range(n):
+                w[i] = normal(shape, std)
+            return {"w": w}
 
         def norm(layers, width=cfg.d_model, kind=cfg.norm):
             lead = (layers,) if layers else ()
@@ -110,38 +134,88 @@ class Model:
             return {"scale": ones}
 
         d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+        def block(n, kind):
+            if cfg.attention == "mla":
+                attn = {k: dense(n, *shape) for k, shape in mla_dense_shapes(cfg).items()}
+                if cfg.q_lora_rank:
+                    attn["q_norm"] = norm(n, cfg.q_lora_rank, "rmsnorm")
+                attn["kv_norm"] = norm(n, cfg.kv_lora_rank, "rmsnorm")
+            else:
+                attn = {"wq": dense(n, d, h * dh, cfg.qkv_bias),
+                        "wk": dense(n, d, kv * dh, cfg.qkv_bias),
+                        "wv": dense(n, d, kv * dh, cfg.qkv_bias),
+                        "wo": dense(n, h * dh, d)}
+                backend = spec_backend(cfg.softmax)
+                if getattr(backend, "learnable", False):
+                    # learnable softmax parameters (ConSmax beta/gamma): one
+                    # f32 scalar per query head and layer, at the backend
+                    # cfg's operating point (MLA carries none, as the
+                    # reference)
+                    c = backend.cfg
+                    attn["smx"] = {"beta": torch.full((n, h), c.beta, device=dev),
+                                   "gamma": torch.full((n, h), c.gamma, device=dev)}
+            if kind == "moe":
+                ffn = {"router": dense(n, d, cfg.n_experts)}
+                ffn.update({k: experts(n, shape, std)
+                            for k, (shape, std) in moe_shapes(cfg).items()})
+                if cfg.n_shared_experts:
+                    f = cfg.n_shared_experts * cfg.d_ff_expert
+                    ffn["shared"] = {"gate": dense(n, d, f), "up": dense(n, d, f),
+                                     "down": dense(n, f, d)}
+            else:
+                ffn = {"gate": dense(n, d, cfg.d_ff), "up": dense(n, d, cfg.d_ff),
+                       "down": dense(n, cfg.d_ff, d)}
+            return {"norm1": norm(n), "norm2": norm(n), "attn": attn, "ffn": ffn}
+
         p = {"embed": {"w": normal((cfg.vocab, d), 0.02)},
              "final_norm": norm(0)}
         if not cfg.tie_embeddings:
             p["head"] = {"w": normal((d, cfg.vocab), 1.0 / math.sqrt(d))}
-        if cfg.attention == "mla":
-            attn = {k: dense(*shape) for k, shape in mla_dense_shapes(cfg).items()}
-            if cfg.q_lora_rank:
-                attn["q_norm"] = norm(cfg.n_layers, cfg.q_lora_rank, "rmsnorm")
-            attn["kv_norm"] = norm(cfg.n_layers, cfg.kv_lora_rank, "rmsnorm")
+        if cfg.family == "moe":
+            p["stack"] = {"layers": block(cfg.n_layers - cfg.n_dense_prefix, "moe")}
+            if cfg.n_dense_prefix:
+                p["stack"]["prefix"] = block(cfg.n_dense_prefix, "dense")
         else:
-            attn = {"wq": dense(d, h * dh, cfg.qkv_bias),
-                    "wk": dense(d, kv * dh, cfg.qkv_bias),
-                    "wv": dense(d, kv * dh, cfg.qkv_bias),
-                    "wo": dense(h * dh, d)}
-            backend = spec_backend(cfg.softmax)
-            if getattr(backend, "learnable", False):
-                # learnable softmax parameters (ConSmax beta/gamma): one f32
-                # scalar per query head and layer, at the backend cfg's
-                # operating point (MLA carries none, as the reference)
-                c = backend.cfg
-                attn["smx"] = {
-                    "beta": torch.full((cfg.n_layers, h), c.beta, device=dev),
-                    "gamma": torch.full((cfg.n_layers, h), c.gamma, device=dev)}
-        p["stack"] = {"layers": {
-            "norm1": norm(cfg.n_layers), "norm2": norm(cfg.n_layers),
-            "attn": attn,
-            "ffn": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
-                    "down": dense(cfg.d_ff, d)},
-        }}
+            p["stack"] = {"layers": block(cfg.n_layers, "dense")}
         return p
 
     # -------------------------------------------------------------- pieces
+
+    def _segments(self, p):
+        """The stack's homogeneous segments in layer order: (stacked params,
+        kind, layers before it). The MoE family runs its dense prefix first
+        (the reference's ``_stack_*`` split), every other family one dense
+        segment."""
+        sp = p["stack"]
+        if self.cfg.family != "moe":
+            return [(sp["layers"], "dense", 0)]
+        pre = [(sp["prefix"], "dense", 0)] if "prefix" in sp else []
+        lo = tfm.n_stacked(sp["prefix"]) if pre else 0
+        return pre + [(sp["layers"], "moe", lo)]
+
+    @staticmethod
+    def _layer_slice(tree, lo: int, n: int):
+        """Layers ``lo .. lo + n`` of a cache tree (views: written in place;
+        the tree itself when that is every layer)."""
+        if lo == 0 and all(v.shape[0] == n for v in tree.values()):
+            return tree
+        return {k: v[lo:lo + n] for k, v in tree.items()}
+
+    def _stack_step(self, p, cache, x, cache_pos, positions, stack_fn, ctx):
+        """One decode or verify step through every segment, each on its
+        layers of the one cache (views, written in place)."""
+        for sp, kind, lo in self._segments(p):
+            n = tfm.n_stacked(sp)
+            x, _ = stack_fn(sp, self._layer_slice(cache, lo, n), x, cache_pos, self.cfg,
+                            ctx, positions, kind)
+        return x, cache
+
+    @staticmethod
+    def _cat_layers(caches):
+        if len(caches) == 1:
+            return caches[0]
+        return {k: torch.cat([c[k] for c in caches]) for k in caches[0]}
 
     def _embed(self, p, tokens):
         return embed_apply(p["embed"], tokens, self.ctx)
@@ -159,22 +233,27 @@ class Model:
 
     def train_logits(self, p, batch):
         """(logits, aux) as the reference returns them: aux is the summed
-        auxiliary loss of the layers, a 0-dim f32 zero for the dense and MLA
-        families (only MoE layers add one)."""
+        auxiliary loss of the layers, a 0-dim f32 tensor, zero for the dense
+        family (only MoE layers add one: ``moe.moe_apply``)."""
         tokens = batch["tokens"]
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device)
-        x = tfm.stack_apply(p["stack"]["layers"], x, self.cfg, self.ctx,
-                            positions)
-        return self._head(p, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for sp, kind, _ in self._segments(p):
+            x, a = tfm.stack_apply(sp, x, self.cfg, self.ctx, positions, kind)
+            aux = aux + a
+        return self._head(p, x), aux
 
     def prefill(self, p, batch, cache_len: int):
         tokens = batch["tokens"]
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device)
-        x, cache = tfm.stack_prefill(p["stack"]["layers"], x, self.cfg,
-                                     self.prefill_ctx, positions, cache_len)
-        return self._head(p, x[:, -1:]), cache
+        caches = []
+        for sp, kind, _ in self._segments(p):
+            x, c = tfm.stack_prefill(sp, x, self.cfg, self.prefill_ctx, positions,
+                                     cache_len, kind)
+            caches.append(c)
+        return self._head(p, x[:, -1:]), self._cat_layers(caches)
 
     def prefill_tail(self, p, batch, prefix, prefix_len: int):
         """Prefill only the unshared tail of a prompt whose first
@@ -188,10 +267,13 @@ class Model:
         tokens = batch["tokens"]
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device) + prefix_len
-        x, cache = tfm.stack_prefill_tail(p["stack"]["layers"], prefix, x,
-                                          self.cfg, self.prefill_ctx, positions,
-                                          prefix_len)
-        return self._head(p, x[:, -1:]), cache
+        caches = []
+        for sp, kind, lo in self._segments(p):
+            x, c = tfm.stack_prefill_tail(sp, self._layer_slice(prefix, lo, tfm.n_stacked(sp)),
+                                          x, self.cfg, self.prefill_ctx, positions,
+                                          prefix_len, kind)
+            caches.append(c)
+        return self._head(p, x[:, -1:]), self._cat_layers(caches)
 
     def decode_step(self, p, cache, batch, cache_pos):
         """``cache_pos``: the filled length — an int or a 0-d int tensor
@@ -208,8 +290,8 @@ class Model:
         else:
             positions = cache_pos.to(torch.int32).reshape(-1, 1).expand(b, 1)
         x = self._embed(p, token)
-        x, cache = tfm.stack_decode(p["stack"]["layers"], cache, x, cache_pos,
-                                    self.cfg, self.step_ctx, positions)
+        x, cache = self._stack_step(p, cache, x, cache_pos, positions, tfm.stack_decode,
+                                    self.step_ctx)
         return self._head(p, x, self.step_ctx), cache
 
     def verify_step(self, p, cache, batch, cache_pos):
@@ -226,8 +308,8 @@ class Model:
         b, t = token.shape
         positions = block_positions(cache_pos, b, t, token.device)
         x = self._embed(p, token)
-        x, staged = tfm.stack_verify(p["stack"]["layers"], cache, x, cache_pos,
-                                     self.cfg, self.step_ctx, positions)
+        x, staged = self._stack_step(p, cache, x, cache_pos, positions, tfm.stack_verify,
+                                     self.step_ctx)
         return self._head(p, x, self.step_ctx), staged
 
     def verify_commit(self, staged, n_accept, cache_pos, t: int):

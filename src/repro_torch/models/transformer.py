@@ -1,10 +1,13 @@
-"""Dense transformer blocks and the layer loops (port of the dense GQA and
-MLA paths of ``src/repro/models/transformer.py``).
+"""Transformer blocks and the layer loops (port of the dense and MoE
+paths, GQA or MLA attention, of ``src/repro/models/transformer.py``).
 
 Layer parameters are stacked with a leading layer axis, as in the
 reference; a Python loop over that axis takes the place of ``lax.scan``.
 The loops iterate with ``telemetry.scan_range`` so the AP cost meter
-records what the reference's trace-once scan records.
+records what the reference's trace-once scan records. Each block and loop
+takes the reference's ``kind``: ``"dense"`` (the GLU MLP) or ``"moe"``
+(``models/moe.py``); an MoE layer's auxiliary loss is summed by
+``stack_apply`` and dropped by the serving paths, as the reference's.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from repro_torch.models.layers import Ctx, dense_apply, mlp_apply, norm_apply
 from repro_torch.models.mla import (
     mla_apply, mla_decode, mla_prefill, mla_prefill_tail, mla_verify,
 )
+from repro_torch.models.moe import moe_apply
 
 
 def layer_params(stacked, i: int):
@@ -47,13 +51,22 @@ def n_stacked(stacked) -> int:
 # --------------------------------------------------------------------- blocks
 
 
-def block_apply(p, x, cfg, ctx: Ctx, positions):
-    """Dense pre-norm causal block over a whole sequence."""
+def _ffn(p, x, cfg, ctx: Ctx, kind: str):
+    """The block's second half: x + FFN(norm2(x)), and the FFN's aux loss
+    (0.0 for the dense GLU)."""
+    h = norm_apply(p["norm2"], x, cfg.norm, ctx)
+    if kind == "moe":
+        y, aux = moe_apply(p["ffn"], h, cfg, ctx)
+        return x + y, aux
+    return x + mlp_apply(p["ffn"], h, cfg.act, ctx), 0.0
+
+
+def block_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "dense"):
+    """Pre-norm causal block over a whole sequence. Returns (x, aux)."""
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
     attn = mla_apply if cfg.attention == "mla" else attn_apply
     x = x + attn(p["attn"], h, cfg, ctx, positions)
-    h = norm_apply(p["norm2"], x, cfg.norm, ctx)
-    return x + mlp_apply(p["ffn"], h, cfg.act, ctx)
+    return _ffn(p, x, cfg, ctx, kind)
 
 
 def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
@@ -86,18 +99,17 @@ def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
     return y, cache
 
 
-def block_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
+def block_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int,
+                  kind: str = "dense"):
     """Returns (x, cache) — the decode-ready cache for this layer."""
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
     prefill = mla_prefill if cfg.attention == "mla" else attn_prefill
     a, c = prefill(p["attn"], h, cfg, ctx, positions, cache_len)
-    x = x + a
-    h = norm_apply(p["norm2"], x, cfg.norm, ctx)
-    return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
+    return _ffn(p, x + a, cfg, ctx, kind)[0], c
 
 
 def block_prefill_tail(p, x, cfg, ctx: Ctx, positions, prefix,
-                       prefix_len: int):
+                       prefix_len: int, kind: str = "dense"):
     """Prefill the unshared prompt tail of one block against the layer's
     shared-prefix entries ``prefix`` ({"k","v"} [B, s, KV, D] with
     {"k_scale","v_scale"} under ``kv_quant``, or MLA's
@@ -112,82 +124,86 @@ def block_prefill_tail(p, x, cfg, ctx: Ctx, positions, prefix,
                                  positions, prefix_len,
                                  prefix_k_scale=prefix.get("k_scale"),
                                  prefix_v_scale=prefix.get("v_scale"))
-    x = x + a
-    h = norm_apply(p["norm2"], x, cfg.norm, ctx)
-    return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
+    return _ffn(p, x + a, cfg, ctx, kind)[0], c
 
 
-def _block_step(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, attn):
+def _block_step(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, attn, kind):
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
     a, c = attn(p["attn"], h, cache, cache_pos, cfg, ctx, positions)
-    x = x + a
-    h = norm_apply(p["norm2"], x, cfg.norm, ctx)
-    return x + mlp_apply(p["ffn"], h, cfg.act, ctx), c
+    return _ffn(p, x + a, cfg, ctx, kind)[0], c
 
 
-def block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
+def block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind: str = "dense"):
     """Single-token decode step. Returns (x, cache) — the cache updated in
     place."""
     return _block_step(p, x, cache, cache_pos, cfg, ctx, positions,
-                       mla_decode if cfg.attention == "mla" else attn_decode)
+                       mla_decode if cfg.attention == "mla" else attn_decode, kind)
 
 
-def block_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
+def block_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind: str = "dense"):
     """Multi-token (draft-verify) decode step over T tokens at ``positions``
     [B, T]. Returns (x, cache): every token's entry written in place (the
     rejected tail is cleared later by ``Model.verify_commit``)."""
     return _block_step(p, x, cache, cache_pos, cfg, ctx, positions,
-                       mla_verify if cfg.attention == "mla" else attn_verify)
+                       mla_verify if cfg.attention == "mla" else attn_verify, kind)
 
 
 # ----------------------------------------------------------------- layer loops
 
 
-def stack_apply(params, x, cfg, ctx: Ctx, positions):
+def stack_apply(params, x, cfg, ctx: Ctx, positions, kind: str = "dense"):
+    """Returns (x, the layers' summed aux loss)."""
+    aux = 0.0
     for i in telemetry.scan_range(n_stacked(params)):
-        x = block_apply(layer_params(params, i), x, cfg, ctx, positions)
-    return x
+        x, a = block_apply(layer_params(params, i), x, cfg, ctx, positions, kind)
+        aux = aux + a
+    return x, aux
 
 
-def stack_prefill(params, x, cfg, ctx: Ctx, positions, cache_len: int):
+def stack_prefill(params, x, cfg, ctx: Ctx, positions, cache_len: int,
+                  kind: str = "dense"):
     """Returns (x, cache) with cache leaves stacked [L, B, cache_len, ...]."""
     caches = []
     for i in telemetry.scan_range(n_stacked(params)):
         x, c = block_prefill(layer_params(params, i), x, cfg, ctx, positions,
-                             cache_len)
+                             cache_len, kind)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
 def stack_prefill_tail(params, prefix, x, cfg, ctx: Ctx, positions,
-                       prefix_len: int):
+                       prefix_len: int, kind: str = "dense"):
     """Tail prefill through every layer; ``prefix`` leaves are stacked
     [L, B, s, ...]. Returns (x, tail cache [L, B, T, ...])."""
     caches = []
     for i in telemetry.scan_range(n_stacked(params)):
         x, c = block_prefill_tail(layer_params(params, i), x, cfg, ctx,
                                   positions, layer_params(prefix, i),
-                                  prefix_len)
+                                  prefix_len, kind)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
-def _stack_step(params, caches, x, cache_pos, cfg, ctx: Ctx, positions, block):
+def _stack_step(params, caches, x, cache_pos, cfg, ctx: Ctx, positions, block, kind):
     for i in telemetry.scan_range(n_stacked(params)):
         x, _ = block(layer_params(params, i), x, layer_params(caches, i), cache_pos, cfg,
-                     ctx, positions)
+                     ctx, positions, kind)
     return x, caches
 
 
-def stack_decode(params, caches, x, cache_pos, cfg, ctx: Ctx, positions):
+def stack_decode(params, caches, x, cache_pos, cfg, ctx: Ctx, positions,
+                 kind: str = "dense"):
     """One decode step through every layer; each layer writes its slice of
     the stacked cache (contiguous, or paged pools and table) in place, so
     the returned cache is ``caches``."""
-    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_decode)
+    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_decode,
+                       kind)
 
 
-def stack_verify(params, caches, x, cache_pos, cfg, ctx: Ctx, positions):
+def stack_verify(params, caches, x, cache_pos, cfg, ctx: Ctx, positions,
+                 kind: str = "dense"):
     """One verify step over a T-token block through every layer (the
     reference's ``scan_verify`` for the positional families), written in
     place like ``stack_decode``: the returned staged cache is ``caches``."""
-    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_verify)
+    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_verify,
+                       kind)

@@ -33,6 +33,8 @@ def test_imports_with_jax_blocked():
             "import repro_torch.kernels.paged_attention.ops, repro_torch.backends.paged_kernel\n"
             "import repro_torch.serving.engine, repro_torch.serving.options\n"
             "import repro_torch.serving.scheduler, repro_torch.models.kv_cache\n"
+            "import repro_torch.models.moe, repro_torch.configs.dbrx_132b\n"
+            "import repro_torch.configs.deepseek_v2_236b, repro_torch.configs.deepseek_7b\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src")}, timeout=120)
@@ -88,6 +90,18 @@ def test_launcher_speculative_serve_prints_draft_verify_split(capsys):
     assert rep.speculative and rep.draft_k == 3 and rep.drafted_tokens > 0
     assert "speculative k=3 (acceptance" in out and "verify phase: CostReport" in out
     assert rep.cost_verify.cycles > 0 and rep.cost_draft.cycles == 0
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-236b"])
+def test_moe_entry_points_default_to_the_card(arch):
+    """The MoE models (item 11) run on the card unless the caller passes the
+    CPU, as the dense ones."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(smoke_config(arch))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", arch, "--warm-steps", "0"])
 
 
 def test_serve_cli_runs_on_cpu_when_asked():
