@@ -5,7 +5,9 @@
 Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
-2. build: every CUDA kernel of the main path, from ``src/repro_torch/kernels/csrc``;
+2. build: every CUDA kernel of the main path, from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` a source, all started together; phases 3 and 4 (K1 alone)
+   run while K2-K4 finish;
 3. K1 (the Alg.-1 softmax kernel) against its plain PyTorch version, bitwise,
    at the generate and both serve paths' shapes and at edge shapes (odd
    widths, sentinel rows, a saturating sum, M=15 (no exp table), rows split
@@ -47,8 +49,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    equal ``kernel="jnp"`` and per-request eager but at near ties; every
    served logit within a stated limit of a teacher-forced prefill of the
    served tokens, and of the jnp serve's step by step; each decode step one
-   CUDA-graph replay, bitwise equal to the same serve op by op (tokens,
-   every logit row, pool bytes, launches), one capture per engine and step
+   CUDA-graph replay, bitwise equal to the same serve op by op on its first
+   2 requests (tokens, every logit row, pool bytes; the op-by-op launches
+   as its steps imply), one capture per engine and step
    shape, at most 20 aten ops a replayed greedy step and less time a step
    than op by op (warm serves in turns, with the jnp kernel's graphed
    serve), one replayed step's device trace;
@@ -187,7 +190,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     160 experts top-6, 2 shared, a dense prefix layer) serving (b)'s
     requests: K4 4 x steps at (1, 128), K2 never, (b)'s plain-serve checks
     and control (K4 leaving out the first page);
-17. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+17. the recurrent families (item 11's SSM and hybrid bullets) at full
+    width and full depth, seeded bf16 weights, prompts on the SSD chunk
+    grid: (a) mamba2-780m (48 SSD layers, no attention, so no kernel) and
+    (b) hymba-1.5b (32 layers: 3 global on K1 / K2, 29 window layers on
+    rings of 1024 keys) through the graphed ``Engine.generate(mode=
+    "fused")`` at batch 4, 256 new tokens after prompts of 256 and 1280: K1
+    0 and 32 x 256 launches, every decoded logit row within
+    ``REC_GEN_TOL`` of ``Model.train_logits`` over the sequence, hymba's
+    ring positions as the decoded positions put them, over the first 32
+    steps graph == op by op bitwise (tokens, last logits, state bytes) ==
+    mode="eager", hymba's ``int`` == ``int_pallas`` bitwise, ms a step
+    beside the bytes bound, peak memory; (c) hymba-1.5b serving an
+    8-request trace (prompts 192 and 256, 16-64 new tokens) with phase 6's
+    options through phase 6's checks (``serve_phase``): nothing shared, K2
+    3 x steps all at (1, 5), K1 29 x steps + 32 x 8, graph == op by op
+    bitwise on 2 requests, greedy tokens == jnp and eager but at near ties,
+    served logits within the ``HYMBA_*`` limits of a teacher-forced pass
+    and a control (K2 leaving out each sequence's first page) failing them,
+    warm serves timed graphed and op by op; (d) both models on that trace
+    with every fourth request in class 0, chunked (128: the staged branch) and
+    preempting from a pool of 3 requests' worst case: the swap round trip
+    of blocks and stripes bitwise, the serve equal to the plain serve
+    bitwise (tokens, every logit row); (e) both served speculatively
+    (n-gram drafts of 4), one replay a round: equal to the plain serve
+    bitwise, hymba's K2 at (5, 25) 3 x rounds and K1 32 x 8 + 29 x 5 x
+    rounds, acceptance and ms a round of a warm serve;
+18. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
 
@@ -212,8 +241,11 @@ blocks in reversed order, a chunk committing one position late), then
 phase 14's checks (the rollback, the logit and token checks) on its first
 8 requests served op by op through the gather path against two faults
 of the verify step (``commit_staged`` leaving the last rejected position
-uncleared, ``verify_mask`` letting query i see position i + 1), and
-prints which checks catch each.
+uncleared, ``verify_mask`` letting query i see position i + 1), then
+phase 17's checks against three faults of the recurrent paths
+(``commit_staged`` restoring the recurrent snapshot one step late,
+``attn_decode_ring`` writing slot (pos + 1) % W, ``swap_write`` restoring
+a stripe into another slot), and prints which checks catch each.
 """
 
 from __future__ import annotations
@@ -224,6 +256,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import zlib
 
@@ -542,6 +575,19 @@ def phase3_k1(rate):
     m = (torch.arange(544, device=dev)[None, :] <= qpos[:, None]).to(torch.uint8)
     recs.append(k1_case("MLA decode, kernel=jnp (8 x 40)", scores(320, 544),
                         m.repeat_interleave(40, dim=0), BEST, rate, calls))
+    # the hymba-1.5b serve path (phase 17: 25 heads, 8 slots): a window
+    # layer's ring decode, [8 x 25, 1024], masked by the ring's stored
+    # positions (-1 where empty) as attn_decode_ring draws it: slots below
+    # the window and wrapped ones
+    w, rng = 1024, np.random.default_rng(2)
+    qpos = torch.as_tensor(rng.integers(190, 2600, size=8), device=dev)
+    i = torch.arange(w, device=dev)
+    stored = qpos[:, None] - torch.remainder(qpos[:, None] - i[None, :], w)
+    stored = torch.where(stored >= 0, stored, torch.full_like(stored, -1))
+    ring = ((stored >= 0) & (stored <= qpos[:, None])
+            & (stored > qpos[:, None] - w)).to(torch.uint8)
+    recs.append(k1_case("hymba ring decode (8 x 25, 1024)", scores(200, w),
+                        ring.repeat_interleave(25, dim=0), BEST, rate, calls))
     # odd columns: scalar loads and stores
     m = (torch.rand((64, 543), generator=gen, device=dev) < 0.7).to(torch.uint8)
     recs.append(k1_case("cols 543 (scalar tail)", scores(64, 543), m, BEST, rate, calls))
@@ -972,6 +1018,14 @@ def phase5_k2(rate):
     recs.append(k2_case("dbrx-132b decode (GQA 48/8)", gen, rate, qpos=qpos, **dbrx))
     recs.append(k2_case("dbrx-132b verify T 5 (GQA 48/8)", gen, rate, T=5,
                         qpos=np.minimum(qpos, 576 - 5), **dbrx))
+    # phase 17's hymba-1.5b serve: its 3 global layers at GQA 25/5 (group
+    # 5), D 64, over the serve's pool (cache_len 1024: the window) at its
+    # decode step and its verify round
+    hymba = dict(S=8, KV=5, group=5, D=64, BS=16, NLOG=64)
+    hpos = np.random.default_rng(3).integers(192, 320, size=8)
+    recs.append(k2_case("hymba-1.5b decode (GQA 25/5, D 64)", gen, rate, qpos=hpos, **hymba))
+    recs.append(k2_case("hymba-1.5b verify T 5 (GQA 25/5, D 64)", gen, rate, T=5, qpos=hpos,
+                        **hymba))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -1648,13 +1702,22 @@ def op_by_op(eng):
     return eng
 
 
+def _named_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a (nested) cache tree."""
+    if isinstance(tree, dict):
+        return [nl for k, v in tree.items() for nl in _named_leaves(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
 def caches_equal(a, b) -> dict:
-    """Leaf -> bitwise equal, over two decode states' caches."""
-    return {k: bool(torch.equal(a.cache[k], b.cache[k])) for k in a.cache}
+    """Leaf -> bitwise equal, over two decode states' caches (nested: the
+    leaf's path)."""
+    return {k: bool(torch.equal(x, y))
+            for (k, x), (_, y) in zip(_named_leaves(a.cache), _named_leaves(b.cache))}
 
 
 def cache_bytes(st) -> int:
-    return sum(v.numel() * v.element_size() for v in st.cache.values())
+    return sum(v.numel() * v.element_size() for _, v in _named_leaves(st.cache))
 
 
 def rows_equal(rows_a, rows_b) -> int:
@@ -2062,7 +2125,14 @@ def full_logits(model, params, seq):
     """Logits at every position of ``seq`` [1, S] from one causal pass:
     ``Model.train_logits``, or for an int8 KV cache the prefill's layer loop
     (each layer attends the fake-quantized K/V it caches, as serving does)
-    with the head over every position."""
+    with the head over every position. An SSM or hybrid model's sequence
+    longer than a chunk is zero-padded on the right to the SSD chunk grid
+    (``ssm.ssd_chunked``'s rule) and the logits sliced back: the model is
+    causal, so the tokens after a position change none of its logits."""
+    cfg, s = model.cfg, seq.shape[1]
+    if cfg.family in ("ssm", "hybrid") and s > cfg.ssm_chunk and s % cfg.ssm_chunk:
+        seq = F.pad(seq, (0, cfg.ssm_chunk - s % cfg.ssm_chunk))
+        return full_logits(model, params, seq)[:, :s]
     if not model.cfg.kv_quant:
         return model.train_logits(params, {"tokens": seq})[0]
     from repro_torch.models import transformer as tfm
@@ -2129,7 +2199,11 @@ def _margin(model, params, tokens):
     by a teacher-forced prefill of the reference's own tokens."""
     batch = {"tokens": torch.as_tensor(np.asarray(tokens)[None], dtype=torch.long,
                                        device="cuda")}
-    logits, _ = model.prefill(params, batch, cache_len=len(tokens))
+    if model.cfg.family in ("ssm", "hybrid"):
+        # a prompt off the SSD chunk grid: the causal forward pads it
+        logits = full_logits(model, params, batch["tokens"])
+    else:
+        logits, _ = model.prefill(params, batch, cache_len=len(tokens))
     top = torch.topk(logits[0, -1].float(), 2).values
     return float(top[0]), float(top[0] - top[1])
 
@@ -2271,26 +2345,59 @@ def serve_timing(label, reqs, plan, graph="graph", op="op by op"):
     return out
 
 
+def step_launches(cfg, name, kv_quant=False) -> dict:
+    """The kernels one serve decode step of ``cfg`` launches: the fused paged
+    decode ``name`` ("K2" / "K4") on every paged layer (and K2's int8
+    branch on each with ``kv_quant``); a hybrid model's window layers
+    decode from their rings through K1 and only its global layers page."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.kv_cache import hybrid_segments
+
+        n_win = sum(hybrid_segments(cfg))
+        return {name: cfg.n_layers - n_win, "K1": n_win}
+    per = {name: cfg.n_layers}
+    if kv_quant:
+        per["K2 on int8 pools"] = cfg.n_layers
+    return per
+
+
+def serve_launches(cfg, name, kv_quant, counted, prefills, steps) -> dict:
+    """Every counter of ``counted`` at 0 but K1 n_layers x ``prefills`` and
+    ``step_launches`` x ``steps``."""
+    want = {k: 0 for k in counted}
+    want["K1"] = cfg.n_layers * prefills
+    for k, v in step_launches(cfg, name, kv_quant).items():
+        want[k] = want.get(k, 0) + v * steps
+    return want
+
+
 def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
-                aligned_tol, aligned_rms_tol, max_new, kv_quant=False):
+                aligned_tol, aligned_rms_tol, max_new, kv_quant=False, model=None,
+                params=None, control=False):
     """Full-width ``arch`` served through Engine.serve with the paged pool,
     prefix sharing and ``kernel="pallas"``: the fused paged decode
-    ``fused`` (the ``ops`` function whose counter it bumps) launches
-    n_layers x steps times, K1 n_layers x requests (the prefills and tail
-    prefills), no other paged decode kernel at all. Greedy tokens equal
-    ``kernel="jnp"`` and per-request eager (the first ``eager_n`` requests)
-    but at near ties; every served logit within ``logit_tol`` (RMS
-    ``logit_rms_tol``) of a teacher-forced forward of the served tokens,
-    and the pallas and jnp serves' logits within ``aligned_tol`` (RMS
-    ``aligned_rms_tol``) of each other step by step. The decode steps are
-    CUDA-graph replays (their kernels counted from the device trace:
+    ``fused`` (the ``ops`` function whose counter it bumps) launches as
+    ``step_launches`` x steps, every call at (T 1, its query rows), K1
+    n_layers x requests (the prefills and tail prefills), no other paged
+    decode kernel at all; a prefix is shared (never for the recurrent
+    families, whose state summarises the whole prefix). Greedy tokens
+    equal ``kernel="jnp"`` and per-request eager (the first ``eager_n``
+    requests) but at near ties; every served logit within ``logit_tol``
+    (RMS ``logit_rms_tol``) of a teacher-forced forward of the served
+    tokens, and the pallas and jnp serves' logits within ``aligned_tol``
+    (RMS ``aligned_rms_tol``) of each other step by step. The decode steps
+    are CUDA-graph replays (their kernels counted from the device trace:
     ``path_launches``, which also gives one replayed step's device time);
     the checked serve equals the same serve op by op bitwise (tokens, logit
-    rows, pool bytes, launches), each engine captures once per step shape,
+    rows, pool bytes, the op-by-op launches as its steps imply) on the first
+    SERVE_OP_SUBSET requests, each engine captures once per step shape,
     and the greedy serve is timed graphed and op by op in turns
     (``serve_timing``). ``kv_quant``: the int8 KV pool (absmax); K2 must then
     launch on int8 pools every time, and the teacher-forced pass quantizes
-    as the prefill does."""
+    as the prefill does. ``model`` / ``params``: the model to serve (else
+    ``arch`` at full size, seeded). ``control``: a serve with ``fused``
+    leaving out each sequence's first page must fail the teacher-forced
+    limits."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -2298,14 +2405,18 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
 
-    cfg = dataclasses.replace(get_config(arch, softmax=SoftmaxSpec("int_pallas")),
-                              kv_quant=kv_quant)
-    model = Model(cfg)
-    params = model.init(torch.Generator("cuda").manual_seed(0))
+    if model is None:
+        cfg = dataclasses.replace(get_config(arch, softmax=SoftmaxSpec("int_pallas")),
+                                  kv_quant=kv_quant)
+        model = Model(cfg)
+        params = model.init(torch.Generator("cuda").manual_seed(0))
+    cfg = model.cfg
     eng = Engine(model, params, max_new=max_new)
     gen_tokens = sum(r.max_new for r in reqs)
     counters = _kernel_counters()
     name = next(k for k, f in counters.items() if f is fused)
+    rows_per_call = cfg.n_heads if name == "K4" else cfg.n_heads // cfg.n_kv_heads
+    shares = cfg.family not in ("ssm", "hybrid")
     print(f"serve path: {cfg.name} full width ({cfg.param_count() / 1e9:.3f} B parameters, "
           f"{cfg.n_layers} layers), bf16 seeded weights, softmax int_pallas; {len(reqs)} "
           f"requests (prompts {min(r.prompt_len for r in reqs)}-"
@@ -2319,7 +2430,8 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
     rec = _LogitRecorder()
     eng_r = Engine(model, params, max_new=max_new, sampler=rec)
     torch.cuda.reset_peak_memory_stats()
-    rep, counted, rows_pallas, first_s, replayed = counted_serve(eng_r, reqs, opts, rec)
+    with KernelWidths() as widths:
+        rep, counted, rows_pallas, first_s, replayed = counted_serve(eng_r, reqs, opts, rec)
     PLAIN_SERVES[arch, kv_quant] = {"rep": rep, "rows": rows_pallas}
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec.rows = {}
@@ -2329,7 +2441,9 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
               f"request {r.rid}: token shape")
         check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
               f"request {r.rid}: token range")
-    check(rep.shared_prefill_tokens > 0, "no prefix was shared")
+    check((rep.shared_prefill_tokens > 0) == shares,
+          f"{rep.shared_prefill_tokens} prefix tokens shared (a {cfg.family} model shares "
+          f"{'some' if shares else 'none'})")
     check(rep.leaked_blocks == 0, f"{rep.leaked_blocks} pool blocks leaked")
     check(cost_shares_sum(rep), "cost shares do not sum to the batch meter")
     print(f"served: {rep.steps} decode steps, cache_len {rep.cache_len}, prefill "
@@ -2341,27 +2455,35 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
                   for q in (False, True)}
     print(f"KV pool bytes per token: {pool_bytes[cfg.kv_quant]} ({cfg.n_layers} layers; "
           f"int8 pool {pool_bytes[True]}, bf16 pool {pool_bytes[False]})", flush=True)
-    rec_o = _LogitRecorder()
-    eng_ro = op_by_op(Engine(model, params, max_new=max_new, sampler=rec_o))
-    rep_o, n_o, rows_o, _, _ = counted_serve(eng_ro, reqs, opts, rec_o)
-    graph_vs_op = serve_graph_vs_op(f"{cfg.name} serve", reqs,
-                                    (rep, rows_pallas, eng_r), (rep_o, rows_o, eng_ro))
-    del eng_ro, rows_o, rec_o
-    per_replay = {k: 0 for k in counted}
-    per_replay[name] = cfg.n_layers
-    if kv_quant:
-        per_replay["K2 on int8 pools"] = cfg.n_layers
+    # graph == op by op on the first SERVE_OP_SUBSET requests, each served
+    # graphed and op by op by a fresh engine; the op-by-op serve's launches
+    # (all counted by the wrappers) as its steps imply
+    sub = reqs[:SERVE_OP_SUBSET]
+    runs = []
+    for graphed in (True, False):
+        r2 = _LogitRecorder()
+        e2 = Engine(model, params, max_new=max_new, sampler=r2)
+        if not graphed:
+            op_by_op(e2)
+        rep2, n2, rows2, _, _ = counted_serve(e2, sub, opts, r2)
+        runs.append(((rep2, rows2, e2), n2))
+    graph_vs_op = serve_graph_vs_op(f"{cfg.name} serve, first {len(sub)} requests", sub,
+                                    runs[0][0], runs[1][0])
+    (rep_o, _, _), n_o = runs[1]
+    del runs
+    same_launches(f"{cfg.name} serve, first {len(sub)} requests op by op", graph_vs_op,
+                  serve_launches(cfg, name, kv_quant, n_o, len(sub), rep_o.steps), n_o)
+    per_replay = serve_launches(cfg, name, kv_quant, counted, 0, 1)
     traces = replay_trace(f"{cfg.name} serve", replayed_graphs(eng_r, replayed))
     n = path_launches(f"{cfg.name} serve", counted, replayed, traces, per_replay)
-    same_launches(f"{cfg.name} serve", graph_vs_op, n, n_o)
-    want = {k: 0 for k in n}
-    want.update({"K1": cfg.n_layers * len(reqs), name: cfg.n_layers * rep.steps})
-    if kv_quant:
-        want["K2 on int8 pools"] = cfg.n_layers * rep.steps
-    print(f"launches in one serve: {n} (expected {want}: {name} {cfg.n_layers} layers x "
-          f"{rep.steps} steps, K1 {cfg.n_layers} x {len(reqs)} prefills); first serve "
+    want = serve_launches(cfg, name, kv_quant, n, len(reqs), rep.steps)
+    w = widths.widths(name)
+    print(f"launches in one serve: {n} (expected {want}: {step_launches(cfg, name, kv_quant)} "
+          f"a step x {rep.steps} steps, K1 {cfg.n_layers} x {len(reqs)} prefills); {name} "
+          f"calls at (T, rows) {w} (expected [(1, {rows_per_call})]); first serve "
           f"{first_s * 1e3:.1f} ms, peak device memory {peak:.2f} GiB", flush=True)
     check(n == want, f"kernel launches {n} != {want}")
+    check(w == [(1, rows_per_call)], f"{cfg.name} serve: {name} ran at (T, rows) {w}")
 
     ties = []
     rep_j = eng_r.serve(reqs, dataclasses.replace(opts, kernel="jnp", report_cost=False))
@@ -2384,6 +2506,12 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
     check(aligned["max"] <= aligned_tol and aligned["rms"] <= aligned_rms_tol,
           f"pallas and jnp logits differ step by step beyond the limits ({aligned_tol}, "
           f"RMS {aligned_rms_tol}): {aligned}")
+
+    def beyond(c):
+        return [k for k, v in (
+            ("logit_max", max(c["first_step_max"], c["decode_max"]) > logit_tol),
+            ("logit_rms", c["rms"] > logit_rms_tol)) if v]
+
     logit_checks = [
         teacher_forced("serve kernel=pallas", model, params, reqs,
                        [res.tokens for res in rep.results], rows_pallas, logit_tol,
@@ -2395,15 +2523,38 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
                        reqs[:eager_n], [e.tokens[0] for e in eager], rec.rows, logit_tol,
                        logit_rms_tol)]
     for c in logit_checks:
-        check(max(c["first_step_max"], c["decode_max"]) <= logit_tol and
-              c["rms"] <= logit_rms_tol, f"{c['run']}: served logits differ from the "
-              f"teacher-forced prefill's beyond the limits: {c}")
+        check(not beyond(c), f"{c['run']}: served logits differ from the teacher-forced "
+              f"prefill's beyond the limits: {c}")
     to_bf16 = None
     if kv_quant:        # information only: what the int8 pool costs in logits
         to_bf16 = teacher_forced("int8 serve kernel=pallas vs the bf16 model (information)",
                                  Model(dataclasses.replace(cfg, kv_quant=False)), params,
                                  reqs, [res.tokens for res in rep.results], rows_pallas,
                                  float("inf"), float("inf"))
+    ctrl = None
+    if control:
+        # the same serve, graphed by a fresh engine (its step graph captured
+        # with the fault), the fused kernel leaving out the first page of
+        # every sequence's keys; the teacher-forced limits must fail it
+        from repro_torch.kernels.paged_attention import ops as paged_ops
+
+        attr, at = MOE_CONTROL[name]
+        sound = getattr(paged_ops, attr)
+        setattr(paged_ops, attr, _first_page_left_out(sound, at))
+        rec.rows = {}
+        try:
+            rep_c = Engine(model, params, max_new=max_new, sampler=rec).serve(
+                reqs, dataclasses.replace(opts, report_cost=False))
+        finally:
+            setattr(paged_ops, attr, sound)
+        ctrl = teacher_forced(f"serve kernel=pallas, control: {name} leaves out each "
+                              "sequence's first page", model, params, reqs,
+                              [r.tokens for r in rep_c.results], rec.rows, logit_tol,
+                              logit_rms_tol)
+        ctrl["caught_by"] = beyond(ctrl)
+        print(f"  {cfg.name} serve, control: failing checks {ctrl['caught_by']}", flush=True)
+        check(ctrl["caught_by"], f"{cfg.name}: the control serve passes the teacher-forced "
+              "limits")
     captures = len(graph_states(eng_r))
     del rec, eng_r, rows_pallas, rows_jnp
 
@@ -2423,11 +2574,11 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
     check(captures == 4, f"{cfg.name}: {captures} graphs for 4 step shapes")
     (trace,) = traces.values()
     return {"arch": arch, "kv_pool": "int8 (absmax)" if kv_quant else "bf16",
-            "launches": n, "steps": rep.steps, "ties": ties,
+            "launches": n, "kernel_widths": w, "steps": rep.steps, "ties": ties,
             "teacher_forced_logits": logit_checks, "aligned_logits": aligned,
-            "int8_vs_bf16_model_logits": to_bf16, "pool_bytes_per_token": pool_bytes,
-            "graph_vs_op_by_op": graph_vs_op, "captures": captures, "timing": timing,
-            "step_trace": trace}
+            "control": ctrl, "int8_vs_bf16_model_logits": to_bf16,
+            "pool_bytes_per_token": pool_bytes, "graph_vs_op_by_op": graph_vs_op,
+            "captures": captures, "timing": timing, "peak_gib": peak, "step_trace": trace}
 
 
 def pool_bytes_per_token(cfg) -> int:
@@ -2435,8 +2586,13 @@ def pool_bytes_per_token(cfg) -> int:
     from repro_torch.models import kv_cache
 
     pool = kv_cache.paged_cache_zeros(cfg, 1, 16, 16, 1, device="meta")
-    return sum(x.numel() * x.element_size() for k, x in pool.items() if k != "table") // 16
+    return sum(x.numel() * x.element_size() for node in kv_cache._paged_nodes(pool)
+               for k, x in node.items() if k != "table") // 16
 
+
+# Phases 6, 8 and 11 hold the graphed serve bitwise against the same serve
+# op by op on this many requests (op by op, a step costs 4-5x a replay).
+SERVE_OP_SUBSET = 2
 
 # The checked serve of phases 6, 8 and 11 by (arch, int8 pool): its report,
 # every logit row by request seed, and its warm graphed timing; phase 14
@@ -2462,7 +2618,7 @@ def phase6_serve(kv_quant=False):
 
     reqs = shared_prefix_trace(32, get_config("olmo-1b").vocab, **SERVE_TRACE)
     opts = ServeOptions(**SERVE_OPTIONS)
-    return serve_phase("olmo-1b", reqs, opts, fused=ops.paged_attention_rows, eager_n=4,
+    return serve_phase("olmo-1b", reqs, opts, fused=ops.paged_attention_rows, eager_n=1,
                        logit_tol=LOGIT_TOL, logit_rms_tol=LOGIT_RMS_TOL,
                        aligned_tol=LOGIT_TOL, aligned_rms_tol=ALIGNED_RMS_TOL, max_new=64,
                        kv_quant=kv_quant)
@@ -2526,7 +2682,7 @@ def phase8_mla_serve():
     opts = ServeOptions(slots=MLA_SLOTS, paged=True, block_size=MLA_BS, prefix_share=True,
                         kernel="pallas", report_cost=True)
     return serve_phase("minicpm3-4b", reqs, opts, fused=ops.paged_attention_mla_rows,
-                       eager_n=2, logit_tol=MLA_LOGIT_TOL,
+                       eager_n=1, logit_tol=MLA_LOGIT_TOL,
                        logit_rms_tol=MLA_LOGIT_RMS_TOL, aligned_tol=MLA_ALIGNED_TOL,
                        aligned_rms_tol=MLA_ALIGNED_RMS_TOL, max_new=32)
 
@@ -3234,8 +3390,8 @@ def spec_graph_vs_op(label, model, params, reqs, opts, per_replay):
     return {**rec, "rollback": rb}
 
 
-def spec_timing(label, eng, reqs, spec, plain_timing):
-    """Two warm greedy speculative serves through ``eng`` (its round already
+def spec_timing(label, eng, reqs, spec, plain_timing, runs=2):
+    """``runs`` warm greedy speculative serves through ``eng`` (its round already
     captured) on the host clock: ms per round (wall / rounds, prefills
     included), generated tok/s, the aten ops per replayed round, beside
     the plain serve's warm graphed serves of this call (phase 6). Gate: at
@@ -3245,7 +3401,7 @@ def spec_timing(label, eng, reqs, spec, plain_timing):
     tokens = sum(r.max_new for r in reqs)
     walls = []
     with StepOps("_serve_decode") as ops:
-        for _ in range(2):
+        for _ in range(runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rep = eng.serve(reqs, dataclasses.replace(spec, report_cost=False))
@@ -3256,7 +3412,7 @@ def spec_timing(label, eng, reqs, spec, plain_timing):
            "ms_per_round": med * 1e3 / rep.steps, "tok_s": tokens / med,
            "aten_ops_per_replayed_round": ops.per_step, "plain": plain_timing}
     plain = ("" if plain_timing is None else
-             f"; the plain serve (phase 6, this call): {plain_timing['ms_per_step']:.3f} ms "
+             f"; the plain serve (this call): {plain_timing['ms_per_step']:.3f} ms "
              f"per step x {plain_timing['steps']} steps, {plain_timing['tok_s']:.1f} tok/s")
     print(f"  {label}, warm serves: walls {[round(x, 1) for x in out['walls_ms']]} ms, "
           f"{out['ms_per_round']:.3f} ms per round x {rep.steps} rounds (prefills included), "
@@ -4397,10 +4553,468 @@ def phase16_moe():
 
 
 
+# ----------------------------------------------------------------- phase 17
+
+# The recurrent families at full width and full depth (item 11's SSM and
+# hybrid bullets): mamba2-780m (48 SSD layers, no attention: no kernel) and
+# hymba-1.5b (32 layers of attention + SSM heads; 3 global layers paged
+# through K2 at GQA 25/5, D 64; 29 window layers decoding from rings of
+# 1024 keys through K1). Prompts stay on the SSD chunk grid (at most 256
+# tokens, or a multiple of 256: ``ssm.ssd_chunked``'s rule).
+REC_ARCHS = ("mamba2-780m", "hymba-1.5b")
+REC_BATCH, REC_MAX_NEW, REC_OP_STEPS = 4, 256, 32
+REC_PROMPT = {"mamba2-780m": 256, "hymba-1.5b": 1280}
+REC_TRACE = dict(prefix_len=128, suffix_lens=(64, 128), max_new_range=(16, 64), seed=0,
+                 arrival_spacing=2.0)
+REC_REQUESTS = 8
+# (d)'s pool: this many requests' worst case (20 blocks of 16 tokens), so
+# the class-0 arrivals find it full and swap a class-1 request out
+REC_POOL_REQUESTS = 3
+# Decoded logits against ``Model.train_logits`` over the whole generated
+# sequence, (max, RMS) of |decoded - forward| over every logit of every
+# step. The two sides differ by the recurrence's arithmetic: decode steps
+# the SSM state in f32 one token at a time and reads the window from a
+# ring, the forward runs the chunked SSD scan (bf16 products within a
+# chunk) and the window mask over positions; hymba also by the GEMM shapes
+# of a 4-row step against a 1536-row forward. On the H100 the runs read
+# max 0.410, RMS 0.0671 (mamba2-780m: 48 layers of f32 recurrence against
+# bf16 chunk products) and max 0.227, RMS 0.0340 (hymba-1.5b); the limits
+# are 1.3 times those floors (PERF.md, phase 17). In f32 on the CPU the
+# two sides agree within 1e-5 (tests/test_torch_hybrid.py).
+REC_GEN_TOL = {"mamba2-780m": (0.55, 0.088), "hymba-1.5b": (0.3, 0.045)}
+
+
+def rec_model(arch, kind="int_pallas"):
+    """Full-width, full-depth ``arch`` with seeded random bf16 weights on the
+    card, softmax ``kind``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+
+    model = Model(get_config(arch, softmax=SoftmaxSpec(kind)))
+    return model, model.init(torch.Generator("cuda").manual_seed(0))
+
+
+class _BatchRows:
+    """Greedy sampler of ``Engine.generate`` keeping every [B, V] logits row
+    it samples (it draws nothing: its argmax is the registry's greedy)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __call__(self, logits, generator):
+        self.rows.append(logits.clone())
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def decode_bound_ms(params, cache) -> float:
+    """A decode step's bytes bound: every weight but the embedding read once,
+    and the decode state (SSM state and conv tail, window rings, the
+    prefix's K/V) read once and its SSM state written once, at the card's
+    HBM rate."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    state = sum(v.numel() * v.element_size() for k, v in _named_leaves(cache)
+                if k.endswith("state"))
+    rest = {k: v for k, v in params.items() if k != "embed"}
+    return (nbytes(rest) + nbytes(cache) + state) / hbm_rate(
+        torch.cuda.get_device_name(0)) * 1e3
+
+
+def ring_positions_match(cfg, st_cache, last: int) -> bool:
+    """hymba: the positions the decode steps left in every window layer's
+    ring, bitwise against the ring of a sequence decoded through position
+    ``last``: slot i holds the latest position q <= last with q % W == i."""
+    ok = True
+    for seg in ("win_a", "win_b"):
+        pos = st_cache[seg]["attn"]["pos"]
+        w = pos.shape[-1]
+        i = torch.arange(w, device=pos.device, dtype=torch.int32)
+        want = (last - torch.remainder(last - i, w)).to(torch.int32)
+        ok &= bool((pos == want).all())
+    return ok
+
+
+def recurrent_generate(model, params, prompts):
+    """(a) / (b): ``Engine.generate(mode="fused")`` at batch 4 and
+    REC_MAX_NEW new tokens, each decode step one CUDA-graph replay: K1
+    n_attention_layers x REC_MAX_NEW launches (the replays' from the device
+    trace), nothing else; every decoded logit row within REC_GEN_TOL of
+    ``Model.train_logits`` over the generated sequence; hymba's ring
+    positions as the decoded positions put them; over the first
+    REC_OP_STEPS steps graph == op by op bitwise (tokens, last logits,
+    state bytes) and == the long run's tokens, mamba2's == mode="eager"; for an
+    attention model ``int`` == ``int_pallas`` bitwise over those steps
+    (tokens, last logits); ms a step of a warm graphed generate of those
+    steps beside the bytes bound, peak memory. Returns the record."""
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    cfg = model.cfg
+    label = f"{cfg.name} generate"
+    b, p = prompts.shape
+    attn = cfg.n_layers if cfg.uses_attention else 0
+    rows = _BatchRows()
+    eng = Engine(model, params, max_new=REC_MAX_NEW, sampler=rows)
+    torch.cuda.reset_peak_memory_stats()
+    before = replay_counts(eng)
+    zero_counters()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, mode="fused")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counted, replayed = read_counters(), replays_in(eng, before)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(res.tokens.shape == (b, p + REC_MAX_NEW), f"{label}: token shape")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), f"{label}: token range")
+    check(bool(torch.isfinite(res.logits).all()), f"{label}: non-finite logits")
+    (st,) = eng._decode_states.values()
+    ring = None
+    if cfg.family == "hybrid":     # read before the trace's replays step the state on
+        last = p + REC_MAX_NEW - 2
+        ring = ring_positions_match(cfg, st.cache, last)
+        print(f"  {label}: every window layer's ring after {REC_MAX_NEW - 1} decode steps "
+              f"holds, in slot i, the latest position <= {last} that is i mod "
+              f"{cfg.window}: {ring}", flush=True)
+    bound = decode_bound_ms(params, st.cache)
+    per_replay = {k: 0 for k in counted}
+    per_replay["K1"] = attn
+    traces = replay_trace(label, replayed_graphs(eng, replayed))
+    n = path_launches(label, counted, replayed, traces, per_replay)
+    want = {k: 0 for k in n}
+    want["K1"] = attn * REC_MAX_NEW
+    print(f"  {label}: launches {n} (expected {want}: K1 {attn} attention layers x "
+          f"{REC_MAX_NEW} (the prefill and {REC_MAX_NEW - 1} decode steps)); first call "
+          f"{first_s:.2f} s (capture included), peak {peak:.2f} GiB", flush=True)
+    check(n == want, f"{label}: launches {n} != {want}")
+    # every decoded row against one causal forward of the generated sequence
+    got = torch.stack(rows.rows, 1)                           # [B, max_new, V]
+    seq = torch.as_tensor(res.tokens[:, :-1], dtype=torch.long, device="cuda")
+    ref = full_logits(model, params, seq)[:, p - 1:]
+    d = (got.float() - ref.float()).abs()
+    tol, rms_tol = REC_GEN_TOL[cfg.name]
+    tf = {"max": float(d.max()), "first_step_max": float(d[:, 0].max()),
+          "rms": float(d.double().pow(2).mean().sqrt()), "limits": [tol, rms_tol]}
+    del got, ref, d, rows.rows
+    print(f"  {label}: decoded logits against Model.train_logits over the {p + REC_MAX_NEW}"
+          f"-token sequences: max |diff| {tf['max']:.4g} (first step {tf['first_step_max']:.4g}"
+          f"), RMS {tf['rms']:.4g} (limits {tol}, RMS {rms_tol})", flush=True)
+    # graph == op by op == eager over the first REC_OP_STEPS steps
+    g32 = Engine(model, params, max_new=REC_OP_STEPS)
+    o32 = op_by_op(Engine(model, params, max_new=REC_OP_STEPS))
+    g, o = g32.generate(prompts, mode="fused"), o32.generate(prompts, mode="fused")
+    (sg,), (so,) = g32._decode_states.values(), o32._decode_states.values()
+    eq = caches_equal(sg, so)
+    graph_op = {"tokens": bool(np.array_equal(g.tokens, o.tokens)),
+                "last_logits": bool(torch.equal(g.logits, o.logits)),
+                "state": all(eq.values()),
+                "long_run_tokens": bool(np.array_equal(g.tokens,
+                                                       res.tokens[:, :p + REC_OP_STEPS]))}
+    if not cfg.uses_attention:      # (a): mode="eager" too (hymba's is phase 6's path)
+        e = g32.generate(prompts, mode="eager")
+        graph_op["eager"] = bool(np.array_equal(e.tokens, g.tokens)
+                                 and torch.equal(e.logits, g.logits))
+    print(f"  {label}, first {REC_OP_STEPS} steps: graph == op by op bitwise {graph_op} "
+          f"(state {cache_bytes(sg)} B over {len(eq)} leaves)", flush=True)
+    del o32, sg, so
+    same_int = None
+    if cfg.uses_attention:
+        r_int = Engine(Model(cfg.with_softmax(SoftmaxSpec("int"))), params,
+                       max_new=REC_OP_STEPS).generate(prompts, mode="fused")
+        same_int = bool(np.array_equal(r_int.tokens, g.tokens)
+                        and torch.equal(r_int.logits, g.logits))
+        print(f"  {label}: int_pallas vs int (plain Alg. 1) on the card over {REC_OP_STEPS} "
+              f"steps, tokens and last logits bitwise equal: {same_int}", flush=True)
+    # a warm graphed generate of REC_OP_STEPS tokens (captured above)
+    # against prefill alone
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, {"tokens": tokens}, cache_len=p + REC_OP_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g32.generate(prompts, mode="fused")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    step_ms = ((t2 - t1) - (t1 - t0)) / (REC_OP_STEPS - 1) * 1e3
+    (trace,) = traces.values()
+    print(f"  {label}: {step_ms:.3f} ms per decode step graphed (warm generate of "
+          f"{REC_OP_STEPS} tokens {(t2 - t1) * 1e3:.1f} ms less prefill {(t1 - t0) * 1e3:.1f} "
+          f"ms; one replayed step's device span {trace['span_ms']:.3f} ms) against a bytes "
+          f"bound of {bound:.3f} ms (weights but the embedding, the decode state read, the SSM "
+          f"state written); peak {peak:.2f} GiB ({card_line()})", flush=True)
+    rec = {"arch": cfg.name, "batch": b, "prompt": p, "max_new": REC_MAX_NEW,
+           "launches": n, "launches_K1": n["K1"], "teacher_forced": tf, "rings": ring,
+           "graph_vs_op_by_op": graph_op, "int_vs_int_pallas": same_int,
+           "ms_per_step": step_ms, "prefill_ms": (t1 - t0) * 1e3, "bytes_bound_ms": bound,
+           "peak_gib": peak, "step_trace": trace}
+    fails = {"launches": n != want, "logit_max": tf["max"] > tol, "logit_rms": tf["rms"] > rms_tol,
+             "graph_vs_op": not all(graph_op.values()),
+             "int_vs_int_pallas": same_int is False,
+             "ring_positions": ring is False}
+    rec["failing_checks"] = [k for k, v in fails.items() if v]
+    return rec
+
+
+# hymba-1.5b's serve (c) against a teacher-forced pass and, step by step,
+# pallas against jnp: phase 6's rules with the floors this model reads on
+# the H100, where the window layers' rings and the SSM recurrence add
+# roundings olmo-1b's serve does not have. The largest sound readings over
+# the runs in PERF.md (phase 17), each limit at least 1.3 times its own:
+# a logit against the forward max 0.2422 (the jnp serve), RMS 0.04207 (a
+# per-request eager generate); pallas against jnp step by step max 0.1758,
+# RMS 0.02216. The control (K2 leaving out each sequence's first page)
+# read max 2.662-3.201, RMS 0.4353-0.4386.
+HYMBA_LOGIT_TOL = 0.32
+HYMBA_LOGIT_RMS_TOL = 0.055
+HYMBA_ALIGNED_TOL = 0.25
+HYMBA_ALIGNED_RMS_TOL = 0.029
+
+
+def swap_round_trip_nested(cfg, num_blocks, slots=8, C=1024, bs=16):
+    """swap_read -> host -> swap_write on a full-width paged cache of random
+    contents (pools, SSM state and conv tails, rings): the slot's stripes
+    zeroed between (another occupant), the blocks restored into other ids;
+    every restored block and stripe equal to the original, every other
+    slot's stripes untouched, the table row as given."""
+    from repro_torch.models import kv_cache
+
+    slot = 2
+    cache = kv_cache.paged_cache_zeros(cfg, slots, C, bs, num_blocks, device="cuda")
+    g = torch.Generator("cuda").manual_seed(13)
+    for _, leaf in _named_leaves(cache):
+        if leaf.dtype == torch.int32:
+            if leaf.dim() == 3 and leaf.shape[-1] != C // bs:      # ring positions
+                leaf.copy_(torch.randint(-1, 4096, leaf.shape, generator=g, device="cuda",
+                                         dtype=torch.int32))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda"))
+    rng = np.random.default_rng(13)
+    picked = rng.permutation(num_blocks)[:12].tolist()
+    ids, new_ids = picked[:5], picked[5:10]
+    row = np.full((C // bs,), num_blocks, np.int32)
+    row[:5] = new_ids
+    pools = kv_cache._paged_nodes(cache)
+    before_blocks = [{k: v[:, ids].clone() for k, v in node.items() if k != "table"}
+                     for node in pools]
+    stripes = [(k, v) for k, v in _named_leaves(cache)
+               if not k.split("/")[-1] in ("table",) and not any(
+                   v is node[q] for node in pools for q in node)]
+    before_slot = {k: v[:, slot].clone() for k, v in stripes}
+    before_rest = {k: torch.cat([v[:, :slot], v[:, slot + 1:]], 1).clone() for k, v in stripes}
+    payload = kv_cache.swap_read(cache, slot, ids)
+    host = all(v.device.type == "cpu" for _, v in _named_leaves(payload))
+    for _, v in stripes:
+        v[:, slot].zero_()
+    kv_cache.swap_write(cache, payload, slot, new_ids, row)
+    equal = {}
+    for i, node in enumerate(pools):
+        for k, v in before_blocks[i].items():
+            equal[f"pool {i} {k}"] = bool(torch.equal(node[k][:, new_ids], v))
+    for k, v in stripes:
+        equal[k] = bool(torch.equal(v[:, slot], before_slot[k])) and bool(torch.equal(
+            torch.cat([v[:, :slot], v[:, slot + 1:]], 1), before_rest[k]))
+    table = all(bool((node["table"][:, slot].cpu() == torch.from_numpy(row)).all())
+                for node in pools)
+    nbytes = sum(v.numel() * v.element_size() for _, v in _named_leaves(payload))
+    ok = host and table and all(equal.values())
+    print(f"  swap round trip, {cfg.name} paged cache of {num_blocks} blocks: {len(ids)} blocks "
+          f"and slot {slot}'s stripes ({nbytes} B) to the host and back (blocks into other "
+          f"ids, the slot's stripes zeroed between): restored and untouched "
+          f"{'all equal' if all(equal.values()) else equal}, table rows as given {table}",
+          flush=True)
+    return {"ok": ok, "blocks": len(ids), "bytes": nbytes, "equal": equal, "table": table}
+
+
+def recurrent_chunked_preempt(model, params, reqs, kernel, plain, plain_rows):
+    """(d) The trace with every fourth request in class 0, served with
+    ``prefill_chunk=128`` (the staged branch: the budget accrues, then one
+    whole prefill) and ``preemption=True`` from a pool of REC_POOL_REQUESTS
+    requests' worst case, graphed: at least one preemption and as many
+    resumes, no leaked blocks, tokens and every logit row bitwise equal to
+    the plain serve's (``plain``: the same prompts in one class, the same
+    options and kernel without chunks or preemption); beside it the swap
+    round trip of the full-width cache (blocks and stripes)."""
+    import dataclasses
+
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+
+    cfg = model.cfg
+    bs = SERVE_OPTIONS["block_size"]
+    worst = max(-(-(r.prompt_len + r.max_new) // bs) for r in reqs)
+    opts = ServeOptions(**{**SERVE_OPTIONS, "report_cost": False, "kernel": kernel},
+                        prefill_chunk=CHUNK, preemption=True,
+                        num_blocks=REC_POOL_REQUESTS * worst)
+    swap = swap_round_trip_nested(cfg, opts.num_blocks)
+    lr = _LogitRecorder()
+    eng = Engine(model, params, max_new=max(r.max_new for r in reqs), sampler=lr)
+    rep, counted, rows, wall, _ = counted_serve(eng, reqs, opts, lr)
+    same = {"tokens": all(np.array_equal(a.tokens, b.tokens)
+                          for a, b in zip(rep.results, plain.results)),
+            "logit_rows": rows_equal(rows, plain_rows) == len(reqs)}
+    gates = {"preempted": rep.preemptions >= 1 and rep.resumes == rep.preemptions,
+             "no_leaked_blocks": rep.leaked_blocks == 0, "swap_round_trip": swap["ok"],
+             "equal_to_plain": all(same.values())}
+    print(f"  {cfg.name} chunked ({CHUNK}, staged) + preempting serve, pool of "
+          f"{opts.num_blocks} blocks, kernel {kernel}: {rep.steps} steps (plain {plain.steps}), "
+          f"preemptions {rep.preemptions}, resumes {rep.resumes}, max prompt tokens in a step "
+          f"{rep.max_prefill_per_step}, leaked {rep.leaked_blocks}, launches {counted}; == "
+          f"plain serve bitwise {same}; gates {gates}", flush=True)
+    return {"steps": rep.steps, "preemptions": rep.preemptions, "resumes": rep.resumes,
+            "max_prompt_tokens_per_step": rep.max_prefill_per_step, "launches": counted,
+            "equal_to_plain": same, "swap": swap, "gates": gates, "wall_s": wall,
+            "failing_checks": [k for k, v in gates.items() if not v]}
+
+
+def recurrent_spec(model, params, reqs, kernel, plain, plain_rows):
+    """(e) The speculative serve (n-gram drafts of SPEC_K), graphed, each
+    round one replay: tokens and every served logit row bitwise equal to the
+    plain serve's; launches K2 3 x rounds, every call at (SPEC_K + 1, 5 x
+    (SPEC_K + 1)) (hymba), K1 32 x requests + 29 x (SPEC_K + 1) x rounds
+    (each window layer's ring scan), none for mamba2; one replay a round
+    after the first; acceptance, and ms a round of a warm serve
+    (``spec_timing``) beside the plain serve's warm graphed timing where
+    phase 17 took it (hymba's, ``serve_phase``)."""
+    from repro_torch.models.kv_cache import hybrid_segments
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+
+    cfg = model.cfg
+    label = f"{cfg.name} spec serve"
+    t = SPEC_K + 1
+    opts = ServeOptions(**{**SERVE_OPTIONS, "report_cost": False, "kernel": kernel},
+                        speculative=True, draft="ngram", draft_k=SPEC_K)
+    max_new = max(r.max_new for r in reqs)
+    eng = Engine(model, params, max_new=max_new)
+    rec = SpecRecorder(eng)
+    with KernelWidths() as widths:
+        rep, counted, _, first_s, replayed = counted_serve(eng, reqs, opts, rec)
+    rows = rec.trimmed(reqs)
+    rec.detach()
+    same = {"tokens": all(np.array_equal(a.tokens, b.tokens)
+                          for a, b in zip(rep.results, plain.results)),
+            "logit_rows": rows_equal(rows, plain_rows) == len(reqs)}
+    per_replay = {k: 0 for k in counted}
+    want = {k: 0 for k in counted}
+    if cfg.family == "hybrid":
+        n_win = sum(hybrid_segments(cfg))
+        per_replay.update({"K2": 3, "K1": n_win * t})
+        want.update({"K2": 3 * rep.steps, "K1": cfg.n_layers * len(reqs) + n_win * t * rep.steps})
+    if cfg.uses_attention:
+        traces = replay_trace(label, replayed_graphs(eng, replayed))
+        n = path_launches(label, counted, replayed, traces, per_replay)
+        trace = next(iter(traces.values()))
+    else:       # no attention, so no kernel in the round (its generate step is traced)
+        n, trace = counted, None
+    w = widths.widths("K2")
+    want_w = [(t, t * cfg.n_heads // cfg.n_kv_heads)] if cfg.family == "hybrid" else []
+    # one replay a round: the first round warms up and captures the graph
+    one_replay = rep.step_replays == rep.steps - 1
+    print(f"  {label}: {rep.steps} rounds against the plain serve's {plain.steps} steps, "
+          f"drafted {rep.drafted_tokens}, accepted {rep.accepted_tokens}, acceptance rate "
+          f"{rep.acceptance_rate:.4f}; launches {n} (expected {want}); K2 calls at (T, rows) "
+          f"{w} (expected {want_w}); == plain serve bitwise {same}; first serve "
+          f"{first_s:.2f} s, {rep.step_replays} replays (one a round after the first: "
+          f"{one_replay})", flush=True)
+    gates = {"equal_to_plain": all(same.values()), "launches": n == want,
+             "k2_widths": w == want_w, "one_replay_a_round": one_replay}
+    timing = spec_timing(label, eng, reqs, opts,
+                         PLAIN_SERVES.get((cfg.name, False), {}).get("timing"), runs=1)
+    return {"rounds": rep.steps, "plain_steps": plain.steps,
+            "acceptance_rate": rep.acceptance_rate, "launches": n, "kernel_widths": w,
+            "equal_to_plain": same, "timing": timing, "first_serve_s": first_s,
+            "gates": gates,
+            "failing_checks": [k for k, v in gates.items() if not v], "step_trace": trace}
+
+
+def rec_trace(vocab, classes=False):
+    import dataclasses
+
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    reqs = shared_prefix_trace(REC_REQUESTS, vocab, **REC_TRACE)
+    if classes:
+        reqs = [dataclasses.replace(r, priority=0 if r.rid % 4 == 0 else 1) for r in reqs]
+    return reqs
+
+
+def rec_plain(model, params, reqs, kernel):
+    """The plain serve of ``reqs`` (phase 6's options and ``kernel``), graphed:
+    (report, logit rows)."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+
+    lr = _LogitRecorder()
+    eng = Engine(model, params, max_new=max(r.max_new for r in reqs), sampler=lr)
+    opts = ServeOptions(**{**SERVE_OPTIONS, "report_cost": False, "kernel": kernel})
+    rep, _, rows, _, _ = counted_serve(eng, reqs, opts, lr)
+    return rep, rows
+
+
+def phase17_recurrent():
+    """The recurrent families at full width and depth (phase 17): (a)
+    mamba2-780m generate, (b) hymba-1.5b generate, (c) hymba-1.5b serve
+    through K2 (D 64, GQA 25/5) and K1, (d) both chunked and preempting,
+    (e) both served speculatively. Every gate is checked at the end."""
+    from repro_torch.data.synthetic import SyntheticCorpus
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    out, failing = {}, {}
+    for arch in REC_ARCHS:
+        model, params = rec_model(arch)
+        cfg = model.cfg
+        print(f"recurrent: {cfg.name} full width and depth ({cfg.param_count() / 1e9:.3f} B "
+              f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.ssm_nheads} SSM "
+              f"heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}"
+              + (f", attention {cfg.n_heads} / {cfg.n_kv_heads} heads x {cfg.d_head}, window "
+                 f"{cfg.window}" if cfg.uses_attention else ", no attention") +
+              f"), bf16 seeded weights, softmax int_pallas ({card})", flush=True)
+        p = REC_PROMPT[arch]
+        prompts = SyntheticCorpus(cfg.vocab, seed=1234).sample(REC_BATCH, p, seed=777)[:, :p]
+        gen = out[f"{arch} generate"] = recurrent_generate(model, params, prompts)
+        failing[f"{arch} generate"] = gen["failing_checks"]
+        kernel = "pallas" if cfg.uses_attention else "jnp"
+        reqs = rec_trace(cfg.vocab)
+        if cfg.uses_attention:
+            from repro_torch.kernels.paged_attention import ops as paged_ops
+            from repro_torch.serving.options import ServeOptions
+
+            out[f"{arch} serve"] = serve_phase(
+                arch, reqs, ServeOptions(**SERVE_OPTIONS), fused=paged_ops.paged_attention_rows,
+                eager_n=1, logit_tol=HYMBA_LOGIT_TOL, logit_rms_tol=HYMBA_LOGIT_RMS_TOL,
+                aligned_tol=HYMBA_ALIGNED_TOL, aligned_rms_tol=HYMBA_ALIGNED_RMS_TOL,
+                max_new=max(r.max_new for r in reqs), model=model, params=params,
+                control=True)
+            got = PLAIN_SERVES[arch, False]
+            plain, plain_rows = got["rep"], got["rows"]
+        else:
+            plain, plain_rows = rec_plain(model, params, reqs, kernel)
+        spec = out[f"{arch} spec serve"] = recurrent_spec(model, params, reqs, kernel, plain,
+                                                          plain_rows)
+        failing[f"{arch} spec serve"] = spec["failing_checks"]
+        # (d) against the plain serve of the same prompts: a row's bits do
+        # not depend on its class or slot (phase 13 relies on the same)
+        ch = out[f"{arch} chunked + preempting"] = recurrent_chunked_preempt(
+            model, params, rec_trace(cfg.vocab, classes=True), kernel, plain, plain_rows)
+        failing[f"{arch} chunked + preempting"] = ch["failing_checks"]
+        del model, params, plain, plain_rows
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 17 in {out['seconds']:.1f} s ({card})", flush=True)
+    check(not any(failing.values()), f"phase 17: failing checks {failing}")
+    return out
+
+
 def _commit_keeps_last(commit_staged):
     """A rollback that leaves the block's last rejected position uncleared."""
-    def commit(staged, n_accept, cache_pos, t):
-        return commit_staged(staged, n_accept, cache_pos, t - 1)
+    def commit(staged, n_accept, cache_pos, t, **kw):
+        return commit_staged(staged, n_accept, cache_pos, t - 1, **kw)
     return commit
 
 
@@ -4693,6 +5307,145 @@ def phase13_fault_control():
     check(clean["targeted_preemptions"] >= 1 and all(
         b >= 2 for b in clean["targeted_victims_private_blocks"]),
         f"the targeted trace's victims hold fewer than two private blocks: {clean}")
+    return results
+
+
+def _recurrent_only(tree):
+    """The recurrent nodes of a staged tree (those with a "state" or "pos"
+    leaf), the positional ones left out."""
+    if "state" in tree or "pos" in tree:
+        return tree
+    out = {k: _recurrent_only(v) for k, v in tree.items() if isinstance(v, dict)}
+    return {k: v for k, v in out.items() if v}
+
+
+def _select_one_late(commit_staged):
+    """A rollback that restores each recurrent snapshot one token past the
+    accepted depth (the positional leaves cleared as they should be)."""
+    def commit(staged, n_accept, cache_pos, t, into=None):
+        out = commit_staged(staged, n_accept, cache_pos, t, into=into)
+        late = torch.clamp(n_accept + 1, max=t - 1)
+        rec = _recurrent_only(staged)
+        if rec:
+            commit_staged(rec, late, cache_pos, t, into=into)
+        return out
+    return commit
+
+
+def _ring_write_one_late(ring_write):
+    """A ring decode that writes position p's K, V and position into slot
+    (p + 1) % W instead of p % W."""
+    def write(cache, k_new, v_new, cache_pos):
+        b, w = cache["pos"].shape
+        if isinstance(cache_pos, int):
+            cache_pos = torch.tensor(cache_pos, device=cache["pos"].device)
+        pos = cache_pos.to(torch.long).reshape(-1).expand(b)
+        idx = torch.arange(b, device=pos.device) * w + torch.remainder(pos + 1, w)
+        for name, new in (("k", k_new), ("v", v_new)):
+            leaf = cache[name]
+            leaf.view((b * w,) + tuple(leaf.shape[2:])).index_copy_(
+                0, idx, new[:, 0].to(leaf.dtype))
+        cache["pos"].view(b * w).index_copy_(0, idx, pos.to(cache["pos"].dtype))
+    return write
+
+
+def _stripe_leaves(cache):
+    from repro_torch.models import kv_cache
+
+    pools = [id(v) for node in kv_cache._paged_nodes(cache) for v in node.values()]
+    return [v for _, v in _named_leaves(cache) if id(v) not in pools]
+
+
+def _stripe_to_other_slot(swap_write):
+    """A resume that restores the slot-resident stripes into the next slot
+    (the blocks and the table row where they belong): that slot's stripes
+    are overwritten and the resumed slot keeps what it held."""
+    def write(cache, payload, slot, ids, table_row):
+        stripes = _stripe_leaves(cache)
+        held = [v[:, slot].clone() for v in stripes]
+        out = swap_write(cache, payload, slot, ids, table_row)
+        other = (slot + 1) % stripes[0].shape[1]
+        for v, h in zip(stripes, held):
+            v[:, other] = v[:, slot]
+            v[:, slot] = h
+        return out
+    return write
+
+
+# Known faults of the recurrent paths, patched into the port for a run:
+# (module, attribute, wrapper of the original, the runs that read it).
+REC_FAULTS = {
+    "commit_staged selects the recurrent snapshot one step late": (
+        "repro_torch.models.kv_cache", "commit_staged", _select_one_late, "spec"),
+    "attn_decode_ring writes slot (pos + 1) % W": (
+        "repro_torch.models.attention", "_ring_write", _ring_write_one_late, "ring"),
+    "swap_write restores a stripe into another slot": (
+        "repro_torch.models.kv_cache", "swap_write", _stripe_to_other_slot, "swap"),
+}
+
+
+def _rec_serve_logits(model, params, reqs):
+    """(c)'s teacher-forced check alone: the served logits of the pallas
+    serve against the forward pass, the checks that fail."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.options import ServeOptions
+
+    lr = _LogitRecorder()
+    rep = Engine(model, params, max_new=max(r.max_new for r in reqs), sampler=lr).serve(
+        reqs, ServeOptions(**{**SERVE_OPTIONS, "report_cost": False}))
+    tf = teacher_forced(f"{model.cfg.name} serve kernel=pallas", model, params, reqs,
+                        [r.tokens for r in rep.results], lr.rows, HYMBA_LOGIT_TOL,
+                        HYMBA_LOGIT_RMS_TOL)
+    return [k for k, v in (("serve_logit_max", max(tf["first_step_max"], tf["decode_max"])
+                            > HYMBA_LOGIT_TOL),
+                           ("serve_logit_rms", tf["rms"] > HYMBA_LOGIT_RMS_TOL)) if v]
+
+
+def phase17_fault_control():
+    """Phase 17's checks against the three faults of REC_FAULTS, each run
+    with the fault patched in: the speculative serves of both models
+    (``recurrent_spec``: equal to the plain serve, launches, widths), hymba's
+    generate (``recurrent_generate``: the logits against the forward pass,
+    the ring positions, graph == op by op, int == int_pallas) and its
+    serve's teacher-forced logits, and both models' chunked, preempting
+    serves (``recurrent_chunked_preempt``: the swap round trip, equal to
+    the plain serve). Prints which checks catch each."""
+    import importlib
+
+    from repro_torch.data.synthetic import SyntheticCorpus
+
+    results = {}
+    for arch in REC_ARCHS:
+        model, params = rec_model(arch)
+        cfg = model.cfg
+        kernel = "pallas" if cfg.uses_attention else "jnp"
+        reqs, creqs = rec_trace(cfg.vocab), rec_trace(cfg.vocab, classes=True)
+        plain, plain_rows = rec_plain(model, params, reqs, kernel)
+        p = REC_PROMPT[arch]
+        prompts = SyntheticCorpus(cfg.vocab, seed=1234).sample(REC_BATCH, p, seed=777)[:, :p]
+        for fault, (mod, attr, wrap, run) in REC_FAULTS.items():
+            if run == "ring" and not cfg.uses_attention:
+                continue
+            m = importlib.import_module(mod)
+            sound = getattr(m, attr)
+            setattr(m, attr, wrap(sound))
+            try:
+                if run == "spec":
+                    caught = recurrent_spec(model, params, reqs, kernel, plain,
+                                            plain_rows)["failing_checks"]
+                elif run == "ring":
+                    caught = recurrent_generate(model, params, prompts)["failing_checks"]
+                    caught += _rec_serve_logits(model, params, reqs)
+                else:
+                    caught = recurrent_chunked_preempt(model, params, creqs, kernel, plain,
+                                                       plain_rows)["failing_checks"]
+            finally:
+                setattr(m, attr, sound)
+            results[f"{arch}, {fault}"] = caught
+            print(f"phase 17, {arch}, {fault}: caught by {caught}", flush=True)
+            check(caught, f"phase 17 fault control: {arch}, {fault} caught by no check")
+        del model, params, plain, plain_rows
+        torch.cuda.empty_cache()
     return results
 
 
@@ -4989,25 +5742,36 @@ def main():
         results = fault_control()
         p13_results = phase13_fault_control()
         p14_results = phase14_fault_control()
+        p17_results = phase17_fault_control()
         print(f"fault control: {time.perf_counter() - t0:.1f} s", flush=True)
         print(card, flush=True)
         print(json.dumps({"k1_fault_control": k1_results, "k2_fault_control": k2_results,
                           "k4_fault_control": k4_results, "k3_fault_control": k3_results,
                           "fault_control": results, "phase13_fault_control": p13_results,
-                          "phase14_fault_control": p14_results}),
+                          "phase14_fault_control": p14_results,
+                          "phase17_fault_control": p17_results}),
               flush=True)
         return
 
-    # phase 2: build every kernel of the paths, all nvcc processes at once
+    # phase 2: build every kernel of the paths, all nvcc processes at once;
+    # phases 3 and 4 run on K1 alone while K2-K4 finish building beside them
     t0 = time.perf_counter()
-    logs = build.build(["int_softmax", "paged_attention", "paged_attention_mla",
-                        "int_attention"])
-    print(f"build: {sorted(logs) or 'already built'} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for log in logs.values():
-        for line in log.splitlines():
-            if "registers" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+    later = {}
+
+    def build_later():
+        try:
+            later["logs"] = build.build(["paged_attention", "paged_attention_mla",
+                                         "int_attention"])
+        except BaseException as e:      # raised again once joined
+            later["error"] = e
+        later["seconds"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build_later)
+    builder.start()
+    try:
+        logs = build.build(["int_softmax"])
+    finally:
+        int_softmax_s = time.perf_counter() - t0
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -5015,9 +5779,22 @@ def main():
         print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
         return out
 
+    print(f"build: {sorted(logs) or 'int_softmax already built'} in {int_softmax_s:.1f} s; "
+          "K2-K4 building beside phases 3 and 4", flush=True)
     t_all = time.perf_counter()
     recs = timed("phase 3 (K1 against its plain version)", phase3_k1, rate)
     generated = timed("phase 4 (generate path, olmo-1b and llama2-7b)", phase4_main_path)
+    builder.join()
+    if "error" in later:
+        raise later["error"]
+    logs.update(later["logs"])
+    print(f"build: {sorted(logs) or 'already built'} in {later['seconds']:.1f} s (every nvcc "
+          f"started together, int_softmax's done in {int_softmax_s:.1f} s; phases 3 and 4 ran "
+          "beside the rest)", flush=True)
+    for log in logs.values():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
     k2_recs = timed("phase 5 (K2 against its plain version)", phase5_k2, rate)
     served = timed("phase 6 (serve path, olmo-1b)", phase6_serve)
     k4_recs = timed("phase 7 (K4 against its plain version)", phase7_k4, rate)
@@ -5038,9 +5815,12 @@ def main():
     moe = timed("phase 16 (the MoE family: dbrx-132b generate, serve and spec serve on K2 at "
                 "GQA 48/8, its MoE layer card vs CPU; deepseek-v2-236b serve on K4 at 128 "
                 "heads)", phase16_moe)
-    print(f"phases 3-16: {time.perf_counter() - t_all:.1f} s", flush=True)
+    recurrent = timed("phase 17 (the recurrent families: mamba2-780m and hymba-1.5b generate, "
+                      "hymba-1.5b serve on K2 at GQA 25/5, D 64 and K1 on its rings; both "
+                      "chunked, preempting and speculative)", phase17_recurrent)
+    print(f"phases 3-17: {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    # phase 17
+    # phase 18
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
     k2_main = next(r for r in k2_recs if r["shape"] == "decode (main path)")
     k2_int8_main = next(r for r in k2_int8_recs if r["shape"] == "int8 decode (main path)")
@@ -5053,7 +5833,11 @@ def main():
                   "serve olmo-1b int8": served_int8["launches"]["K1"],
                   "generate dbrx-132b": moe["dbrx generate"]["launches_K1"],
                   "serve dbrx-132b": moe["dbrx serve"]["launches"]["K1"],
-                  "serve deepseek-v2-236b": moe["deepseek-v2 serve"]["launches"]["K1"]}
+                  "serve deepseek-v2-236b": moe["deepseek-v2 serve"]["launches"]["K1"],
+                  "generate hymba-1.5b": recurrent["hymba-1.5b generate"]["launches_K1"],
+                  "serve hymba-1.5b": recurrent["hymba-1.5b serve"]["launches"]["K1"],
+                  "spec serve hymba-1.5b":
+                      recurrent["hymba-1.5b spec serve"]["launches"]["K1"]}
     kernels = [{
         "name": "int_softmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_softmax.cu",
@@ -5078,7 +5862,11 @@ def main():
                              "spec serve olmo-1b": spec["runs"]["bf16"]["launches"]["K2"],
                              "serve dbrx-132b": moe["dbrx serve"]["launches"]["K2"],
                              "spec serve dbrx-132b":
-                                 moe["dbrx spec serve"]["launches"]["K2"]},
+                                 moe["dbrx spec serve"]["launches"]["K2"],
+                             "serve hymba-1.5b":
+                                 recurrent["hymba-1.5b serve"]["launches"]["K2"],
+                             "spec serve hymba-1.5b":
+                                 recurrent["hymba-1.5b spec serve"]["launches"]["K2"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_recs),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -5142,7 +5930,7 @@ def main():
                                 "olmo-1b int8": served_int8,
                                 "olmo-1b chunked + preempting": chunked,
                                 "speculative": spec, "variants": variants},
-                      "moe": moe,
+                      "moe": moe, "recurrent": recurrent,
                       "kv_quantize_card_vs_cpu": quantize}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,6 +6,7 @@ model's own step, op by op.
     python3 probes/verify_step.py
     python3 probes/verify_step.py --arch dbrx-132b --layers 4 --embed-std 1
     python3 probes/verify_step.py --arch deepseek-v2-236b --layers 4
+    python3 probes/verify_step.py --arch hymba-1.5b
 
 Full-width olmo-1b (or ``--arch``, at ``--layers`` layers; seeded random
 bf16 weights, softmax ``int_pallas_paged``: paged decode and verify through
@@ -31,14 +32,24 @@ verify block's dropped assignments (``moe._route``): a block whose slot
 sends all its tokens to one expert past the capacity of 4 drops one, which
 a decode step never does, so its rows differ by the reference's semantics,
 not by rounding; the block's tokens are drawn again (up to 32 draws, the
-count printed) until the block drops nothing. Then the card's name and
-power limit.
+count printed) until the block drops nothing. For the SSM and hybrid
+families (``--arch mamba2-780m``, ``--arch hymba-1.5b``) the verify block
+runs the SSM heads and the window layers' ring attention one token at a
+time (``ssm_verify``, ``attn_verify_ring``): those are recorded as one op
+each (``ssm``, ``ring_attn``: the block's [B, T, d] against each decode
+step's [B, 1, d]) and the calls inside them are not; the hybrid's global
+layers page through K2 as the serve's do; ``Model.step_ctx`` pads a
+hybrid step's head as well, and a fourth run pads every dense product
+(the rule before). Every graphed run also times one replay of the verify
+block and of the decode step (CUDA events, median of 20), so the rules
+compare within one process. Then the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import statistics
 import subprocess
 import sys
 
@@ -56,19 +67,29 @@ class Recorder:
 
     def __init__(self):
         from repro_torch.kernels.paged_attention import ops
-        from repro_torch.models import attention, layers, mla, model, moe, transformer
+        from repro_torch.models import (
+            attention, hybrid, layers, mla, model, moe, ssm, transformer,
+        )
 
         self.calls = []
         self.patches = []
         self.drops = 0
+        self.inner = False
         for mod, names in ((layers, ("dense_apply", "norm_apply")),
                            (attention, ("dense_apply",)), (mla, ("dense_apply", "norm_apply")),
                            (transformer, ("dense_apply", "norm_apply", "moe_apply")),
                            (model, ("dense_apply", "norm_apply", "embed_logits")),
-                           (moe, ("dense_apply",)),
+                           (moe, ("dense_apply",)), (hybrid, ("norm_apply",)),
                            (ops, ("paged_attend_dense", "paged_attend_mla"))):
             for name in names:
                 self._wrap(mod, name, name)
+        # the per-token recurrences: one op each, their inner calls unrecorded
+        for mod, name, label in ((transformer, "ssm_decode", "ssm"),
+                                 (transformer, "ssm_verify", "ssm"),
+                                 (hybrid, "ssm_decode", "ssm"), (hybrid, "ssm_verify", "ssm"),
+                                 (hybrid, "attn_decode_ring", "ring_attn"),
+                                 (hybrid, "attn_verify_ring", "ring_attn")):
+            self._wrap(mod, name, label, scope=True)
         self._wrap(layers._ACTS, "silu", "silu", item=True)
         route = moe._route
 
@@ -82,15 +103,23 @@ class Recorder:
         moe._route = counted_route
         self.patches.append((moe, "_route", route, False))
 
-    def _wrap(self, owner, attr, label, item=False):
+    def _wrap(self, owner, attr, label, item=False, scope=False):
         orig = owner[attr] if item else getattr(owner, attr)
 
         def recorded(*args, **kw):
-            out = orig(*args, **kw)
+            outer = not self.inner
+            if scope:
+                self.inner = True
+            try:
+                out = orig(*args, **kw)
+            finally:
+                if scope and outer:
+                    self.inner = False
             x = out[0] if isinstance(out, tuple) else out
             # the model's [B, T, ...] (not a padded inner call, nor an MoE
-            # layer's expert activations [E, B * C, f])
-            if self.on and x.dim() >= 3 and x.shape[0] == S:
+            # layer's expert activations [E, B * C, f], nor a call inside
+            # a per-token recurrence)
+            if self.on and outer and x.dim() >= 3 and x.shape[0] == S:
                 self.calls.append((label, x.clone()))
             return out
 
@@ -118,14 +147,19 @@ class Recorder:
                 setattr(owner, attr, orig)
 
 
+def _clone(cache):
+    from repro_torch.models.kv_cache import tree_map
+    return tree_map(lambda v: v.clone(), cache)
+
+
 def compare(label, model, params, cache, tokens, pos, rec):
     """The verify block against T decode steps from copies of ``cache``."""
-    staged = {k: v.clone() for k, v in cache.items()}
+    staged = _clone(cache)
     rec.drops = 0
     verify = rec.run(lambda: model.verify_step(params, staged, {"token": tokens}, pos))
     drops = rec.drops
     steps = []
-    stepped = {k: v.clone() for k, v in cache.items()}
+    stepped = _clone(cache)
     for t in range(T):
         steps.append(rec.run(lambda t=t: model.decode_step(
             params, stepped, {"token": tokens[:, t:t + 1]}, pos + t)))
@@ -143,33 +177,59 @@ def compare(label, model, params, cache, tokens, pos, rec):
     print(f"{label}, op by op: {len(verify)} recorded calls, {drops} dropped assignments in "
           f"the verify block; by op {by_op}; first differing call {first}"
           f"{'' if first is None else ' (' + verify[first][0] + ')'}", flush=True)
+    equal, verify_ms, decode_ms = graphed(model, params, cache, tokens, pos)
     print(f"{label}, graphed: logit rows of the replayed verify block bitwise equal to the "
-          f"replayed decode steps': {graphed(model, params, cache, tokens, pos)}", flush=True)
+          f"replayed decode steps': {equal}; one replay {verify_ms:.4f} ms (verify block) and "
+          f"{decode_ms:.4f} ms (decode step)", flush=True)
+
+
+def replay_ms(graph, reps=20):
+    """Median device ms of one replay of ``graph`` over ``reps`` replays
+    (CUDA events around each)."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def graphed(model, params, cache, tokens, pos):
     """The verify step and the decode step each captured once and replayed
-    (the warm-up run first, as the serve's ``StepGraph``): the block's
-    logits against T decode steps'."""
+    (the warm-up run first, as the serve's ``StepGraph``): whether the
+    block's logits equal T decode steps', and the ms of one replay of
+    each (``replay_ms``, after the comparison)."""
+    from repro_torch.models.kv_cache import tree_leaves
     from repro_torch.serving.graphs import StepGraph
 
-    cache_v = {k: v.clone() for k, v in cache.items()}
+    def restore(dst):
+        # the warm-up step advanced a recurrent state in place
+        for a, b in zip(tree_leaves(dst), tree_leaves(cache)):
+            a.copy_(b)
+
+    cache_v = _clone(cache)
     tok_v, pos_v = tokens.clone(), pos.clone()
     verify = StepGraph(lambda: model.verify_step(params, cache_v, {"token": tok_v}, pos_v)[0],
-                       list(cache_v.values()) + [tok_v, pos_v])
+                       tree_leaves(cache_v) + [tok_v, pos_v])
     verify()
+    restore(cache_v)
     block = verify().clone()
-    cache_d = {k: v.clone() for k, v in cache.items()}
+    cache_d = _clone(cache)
     tok_d, pos_d = tokens[:, :1].clone(), pos.clone()
     decode = StepGraph(lambda: model.decode_step(params, cache_d, {"token": tok_d}, pos_d)[0],
-                       list(cache_d.values()) + [tok_d, pos_d])
+                       tree_leaves(cache_d) + [tok_d, pos_d])
     decode()
+    restore(cache_d)
     rows = []
     for t in range(T):
         tok_d.copy_(tokens[:, t:t + 1])
         pos_d.copy_(pos + t)
         rows.append(decode().clone())
-    return all(torch.equal(block[:, t], rows[t][:, 0]) for t in range(T))
+    equal = all(torch.equal(block[:, t], rows[t][:, 0]) for t in range(T))
+    return equal, replay_ms(verify), replay_ms(decode)
 
 
 def main():
@@ -186,7 +246,7 @@ def main():
         raise SystemExit("verify_step: no CUDA device visible to torch")
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
-    from repro_torch.models import kv_cache, layers, mla, transformer
+    from repro_torch.models import hybrid, kv_cache, layers, mla, ssm, transformer
     from repro_torch.models import model as model_mod
     from repro_torch.models.model import STEP_MIN_ROWS, Model
 
@@ -199,14 +259,20 @@ def main():
         params["embed"]["w"].mul_(args.embed_std / 0.02)
         name += f", embedding std {args.embed_std}"
     g = torch.Generator("cuda").manual_seed(1)
-    cache_len = 128
+    cache_len = max(128, cfg.window) if cfg.family == "hybrid" else 128
     stripes = kv_cache.cache_zeros(cfg, S, cache_len, device="cuda")
     prompts = torch.randint(0, cfg.vocab, (S, P), generator=g, device="cuda")
     for s in range(S):
         _, c = model.prefill(params, {"tokens": prompts[s:s + 1]}, cache_len=cache_len)
-        for k, leaf in stripes.items():
-            leaf[:, s] = c[k][:, 0]
-    cache = kv_cache.contiguous_as_paged(stripes, BS)
+        kv_cache.insert_slot(stripes, c, s)
+    if cfg.family == "hybrid":
+        # the global layers page through K2, the rings and SSM state stay
+        stripes["full"]["attn"] = kv_cache.contiguous_as_paged(stripes["full"]["attn"], BS)
+        cache = stripes
+    elif cfg.family == "ssm":
+        cache = stripes
+    else:
+        cache = kv_cache.contiguous_as_paged(stripes, BS)
     pos = torch.full((S,), P, dtype=torch.int32, device="cuda")
     rec = Recorder()
     for draws in range(1, 33):
@@ -215,8 +281,7 @@ def main():
             break
         rec.drops = 0
         with torch.no_grad():
-            rec.run(lambda: model.verify_step(params, {k: v.clone() for k, v in cache.items()},
-                                              {"token": tokens}, pos))
+            rec.run(lambda: model.verify_step(params, _clone(cache), {"token": tokens}, pos))
         if rec.drops == 0:
             break
     print(f"{name}: verify block drawn {draws} time(s); it drops {rec.drops} assignments",
@@ -225,20 +290,26 @@ def main():
         with torch.no_grad():
             compare(f"{name}, step padding to {STEP_MIN_ROWS} rows (Model.step_ctx)", model,
                     params, cache, tokens, pos, rec)
+            step_ctx = model.step_ctx
             if cfg.family == "moe":
-                step_ctx = model.step_ctx
                 model.step_ctx = dataclasses.replace(step_ctx, min_rows=0)
                 compare(f"{name}, the dense family's step padding (the down projection and "
                         f"the norms at {STEP_MIN_ROWS} rows, the other products not)",
                         model, params, cache, tokens, pos, rec)
-                model.step_ctx = step_ctx
+            elif cfg.family == "hybrid":
+                model.step_ctx = dataclasses.replace(step_ctx, min_rows=STEP_MIN_ROWS)
+                compare(f"{name}, every dense product padded to {STEP_MIN_ROWS} rows (and the "
+                        "norms)", model, params, cache, tokens, pos, rec)
+            model.step_ctx = step_ctx
             # every module's norm_apply, called with the norms' padding off
-            saved = {m: m.norm_apply for m in (layers, mla, transformer, model_mod)}
+            saved = {m: m.norm_apply for m in (layers, mla, transformer, model_mod, hybrid, ssm)}
             for m, f in saved.items():
                 m.norm_apply = lambda p, x, kind, ctx, eps=1e-5, f=f: f(
                     p, x, kind, dataclasses.replace(ctx, step_min_rows=0), eps)
             try:
-                padded = "every dense product" if cfg.family == "moe" else "the down projection"
+                padded = {"moe": "every dense product",
+                          "hybrid": "the down projection and the head"}.get(
+                              cfg.family, "the down projection")
                 compare(f"{name}, {padded} padded to {STEP_MIN_ROWS} rows, the norms not",
                         model, params, cache, tokens, pos, rec)
             finally:

@@ -7,7 +7,8 @@ The MoE family's full depth does not fit one card: dbrx-132b's 40 layers
 are about 264 GB of bf16 weights and deepseek-v2-236b's 60 about 472 GB,
 so on the H100 both run at full width with their depth cut
 (``get_config(name, n_layers=4)``); full depth waits for ROADMAP.md Queue
-1 item 14 (tensor-parallel serving)."""
+1 item 14 (tensor-parallel serving). The SSM and hybrid families
+(mamba2-780m, hymba-1.5b) run at full width and full depth."""
 
 from __future__ import annotations
 
@@ -25,14 +26,14 @@ ARCHS = {
     "deepseek-7b": "deepseek_7b",
     "dbrx-132b": "dbrx_132b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "mamba2-780m": "mamba2_780m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 # reference architectures not ported yet -> the ROADMAP.md item that ports them
 NOT_PORTED = {
     "qwen2.5-32b": "Queue 1 item 14 (tensor-parallel serving: 32B does not "
                    "fit one card)",
-    "mamba2-780m": "Queue 1 item 11 (SSM)",
-    "hymba-1.5b": "Queue 1 item 11 (hybrid)",
     "whisper-base": "Queue 1 item 11 (encdec)",
     "qwen2-vl-7b": "Queue 1 item 11 (M-RoPE)",
 }
@@ -58,15 +59,18 @@ def get_config(name: str, softmax: Optional[SoftmaxSpec] = None,
 def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfig:
     """Reduced config of the same family: small widths/layers/vocab,
     runnable on CPU. The reference's shrink rules for the ported families
-    (dense and MoE, GQA or MLA attention)."""
+    (dense, MoE, SSM and hybrid; GQA or MLA attention)."""
     full = get_config(name)
     shrink: Dict = dict(
-        n_layers=min(full.n_layers, 3),
+        n_layers=6 if full.family == "hybrid" else min(full.n_layers, 3),
         d_model=128, d_head=32, vocab=512, max_seq=128, attn_chunk=32,
-        rope_theta=full.rope_theta, n_heads=4,
-        n_kv_heads=min(4, max(1, full.n_kv_heads * 4 // full.n_heads)),
-        d_ff=256,
+        rope_theta=full.rope_theta,
     )
+    if full.uses_attention:
+        shrink["n_heads"] = 4
+        shrink["n_kv_heads"] = min(4, max(1, full.n_kv_heads * 4 // full.n_heads))
+    if full.family != "ssm":
+        shrink["d_ff"] = 256
     if full.attention == "mla":
         shrink.update(q_lora_rank=(64 if full.q_lora_rank else 0),
                       kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
@@ -75,6 +79,8 @@ def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfi
         shrink.update(n_experts=4, moe_top_k=min(2, full.moe_top_k),
                       d_ff_expert=128, d_ff=256,
                       n_shared_experts=min(1, full.n_shared_experts))
+    if full.family in ("ssm", "hybrid"):
+        shrink.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=32, window=32)
     cfg = dataclasses.replace(full, name=full.name + "-smoke", **shrink)
     if softmax is not None:
         cfg = cfg.with_softmax(softmax)

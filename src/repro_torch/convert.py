@@ -12,7 +12,12 @@ ConSmax's ``"beta"``, ``"gamma"``) stay f32, as the reference reads them.
 The MoE family's leaves are of the same kinds: the router ``[L, d, E]``,
 the stacked expert matrices ``gate`` / ``up`` ``[L, E, d, f]`` and
 ``down`` ``[L, E, f, d]``, the shared GLU, and the dense ``prefix``
-stack beside ``layers``.
+stack beside ``layers``. The SSM block's ``conv_w`` ``[L, k, Cd]``,
+``conv_b``, ``dt_bias``, ``A_log`` and ``D`` stay f32 (the reference
+casts ``conv_w``, ``conv_b`` and ``D`` where it uses them and reads the
+others in f32), its ``gate_norm`` and the hybrid's ``attn_norm`` /
+``ssm_norm`` are norms; the hybrid's stack has the segments ``full`` /
+``win_a`` / ``win_b``.
 """
 
 from __future__ import annotations
@@ -25,17 +30,19 @@ def params_from_numpy(tree, cfg, device, dtype: torch.dtype = torch.bfloat16):
     """Nested dict of numpy arrays (reference layout) -> nested dict of
     tensors on ``device`` for ``repro_torch.models.model.Model(cfg, dtype)``.
     Raises on a leaf or a stack segment the port does not know."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.family} parameters are not ported: ROADMAP.md Queue 1 item 11")
-    segments = {"layers", "prefix"} if cfg.family == "moe" else {"layers"}
+    segments = {"moe": {"layers", "prefix"},
+                "hybrid": {"full", "win_a", "win_b"}}.get(cfg.family, {"layers"})
     if not set(tree["stack"]) <= segments:
         raise ValueError(f"unexpected stack segments {sorted(set(tree['stack']) - segments)}")
 
     def walk(node, key):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
-        if key not in ("w", "b", "scale", "bias", "beta", "gamma"):
+        if key not in ("w", "b", "scale", "bias", "beta", "gamma",
+                       "conv_w", "conv_b", "dt_bias", "A_log", "D"):
             raise ValueError(f"unexpected parameter leaf {key!r}")
         arr = np.array(node, dtype=np.float32)  # a writable copy
         dt = dtype if key in ("w", "b") else torch.float32

@@ -28,6 +28,14 @@ the AP softmax cost (port of ``src/repro/launch/serve.py``, same flags).
         --serve-softmax consmax --warm-steps 0 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --softmax sole --warm-steps 0 --device cpu --max-new 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+        --smoke --continuous --paged --kernel pallas --prefill-chunk 8 \\
+        --preemption --softmax int_pallas --warm-steps 0 --device cpu
+
+``--arch mamba2-780m`` (SSM) and ``--arch hymba-1.5b`` (hybrid) serve
+through the same paths; their chunked prefill accrues the budget and
+prefills whole, and neither shares prefixes. A prompt longer than
+``ssm_chunk`` (256) must be a multiple of it, as in the reference.
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path. Flags of
 later slices are accepted and raise with the ROADMAP.md item that ports them.
@@ -175,6 +183,8 @@ def main(argv=None):
         print(f"  prompt {p[:8]}{'...' if len(p) > 8 else ''} -> {g}")
     if res.cost is not None and res.cost.cycles:
         print(f"softmax AP cost (batch of {args.batch}): {res.cost.describe()}")
+    elif not cfg.uses_attention:
+        print("softmax AP cost: 0 (the model has no softmax: SSM token mixing)")
     else:
         print("softmax AP cost: n/a (unmetered fp backend)")
     return res

@@ -483,3 +483,74 @@ def attn_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
     mask = verify_mask(k.shape[1], positions, window)
     out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx, smx=p.get("smx"))
     return dense_apply(p["wo"], out.reshape(b, t, -1), ctx), cache
+
+
+def _ring_write(cache, k_new, v_new, cache_pos):
+    """Write one entry per batch row into the ring {"k","v": [B, W, KV, D],
+    "pos": [B, W]} at slot ``cache_pos % W``, in place, and record its
+    absolute position. ``cache_pos`` an int, a 0-d or a [B] tensor; every
+    row's write lands (a parked slot's too: its stripe is rewritten whole
+    at its next admission). No host read."""
+    b, w_cap = cache["pos"].shape
+    if isinstance(cache_pos, int):
+        slot = cache_pos % w_cap
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        cache["pos"][:, slot] = cache_pos
+        return
+    if cache_pos.ndim == 0:
+        slot = torch.remainder(cache_pos.to(torch.long), w_cap).reshape(1)
+        cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+        cache["pos"].index_copy_(1, slot, cache_pos.to(cache["pos"].dtype).reshape(1, 1)
+                                 .expand(b, 1))
+        return
+    rows = torch.arange(b, dtype=torch.long, device=cache_pos.device) * w_cap
+    idx = rows + torch.remainder(cache_pos.to(torch.long), w_cap)
+    for name, new in (("k", k_new), ("v", v_new)):
+        leaf = cache[name]
+        leaf.view((b * w_cap,) + tuple(leaf.shape[2:])).index_copy_(
+            0, idx, new[:, 0].to(leaf.dtype))
+    cache["pos"].view(b * w_cap).index_copy_(0, idx, cache_pos.to(cache["pos"].dtype))
+
+
+def attn_decode_ring(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, window: int):
+    """Ring-buffer decode for sliding-window layers: cache {"k","v": [B, W,
+    KV, D], "pos": [B, W] int32}, written in place. The write slot is
+    ``cache_pos % W`` and validity comes from the stored absolute positions,
+    per row (rows at different positions wrap on their own clocks); an
+    empty entry holds position -1. RoPE is applied at write time, so the
+    relative geometry survives the wrap. The masked rows go through the
+    model's softmax backend (K1 on the card under ``int_pallas``)."""
+    b, s, _ = x.shape  # s == 1
+    q, k_new, v_new = project_qkv(p, x, cfg, ctx, positions)
+    _ring_write(cache, k_new, v_new, cache_pos)
+    pos_buf = cache["pos"]
+    pos_col = cache_pos if isinstance(cache_pos, int) else cache_pos.to(torch.int32).reshape(-1, 1)
+    valid = (pos_buf >= 0) & (pos_buf <= pos_col) & (pos_buf > pos_col - window)
+    mask = valid[:, None, :].expand(b, 1, pos_buf.shape[1])
+    out = attend(q, ctx.cast(cache["k"]), ctx.cast(cache["v"]), mask, cfg, ctx,
+                 smx=p.get("smx"))
+    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx), cache
+
+
+def attn_verify_ring(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, window: int):
+    """Multi-token ring decode with a snapshot after every token (the
+    speculative verify step). A ring write at position q overwrites the
+    entry of position q - W, still inside the window of earlier positions,
+    so a rejected draft cannot be masked away: the T tokens run through
+    the single-token ring update, and ``kv_cache.commit_staged`` restores
+    the snapshot at the accepted depth. The ring is stepped in place.
+    ``positions`` [B, T]. Returns (y [B, T, d], staged {"k","v": [T, B, W,
+    ...], "pos": [T, B, W]})."""
+    t = x.shape[1]
+    ys, snaps = [], {k: [] for k in cache}
+    for i in telemetry.scan_range(t):
+        pi = positions[:, i].contiguous()
+        # contiguous, as a decode step's input (the same product layout)
+        y, cache = attn_decode_ring(p, x[:, i:i + 1].contiguous(), cache, pi, cfg, ctx,
+                                    pi[:, None], window)
+        ys.append(y)
+        for k, leaf in cache.items():
+            snaps[k].append(leaf.clone())
+    return torch.cat(ys, dim=1), {k: torch.stack(v) for k, v in snaps.items()}

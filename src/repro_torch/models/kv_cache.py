@@ -1,5 +1,5 @@
-"""Decode-cache structure (port of the dense and MoE families, GQA and MLA
-attention, of ``src/repro/models/kv_cache.py``).
+"""Decode-cache structure (port of ``src/repro/models/kv_cache.py``: the
+dense, MoE, SSM and hybrid families, GQA and MLA attention).
 
 Layouts, as the reference's:
   contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``; under
@@ -15,15 +15,24 @@ Layouts, as the reference's:
                sentinel of an empty table entry. The table keeps the
                reference's one identical copy per layer, so every cache
                leaf slices by layer the same way.
+  ssm        : {"state": [L, B, H, P, N] f32, "conv": [L, B, k-1, Cd]}:
+               O(1) in context, slot-resident in a paged cache too (no
+               table: nothing to page)
+  hybrid     : {"full", "win_a", "win_b"}, each {"attn": ..., "ssm": ...}:
+               the 3 global layers' attention positional (contiguous, or
+               paged), the window layers' a ring {"k","v": [L, B, W, KV,
+               Dh], "pos": [L, B, W] int32} of W = min(window, C) slots,
+               -1 where empty, slot-resident
 
-The pool operations treat every leaf but the table alike, so scatter,
-copy-on-write, the prefix view and the speculative rollback
-(``commit_staged``) serve both families and carry the int8 scales with
-their codes. Unlike the reference (pure functions returning
-new buffers), they write the cache IN
-PLACE and return it: one pool exists per serve, and copying it per
-admission would double its memory traffic. The other families come with
-ROADMAP.md Queue 1 item 11.
+The functions walk the nested trees as the reference's do: a node with a
+``"table"`` is paged (its pools scattered, copied and cleared through the
+table); any other leaf outside such a node is slot-resident, a stripe at
+batch axis 1. The pool operations treat every pool leaf alike, so they
+carry the int8 scales with their codes. Unlike the reference (pure
+functions returning new buffers), they write the cache IN PLACE and
+return it: one pool exists per serve, and copying it per admission would
+double its memory traffic. A stripe insert is a copy into the slot's
+rows.
 """
 
 from __future__ import annotations
@@ -32,21 +41,21 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import _block_target, _put_rows, _write_target, block_positions
+from repro_torch.models.hybrid import full_attn_layer_ids
 
 KV_DTYPE = torch.bfloat16
 
 
-def _dense_only(cfg):
-    """The positional-cache families: dense and MoE (whose caches are the
-    dense GQA or MLA leaves, one per layer, the dense prefix's first)."""
-    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "mla"):
+def _check_family(cfg):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
+            cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches are not ported: ROADMAP.md "
             "Queue 1 item 11")
 
 
 def _leaves(cfg):
-    """Per-token trailing shape and dtype of each cache leaf."""
+    """Per-token trailing shape and dtype of each attention cache leaf."""
     if cfg.attention == "mla":
         return {"c_kv": ((cfg.kv_lora_rank,), KV_DTYPE),
                 "k_rope": ((cfg.qk_rope_dim,), KV_DTYPE)}
@@ -57,26 +66,105 @@ def _leaves(cfg):
     return {"k": ((kv, dh), KV_DTYPE), "v": ((kv, dh), KV_DTYPE)}
 
 
-def cache_zeros(cfg, batch: int, cache_len: int, device=None):
-    _dense_only(cfg)
-    return {k: torch.zeros((cfg.n_layers, batch, cache_len) + w, dtype=dt,
-                           device=device)
+def hybrid_segments(cfg):
+    """(len_win_a, len_win_b): the window layers between the global ones."""
+    first, mid, last = full_attn_layer_ids(cfg)
+    return (mid - first - 1, last - mid - 1)
+
+
+def _ssm_cache(n: int, b: int, cfg, device):
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {"state": torch.zeros((n, b, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+            "conv": torch.zeros((n, b, cfg.ssm_conv - 1, conv_dim), dtype=KV_DTYPE,
+                                device=device)}
+
+
+def _attn_cache(n: int, b: int, c: int, cfg, device):
+    return {k: torch.zeros((n, b, c) + w, dtype=dt, device=device)
             for k, (w, dt) in _leaves(cfg).items()}
+
+
+def _ring_cache(n: int, b: int, w: int, cfg, device):
+    """A window layer's ring: the attention leaves (int8 with scales under
+    ``kv_quant``, as the reference's ``_attn_cache`` builds them) and the
+    absolute position of each slot, per row (rows wrap on their own
+    clocks), -1 where empty."""
+    d = _attn_cache(n, b, w, cfg, device)
+    d["pos"] = torch.full((n, b, w), -1, dtype=torch.int32, device=device)
+    return d
+
+
+def _paged_attn_cache(n: int, nb: int, bs: int, slots: int, n_log: int, cfg, device):
+    cache = {k: torch.zeros((n, nb, bs) + w, dtype=dt, device=device)
+             for k, (w, dt) in _leaves(cfg).items()}
+    cache["table"] = torch.full((n, slots, n_log), nb, dtype=torch.int32, device=device)
+    return cache
+
+
+def _hybrid(cfg, b: int, c: int, attn, device):
+    wa, wb = hybrid_segments(cfg)
+    w = min(cfg.window, c)
+    seg = lambda n, full: {"attn": attn(n) if full else _ring_cache(n, b, w, cfg, device),
+                           "ssm": _ssm_cache(n, b, cfg, device)}
+    return {"full": seg(3, True), "win_a": seg(wa, False), "win_b": seg(wb, False)}
+
+
+def cache_zeros(cfg, batch: int, cache_len: int, device=None):
+    """The contiguous decode cache, zeroed (ring positions -1)."""
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_cache(cfg.n_layers, batch, cfg, device)
+    if cfg.family == "hybrid":
+        return _hybrid(cfg, batch, cache_len,
+                       lambda n: _attn_cache(n, batch, cache_len, cfg, device), device)
+    return _attn_cache(cfg.n_layers, batch, cache_len, cfg, device)
 
 
 def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
                       num_blocks: int, device=None):
-    """Zeroed pools and an all-sentinel table (``device="meta"`` gives the
-    shapes alone, for the cost meter)."""
-    _dense_only(cfg)
+    """Zeroed pools and an all-sentinel table; slot-resident leaves zeroed,
+    ring positions -1 (``device="meta"`` gives the shapes alone, for the
+    cost meter)."""
+    _check_family(cfg)
     if cache_len % block_size != 0:
         raise ValueError(f"cache_len {cache_len} not a multiple of "
                          f"block_size {block_size}")
-    cache = {k: torch.zeros((cfg.n_layers, num_blocks, block_size) + w,
-                            dtype=dt, device=device)
-             for k, (w, dt) in _leaves(cfg).items()}
-    cache["table"] = torch.full((cfg.n_layers, slots, cache_len // block_size),
-                                num_blocks, dtype=torch.int32, device=device)
+    n_log = cache_len // block_size
+    if cfg.family == "ssm":
+        return _ssm_cache(cfg.n_layers, slots, cfg, device)
+    if cfg.family == "hybrid":
+        return _hybrid(cfg, slots, cache_len,
+                       lambda n: _paged_attn_cache(n, num_blocks, block_size, slots, n_log,
+                                                   cfg, device), device)
+    return _paged_attn_cache(cfg.n_layers, num_blocks, block_size, slots, n_log, cfg,
+                             device)
+
+
+def tree_leaves(tree):
+    """The tensors of a cache tree, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _paged(node) -> bool:
+    return isinstance(node, dict) and "table" in node
+
+
+def insert_slot(cache, values, slot: int):
+    """Write a batch-1 prefill cache ``values`` (every leaf [L, 1, ...])
+    into ``slot``'s stripe of a CONTIGUOUS cache, in place (the reference
+    engine's ``_insert_slot``)."""
+    def put(leaf, v):
+        leaf[:, slot] = v[:, 0].to(leaf.dtype)
+    tree_map(put, cache, values)
     return cache
 
 
@@ -103,38 +191,64 @@ def contiguous_as_paged(cache, block_size: int):
     return out
 
 
+def _scatter_pools(node, values, slot: int, table_row, pb, offs, t0: int, t1: int):
+    table = node["table"]
+    nb, bs = node[_pools(node)[0]].shape[1:3]
+    keep = (pb >= 0) & (pb < nb) & (offs >= 0) & (offs < bs)
+    rows = np.nonzero(keep)[0]
+    dev = table.device
+    table[:, slot, :] = torch.as_tensor(np.asarray(table_row, np.int32), device=dev)
+    if rows.size:
+        ib = torch.as_tensor(pb[rows], dtype=torch.long, device=dev)
+        io = torch.as_tensor(offs[rows], dtype=torch.long, device=dev)
+        ir = torch.as_tensor(rows, dtype=torch.long, device=dev)
+        for k in _pools(node):
+            vals = values[k][:, 0, t0:t1].index_select(1, ir)
+            node[k][:, ib, io] = vals.to(node[k].dtype)
+
+
 def paged_scatter(cache, values, slot: int, table_row, pb, offs, t0: int,
                   t1: int):
     """Install one request's prefilled entries into the paged cache, in
     place: positions ``[t0, t1)`` of ``values`` (each pool leaf [L, 1, T,
     ...], the prefill output) land at physical coordinates ``(pb[i], offs[i])``,
-    and the slot's table row becomes ``table_row``. ``pb``, ``offs`` and
-    ``table_row`` are host integer arrays; a coordinate outside the pool is
-    dropped, as the reference's scatter drops it (filtered here on the host:
-    an out-of-range index on the card is a device-side assert)."""
-    table = cache["table"]
-    nb, bs = cache[_pools(cache)[0]].shape[1:3]
+    and the slot's table row becomes ``table_row``; every slot-resident
+    leaf (SSM state and conv tail, window rings: [L, 1, ...]) is copied
+    into the slot's stripe. ``pb``, ``offs`` and ``table_row`` are host
+    integer arrays; a coordinate outside the pool is dropped, as the
+    reference's scatter drops it (filtered here on the host: an
+    out-of-range index on the card is a device-side assert)."""
     pb, offs = np.asarray(pb), np.asarray(offs)
-    keep = (pb >= 0) & (pb < nb) & (offs >= 0) & (offs < bs)
-    rows = np.nonzero(keep)[0]
-    dev = table.device
-    table[:, slot, :] = torch.as_tensor(np.asarray(table_row, np.int32),
-                                        device=dev)
-    if rows.size:
-        ib = torch.as_tensor(pb[rows], dtype=torch.long, device=dev)
-        io = torch.as_tensor(offs[rows], dtype=torch.long, device=dev)
-        ir = torch.as_tensor(rows, dtype=torch.long, device=dev)
-        for k in _pools(cache):
-            vals = values[k][:, 0, t0:t1].index_select(1, ir)
-            cache[k][:, ib, io] = vals.to(cache[k].dtype)
+
+    def walk(node, vals):
+        if _paged(node):
+            _scatter_pools(node, vals, slot, table_row, pb, offs, t0, t1)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, vals[k])
+        else:
+            node[:, slot] = vals[:, 0].to(node.dtype)
+
+    walk(cache, values)
     return cache
+
+
+def _paged_nodes(tree):
+    """The paged nodes of a cache tree."""
+    if _paged(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [n for v in tree.values() for n in _paged_nodes(v)]
+    return []
 
 
 def paged_copy_block(cache, src: int, dst: int):
     """Copy pool block ``src`` to ``dst`` on every pool leaf, in place (the
-    device half of the allocator's copy-on-write handshake)."""
-    for k in _pools(cache):
-        cache[k][:, dst].copy_(cache[k][:, src])
+    device half of the allocator's copy-on-write handshake). Tables and
+    slot-resident leaves are left alone."""
+    for node in _paged_nodes(cache):
+        for k in _pools(node):
+            node[k][:, dst].copy_(node[k][:, src])
     return cache
 
 
@@ -142,7 +256,10 @@ def paged_prefix_view(cache, ids, s: int):
     """The shared-prefix entries (each pool leaf as [L, 1, s, ...]) gathered from
     pool blocks ``ids`` (host ints): the tail-only prefill input. A copy,
     not a view of the pool, so later writes to those blocks cannot change
-    what the tail prefill reads."""
+    what the tail prefill reads. Only for a cache that is one paged node
+    (the families that share prefixes: dense and MoE)."""
+    if not _paged(cache):
+        raise NotImplementedError("prefix gather requires a pure paged cache")
     out = {}
     for k in _pools(cache):
         leaf = cache[k]
@@ -160,9 +277,12 @@ def slot_scatter(cache, values, slot: int, dst: int, t0: int, t1: int):
     T, ...]) land at stripe positions ``[dst, dst + t1 - t0)`` of ``slot``
     (the contiguous counterpart of :func:`paged_scatter` for chunked
     prefill: a first chunk passes ``dst == t0 == 0``, a tail chunk's values
-    start at 0 with ``dst`` at the committed boundary)."""
-    for k, leaf in cache.items():
-        leaf[:, slot, dst:dst + t1 - t0] = values[k][:, 0, t0:t1].to(leaf.dtype)
+    start at 0 with ``dst`` at the committed boundary). Every leaf is read
+    as positional along axis 2, as the reference's ``tree.map``: only the
+    chunkable families (dense and MoE) commit chunks."""
+    def write(leaf, v):
+        leaf[:, slot, dst:dst + t1 - t0] = v[:, 0, t0:t1].to(leaf.dtype)
+    tree_map(write, cache, values)
     return cache
 
 
@@ -170,81 +290,129 @@ def slot_prefix_view(cache, slot: int, s: int):
     """The first ``s`` committed positions of one slot's CONTIGUOUS cache as
     [L, 1, s, ...]: the prefix input of the next ``prefill_tail`` chunk. A
     copy, like :func:`paged_prefix_view`."""
-    return {k: leaf[:, slot:slot + 1, :s].clone() for k, leaf in cache.items()}
+    return tree_map(lambda leaf: leaf[:, slot:slot + 1, :s].clone(), cache)
 
 
 def swap_read(cache, slot: int, ids):
-    """Snapshot one slot's paged state for preemption swap-out: the
-    contents of pool blocks ``ids`` (host ints; the blocks not
-    re-acquirable by content key) as CPU tensors [L, n, bs, ...] per pool
-    leaf, int8 codes with their scales. The table is left out: the row is
-    host bookkeeping, rebuilt on resume by :func:`swap_write`. The copy is
+    """Snapshot one slot's paged state for preemption swap-out, as CPU
+    tensors: the contents of pool blocks ``ids`` (host ints; the blocks not
+    re-acquirable by content key) [L, n, bs, ...] per pool leaf, int8 codes
+    with their scales, and every slot-resident stripe (SSM state and conv
+    tail, window rings) [L, 1, ...]. Tables are left out: the row is host
+    bookkeeping, rebuilt on resume by :func:`swap_write`. The copy is
     synchronous, so the caller may release the blocks as soon as this
-    returns. ``slot`` is kept for the reference's signature: it names the
-    slot-resident stripes, which no ported family has (item 11)."""
-    out = {}
-    for k in _pools(cache):
-        leaf = cache[k]
-        idx = torch.as_tensor(np.asarray(ids, np.int64), device=leaf.device)
-        out[k] = leaf.index_select(1, idx).cpu()
-    return out
+    returns."""
+    idx_np = np.asarray(ids, np.int64)
+
+    def walk(node):
+        if _paged(node):
+            out = {}
+            for k in _pools(node):
+                leaf = node[k]
+                idx = torch.as_tensor(idx_np, device=leaf.device)
+                out[k] = leaf.index_select(1, idx).cpu()
+            return out
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node[:, slot:slot + 1].to("cpu", copy=True)
+
+    return walk(cache)
 
 
 def swap_write(cache, payload, slot: int, ids, table_row):
     """Restore a :func:`swap_read` payload on resume, in place: the copied
-    blocks land in the freshly allocated pool blocks ``ids`` (host ints) and
-    the slot's table row becomes ``table_row`` (the sentinel-padded map over
-    the re-acquired and restored blocks). A resume that re-prefills nothing
-    writes the table only here."""
-    table = cache["table"]
-    table[:, slot, :] = torch.as_tensor(np.asarray(table_row, np.int32),
-                                        device=table.device)
+    blocks land in the freshly allocated pool blocks ``ids`` (host ints),
+    each table row of the slot becomes ``table_row`` (the sentinel-padded
+    map over the re-acquired and restored blocks), and the slot-resident
+    stripes are copied back into ``slot``. A resume that re-prefills
+    nothing writes the table only here."""
     ids = np.asarray(ids, np.int64)
-    if ids.size:
-        for k in _pools(cache):
-            leaf = cache[k]
-            idx = torch.as_tensor(ids, device=leaf.device)
-            leaf[:, idx] = payload[k].to(device=leaf.device, dtype=leaf.dtype)
+
+    def walk(node, pay):
+        if _paged(node):
+            table = node["table"]
+            table[:, slot, :] = torch.as_tensor(np.asarray(table_row, np.int32),
+                                                device=table.device)
+            if ids.size:
+                for k in _pools(node):
+                    leaf = node[k]
+                    idx = torch.as_tensor(ids, device=leaf.device)
+                    leaf[:, idx] = pay[k].to(device=leaf.device, dtype=leaf.dtype)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, pay[k])
+        else:
+            node[:, slot] = pay[:, 0].to(device=node.device, dtype=node.dtype)
+
+    walk(cache, payload)
     return cache
 
 
-def commit_staged(staged, n_accept, cache_pos, t: int):
+def _clear_rejected(node, rej, cache_pos, b: int, t: int, dev):
+    """Zero the rejected tail entries of one positional node (contiguous
+    leaves, or pools behind a table), in place."""
+    if _paged(node):
+        pool = node[_pools(node)[0]]
+        nb, bs = pool.shape[1:3]
+        target, lands = _write_target(node["table"][0], block_positions(cache_pos, b, t, dev),
+                                      nb, bs)
+    else:
+        c = node[_pools(node)[0]].shape[2]
+        target, lands = _block_target(cache_pos, b, t, c, dev)
+    lands = lands & rej
+    for k in _pools(node):
+        leaf = node[k]
+        flat = leaf.view((leaf.shape[0], leaf.shape[1] * leaf.shape[2]) + tuple(leaf.shape[3:]))
+        zero = torch.zeros((b * t,) + tuple(leaf.shape[3:]), dtype=leaf.dtype, device=dev)
+        _put_rows(flat, target, lands, zero)
+
+
+def commit_staged(staged, n_accept, cache_pos, t: int, into=None):
     """Resolve a staged speculative-verify cache at accepted depth
-    ``n_accept`` [B] (a device tensor), in place: the positional leaves —
-    contiguous ``[L, B, C, ...]`` buffers, or pools ``[L, NB, BS, ...]``
-    behind the block table, int8 codes with their scales — hold entries
-    for all ``t`` verify tokens, and the rejected tail (positions
-    ``cache_pos + n_accept + 1 .. cache_pos + t - 1``) is CLEARED to zero,
-    so no drafted K/V outlives its rejection and the committed cache is
-    bit-identical to one built by stepping only the accepted tokens.
-    Out-of-range positions (parked slots at ``cache_len``, over-draft tails
-    at the end of a request's budget, sentinel table entries) drop; a paged
-    clear only ever lands in the slot's own private blocks, since decode
-    positions sit strictly past any shared prefix. No host sync and no
-    data-dependent shape, so it runs inside the captured step. The
-    recurrent families' "select the snapshot" branch (SSM state, hybrid
-    rings) is not ported: ROADMAP.md Queue 1 item 11."""
-    if any(k in staged for k in ("state", "pos")) or any(
-            isinstance(v, dict) for v in staged.values()):
-        raise NotImplementedError(
-            "commit_staged of recurrent snapshots (SSM state, hybrid rings) is not "
-            "ported: ROADMAP.md Queue 1 item 11")
+    ``n_accept`` [B] (a device tensor):
+
+      * positional leaves — contiguous ``[L, B, C, ...]`` buffers, or pools
+        ``[L, NB, BS, ...]`` behind the block table, int8 codes with their
+        scales — hold entries for all ``t`` verify tokens, and the rejected
+        tail (positions ``cache_pos + n_accept + 1 .. cache_pos + t - 1``)
+        is CLEARED to zero in place, so no drafted K/V outlives its
+        rejection and the committed cache is bit-identical to one built by
+        stepping only the accepted tokens. Out-of-range positions (parked
+        slots at ``cache_len``, over-draft tails at the end of a request's
+        budget, sentinel table entries) drop; a paged clear only ever lands
+        in the slot's own private blocks, since decode positions sit
+        strictly past any shared prefix;
+      * recurrent nodes — SSM state and conv tail, window rings, marked by
+        a ``"state"`` or ``"pos"`` leaf — arrive as per-token snapshots
+        ``[L, T, B, ...]``; the snapshot after the last accepted token is
+        selected per row (their updates are irreversible, so rollback is
+        restore, not masking), copied into the matching leaf of ``into``
+        (the cache) when given, else returned.
+
+    Returns the resolved tree: ``into`` when given, else ``staged`` with
+    its recurrent nodes replaced by their selections. No host sync and no
+    data-dependent shape, so it runs inside the captured step."""
     b = n_accept.shape[0]
     dev = n_accept.device
     steps = torch.arange(t, dtype=torch.int32, device=dev)
     rej = (steps[None, :] > n_accept.to(torch.int32)[:, None]).reshape(-1)   # [B * T]
-    if "table" in staged:
-        pool = staged[_pools(staged)[0]]
-        nb, bs = pool.shape[1:3]
-        target, lands = _write_target(staged["table"][0], block_positions(cache_pos, b, t, dev),
-                                      nb, bs)
-    else:
-        c = staged[_pools(staged)[0]].shape[2]
-        target, lands = _block_target(cache_pos, b, t, c, dev)
-    lands = lands & rej
-    for k in _pools(staged):
-        leaf = staged[k]
-        flat = leaf.view((leaf.shape[0], leaf.shape[1] * leaf.shape[2]) + tuple(leaf.shape[3:]))
-        zero = torch.zeros((b * t,) + tuple(leaf.shape[3:]), dtype=leaf.dtype, device=dev)
-        _put_rows(flat, target, lands, zero)
-    return staged
+    acc = n_accept.to(torch.long)
+    lanes = torch.arange(b, dtype=torch.long, device=dev)
+
+    def walk(node, dst):
+        if not isinstance(node, dict):
+            raise TypeError(f"unexpected staged leaf {type(node)}")
+        if "state" in node or "pos" in node:          # recurrent snapshots
+            sel = {k: v[:, acc, lanes] for k, v in node.items()}
+            if dst is None:
+                return sel
+            for k, v in sel.items():
+                dst[k].copy_(v)
+            return dst
+        if _paged(node) or all(not isinstance(v, dict) for v in node.values()):
+            _clear_rejected(node, rej, cache_pos, b, t, dev)
+            return node if dst is None else dst
+        return {k: walk(v, None if dst is None else dst[k]) for k, v in node.items()}
+
+    out = walk(staged, into)
+    return out if into is None else into

@@ -1,5 +1,5 @@
-"""Model facade for the dense and MoE families, GQA or MLA attention (port
-of ``src/repro/models/model.py``).
+"""Model facade for the dense, MoE, SSM and hybrid families, GQA or MLA
+attention (port of ``src/repro/models/model.py``).
 
   init(generator)                          -> params (nested dict of tensors)
   train_logits(params, batch)              -> (logits [B, S, V], aux)
@@ -18,8 +18,15 @@ scales (MLA keeps its bf16 latent cache, as the reference).
 The MoE family's stack is ``{"layers": the MoE layers, "prefix": the
 cfg.n_dense_prefix dense layers}`` (deepseek-v2-236b has one), as the
 reference's: every entry point runs the prefix, then the MoE layers, over
-one cache whose layer axis holds the prefix's layers first. Other families
-(SSM, hybrid, encdec, M-RoPE) are later slices: ROADMAP.md Queue 1 item 11.
+one cache whose layer axis holds the prefix's layers first. The SSM
+family's is ``{"layers"}`` of SSD blocks, its cache {"state", "conv"}
+([L, B, ...]); the hybrid's is ``{"full": the 3 global layers, "win_a",
+"win_b": the window layers between them}``, run in the order full[0],
+win_a, full[1], win_b, full[2], with one cache segment per stack segment
+({"attn": positional or ring, "ssm": ...}). Their verify step stages the
+recurrent state as per-token snapshots, which ``verify_commit`` resolves
+into the cache. The encdec and M-RoPE families are later slices:
+ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -70,17 +77,36 @@ PREFILL_MIN_ROWS = 256
 # decode step and a verify block both route C = 4 slots an expert, so
 # they run at one shape ([E, 32, d] at 8 slots). Nor do they in prefill,
 # where C follows the call's length (MoE chunking is not run on the card).
+# The hybrid family (hymba-1.5b) pads its LM head as well: its verify
+# block runs the SSM heads and the window layers' ring attention one token
+# at a time, at the decode step's rows (contiguous inputs, so each product
+# sees the decode step's layout), and with the dense family's padding
+# every op of its block gave the decode steps' bits but the head ([40,
+# 1600] x [1600, 32001] against [8, 1600] x ...). With the head padded
+# too every op is bitwise, op by op and graphed, and a replayed step costs
+# 0.60 ms less than with every dense product padded (14.86 against 15.46
+# ms a decode step, 61.57 against 63.75 a verify block; probes/
+# verify_step.py --arch hymba-1.5b, PERF.md). The SSM family (mamba2-780m)
+# needs nothing beyond the dense family's rule: its verify runs every
+# product per token at the decode step's rows, and its head gave the
+# decode steps' bits.
 STEP_MIN_ROWS = 64
+
+
+def _slice_tree(tree, lo: int, n: int):
+    """Layers ``lo .. lo + n`` of a stacked tree, as views."""
+    return kv_cache.tree_map(lambda v: v[lo:lo + n], tree)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device=None):
-        if (cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "mla")
+        if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+                or cfg.attention not in ("gqa", "mla")
                 or cfg.rope_type not in ("rope", "none")):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and MoE families (GQA or MLA) with "
-                "plain rope are ported; the others follow ROADMAP.md Queue 1 item 11")
+                f"{cfg.name}: only the dense, MoE, SSM and hybrid families (GQA or MLA) "
+                "with plain rope are ported; the others follow ROADMAP.md Queue 1 item 11")
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
         self.device = resolve_device(device)
@@ -105,12 +131,16 @@ class Model:
         the reference's parameters through ``convert.params_from_numpy``."""
         cfg, dev, dt = self.cfg, self.device, self.ctx.dtype
         g = generator
-        if g is None:
+        if g is None and dev.type != "meta":
             g = torch.Generator(dev).manual_seed(0)
 
-        def normal(shape, std):
+        def normal(shape, std, dtype=dt):
             w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-            return (w * std).to(dt)
+            return (w * std).to(dtype)
+
+        def uniform(shape, lo, hi):
+            u = torch.rand(shape, generator=g, device=dev, dtype=torch.float32)
+            return lo + (hi - lo) * u
 
         def dense(n, d_in, d_out, bias=False):
             p = {"w": normal((n, d_in, d_out), 1.0 / math.sqrt(d_in))}
@@ -135,26 +165,58 @@ class Model:
 
         d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
+        def ssm(n):
+            """``ssm_init``: dt_bias is softplus^-1 of a log-uniform dt in
+            [0.001, 0.1], A_log the log of U(1, 16); conv and the per-head
+            vectors in f32, as the reference reads them."""
+            di, ns, gr, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_nheads
+            conv_dim = di + 2 * gr * ns
+            dt_ = torch.exp(uniform((n, nh), math.log(0.001), math.log(0.1)))
+            return {"in_proj": dense(n, d, 2 * di + 2 * gr * ns + nh),
+                    "conv_w": normal((n, cfg.ssm_conv, conv_dim), cfg.ssm_conv ** -0.5,
+                                     torch.float32),
+                    "conv_b": torch.zeros((n, conv_dim), device=dev),
+                    "dt_bias": dt_ + torch.log(-torch.expm1(-dt_)),
+                    "A_log": torch.log(uniform((n, nh), 1.0, 16.0)),
+                    "D": torch.ones((n, nh), device=dev),
+                    "gate_norm": norm(n, di, "rmsnorm"),
+                    "out_proj": dense(n, di, d)}
+
+        def attention(n):
+            attn = {"wq": dense(n, d, h * dh, cfg.qkv_bias),
+                    "wk": dense(n, d, kv * dh, cfg.qkv_bias),
+                    "wv": dense(n, d, kv * dh, cfg.qkv_bias),
+                    "wo": dense(n, h * dh, d)}
+            backend = spec_backend(cfg.softmax)
+            if getattr(backend, "learnable", False):
+                # learnable softmax parameters (ConSmax beta/gamma): one
+                # f32 scalar per query head and layer, at the backend
+                # cfg's operating point (MLA carries none, as the
+                # reference)
+                c = backend.cfg
+                attn["smx"] = {"beta": torch.full((n, h), c.beta, device=dev),
+                               "gamma": torch.full((n, h), c.gamma, device=dev)}
+            return attn
+
+        def glu(n):
+            return {"gate": dense(n, d, cfg.d_ff), "up": dense(n, d, cfg.d_ff),
+                    "down": dense(n, cfg.d_ff, d)}
+
         def block(n, kind):
+            if kind == "ssm":
+                return {"norm1": norm(n), "ssm": ssm(n)}
+            if kind == "hybrid":
+                return {"norm1": norm(n), "attn": attention(n), "ssm": ssm(n),
+                        "attn_norm": norm(n, kind="rmsnorm"),
+                        "ssm_norm": norm(n, kind="rmsnorm"),
+                        "norm2": norm(n), "mlp": glu(n)}
             if cfg.attention == "mla":
                 attn = {k: dense(n, *shape) for k, shape in mla_dense_shapes(cfg).items()}
                 if cfg.q_lora_rank:
                     attn["q_norm"] = norm(n, cfg.q_lora_rank, "rmsnorm")
                 attn["kv_norm"] = norm(n, cfg.kv_lora_rank, "rmsnorm")
             else:
-                attn = {"wq": dense(n, d, h * dh, cfg.qkv_bias),
-                        "wk": dense(n, d, kv * dh, cfg.qkv_bias),
-                        "wv": dense(n, d, kv * dh, cfg.qkv_bias),
-                        "wo": dense(n, h * dh, d)}
-                backend = spec_backend(cfg.softmax)
-                if getattr(backend, "learnable", False):
-                    # learnable softmax parameters (ConSmax beta/gamma): one
-                    # f32 scalar per query head and layer, at the backend
-                    # cfg's operating point (MLA carries none, as the
-                    # reference)
-                    c = backend.cfg
-                    attn["smx"] = {"beta": torch.full((n, h), c.beta, device=dev),
-                                   "gamma": torch.full((n, h), c.gamma, device=dev)}
+                attn = attention(n)
             if kind == "moe":
                 ffn = {"router": dense(n, d, cfg.n_experts)}
                 ffn.update({k: experts(n, shape, std)
@@ -164,15 +226,20 @@ class Model:
                     ffn["shared"] = {"gate": dense(n, d, f), "up": dense(n, d, f),
                                      "down": dense(n, f, d)}
             else:
-                ffn = {"gate": dense(n, d, cfg.d_ff), "up": dense(n, d, cfg.d_ff),
-                       "down": dense(n, cfg.d_ff, d)}
+                ffn = glu(n)
             return {"norm1": norm(n), "norm2": norm(n), "attn": attn, "ffn": ffn}
 
         p = {"embed": {"w": normal((cfg.vocab, d), 0.02)},
              "final_norm": norm(0)}
         if not cfg.tie_embeddings:
             p["head"] = {"w": normal((d, cfg.vocab), 1.0 / math.sqrt(d))}
-        if cfg.family == "moe":
+        if cfg.family == "ssm":
+            p["stack"] = {"layers": block(cfg.n_layers, "ssm")}
+        elif cfg.family == "hybrid":
+            wa, wb = kv_cache.hybrid_segments(cfg)
+            p["stack"] = {"full": block(3, "hybrid"), "win_a": block(wa, "hybrid"),
+                          "win_b": block(wb, "hybrid")}
+        elif cfg.family == "moe":
             p["stack"] = {"layers": block(cfg.n_layers - cfg.n_dense_prefix, "moe")}
             if cfg.n_dense_prefix:
                 p["stack"]["prefix"] = block(cfg.n_dense_prefix, "dense")
@@ -183,39 +250,64 @@ class Model:
     # -------------------------------------------------------------- pieces
 
     def _segments(self, p):
-        """The stack's homogeneous segments in layer order: (stacked params,
-        kind, layers before it). The MoE family runs its dense prefix first
-        (the reference's ``_stack_*`` split), every other family one dense
-        segment."""
-        sp = p["stack"]
-        if self.cfg.family != "moe":
-            return [(sp["layers"], "dense", 0)]
-        pre = [(sp["prefix"], "dense", 0)] if "prefix" in sp else []
-        lo = tfm.n_stacked(sp["prefix"]) if pre else 0
-        return pre + [(sp["layers"], "moe", lo)]
+        """The stack's homogeneous runs in layer order: (stacked params,
+        kind, cache segment, first layer of the run in that segment, its
+        layers). The MoE family runs its dense prefix first (the
+        reference's ``_stack_*`` split) over the one cache (segment None);
+        the hybrid runs full[0], win_a, full[1], win_b, full[2], each on its
+        own cache segment."""
+        cfg, sp = self.cfg, p["stack"]
+        if cfg.family == "hybrid":
+            full = lambda j: _slice_tree(sp["full"], j, 1)
+            runs = [(full(0), "hybrid_full", "full", 0), (sp["win_a"], "hybrid_win", "win_a", 0),
+                    (full(1), "hybrid_full", "full", 1), (sp["win_b"], "hybrid_win", "win_b", 0),
+                    (full(2), "hybrid_full", "full", 2)]
+            return [(r, k, seg, lo, tfm.n_stacked(r)) for r, k, seg, lo in runs
+                    if tfm.n_stacked(r)]
+        if cfg.family == "ssm":
+            return [(sp["layers"], "ssm", None, 0, tfm.n_stacked(sp["layers"]))]
+        if cfg.family != "moe":
+            return [(sp["layers"], "dense", None, 0, tfm.n_stacked(sp["layers"]))]
+        pre = [(sp["prefix"], "dense", None, 0, tfm.n_stacked(sp["prefix"]))] \
+            if "prefix" in sp else []
+        lo = pre[0][4] if pre else 0
+        return pre + [(sp["layers"], "moe", None, lo, tfm.n_stacked(sp["layers"]))]
 
     @staticmethod
     def _layer_slice(tree, lo: int, n: int):
         """Layers ``lo .. lo + n`` of a cache tree (views: written in place;
         the tree itself when that is every layer)."""
-        if lo == 0 and all(v.shape[0] == n for v in tree.values()):
+        if lo == 0 and all(v.shape[0] == n for v in kv_cache.tree_leaves(tree)):
             return tree
-        return {k: v[lo:lo + n] for k, v in tree.items()}
+        return _slice_tree(tree, lo, n)
+
+    @staticmethod
+    def _node(cache, seg):
+        return cache if seg is None else cache[seg]
 
     def _stack_step(self, p, cache, x, cache_pos, positions, stack_fn, ctx):
-        """One decode or verify step through every segment, each on its
-        layers of the one cache (views, written in place)."""
-        for sp, kind, lo in self._segments(p):
-            n = tfm.n_stacked(sp)
-            x, _ = stack_fn(sp, self._layer_slice(cache, lo, n), x, cache_pos, self.cfg,
-                            ctx, positions, kind)
-        return x, cache
+        """One decode or verify step through every run, each on its layers
+        of the one cache (views, written in place). Returns (x, staged): the
+        staged tree of a verify step (``tfm.join_staged``: recurrent
+        snapshots [L, T, B, ...], positional nodes the cache's own), the
+        cache for a decode step."""
+        staged = {}
+        for sp, kind, seg, lo, n in self._segments(p):
+            node = self._node(cache, seg)
+            x, st = stack_fn(sp, self._layer_slice(node, lo, n), x, cache_pos, self.cfg,
+                             ctx, positions, kind)
+            staged.setdefault(seg, []).append((node, st))
+        if stack_fn is tfm.stack_decode:
+            return x, cache
+        merged = {seg: tfm.join_staged(parts[0][0], [st for _, st in parts], torch.cat)
+                  for seg, parts in staged.items()}
+        return x, merged[None] if None in merged else merged
 
     @staticmethod
     def _cat_layers(caches):
         if len(caches) == 1:
             return caches[0]
-        return {k: torch.cat([c[k] for c in caches]) for k in caches[0]}
+        return kv_cache.tree_map(lambda *xs: torch.cat(xs), *caches)
 
     def _embed(self, p, tokens):
         return embed_apply(p["embed"], tokens, self.ctx)
@@ -226,7 +318,9 @@ class Model:
         if cfg.tie_embeddings:
             logits = embed_logits(p["embed"], x, ctx)
         else:
-            logits = dense_apply(p["head"], x, ctx)
+            # a hybrid step pads its head too (STEP_MIN_ROWS)
+            logits = dense_apply(p["head"], x, ctx,
+                                 ctx.step_min_rows if cfg.family == "hybrid" else 0)
         return logits.to(_LOGIT_DTYPES[cfg.logits_dtype])
 
     # ---------------------------------------------------------------- entry
@@ -239,7 +333,7 @@ class Model:
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for sp, kind, _ in self._segments(p):
+        for sp, kind, *_ in self._segments(p):
             x, a = tfm.stack_apply(sp, x, self.cfg, self.ctx, positions, kind)
             aux = aux + a
         return self._head(p, x), aux
@@ -248,12 +342,13 @@ class Model:
         tokens = batch["tokens"]
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device)
-        caches = []
-        for sp, kind, _ in self._segments(p):
+        caches = {}
+        for sp, kind, seg, _, _ in self._segments(p):
             x, c = tfm.stack_prefill(sp, x, self.cfg, self.prefill_ctx, positions,
                                      cache_len, kind)
-            caches.append(c)
-        return self._head(p, x[:, -1:]), self._cat_layers(caches)
+            caches.setdefault(seg, []).append(c)
+        merged = {seg: self._cat_layers(cs) for seg, cs in caches.items()}
+        return self._head(p, x[:, -1:]), merged[None] if None in merged else merged
 
     def prefill_tail(self, p, batch, prefix, prefix_len: int):
         """Prefill only the unshared tail of a prompt whose first
@@ -263,12 +358,19 @@ class Model:
         B, s, KV]} under ``kv_quant``; MLA: {"c_kv": [L, B, s, r], "k_rope":
         [L, B, s, dr]}) gathered from the pool
         (``kv_cache.paged_prefix_view``). Returns (last_logits, tail cache
-        [L, B, T, ...]) — equal to the tail slice of a whole prefill."""
+        [L, B, T, ...]) — equal to the tail slice of a whole prefill.
+        Dense and MoE only, as the reference's: SSM state and window rings
+        summarise the whole prefix, so those families prefill whole."""
+        if self.cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                "tail-only prefill covers the dense/moe (incl. MLA) families: the "
+                f"{self.cfg.family} family's recurrent state summarises the whole "
+                "prefix, so it always prefills in full (as the reference)")
         tokens = batch["tokens"]
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device) + prefix_len
         caches = []
-        for sp, kind, lo in self._segments(p):
+        for sp, kind, _, lo, _ in self._segments(p):
             x, c = tfm.stack_prefill_tail(sp, self._layer_slice(prefix, lo, tfm.n_stacked(sp)),
                                           x, self.cfg, self.prefill_ctx, positions,
                                           prefix_len, kind)
@@ -302,8 +404,11 @@ class Model:
         kept on its device as in ``decode_step``). Returns (logits [B, T,
         V], staged cache): ``logits[:, j]`` is the next-token distribution
         after token j — equal to what T successive ``decode_step`` calls
-        give — and the staged cache (the cache, written in place) holds
-        every token's entries until :meth:`verify_commit`."""
+        give — and the staged cache holds every token's entries until
+        :meth:`verify_commit`: the positional leaves are the cache's,
+        written in place; the recurrent ones (SSM state and conv tail,
+        window rings) are per-token snapshots [L, T, B, ...], the cache
+        itself stepped to the block's last token."""
         token = batch["token"]
         b, t = token.shape
         positions = block_positions(cache_pos, b, t, token.device)
@@ -312,13 +417,16 @@ class Model:
                                      self.step_ctx)
         return self._head(p, x, self.step_ctx), staged
 
-    def verify_commit(self, staged, n_accept, cache_pos, t: int):
+    def verify_commit(self, staged, n_accept, cache_pos, t: int, cache=None):
         """Resolve a staged verify cache once the accepted draft depth is
         known, in place: ``n_accept`` [B] int counts accepted draft tokens
         per row (0..t-1; entry 0 of the block is always kept). The rejected
         tail entries (positions ``cache_pos + n_accept + 1 .. cache_pos +
         t - 1``, contiguous or through the block table) are cleared, so the
         committed cache equals one built by stepping only the accepted
-        tokens; the next write position is ``cache_pos + n_accept + 1``
+        tokens; the next write position is ``cache_pos + n_accept + 1``.
+        Recurrent snapshots select the one after the last accepted token,
+        copied into ``cache`` (the cache the verify step ran on; required
+        when the staged tree holds snapshots). Returns the cache
         (``kv_cache.commit_staged``)."""
-        return kv_cache.commit_staged(staged, n_accept, cache_pos, t)
+        return kv_cache.commit_staged(staged, n_accept, cache_pos, t, into=cache)

@@ -1,13 +1,23 @@
-"""Transformer blocks and the layer loops (port of the dense and MoE
-paths, GQA or MLA attention, of ``src/repro/models/transformer.py``).
+"""Transformer blocks and the layer loops (port of
+``src/repro/models/transformer.py`` for the dense, MoE, SSM and hybrid
+families, GQA or MLA attention).
 
 Layer parameters are stacked with a leading layer axis, as in the
 reference; a Python loop over that axis takes the place of ``lax.scan``.
 The loops iterate with ``telemetry.scan_range`` so the AP cost meter
 records what the reference's trace-once scan records. Each block and loop
-takes the reference's ``kind``: ``"dense"`` (the GLU MLP) or ``"moe"``
-(``models/moe.py``); an MoE layer's auxiliary loss is summed by
-``stack_apply`` and dropped by the serving paths, as the reference's.
+takes the reference's ``kind``: ``"dense"`` (the GLU MLP), ``"moe"``
+(``models/moe.py``), ``"ssm"`` (``models/ssm.py``), ``"hybrid_full"`` or
+``"hybrid_win"`` (``models/hybrid.py``: global or sliding-window
+attention beside the SSM heads); an MoE layer's auxiliary loss is summed
+by ``stack_apply`` and dropped by the serving paths, as the reference's.
+
+Caches are nested dicts of tensors with the layer axis first (the
+hybrid's {"attn": ..., "ssm": ...} per segment). Decode writes them in
+place. A verify step writes positional leaves in place and returns the
+recurrent ones (SSM state and conv tail, window rings: the nodes with a
+``"state"`` or ``"pos"`` leaf) as per-token snapshots [L, T, B, ...],
+which ``kv_cache.commit_staged`` resolves.
 """
 
 from __future__ import annotations
@@ -24,11 +34,16 @@ from repro_torch.models.attention import (
     kv_fake_quant,
     project_qkv,
 )
+from repro_torch.models.kv_cache import tree_map
+from repro_torch.models.hybrid import (
+    fuse_paths, hybrid_block_apply, hybrid_block_decode, hybrid_block_verify,
+)
 from repro_torch.models.layers import Ctx, dense_apply, mlp_apply, norm_apply
 from repro_torch.models.mla import (
     mla_apply, mla_decode, mla_prefill, mla_prefill_tail, mla_verify,
 )
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.ssm import ssm_apply, ssm_decode, ssm_verify
 
 
 def layer_params(stacked, i: int):
@@ -48,6 +63,25 @@ def n_stacked(stacked) -> int:
     raise ValueError("parameter tree without leaves")
 
 
+def is_recurrent(node) -> bool:
+    """A cache node whose leaves are recurrent state (SSM state / conv tail,
+    a window ring with its positions) rather than positional entries."""
+    return isinstance(node, dict) and ("state" in node or "pos" in node)
+
+
+def join_staged(cache, parts, join):
+    """The staged tree of a verify step over ``cache`` from its parts (one
+    per layer, or per run of layers): each recurrent node's snapshots
+    joined leaf by leaf (``torch.stack`` for per-layer [T, B, ...], giving
+    [L, T, B, ...]; ``torch.cat`` for runs); every positional node is the
+    cache's own (written in place)."""
+    if is_recurrent(cache):
+        return tree_map(lambda *xs: join(xs), *parts)
+    if all(not isinstance(v, dict) for v in cache.values()):
+        return cache
+    return {k: join_staged(v, [pt[k] for pt in parts], join) for k, v in cache.items()}
+
+
 # --------------------------------------------------------------------- blocks
 
 
@@ -61,26 +95,54 @@ def _ffn(p, x, cfg, ctx: Ctx, kind: str):
     return x + mlp_apply(p["ffn"], h, cfg.act, ctx), 0.0
 
 
+def _hybrid_kind(kind: str) -> str:
+    return "causal" if kind == "hybrid_full" else "window"
+
+
 def block_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "dense"):
     """Pre-norm causal block over a whole sequence. Returns (x, aux)."""
+    if kind == "ssm":
+        return x + ssm_apply(p["ssm"], norm_apply(p["norm1"], x, cfg.norm, ctx), cfg,
+                             ctx), 0.0
+    if kind in ("hybrid_full", "hybrid_win"):
+        return hybrid_block_apply(p, x, cfg, ctx, positions, _hybrid_kind(kind)), 0.0
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
     attn = mla_apply if cfg.attention == "mla" else attn_apply
     x = x + attn(p["attn"], h, cfg, ctx, positions)
     return _ffn(p, x, cfg, ctx, kind)
 
 
-def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
-    """Causal self-attention over the prompt + the layer's decode cache
-    {"k","v"} [B, cache_len, KV, D], zero past the prompt and in the
-    dtype K/V were computed in (as the reference).
+def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int, kind: str = "causal"):
+    """Self-attention over the prompt (``kind`` "causal" or "window") + the
+    layer's decode cache: {"k","v"} [B, cache_len, KV, D], zero past the
+    prompt and in the dtype K/V were computed in (as the reference); for a
+    window layer a ring {"k","v": [B, W, KV, D], "pos": [B, W]} of W =
+    min(window, cache_len) slots holding the last W prompt positions at
+    slot ``position % W``, -1 where empty.
 
-    Under ``cfg.kv_quant`` the prompt attends the dequantized K/V while the
-    cache takes their int8 codes and scales (fake-quant prefill), so every
-    later reader of the cache sees what the prompt attended. (The
-    reference leaves the hybrid family's window rings unquantized; that
-    family is not ported.)"""
+    Under ``cfg.kv_quant`` the prompt of a positional layer attends the
+    dequantized K/V while the cache takes their int8 codes and scales
+    (fake-quant prefill), so every later reader of the cache sees what the
+    prompt attended. Window rings are never quantized, as the
+    reference's."""
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, ctx, positions)
+    if kind == "window":
+        out = attend_chunked(q, k, v, positions, positions, "window", cfg, ctx,
+                             smx=p.get("smx"))
+        y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+        w_cap = min(cfg.window, cache_len)
+        lo = max(0, s - w_cap)
+        slots = torch.arange(lo, s, device=x.device) % w_cap
+        ring = {"k": torch.zeros((b, w_cap) + tuple(k.shape[2:]), dtype=k.dtype,
+                                 device=k.device),
+                "v": torch.zeros((b, w_cap) + tuple(v.shape[2:]), dtype=v.dtype,
+                                 device=v.device),
+                "pos": torch.full((b, w_cap), -1, dtype=torch.int32, device=x.device)}
+        ring["k"][:, slots] = k[:, lo:s]
+        ring["v"][:, slots] = v[:, lo:s]
+        ring["pos"][:, slots] = torch.arange(lo, s, dtype=torch.int32, device=x.device)
+        return y, ring
     if cfg.kv_quant:
         kq, ks, k = kv_fake_quant(k, cfg.kv_quant_scheme)
         vq, vs, v = kv_fake_quant(v, cfg.kv_quant_scheme)
@@ -101,7 +163,20 @@ def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int):
 
 def block_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int,
                   kind: str = "dense"):
-    """Returns (x, cache) — the decode-ready cache for this layer."""
+    """Returns (x, cache) — the decode-ready cache for this layer. A
+    window layer's ring holds ``cfg.window`` slots whatever ``cache_len``,
+    as the reference builds it."""
+    if kind == "ssm":
+        y, c = ssm_apply(p["ssm"], norm_apply(p["norm1"], x, cfg.norm, ctx), cfg, ctx,
+                         return_state=True)
+        return x + y, c
+    if kind in ("hybrid_full", "hybrid_win"):
+        ak = _hybrid_kind(kind)
+        h = norm_apply(p["norm1"], x, cfg.norm, ctx)
+        a, ac = attn_prefill(p["attn"], h, cfg, ctx, positions,
+                             cache_len if ak == "causal" else cfg.window, ak)
+        s_, sc = ssm_apply(p["ssm"], h, cfg, ctx, return_state=True)
+        return fuse_paths(p, x, a, s_, cfg, ctx), {"attn": ac, "ssm": sc}
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
     prefill = mla_prefill if cfg.attention == "mla" else attn_prefill
     a, c = prefill(p["attn"], h, cfg, ctx, positions, cache_len)
@@ -136,14 +211,27 @@ def _block_step(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, attn, kind):
 def block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind: str = "dense"):
     """Single-token decode step. Returns (x, cache) — the cache updated in
     place."""
+    if kind == "ssm":
+        y, c = ssm_decode(p["ssm"], norm_apply(p["norm1"], x, cfg.norm, ctx), cache, cfg, ctx)
+        return x + y, c
+    if kind in ("hybrid_full", "hybrid_win"):
+        return hybrid_block_decode(p, x, cache, cache_pos, cfg, ctx, positions,
+                                   _hybrid_kind(kind))
     return _block_step(p, x, cache, cache_pos, cfg, ctx, positions,
                        mla_decode if cfg.attention == "mla" else attn_decode, kind)
 
 
 def block_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind: str = "dense"):
     """Multi-token (draft-verify) decode step over T tokens at ``positions``
-    [B, T]. Returns (x, cache): every token's entry written in place (the
-    rejected tail is cleared later by ``Model.verify_commit``)."""
+    [B, T]. Returns (x, staged): every positional entry written in place
+    (the rejected tail is cleared later by ``Model.verify_commit``);
+    recurrent nodes come back as per-token snapshots [T, B, ...]."""
+    if kind == "ssm":
+        y, c = ssm_verify(p["ssm"], norm_apply(p["norm1"], x, cfg.norm, ctx), cache, cfg, ctx)
+        return x + y, c
+    if kind in ("hybrid_full", "hybrid_win"):
+        return hybrid_block_verify(p, x, cache, cache_pos, cfg, ctx, positions,
+                                   _hybrid_kind(kind))
     return _block_step(p, x, cache, cache_pos, cfg, ctx, positions,
                        mla_verify if cfg.attention == "mla" else attn_verify, kind)
 
@@ -162,13 +250,13 @@ def stack_apply(params, x, cfg, ctx: Ctx, positions, kind: str = "dense"):
 
 def stack_prefill(params, x, cfg, ctx: Ctx, positions, cache_len: int,
                   kind: str = "dense"):
-    """Returns (x, cache) with cache leaves stacked [L, B, cache_len, ...]."""
+    """Returns (x, cache) with cache leaves stacked [L, B, ...]."""
     caches = []
     for i in telemetry.scan_range(n_stacked(params)):
         x, c = block_prefill(layer_params(params, i), x, cfg, ctx, positions,
                              cache_len, kind)
         caches.append(c)
-    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+    return x, tree_map(lambda *xs: torch.stack(xs), *caches)
 
 
 def stack_prefill_tail(params, prefix, x, cfg, ctx: Ctx, positions,
@@ -185,10 +273,12 @@ def stack_prefill_tail(params, prefix, x, cfg, ctx: Ctx, positions,
 
 
 def _stack_step(params, caches, x, cache_pos, cfg, ctx: Ctx, positions, block, kind):
+    staged = []
     for i in telemetry.scan_range(n_stacked(params)):
-        x, _ = block(layer_params(params, i), x, layer_params(caches, i), cache_pos, cfg,
-                     ctx, positions, kind)
-    return x, caches
+        x, st = block(layer_params(params, i), x, layer_params(caches, i), cache_pos, cfg,
+                      ctx, positions, kind)
+        staged.append(st)
+    return x, staged
 
 
 def stack_decode(params, caches, x, cache_pos, cfg, ctx: Ctx, positions,
@@ -196,14 +286,18 @@ def stack_decode(params, caches, x, cache_pos, cfg, ctx: Ctx, positions,
     """One decode step through every layer; each layer writes its slice of
     the stacked cache (contiguous, or paged pools and table) in place, so
     the returned cache is ``caches``."""
-    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_decode,
+    x, _ = _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_decode,
                        kind)
+    return x, caches
 
 
 def stack_verify(params, caches, x, cache_pos, cfg, ctx: Ctx, positions,
                  kind: str = "dense"):
     """One verify step over a T-token block through every layer (the
-    reference's ``scan_verify`` for the positional families), written in
-    place like ``stack_decode``: the returned staged cache is ``caches``."""
-    return _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_verify,
-                       kind)
+    reference's ``scan_verify``): positional leaves written in place like
+    ``stack_decode``, recurrent nodes as snapshots [L, T, B, ...]
+    (``join_staged``); for a positional family the staged tree is
+    ``caches``."""
+    x, staged = _stack_step(params, caches, x, cache_pos, cfg, ctx, positions, block_verify,
+                            kind)
+    return x, join_staged(caches, staged, torch.stack)

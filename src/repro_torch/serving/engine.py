@@ -35,12 +35,18 @@ decodes in draft-and-verify rounds: a proposer (``serving/speculative.py``:
 n-gram lookup or a draft model) guesses K tokens per slot, one verify step
 (``Model.verify_step``) scores the K+1-token block of every slot, the
 verifier accepts a prefix, and ``Model.verify_commit`` clears the rejected
-drafts' K/V; greedy speculative tokens equal the plain serve's.
-``softmax_kind`` serves a softmax variant (the zoo ``consmax`` / ``sole`` /
+drafts' K/V (and restores the recurrent snapshots at the accepted depth:
+SSM state, window rings); greedy speculative tokens equal the plain
+serve's. The recurrent families (SSM, hybrid) serve as the reference's:
+they share no prefix, their chunked prefill accrues the step budget and
+prefills whole once it covers the prompt (the reference's staged branch),
+their slot-resident state swaps out with the private blocks, and a
+hybrid's cache length is at least its window (its prefill builds rings
+of the window). ``softmax_kind`` serves a softmax variant (the zoo ``consmax`` / ``sole`` /
 ``mive``, or ``ap_sim``, the functional AP simulator) with the engine's
 params: prefills, decode and verify steps and the meter all run under it.
-Tensor parallelism and the other families are later slices (ROADMAP.md
-Queue 1 items 11 and 14); ``ServeOptions`` raises for them.
+Tensor parallelism and the encdec / M-RoPE families are later slices
+(ROADMAP.md Queue 1 items 11 and 14); ``ServeOptions`` raises for them.
 
 Fixed storage: the decode step of ``generate`` and of ``serve`` runs over
 a cache and input buffers kept on the engine per step shape (for serve:
@@ -290,16 +296,17 @@ class Engine:
 
     def _generate_state(self, prefill_cache, b: int) -> DecodeState:
         """The fused decode step at the prefill cache's shape (batch b, its
-        cache length) over its own cache and device buffers: token [b, 1],
+        cache length; a hybrid's ring capacity and an SSM's state are among
+        the leaves it keys on) over its own cache and device buffers: token [b, 1],
         position (0-d) and EOS flags [b]. It decodes and advances the
         position; its sampling (with the caller's generator) masks EOS and
         writes the next token and flags back, and gives (tokens [b], last
         logits)."""
-        key = ("generate",) + tuple((k, tuple(v.shape), v.dtype)
-                                    for k, v in prefill_cache.items())
+        key = ("generate",) + tuple((tuple(v.shape), v.dtype)
+                                    for v in kv_cache.tree_leaves(prefill_cache))
         if key not in self._decode_states:
             dev = self.model.device
-            cache = {k: torch.empty_like(v) for k, v in prefill_cache.items()}
+            cache = kv_cache.tree_map(torch.empty_like, prefill_cache)
             tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
             pos = torch.zeros((), dtype=torch.int32, device=dev)
             done = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -331,8 +338,7 @@ class Engine:
         last = logits[:, -1]
         if n_new > 1:
             st = self._generate_state(cache, b)
-            for k, leaf in cache.items():
-                st.cache[k].copy_(leaf)
+            kv_cache.tree_map(lambda dst, src: dst.copy_(src), st.cache, cache)
             tok, pos, done_buf = st.buffers
             tok.copy_(new[:, None])
             pos.fill_(p)
@@ -542,7 +548,8 @@ class Engine:
         ``k`` drafts and its position. The round is ``verify_step`` over
         the [slots, k + 1] block, the verifier (``make_spec_verifier``:
         greedy on the device, else per slot with its generator) and
-        ``verify_commit`` at the accepted depth, all without a host sync:
+        ``verify_commit`` at the accepted depth (clearing rejected K/V,
+        restoring the recurrent snapshots), all without a host sync:
         greedy, one replay on the card. Parked slots (position
         ``cache_len``) write nothing. It gives [slots, k + 2] int32 (the
         emitted tokens, pad-filled, then n_emit) and the block's logits
@@ -566,13 +573,12 @@ class Engine:
                                     **self._sampler_kw)
 
         def decode():
-            logits, _ = model.verify_step(params, cache, {"token": inputs[:, :t]},
-                                          inputs[:, t])
-            return logits
+            return model.verify_step(params, cache, {"token": inputs[:, :t]}, inputs[:, t])
 
-        def post(logits, generators):
+        def post(step, generators):
+            logits, staged = step
             out, n_emit = verify(logits, inputs[:, 1:t], generators)
-            model.verify_commit(cache, n_emit - 1, inputs[:, t], t)
+            model.verify_commit(staged, n_emit - 1, inputs[:, t], t, cache)
             return torch.cat([out, n_emit[:, None]], dim=1), logits
 
         st = self._decode_states[key] = DecodeState(cache, (inputs,), decode, post,
@@ -683,15 +689,25 @@ class Engine:
         cfg, dev = model.cfg, model.device
         if opt.kernel != "jnp":
             self._kernel_model(opt.kernel, smx_kind)    # rejects a non-Alg.-1 kind
-        if prefill_chunk is not None and not (cfg.family in ("dense", "moe")
-                                              and cfg.rope_type != "mrope"):
-            raise NotImplementedError(
-                f"chunked prefill of the {cfg.family}/{cfg.rope_type} family "
-                "(the reference's staged branch) is not ported: ROADMAP.md "
-                "Queue 1 item 11")
+        if cfg.family == "hybrid" and cfg.kv_quant:
+            raise ValueError(
+                "hybrid serving from an int8 pool: the reference builds int8 window "
+                "rings with scales for the serve cache but bf16 rings without scales "
+                "in prefill, so its serve fails on the first admission (contiguous: "
+                "a dict key mismatch; paged: KeyError 'k_scale'); the port raises "
+                "here instead (generate runs, with bf16 rings)")
+        # dense and MoE commit a chunked prompt piece by piece; the recurrent
+        # families accrue the same budget and prefill whole once it covers
+        # the prompt (the reference's staged branch)
+        chunkable = cfg.family in ("dense", "moe")
+        # SSM state and window rings summarise the whole prefix: nothing to share
+        shareable = opt.prefix_share and chunkable
         params = self.params
         need = max(r.prompt_len + r.max_new for r in reqs)
         C = need if opt.cache_len is None else opt.cache_len
+        if cfg.family == "hybrid":
+            # prefill builds window-capacity rings; the slot buffers must match
+            C = max(C, cfg.window)
         alloc = None
         num_blocks = opt.num_blocks
         if paged:
@@ -799,7 +815,7 @@ class Engine:
             lands later, whole or in chunks, against these ids."""
             bs = block_size
             P = req.prompt_len
-            pkeys = prefix_keys(req.prompt, bs) if opt.prefix_share else []
+            pkeys = prefix_keys(req.prompt, bs) if shareable else []
             shared = alloc.match_prefix(pkeys)
             # always leave >= 1 tail token: the first token is sampled from
             # the tail prefill's last-position logits
@@ -888,6 +904,18 @@ class Engine:
             counts["step"] += c1 - c0
             return logits
 
+        def contig_whole(slot: int, req: Request):
+            """Prefill a whole prompt into the slot's stripe of the
+            contiguous cache. Returns its last logits."""
+            P = req.prompt_len
+            logits, slot_cache = model.prefill(params, tokens_of(req, 0, P), cache_len=C)
+            kv_cache.insert_slot(cache, slot_cache, slot)
+            counts["prefill"] += P
+            counts["step"] += P
+            if attr is not None:
+                attr.record_request(req.rid, self._meter_prefill(P, C, model))
+            return logits
+
         def activate(slot: int, req: Request, logits) -> None:
             """Sample the first token from the (last) prefill logits with the
             request's own generator and turn the slot into a decode lane."""
@@ -919,7 +947,7 @@ class Engine:
             st.pos = int(pos[slot])
             bs = block_size
             ids = slot_blocks.pop(slot)
-            pk = prefix_keys(r.prompt, bs) if opt.prefix_share else []
+            pk = prefix_keys(r.prompt, bs) if shareable else []
             nwritten = -(-int(st.pos) // bs)     # blocks with live positions
             nreg = 0
             while nreg < min(len(pk), len(ids)) and \
@@ -947,7 +975,7 @@ class Engine:
             bs = block_size
             nblocks = alloc.blocks_needed(req.prompt_len, req.max_new)
             pk = (prefix_keys(req.prompt, bs)[:meta["nreg"]]
-                  if opt.prefix_share else [])
+                  if shareable else [])
             shared = alloc.match_prefix(pk)
             got = len(shared)
             ids = shared + [alloc.alloc() for _ in range(nblocks - got)]
@@ -988,7 +1016,7 @@ class Engine:
                         counts["step"] + P - adm["s"] > prefill_chunk:
                     sched.slots[slot].prefilling = True
                     chunk_jobs[slot] = {"req": req, "adm": adm,
-                                        "committed": adm["s"]}
+                                        "committed": adm["s"], "budget": 0}
                     return
                 logits = paged_commit(slot, req, adm, adm["s"], P)
                 paged_register(adm)
@@ -996,24 +1024,32 @@ class Engine:
                 if prefill_chunk is not None and \
                         counts["step"] + P > prefill_chunk:
                     sched.slots[slot].prefilling = True
-                    chunk_jobs[slot] = {"req": req, "adm": None, "committed": 0}
+                    chunk_jobs[slot] = {"req": req, "adm": None, "committed": 0,
+                                        "budget": 0}
                     return
-                logits, slot_cache = model.prefill(
-                    params, tokens_of(req, 0, P), cache_len=C)
-                for k, leaf in cache.items():    # the slot's stripe
-                    leaf[:, slot] = slot_cache[k][:, 0].to(leaf.dtype)
-                counts["prefill"] += P
-                counts["step"] += P
-                if attr is not None:
-                    attr.record_request(req.rid, self._meter_prefill(P, C, model))
+                logits = contig_whole(slot, req)
             activate(slot, req, logits)
 
         def advance_chunks() -> None:
             """One step's prompt-commit work: the oldest job commits its
-            next ``prefill_chunk`` tokens, and activates on its last."""
+            next ``prefill_chunk`` tokens, and activates on its last. A
+            recurrent family's job accrues that budget instead, and
+            prefills whole once the budget covers the prompt."""
             slot, job = next(iter(chunk_jobs.items()))
             req = job["req"]
             P = req.prompt_len
+            if not chunkable:
+                job["budget"] += prefill_chunk
+                if job["budget"] < P - job["committed"]:
+                    return
+                if alloc is not None:
+                    logits = paged_commit(slot, req, job["adm"], job["committed"], P)
+                    paged_register(job["adm"])
+                else:
+                    logits = contig_whole(slot, req)
+                del chunk_jobs[slot]
+                activate(slot, req, logits)
+                return
             c0 = job["committed"]
             c1 = min(c0 + prefill_chunk, P)
             if alloc is not None:

@@ -32,6 +32,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.models.kv_cache import tree_leaves
+
 
 class StepGraph:
     """``fn`` captured once as a CUDA graph (after one op-by-op warm-up
@@ -85,7 +87,10 @@ class DecodeState:
                  model=None):
         self.cache = cache
         self.model = model
-        self._table = cache["table"].clone() if "table" in cache else None
+        # the int32 leaves' starting values (block tables, ring positions):
+        # what a reset restores, the rest is zeroed
+        self._ints = [(leaf, leaf.clone()) for leaf in tree_leaves(cache)
+                      if leaf.dtype == torch.int32]
         self.buffers = list(buffers)
         self.post = post
         self.draws = draws
@@ -97,16 +102,16 @@ class DecodeState:
             out = self.body()
         else:
             if self.graph is None:
-                self.graph = StepGraph(self.body, list(self.cache.values()) + self.buffers)
+                self.graph = StepGraph(self.body, tree_leaves(self.cache) + self.buffers)
             out = self.graph()
         return self.post(out, generators) if self.draws else out
 
     def reset_cache(self) -> None:
-        """Zeros, and the table the state was built with: what
-        ``*_cache_zeros`` gives (a sentinel table), or the identity table of
-        ``kv_cache.contiguous_as_paged``."""
-        for k, leaf in self.cache.items():
-            if k != "table":
+        """Zeros, and the int32 leaves the state was built with: what
+        ``*_cache_zeros`` gives (a sentinel table, ring positions -1), or
+        the identity table of ``kv_cache.contiguous_as_paged``."""
+        for leaf in tree_leaves(self.cache):
+            if leaf.dtype != torch.int32:
                 leaf.zero_()
-        if self._table is not None:
-            self.cache["table"].copy_(self._table)
+        for leaf, start in self._ints:
+            leaf.copy_(start)

@@ -212,9 +212,30 @@ def test_commit_staged_matches_reference(kind, paged):
 
 
 def test_commit_staged_refuses_recurrent_snapshots():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tkv.commit_staged({"state": torch.zeros(2, 3, 2)}, torch.zeros(2, dtype=torch.int32),
-                          0, 3)
+    """The recurrent branch (SSM state / conv tail, a window ring: per-token
+    snapshots [L, T, B, ...]) selects, per row, the snapshot after the last
+    accepted token, bitwise as the reference's, and copies it into the
+    cache when one is given."""
+    rng = np.random.default_rng(5)
+    L, T, B = 2, 3, 3
+    staged = {"ssm": {"state": rng.normal(size=(L, T, B, 2, 4, 4)).astype(np.float32),
+                      "conv": rng.normal(size=(L, T, B, 3, 6)).astype(np.float32)},
+              "attn": {"k": rng.normal(size=(L, T, B, 8, 2, 4)).astype(np.float32),
+                       "pos": rng.integers(-1, 40, size=(L, T, B, 8)).astype(np.int32)}}
+    n = np.asarray([2, 0, 1], np.int32)
+    want = jkv.commit_staged(jax.tree.map(jnp.asarray, staged), jnp.asarray(n),
+                             jnp.asarray(POS), T)
+    t_staged = jax.tree.map(torch.from_numpy, staged)
+    got = tkv.commit_staged(t_staged, torch.from_numpy(n), torch.from_numpy(POS), T)
+    cache = jax.tree.map(lambda a: torch.zeros(a.shape[:1] + a.shape[2:],
+                                               dtype=torch.from_numpy(a).dtype), staged)
+    into = tkv.commit_staged(t_staged, torch.from_numpy(n), torch.from_numpy(POS), T,
+                             into=cache)
+    assert into is cache
+    for path in (("ssm", "state"), ("ssm", "conv"), ("attn", "k"), ("attn", "pos")):
+        w = np.asarray(want[path[0]][path[1]])
+        np.testing.assert_array_equal(_np(got[path[0]][path[1]]), w, err_msg=str(path))
+        np.testing.assert_array_equal(_np(cache[path[0]][path[1]]), w, err_msg=str(path))
 
 
 # ----------------------------------------------------- model-level oracles
@@ -518,12 +539,14 @@ def test_verify_round_reads_nothing_back(kv_quant):
 
 @pytest.mark.parametrize("arch,kernel,geom", [("olmo-1b", "jnp", None),
                                                ("olmo-1b", "pallas", (4, 13)),
-                                               ("minicpm3-4b", "pallas", (4, 13))])
+                                               ("minicpm3-4b", "pallas", (4, 13)),
+                                               ("mamba2-780m", "jnp", None),
+                                               ("hymba-1.5b", "pallas", (4, 13))])
 def test_verify_round_runs_on_meta(arch, kernel, geom):
     """The verify round (greedy: verify step, verifier and rollback; with a
-    sampler that draws: the verify step) on meta parameters, cache and
-    inputs: a host read raises on a meta tensor, so it reads nothing
-    back."""
+    sampler that draws: the verify step, whose output is its logits beside
+    its staged tree) on meta parameters, cache and inputs: a host read
+    raises on a meta tensor, so it reads nothing back."""
     from repro_torch.serving.engine import _to_meta
 
     m, p = _model(arch, False, "int_pallas")
@@ -536,7 +559,7 @@ def test_verify_round_runs_on_meta(arch, kernel, geom):
             packed, logits = out
             assert tuple(packed.shape) == (3, 4) and packed.device.type == "meta"
         else:
-            logits = out
+            logits, _ = out
         assert tuple(logits.shape) == (3, 3, m.cfg.vocab) and st.draws == (sampler != "greedy")
 
 
