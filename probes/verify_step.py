@@ -7,6 +7,7 @@ model's own step, op by op.
     python3 probes/verify_step.py --arch dbrx-132b --layers 4 --embed-std 1
     python3 probes/verify_step.py --arch deepseek-v2-236b --layers 4
     python3 probes/verify_step.py --arch hymba-1.5b
+    python3 probes/verify_step.py --slots 16 --step-rows 128 256 --rule-only
 
 Full-width olmo-1b (or ``--arch``, at ``--layers`` layers; seeded random
 bf16 weights, softmax ``int_pallas_paged``: paged decode and verify through
@@ -42,7 +43,11 @@ layers page through K2 as the serve's do; ``Model.step_ctx`` pads a
 hybrid step's head as well, and a fourth run pads every dense product
 (the rule before). Every graphed run also times one replay of the verify
 block and of the decode step (CUDA events, median of 20), so the rules
-compare within one process. Then the card's name and power limit.
+compare within one process. ``--slots`` and ``--t`` set the block (8
+slots x 5 tokens by default); ``--step-rows N ...`` runs the model's rule
+again with the step padding at N rows instead of ``STEP_MIN_ROWS``, and
+``--rule-only`` leaves out the runs with less padding than the rule. Then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "src"))
 
-S, T, P, BS = 8, 5, 64, 16
+S, T, P, BS = 8, 5, 64, 16   # slots and block tokens: set by --slots / --t
 
 
 class Recorder:
@@ -232,27 +237,71 @@ def graphed(model, params, cache, tokens, pos):
     return equal, replay_ms(verify), replay_ms(decode)
 
 
+def less_padding(name, cfg, model, params, cache, tokens, pos, rec):
+    """The runs with less step padding than the model's rule: (MoE) the
+    dense family's, (hybrid) every dense product, the norms unpadded, and
+    no padding."""
+    from repro_torch.models import hybrid, layers, mla, ssm, transformer
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.model import STEP_MIN_ROWS
+
+    step_ctx = model.step_ctx
+    if cfg.family == "moe":
+        model.step_ctx = dataclasses.replace(step_ctx, min_rows=0)
+        compare(f"{name}, the dense family's step padding (the down projection and "
+                f"the norms at {STEP_MIN_ROWS} rows, the other products not)",
+                model, params, cache, tokens, pos, rec)
+    elif cfg.family == "hybrid":
+        model.step_ctx = dataclasses.replace(step_ctx, min_rows=STEP_MIN_ROWS)
+        compare(f"{name}, every dense product padded to {STEP_MIN_ROWS} rows (and the "
+                "norms)", model, params, cache, tokens, pos, rec)
+    model.step_ctx = step_ctx
+    # every module's norm_apply, called with the norms' padding off
+    saved = {m: m.norm_apply for m in (layers, mla, transformer, model_mod, hybrid, ssm)}
+    for m, f in saved.items():
+        m.norm_apply = lambda p, x, kind, ctx, eps=1e-5, f=f: f(
+            p, x, kind, dataclasses.replace(ctx, step_min_rows=0), eps)
+    try:
+        padded = {"moe": "every dense product",
+                  "hybrid": "the down projection and the head"}.get(
+                      cfg.family, "the down projection")
+        compare(f"{name}, {padded} padded to {STEP_MIN_ROWS} rows, the norms not",
+                model, params, cache, tokens, pos, rec)
+    finally:
+        for m, f in saved.items():
+            m.norm_apply = f
+    model.step_ctx = model.ctx
+    compare(f"{name}, no step padding", model, params, cache, tokens, pos, rec)
+
+
 def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="verify block vs decode steps, op by op")
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--layers", type=int, default=0, help="cut the depth (0: full)")
+    ap.add_argument("--slots", type=int, default=8, help="slots of the block")
+    ap.add_argument("--t", type=int, default=5, help="tokens a slot in the block")
+    ap.add_argument("--step-rows", type=int, nargs="*", default=[],
+                    help="also run the model's rule with the step padding at these rows")
+    ap.add_argument("--rule-only", action="store_true",
+                    help="leave out the runs with less padding than the model's rule")
     ap.add_argument("--embed-std", type=float, default=0.0,
                     help="redraw the embedding at this std (0: Model.init's 0.02); at "
                          "0.02 an MoE model's tokens of one sequence route alike")
     args = ap.parse_args()
+    global S, T
+    S, T = args.slots, args.t
     if not torch.cuda.is_available():
         raise SystemExit("verify_step: no CUDA device visible to torch")
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
-    from repro_torch.models import hybrid, kv_cache, layers, mla, ssm, transformer
-    from repro_torch.models import model as model_mod
+    from repro_torch.models import kv_cache
     from repro_torch.models.model import STEP_MIN_ROWS, Model
 
     depth = {"n_layers": args.layers} if args.layers else {}
     cfg = get_config(args.arch, softmax=SoftmaxSpec("int_pallas_paged"), **depth)
-    name = f"{cfg.name} ({cfg.n_layers} layers)"
+    name = f"{cfg.name} ({cfg.n_layers} layers, {S} slots x T {T})"
     model = Model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     if args.embed_std:
@@ -291,32 +340,15 @@ def main():
             compare(f"{name}, step padding to {STEP_MIN_ROWS} rows (Model.step_ctx)", model,
                     params, cache, tokens, pos, rec)
             step_ctx = model.step_ctx
-            if cfg.family == "moe":
-                model.step_ctx = dataclasses.replace(step_ctx, min_rows=0)
-                compare(f"{name}, the dense family's step padding (the down projection and "
-                        f"the norms at {STEP_MIN_ROWS} rows, the other products not)",
-                        model, params, cache, tokens, pos, rec)
-            elif cfg.family == "hybrid":
-                model.step_ctx = dataclasses.replace(step_ctx, min_rows=STEP_MIN_ROWS)
-                compare(f"{name}, every dense product padded to {STEP_MIN_ROWS} rows (and the "
-                        "norms)", model, params, cache, tokens, pos, rec)
+            for rows in args.step_rows:
+                model.step_ctx = dataclasses.replace(
+                    step_ctx, step_min_rows=rows,
+                    min_rows=rows if step_ctx.min_rows else 0)
+                compare(f"{name}, the model's rule at {rows} rows", model, params, cache,
+                        tokens, pos, rec)
             model.step_ctx = step_ctx
-            # every module's norm_apply, called with the norms' padding off
-            saved = {m: m.norm_apply for m in (layers, mla, transformer, model_mod, hybrid, ssm)}
-            for m, f in saved.items():
-                m.norm_apply = lambda p, x, kind, ctx, eps=1e-5, f=f: f(
-                    p, x, kind, dataclasses.replace(ctx, step_min_rows=0), eps)
-            try:
-                padded = {"moe": "every dense product",
-                          "hybrid": "the down projection and the head"}.get(
-                              cfg.family, "the down projection")
-                compare(f"{name}, {padded} padded to {STEP_MIN_ROWS} rows, the norms not",
-                        model, params, cache, tokens, pos, rec)
-            finally:
-                for m, f in saved.items():
-                    m.norm_apply = f
-            model.step_ctx = model.ctx
-            compare(f"{name}, no step padding", model, params, cache, tokens, pos, rec)
+            if not args.rule_only:
+                less_padding(name, cfg, model, params, cache, tokens, pos, rec)
     finally:
         rec.restore()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,14 +1,15 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke presets
 (port of ``src/repro/configs/registry.py``; same configs, same shrink
-rules). An architecture whose family the port does not run yet raises and
-names its ROADMAP.md item.
+rules). An architecture the port cannot run yet raises and names its
+ROADMAP.md item.
 
 The MoE family's full depth does not fit one card: dbrx-132b's 40 layers
 are about 264 GB of bf16 weights and deepseek-v2-236b's 60 about 472 GB,
 so on the H100 both run at full width with their depth cut
 (``get_config(name, n_layers=4)``); full depth waits for ROADMAP.md Queue
 1 item 14 (tensor-parallel serving). The SSM and hybrid families
-(mamba2-780m, hymba-1.5b) run at full width and full depth."""
+(mamba2-780m, hymba-1.5b), the encoder-decoder (whisper-base) and the
+M-RoPE backbone (qwen2-vl-7b) run at full width and full depth."""
 
 from __future__ import annotations
 
@@ -28,14 +29,14 @@ ARCHS = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "mamba2-780m": "mamba2_780m",
     "hymba-1.5b": "hymba_1_5b",
+    "whisper-base": "whisper_base",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
 # reference architectures not ported yet -> the ROADMAP.md item that ports them
 NOT_PORTED = {
     "qwen2.5-32b": "Queue 1 item 14 (tensor-parallel serving: 32B does not "
                    "fit one card)",
-    "whisper-base": "Queue 1 item 11 (encdec)",
-    "qwen2-vl-7b": "Queue 1 item 11 (M-RoPE)",
 }
 
 
@@ -59,7 +60,8 @@ def get_config(name: str, softmax: Optional[SoftmaxSpec] = None,
 def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfig:
     """Reduced config of the same family: small widths/layers/vocab,
     runnable on CPU. The reference's shrink rules for the ported families
-    (dense, MoE, SSM and hybrid; GQA or MLA attention)."""
+    (dense, MoE, SSM, hybrid and encoder-decoder; GQA or MLA attention;
+    M-RoPE's sections cut to the smoke head width)."""
     full = get_config(name)
     shrink: Dict = dict(
         n_layers=6 if full.family == "hybrid" else min(full.n_layers, 3),
@@ -69,6 +71,8 @@ def smoke_config(name: str, softmax: Optional[SoftmaxSpec] = None) -> ModelConfi
     if full.uses_attention:
         shrink["n_heads"] = 4
         shrink["n_kv_heads"] = min(4, max(1, full.n_kv_heads * 4 // full.n_heads))
+    if full.rope_type == "mrope":
+        shrink["mrope_sections"] = (4, 6, 6)  # d_head 32 -> 16 half-dims
     if full.family != "ssm":
         shrink["d_ff"] = 256
     if full.attention == "mla":

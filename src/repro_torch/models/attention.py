@@ -1,7 +1,9 @@
 """GQA attention with a pluggable softmax — where SoftmAP enters the model
 (port of the dense paths of ``src/repro/models/attention.py``).
 
-Causal, sliding-window or full masking, query-chunked prefill, tail-only
+Plain RoPE or M-RoPE (three position streams; the masks read the temporal
+one), causal, sliding-window or full masking, the Whisper decoder's
+cross-attention, query-chunked prefill, tail-only
 prefill against a shared prefix, single-token decode and the speculative
 verify step (T tokens at once, each query masked as its own decode step)
 against a contiguous or a paged cache. Paged decode and verify gather the
@@ -21,7 +23,7 @@ import torch
 from repro_torch.backends import telemetry
 from repro_torch.core.quantization import KV_RECIP_127, exaq_scale, exaq_scale_clamped
 from repro_torch.core.softmax_variants import spec_backend
-from repro_torch.models.layers import Ctx, apply_rope, dense_apply
+from repro_torch.models.layers import Ctx, apply_mrope, apply_rope, dense_apply
 
 _SCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -29,11 +31,15 @@ _SCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _rope(x, positions, cfg):
     if cfg.rope_type == "none" or positions is None:
         return x
-    if cfg.rope_type != "rope":
-        raise NotImplementedError(
-            f"rope_type {cfg.rope_type!r} is not ported: ROADMAP.md Queue 1 "
-            "item 11 (M-RoPE)")
+    if cfg.rope_type == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+def mask_positions(positions, cfg):
+    """The token positions the masks read: M-RoPE's temporal stream
+    (``positions[0]`` of [3, B, S]), as the reference's, else ``positions``."""
+    return positions[0] if cfg.rope_type == "mrope" else positions
 
 
 def project_qkv(p, x, cfg, ctx: Ctx, positions):
@@ -66,15 +72,21 @@ def attend(q, k, v, mask, cfg, ctx: Ctx, scale=None, smx=None):
     Scores round like the reference's: the einsum of compute-dtype operands
     yields the compute dtype, which is cast to ``cfg.scores_dtype`` and then
     scaled (never an f32 product of bf16 operands); the probabilities go back
-    to the compute dtype before PV."""
+    to the compute dtype before PV. Under ``ctx.per_row_scores`` the scores
+    of each batch row are their own product, so a row gets the bits of a
+    batch-1 call."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     group = h // kvh
     scale = dh ** -0.5 if scale is None else scale
     qg = q.reshape(b, sq, kvh, group, dh)
     # scores: [B, KV, G, Sq, Skv]
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(
-        _SCORE_DTYPES[cfg.scores_dtype]) * scale
+    if ctx.per_row_scores and b > 1:
+        raw = torch.cat([torch.einsum("bqkgd,bskd->bkgqs", qg[i:i + 1], k[i:i + 1])
+                         for i in range(b)])
+    else:
+        raw = torch.einsum("bqkgd,bskd->bkgqs", qg, k)
+    scores = raw.to(_SCORE_DTYPES[cfg.scores_dtype]) * scale
     backend = spec_backend(cfg.softmax)
     # one AP per attention head (KV*G of them)
     telemetry.record_softmax(backend, scores.shape, heads=kvh * group)
@@ -110,8 +122,27 @@ def attn_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "causal"):
     """Training / prefill self-attention. kind: causal | window | none."""
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, ctx, positions)
-    out = attend_chunked(q, k, v, positions, positions, kind, cfg, ctx, smx=p.get("smx"))
+    pos = mask_positions(positions, cfg)
+    out = attend_chunked(q, k, v, pos, pos, kind, cfg, ctx, smx=p.get("smx"))
     return dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+
+
+def attn_cross(p, x, enc_k, enc_v, cfg, ctx: Ctx):
+    """Cross-attention (the Whisper decoder): queries from ``x`` [B, S, d],
+    K/V [B, S_enc, KV, D] projected from the encoder output once
+    (:func:`cross_kv`). Unmasked: every query row sees every frame."""
+    b, s, _ = x.shape
+    q = dense_apply(p["wq"], x, ctx).reshape(b, s, cfg.n_heads, cfg.d_head)
+    out = attend(q, enc_k, enc_v, None, cfg, ctx, smx=p.get("smx"))
+    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+
+
+def cross_kv(p, enc_out, cfg, ctx: Ctx):
+    """The cross-attention K/V of the encoder output [B, S_enc, d]."""
+    b, s, _ = enc_out.shape
+    k = dense_apply(p["wk"], enc_out, ctx).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = dense_apply(p["wv"], enc_out, ctx).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    return k, v
 
 
 def kv_quantize(x, scheme: str = "absmax"):

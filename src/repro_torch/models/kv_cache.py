@@ -1,5 +1,6 @@
 """Decode-cache structure (port of ``src/repro/models/kv_cache.py``: the
-dense, MoE, SSM and hybrid families, GQA and MLA attention).
+dense, MoE, SSM, hybrid and encoder-decoder families, GQA and MLA
+attention).
 
 Layouts, as the reference's:
   contiguous : {"k","v": [L, B, C, KV, Dh]} in ``KV_DTYPE``; under
@@ -23,6 +24,11 @@ Layouts, as the reference's:
                paged), the window layers' a ring {"k","v": [L, B, W, KV,
                Dh], "pos": [L, B, W] int32} of W = min(window, C) slots,
                -1 where empty, slot-resident
+  encdec     : {"self": {"k","v": [L, B, C, KV, Dh]}, "cross": {"k","v":
+               [L, B, S_enc, KV, Dh]}} in ``KV_DTYPE`` (``kv_quant`` is
+               ignored, as the reference's): the cross K/V of the slot's
+               encoder frames, written at admission and read by every
+               decode step; contiguous only (a paged build raises)
 
 The functions walk the nested trees as the reference's do: a node with a
 ``"table"`` is paged (its pools scattered, copied and cleared through the
@@ -47,20 +53,21 @@ KV_DTYPE = torch.bfloat16
 
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec") or \
             cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.family}/{cfg.attention} caches are not ported: ROADMAP.md "
-            "Queue 1 item 11")
+            f"{cfg.family}/{cfg.attention} caches are not ported")
 
 
 def _leaves(cfg):
-    """Per-token trailing shape and dtype of each attention cache leaf."""
+    """Per-token trailing shape and dtype of each attention cache leaf
+    (bf16 for the encoder-decoder whatever ``kv_quant`` says, as the
+    reference's ``_attn_cache``)."""
     if cfg.attention == "mla":
         return {"c_kv": ((cfg.kv_lora_rank,), KV_DTYPE),
                 "k_rope": ((cfg.qk_rope_dim,), KV_DTYPE)}
     kv, dh = cfg.n_kv_heads, cfg.d_head
-    if cfg.kv_quant:
+    if cfg.kv_quant and cfg.family != "encdec":
         return {"k": ((kv, dh), torch.int8), "v": ((kv, dh), torch.int8),
                 "k_scale": ((kv,), torch.float32), "v_scale": ((kv,), torch.float32)}
     return {"k": ((kv, dh), KV_DTYPE), "v": ((kv, dh), KV_DTYPE)}
@@ -110,9 +117,14 @@ def _hybrid(cfg, b: int, c: int, attn, device):
     return {"full": seg(3, True), "win_a": seg(wa, False), "win_b": seg(wb, False)}
 
 
-def cache_zeros(cfg, batch: int, cache_len: int, device=None):
-    """The contiguous decode cache, zeroed (ring positions -1)."""
+def cache_zeros(cfg, batch: int, cache_len: int, device=None, enc_len: int = 0):
+    """The contiguous decode cache, zeroed (ring positions -1). The
+    encoder-decoder's holds the decoder's self-attention K/V beside the
+    cross K/V of ``enc_len`` encoder frames."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        return {"self": _attn_cache(cfg.n_layers, batch, cache_len, cfg, device),
+                "cross": _attn_cache(cfg.n_layers, batch, enc_len, cfg, device)}
     if cfg.family == "ssm":
         return _ssm_cache(cfg.n_layers, batch, cfg, device)
     if cfg.family == "hybrid":
@@ -127,6 +139,8 @@ def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
     ring positions -1 (``device="meta"`` gives the shapes alone, for the
     cost meter)."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError("paged caches cover the decoder-only serving families")
     if cache_len % block_size != 0:
         raise ValueError(f"cache_len {cache_len} not a multiple of "
                          f"block_size {block_size}")

@@ -26,22 +26,30 @@ class Ctx:
     # the same for the MLP's down projection and the norms alone:
     # ``Model.step_ctx``
     step_min_rows: int = 0
+    # attention scores one batch row at a time (the encoder-decoder's
+    # step: ``Model.step_ctx``)
+    per_row_scores: bool = False
 
     def cast(self, x):
         return x.to(self.dtype)
 
 
-def dense_apply(p, x, ctx: Ctx, min_rows: int = 0):
-    """``x @ w (+ b)``. A product of fewer than ``max(ctx.min_rows,
-    min_rows)`` rows is zero-padded to that many and sliced back: each row
-    gets the bits of the padded product's kernel whatever the row count."""
+def _rows_matmul(x, w, min_rows: int):
+    """``x @ w``; a product of fewer than ``min_rows`` rows is zero-padded
+    to that many and sliced back: each row gets the bits of the padded
+    product's kernel whatever the row count."""
     rows = x.numel() // x.shape[-1]
-    min_rows = max(ctx.min_rows, min_rows)
-    if rows < min_rows:
-        padded = F.pad(x.reshape(rows, x.shape[-1]), (0, 0, 0, min_rows - rows))
-        y = (padded @ p["w"])[:rows].reshape(*x.shape[:-1], -1)
-    else:
-        y = x @ p["w"]
+    if rows >= min_rows:
+        return x @ w
+    padded = F.pad(x.reshape(rows, x.shape[-1]), (0, 0, 0, min_rows - rows))
+    return (padded @ w)[:rows].reshape(*x.shape[:-1], -1)
+
+
+def dense_apply(p, x, ctx: Ctx, min_rows: int = 0):
+    """``x @ w (+ b)``, padded to ``max(ctx.min_rows, min_rows)`` rows
+    (``_rows_matmul``); the bias (Qwen2-style QKV biases) added to the
+    product in the compute dtype, as the reference."""
+    y = _rows_matmul(x, p["w"], max(ctx.min_rows, min_rows))
     if "b" in p:
         y = y + p["b"]
     return y
@@ -82,9 +90,9 @@ def embed_apply(p, tokens, ctx: Ctx):
     return p["w"][tokens]
 
 
-def embed_logits(p, x, ctx: Ctx):
-    """Tied read-out: x @ E^T."""
-    return x @ p["w"].T
+def embed_logits(p, x, ctx: Ctx, min_rows: int = 0):
+    """Tied read-out: x @ E^T, padded to ``min_rows`` rows (``_rows_matmul``)."""
+    return _rows_matmul(x, p["w"].T, min_rows)
 
 
 _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
@@ -114,6 +122,27 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_freqs(d_half, theta, device=x.device)           # [D/2]
     ang = positions[..., None].to(torch.float32) * freqs          # [..., S, D/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :d_half], x[..., d_half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions, theta: float, sections):
+    """Multimodal RoPE (Qwen2-VL): ``positions`` [3, ..., S] holds the
+    temporal, height and width streams; the D/2 frequency bands are split
+    across them by ``sections`` (band i of section j turns by stream j).
+    Computed in f32 and cast back, as the reference."""
+    d_half = x.shape[-1] // 2
+    if sum(sections) != d_half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to d_head / 2 = {d_half}")
+    freqs = rope_freqs(d_half, theta, device=x.device)
+    angs = positions[..., None].to(torch.float32) * freqs        # [3, ..., S, D/2]
+    pieces, start = [], 0
+    for i, sec in enumerate(sections):
+        pieces.append(angs[i, ..., start:start + sec])
+        start += sec
+    ang = torch.cat(pieces, dim=-1)[..., None, :]                # [..., S, 1, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :d_half], x[..., d_half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

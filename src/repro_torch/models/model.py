@@ -1,5 +1,6 @@
-"""Model facade for the dense, MoE, SSM and hybrid families, GQA or MLA
-attention (port of ``src/repro/models/model.py``).
+"""Model facade for the dense, MoE, SSM, hybrid and encoder-decoder
+families, GQA or MLA attention, plain RoPE or M-RoPE (port of
+``src/repro/models/model.py``).
 
   init(generator)                          -> params (nested dict of tensors)
   train_logits(params, batch)              -> (logits [B, S, V], aux)
@@ -11,7 +12,11 @@ attention (port of ``src/repro/models/model.py``).
 
 Batches hold int token tensors on the model's device: {"tokens": [B, S]}
 for prefill, {"token": [B, 1]} for a decode step, {"token": [B, T]} for a
-verify step. The cache is updated in
+verify step. An M-RoPE model (qwen2-vl-7b) also takes "positions" [3, B,
+S] (t / h / w streams; [3, B, 1] in a decode step) and may take the VLM
+stub's "embeds_override" [B, S, d] with "override_mask" [B, S]; the
+encoder-decoder (whisper-base) takes "frames" [B, S_enc, d] beside its
+decoder tokens (the stub frontend's output). The cache is updated in
 place. Under ``cfg.kv_quant`` the GQA caches hold int8 codes and f32
 scales (MLA keeps its bf16 latent cache, as the reference).
 
@@ -25,8 +30,13 @@ family's is ``{"layers"}`` of SSD blocks, its cache {"state", "conv"}
 win_a, full[1], win_b, full[2], with one cache segment per stack segment
 ({"attn": positional or ring, "ssm": ...}). Their verify step stages the
 recurrent state as per-token snapshots, which ``verify_commit`` resolves
-into the cache. The encdec and M-RoPE families are later slices:
-ROADMAP.md Queue 1 item 11.
+into the cache. The encoder-decoder keeps ``pos_embed`` (the decoder's
+learned position table), ``enc_stack`` (dense blocks, full attention,
+after a sinusoid table added to the frames), ``enc_final_norm`` and
+``dec_stack`` ({"norm1", "self", "norm_x", "cross", "norm2", "mlp"}); its
+cache is {"self", "cross"}, the cross K/V computed once in prefill. As in
+the reference, neither the encoder-decoder nor M-RoPE has a tail prefill
+or a verify step: both raise.
 """
 
 from __future__ import annotations
@@ -35,8 +45,10 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.backends import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.softmax_variants import spec_backend
 from repro_torch.device import resolve_device
@@ -89,7 +101,17 @@ PREFILL_MIN_ROWS = 256
 # verify_step.py --arch hymba-1.5b, PERF.md). The SSM family (mamba2-780m)
 # needs nothing beyond the dense family's rule: its verify runs every
 # product per token at the decode step's rows, and its head gave the
-# decode steps' bits.
+# decode steps' bits. The M-RoPE step pads as the dense family's. The
+# encoder-decoder's serve step must give each slot the bits of the
+# request's batch-1 eager step (the reference's gate, held bitwise on the
+# card by chip_smoke.py phase 18): it pads as the dense family's and its
+# head too (the tied read-out [4, 512] x [512, 51865] differed from the
+# batch-1 bits in 1824 outputs over 64 draws of 4 rows, padded in none),
+# and under ``Ctx.per_row_scores`` computes each slot's attention scores
+# as their own product (the cross-attention scores over 1500 frames at
+# batch 4 differed from batch 1's in 147 elements over 64 draws; its PV,
+# the self-attention over 96 keys and every other product of the step
+# did not: probes/encdec_rows.py, PERF.md).
 STEP_MIN_ROWS = 64
 
 
@@ -98,15 +120,34 @@ def _slice_tree(tree, lo: int, n: int):
     return kv_cache.tree_map(lambda v: v[lo:lo + n], tree)
 
 
+def _sinusoid(length: int, d: int):
+    """The encoder's fixed sinusoid position table [length, d] (f32 numpy,
+    the reference's)."""
+    pos = np.arange(length)[:, None]
+    div = np.exp(np.arange(0, d, 2) / d * -np.log(10000.0))
+    table = np.zeros((length, d), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table
+
+
+def _no_tail_or_verify(cfg, what: str):
+    if cfg.family == "encdec" or cfg.rope_type == "mrope":
+        raise NotImplementedError(
+            f"{what} covers the decoder-only lm families with scalar-position rope "
+            f"({cfg.name}: {'the encoder-decoder' if cfg.family == 'encdec' else 'M-RoPE'}"
+            ", as the reference)")
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device=None):
-        if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+        if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec")
                 or cfg.attention not in ("gqa", "mla")
-                or cfg.rope_type not in ("rope", "none")):
+                or cfg.rope_type not in ("rope", "none", "mrope")):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, MoE, SSM and hybrid families (GQA or MLA) "
-                "with plain rope are ported; the others follow ROADMAP.md Queue 1 item 11")
+                f"{cfg.name}: family {cfg.family!r}, attention {cfg.attention!r}, "
+                f"rope {cfg.rope_type!r} is not a configuration of the reference")
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
         self.device = resolve_device(device)
@@ -116,7 +157,9 @@ class Model:
         step_rows = STEP_MIN_ROWS if cuda else 0
         self.step_ctx = dataclasses.replace(
             self.ctx, step_min_rows=step_rows,
-            min_rows=step_rows if cfg.family == "moe" else 0)
+            min_rows=step_rows if cfg.family == "moe" else 0,
+            per_row_scores=cuda and cfg.family == "encdec")
+        self._sinusoids: dict = {}   # (encoder length, device) -> its table
 
     # ------------------------------------------------------------------ init
 
@@ -233,7 +276,14 @@ class Model:
              "final_norm": norm(0)}
         if not cfg.tie_embeddings:
             p["head"] = {"w": normal((d, cfg.vocab), 1.0 / math.sqrt(d))}
-        if cfg.family == "ssm":
+        if cfg.family == "encdec":
+            n = cfg.n_layers
+            p["pos_embed"] = normal((cfg.max_seq, d), 0.01)
+            p["enc_stack"] = block(n, "dense")
+            p["enc_final_norm"] = norm(0)
+            p["dec_stack"] = {"norm1": norm(n), "self": attention(n), "norm_x": norm(n),
+                              "cross": attention(n), "norm2": norm(n), "mlp": glu(n)}
+        elif cfg.family == "ssm":
             p["stack"] = {"layers": block(cfg.n_layers, "ssm")}
         elif cfg.family == "hybrid":
             wa, wb = kv_cache.hybrid_segments(cfg)
@@ -309,18 +359,98 @@ class Model:
             return caches[0]
         return kv_cache.tree_map(lambda *xs: torch.cat(xs), *caches)
 
-    def _embed(self, p, tokens):
-        return embed_apply(p["embed"], tokens, self.ctx)
+    def _embed(self, p, tokens, batch=None):
+        """Token embeddings; the VLM stub's ``embeds_override`` [B, S, d]
+        takes the place of the rows ``override_mask`` [B, S] marks."""
+        x = embed_apply(p["embed"], tokens, self.ctx)
+        if batch is not None and "embeds_override" in batch:
+            ov = self.ctx.cast(batch["embeds_override"])
+            x = torch.where(batch["override_mask"].to(torch.bool)[..., None], ov, x)
+        return x
+
+    def _positions(self, batch, tokens):
+        """M-RoPE's [3, B, S] streams from the batch, else the [B, S] iota."""
+        if self.cfg.rope_type == "mrope":
+            return batch["positions"]
+        return positions_for(tokens.shape, device=tokens.device)
+
+    # ----------------------------------------------------- encoder-decoder
+
+    def _encode(self, p, frames, ctx: Ctx):
+        """The encoder: frames [B, S_enc, d] plus the sinusoid table, the
+        dense stack with full attention, the final norm."""
+        cfg = self.cfg
+        key = (frames.shape[1], frames.device)
+        table = self._sinusoids.get(key)
+        if table is None:
+            table = torch.as_tensor(_sinusoid(key[0], cfg.d_model), device=frames.device)
+            self._sinusoids[key] = table
+        x = ctx.cast(frames) + ctx.cast(table)
+        positions = positions_for(frames.shape[:2], device=frames.device)
+        x, _ = tfm.stack_apply(p["enc_stack"], x, cfg, ctx, positions, "dense",
+                               attn_kind="none")
+        return norm_apply(p["enc_final_norm"], x, cfg.norm, ctx)
+
+    def _dec_embed(self, p, tokens, offset):
+        """Decoder embedding plus the learned position table. ``offset``
+        is the first position: an int or a 0-d tensor (a uniform batch) or
+        a per-row [B] tensor (each serving slot at its own length). Rows
+        are clamped into the table: only a parked serving lane (position
+        ``cache_len``) can reach past it, and its outputs are dropped."""
+        x = embed_apply(p["embed"], tokens, self.ctx)
+        steps = torch.arange(tokens.shape[1], dtype=torch.long, device=tokens.device)
+        if isinstance(offset, int):
+            pos = steps + offset                                   # [S]
+        else:
+            off = offset.to(torch.long)
+            pos = off.reshape(-1, 1) + steps if off.ndim == 1 else off + steps
+        table = p["pos_embed"]
+        return x + self.ctx.cast(table[pos.clamp(0, table.shape[0] - 1)])
+
+    def _encdec_logits(self, p, batch):
+        cfg, ctx = self.cfg, self.ctx
+        tokens = batch["tokens"]
+        enc = self._encode(p, batch["frames"], ctx)
+        x = self._dec_embed(p, tokens, 0)
+        positions = positions_for(tokens.shape, device=tokens.device)
+        sp = p["dec_stack"]
+        for i in telemetry.scan_range(tfm.n_stacked(sp)):
+            x = tfm.dec_block_apply(tfm.layer_params(sp, i), x, enc, cfg, ctx, positions)
+        return self._head(p, x)
+
+    def _encdec_prefill(self, p, batch, cache_len: int):
+        cfg, ctx = self.cfg, self.prefill_ctx
+        tokens = batch["tokens"]
+        enc = self._encode(p, batch["frames"], ctx)
+        x = self._dec_embed(p, tokens, 0)
+        positions = positions_for(tokens.shape, device=tokens.device)
+        sp, caches = p["dec_stack"], []
+        for i in telemetry.scan_range(tfm.n_stacked(sp)):
+            x, c = tfm.dec_block_prefill(tfm.layer_params(sp, i), x, enc, cfg, ctx,
+                                         positions, cache_len)
+            caches.append(c)
+        return (self._head(p, x[:, -1:]),
+                kv_cache.tree_map(lambda *xs: torch.stack(xs), *caches))
+
+    def _encdec_decode(self, p, cache, token, cache_pos, positions):
+        cfg, ctx = self.cfg, self.step_ctx
+        x = self._dec_embed(p, token, cache_pos)
+        sp = p["dec_stack"]
+        for i in telemetry.scan_range(tfm.n_stacked(sp)):
+            x, _ = tfm.dec_block_decode(tfm.layer_params(sp, i), x,
+                                        tfm.layer_params(cache, i), cache_pos, cfg, ctx,
+                                        positions)
+        return self._head(p, x, ctx), cache
 
     def _head(self, p, x, ctx: Optional[Ctx] = None):
         cfg, ctx = self.cfg, self.ctx if ctx is None else ctx
         x = norm_apply(p["final_norm"], x, cfg.norm, ctx)
+        # a hybrid or encoder-decoder step pads its head too (STEP_MIN_ROWS)
+        pad = ctx.step_min_rows if cfg.family in ("hybrid", "encdec") else 0
         if cfg.tie_embeddings:
-            logits = embed_logits(p["embed"], x, ctx)
+            logits = embed_logits(p["embed"], x, ctx, pad)
         else:
-            # a hybrid step pads its head too (STEP_MIN_ROWS)
-            logits = dense_apply(p["head"], x, ctx,
-                                 ctx.step_min_rows if cfg.family == "hybrid" else 0)
+            logits = dense_apply(p["head"], x, ctx, pad)
         return logits.to(_LOGIT_DTYPES[cfg.logits_dtype])
 
     # ---------------------------------------------------------------- entry
@@ -330,8 +460,11 @@ class Model:
         auxiliary loss of the layers, a 0-dim f32 tensor, zero for the dense
         family (only MoE layers add one: ``moe.moe_apply``)."""
         tokens = batch["tokens"]
-        x = self._embed(p, tokens)
-        positions = positions_for(tokens.shape, device=tokens.device)
+        if self.cfg.family == "encdec":
+            return (self._encdec_logits(p, batch),
+                    torch.zeros((), dtype=torch.float32, device=tokens.device))
+        x = self._embed(p, tokens, batch)
+        positions = self._positions(batch, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for sp, kind, *_ in self._segments(p):
             x, a = tfm.stack_apply(sp, x, self.cfg, self.ctx, positions, kind)
@@ -339,9 +472,11 @@ class Model:
         return self._head(p, x), aux
 
     def prefill(self, p, batch, cache_len: int):
+        if self.cfg.family == "encdec":
+            return self._encdec_prefill(p, batch, cache_len)
         tokens = batch["tokens"]
-        x = self._embed(p, tokens)
-        positions = positions_for(tokens.shape, device=tokens.device)
+        x = self._embed(p, tokens, batch)
+        positions = self._positions(batch, tokens)
         caches = {}
         for sp, kind, seg, _, _ in self._segments(p):
             x, c = tfm.stack_prefill(sp, x, self.cfg, self.prefill_ctx, positions,
@@ -361,6 +496,7 @@ class Model:
         [L, B, T, ...]) — equal to the tail slice of a whole prefill.
         Dense and MoE only, as the reference's: SSM state and window rings
         summarise the whole prefix, so those families prefill whole."""
+        _no_tail_or_verify(self.cfg, "tail-only prefill")
         if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 "tail-only prefill covers the dense/moe (incl. MLA) families: the "
@@ -383,15 +519,22 @@ class Model:
         serving slot decodes at its own offset). A tensor stays on its
         device: the step reads no value back to the host, so a CUDA graph
         can capture it. The cache — contiguous, or paged pools with their
-        block table — is written in place and returned."""
+        block table — is written in place and returned. An M-RoPE model
+        reads its rope positions from ``batch["positions"]`` [3, B, 1]; the
+        encoder-decoder's learned positions and self cache are addressed
+        per row, its cross K/V read from the cache."""
         token = batch["token"]
         b = token.shape[0]
-        if isinstance(cache_pos, int):
+        if self.cfg.rope_type == "mrope":
+            positions = batch["positions"]
+        elif isinstance(cache_pos, int):
             positions = torch.full((b, 1), cache_pos, dtype=torch.int32,
                                    device=token.device)
         else:
             positions = cache_pos.to(torch.int32).reshape(-1, 1).expand(b, 1)
-        x = self._embed(p, token)
+        if self.cfg.family == "encdec":
+            return self._encdec_decode(p, cache, token, cache_pos, positions)
+        x = self._embed(p, token, batch)
         x, cache = self._stack_step(p, cache, x, cache_pos, positions, tfm.stack_decode,
                                     self.step_ctx)
         return self._head(p, x, self.step_ctx), cache
@@ -409,6 +552,7 @@ class Model:
         written in place; the recurrent ones (SSM state and conv tail,
         window rings) are per-token snapshots [L, T, B, ...], the cache
         itself stepped to the block's last token."""
+        _no_tail_or_verify(self.cfg, "verify_step")
         token = batch["token"]
         b, t = token.shape
         positions = block_positions(cache_pos, b, t, token.device)

@@ -1,6 +1,6 @@
 """Transformer blocks and the layer loops (port of
-``src/repro/models/transformer.py`` for the dense, MoE, SSM and hybrid
-families, GQA or MLA attention).
+``src/repro/models/transformer.py`` for the dense, MoE, SSM, hybrid and
+encoder-decoder families, GQA or MLA attention).
 
 Layer parameters are stacked with a leading layer axis, as in the
 reference; a Python loop over that axis takes the place of ``lax.scan``.
@@ -11,6 +11,9 @@ takes the reference's ``kind``: ``"dense"`` (the GLU MLP), ``"moe"``
 ``"hybrid_win"`` (``models/hybrid.py``: global or sliding-window
 attention beside the SSM heads); an MoE layer's auxiliary loss is summed
 by ``stack_apply`` and dropped by the serving paths, as the reference's.
+The Whisper encoder is a dense stack with full (unmasked) attention
+(``attn_kind="none"``); its decoder blocks (``dec_block_*``) add
+cross-attention over the encoder's K/V between self-attention and the MLP.
 
 Caches are nested dicts of tensors with the layer axis first (the
 hybrid's {"attn": ..., "ssm": ...} per segment). Decode writes them in
@@ -28,10 +31,13 @@ from repro_torch.backends import telemetry
 from repro_torch.models.attention import (
     attend_chunked,
     attn_apply,
+    attn_cross,
     attn_decode,
     attn_prefill_tail,
     attn_verify,
+    cross_kv,
     kv_fake_quant,
+    mask_positions,
     project_qkv,
 )
 from repro_torch.models.kv_cache import tree_map
@@ -99,8 +105,11 @@ def _hybrid_kind(kind: str) -> str:
     return "causal" if kind == "hybrid_full" else "window"
 
 
-def block_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "dense"):
-    """Pre-norm causal block over a whole sequence. Returns (x, aux)."""
+def block_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "dense",
+                attn_kind: str = "causal"):
+    """Pre-norm block over a whole sequence, its self-attention masked by
+    ``attn_kind`` (causal, or "none": the Whisper encoder's full
+    attention). Returns (x, aux)."""
     if kind == "ssm":
         return x + ssm_apply(p["ssm"], norm_apply(p["norm1"], x, cfg.norm, ctx), cfg,
                              ctx), 0.0
@@ -108,7 +117,7 @@ def block_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "dense"):
         return hybrid_block_apply(p, x, cfg, ctx, positions, _hybrid_kind(kind)), 0.0
     h = norm_apply(p["norm1"], x, cfg.norm, ctx)
     attn = mla_apply if cfg.attention == "mla" else attn_apply
-    x = x + attn(p["attn"], h, cfg, ctx, positions)
+    x = x + attn(p["attn"], h, cfg, ctx, positions, attn_kind)
     return _ffn(p, x, cfg, ctx, kind)
 
 
@@ -127,6 +136,7 @@ def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int, kind: str = "ca
     reference's."""
     b, s, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, ctx, positions)
+    positions = mask_positions(positions, cfg)
     if kind == "window":
         out = attend_chunked(q, k, v, positions, positions, "window", cfg, ctx,
                              smx=p.get("smx"))
@@ -236,14 +246,59 @@ def block_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind: str = "
                        mla_verify if cfg.attention == "mla" else attn_verify, kind)
 
 
+# ------------------------------------------------ encoder-decoder (Whisper)
+
+
+def _dec_tail(p, x, ek, ev, cfg, ctx: Ctx):
+    """A decoder block after its self-attention: cross-attention over the
+    encoder's K/V, then the MLP, each pre-norm with its residual."""
+    h = norm_apply(p["norm_x"], x, cfg.norm, ctx)
+    x = x + attn_cross(p["cross"], h, ek, ev, cfg, ctx)
+    h = norm_apply(p["norm2"], x, cfg.norm, ctx)
+    return x + mlp_apply(p["mlp"], h, cfg.act, ctx)
+
+
+def dec_block_apply(p, x, enc_out, cfg, ctx: Ctx, positions):
+    """A decoder block over the whole sequence: causal self-attention,
+    cross-attention over the encoder output ``enc_out``, the MLP."""
+    h = norm_apply(p["norm1"], x, cfg.norm, ctx)
+    x = x + attn_apply(p["self"], h, cfg, ctx, positions, "causal")
+    ek, ev = cross_kv(p["cross"], enc_out, cfg, ctx)
+    return _dec_tail(p, x, ek, ev, cfg, ctx)
+
+
+def dec_block_prefill(p, x, enc_out, cfg, ctx: Ctx, positions, cache_len: int):
+    """Returns (x, {"self": the self-attention cache, "cross": {"k","v"}
+    [B, S_enc, KV, D] in bf16}): the cross K/V are computed once here and
+    stay in the slot's cache for every decode step, as the reference's."""
+    h = norm_apply(p["norm1"], x, cfg.norm, ctx)
+    a, self_cache = attn_prefill(p["self"], h, cfg, ctx, positions, cache_len)
+    ek, ev = cross_kv(p["cross"], enc_out, cfg, ctx)
+    x = _dec_tail(p, x + a, ek, ev, cfg, ctx)
+    return x, {"self": self_cache,
+               "cross": {"k": ek.to(torch.bfloat16), "v": ev.to(torch.bfloat16)}}
+
+
+def dec_block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
+    """Single-token decoder step: the self cache written in place, the
+    cross K/V read as they are. Returns (x, cache)."""
+    h = norm_apply(p["norm1"], x, cfg.norm, ctx)
+    a, _ = attn_decode(p["self"], h, cache["self"], cache_pos, cfg, ctx, positions)
+    cross = cache["cross"]
+    x = _dec_tail(p, x + a, ctx.cast(cross["k"]), ctx.cast(cross["v"]), cfg, ctx)
+    return x, cache
+
+
 # ----------------------------------------------------------------- layer loops
 
 
-def stack_apply(params, x, cfg, ctx: Ctx, positions, kind: str = "dense"):
+def stack_apply(params, x, cfg, ctx: Ctx, positions, kind: str = "dense",
+                attn_kind: str = "causal"):
     """Returns (x, the layers' summed aux loss)."""
     aux = 0.0
     for i in telemetry.scan_range(n_stacked(params)):
-        x, a = block_apply(layer_params(params, i), x, cfg, ctx, positions, kind)
+        x, a = block_apply(layer_params(params, i), x, cfg, ctx, positions, kind,
+                           attn_kind)
         aux = aux + a
     return x, aux
 

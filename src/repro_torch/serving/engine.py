@@ -45,8 +45,15 @@ hybrid's cache length is at least its window (its prefill builds rings
 of the window). ``softmax_kind`` serves a softmax variant (the zoo ``consmax`` / ``sole`` /
 ``mive``, or ``ap_sim``, the functional AP simulator) with the engine's
 params: prefills, decode and verify steps and the meter all run under it.
-Tensor parallelism and the encdec / M-RoPE families are later slices
-(ROADMAP.md Queue 1 items 11 and 14); ``ServeOptions`` raises for them.
+The encoder-decoder (whisper-base) serves as the reference's does: the
+contiguous cache with ``kernel="jnp"`` alone, every request carrying
+encoder ``frames`` of one shape, whose cross K/V stay in the slot's cache
+from admission on. M-RoPE (qwen2-vl-7b) serves plain and paged decode,
+text only (the three position streams on the token axis), without
+speculative rounds or prefix sharing, and prefills chunked prompts whole.
+Both raise for the options the reference refuses, with its messages.
+Tensor parallelism is a later slice (ROADMAP.md Queue 1 item 14);
+``ServeOptions`` raises for it.
 
 Fixed storage: the decode step of ``generate`` and of ``serve`` runs over
 a cache and input buffers kept on the engine per step shape (for serve:
@@ -173,6 +180,21 @@ def _to_meta(tree):
     return torch.empty_like(tree, device="meta")
 
 
+def _step_inputs(model: Model, tok, b: int, pos):
+    """Decode-step inputs for a batch at one position ``pos`` (an int, or a
+    0-d tensor kept on its device): an M-RoPE model's three [3, b, 1]
+    position streams all sit at it (text-only decode), as the reference's
+    ``_step_inputs``."""
+    step_in = {"token": tok}
+    if model.cfg.rope_type == "mrope":
+        if isinstance(pos, int):
+            step_in["positions"] = torch.full((3, b, 1), pos, dtype=torch.int32,
+                                              device=tok.device)
+        else:
+            step_in["positions"] = pos.to(torch.int32).reshape(1, 1, 1).expand(3, b, 1)
+    return step_in
+
+
 def _eos_mask(toks, done, eos_id: Optional[int], pad: Optional[int]):
     """Tokens of finished rows become ``pad``; a row emitting EOS is done."""
     if eos_id is None:
@@ -243,8 +265,8 @@ class Engine:
         cost = acc.total()
         decode_steps = n_new - 1
         if decode_steps > 0:
-            step_in = {"token": torch.empty((b, 1), dtype=torch.long,
-                                            device="meta")}
+            step_in = _step_inputs(self.model, torch.empty((b, 1), dtype=torch.long,
+                                                           device="meta"), b, p)
             with telemetry.collect() as acc:
                 self.model.decode_step(params, _to_meta(cache), step_in, p)
             cost = cost + acc.total().scaled(decode_steps)
@@ -261,12 +283,17 @@ class Engine:
                  generator: Optional[torch.Generator] = None,
                  report_cost: bool = False, mode: str = "fused",
                  max_new: Optional[int] = None,
-                 cache_len: Optional[int] = None) -> GenerationResult:
+                 cache_len: Optional[int] = None,
+                 extra_inputs: Optional[dict] = None) -> GenerationResult:
         """prompts: [B, P] int (left-pad upstream; the batch shares cache
         position P). ``generator``: the sampling RNG on the model's device
         (seed 0 when None). ``max_new`` overrides the engine default for
         THIS call, eager mode only (as the reference); ``cache_len`` pins the
-        decode cache length (default P + max_new)."""
+        decode cache length (default P + max_new). ``extra_inputs``: the
+        family's further prefill inputs (numpy arrays or tensors), as the
+        reference's: the encoder-decoder's ``frames`` [B, S_enc, d], an
+        M-RoPE model's ``positions`` [3, B, P] (its decode steps put all
+        three streams at the step's position)."""
         if mode not in ("fused", "eager"):
             raise ValueError(f"mode must be 'fused' or 'eager', got {mode!r}")
         n_new = self.max_new if max_new is None else max_new
@@ -281,6 +308,9 @@ class Engine:
             raise ValueError(f"cache_len {cache_len} < prompt {p} + "
                              f"max_new {n_new}")
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=dev)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = (v.to(dev) if isinstance(v, torch.Tensor)
+                        else torch.as_tensor(np.array(v), device=dev))
         logits, cache = self.model.prefill(self.params, batch, cache_len=cache_len)
         cost = (self.meter_request(batch, cache_len, cache, n_new)
                 if report_cost else None)
@@ -314,7 +344,8 @@ class Engine:
             eos_id, pad = self.eos_id, self.pad_id
 
             def decode():
-                logits, _ = model.decode_step(params, cache, {"token": tok}, pos)
+                logits, _ = model.decode_step(params, cache, _step_inputs(model, tok, b, pos),
+                                              pos)
                 pos.add_(1)
                 return logits[:, -1]
 
@@ -365,8 +396,8 @@ class Engine:
             done |= nxt == self.eos_id
         toks = [nxt]
         for t in range(n_new - 1):
-            step_in = {"token": torch.as_tensor(nxt[:, None], dtype=torch.long,
-                                                device=dev)}
+            step_in = _step_inputs(self.model, torch.as_tensor(nxt[:, None], dtype=torch.long,
+                                                               device=dev), b, p + t)
             logits, cache = self.model.decode_step(self.params, cache, step_in,
                                                    p + t)
             tok = self.sample(logits[:, -1], g).cpu().numpy()
@@ -385,12 +416,18 @@ class Engine:
         return None if spec is None else spec.kind
 
     def _meter_prefill(self, p_len: int, cache_len: int,
-                       model: Optional[Model] = None) -> CostReport:
+                       model: Optional[Model] = None, enc_len: int = 0) -> CostReport:
         model = self.model if model is None else model
-        key = ("prefill", p_len, cache_len, self._spec_kind(model))
+        key = ("prefill", p_len, cache_len, enc_len, self._spec_kind(model))
         if key not in self._meter_cache:
             batch = {"tokens": torch.zeros((1, p_len), dtype=torch.long,
                                            device="meta")}
+            if enc_len:
+                batch["frames"] = torch.zeros((1, enc_len, model.cfg.d_model),
+                                              dtype=torch.float32, device="meta")
+            if model.cfg.rope_type == "mrope":
+                batch["positions"] = torch.zeros((3, 1, p_len), dtype=torch.int32,
+                                                 device="meta")
             with telemetry.collect() as acc:
                 model.prefill(self._params_meta(), batch, cache_len=cache_len)
             self._meter_cache[key] = acc.total()
@@ -398,24 +435,29 @@ class Engine:
 
     def _meter_serve_step(self, slots: int, cache_len: int,
                           paged_geom=None, t: int = 1,
-                          model: Optional[Model] = None) -> CostReport:
+                          model: Optional[Model] = None, enc_len: int = 0) -> CostReport:
         """Softmax AP cost of ONE slot-batched step (shapes only, memoized).
         ``t=1`` meters the plain decode step, ``t>1`` the speculative verify
         step over a ``t``-token block (the softmax rows grow from 1 to t
         queries per head). ``paged_geom``: (block_size, num_blocks) meters
         the paged layout — the same softmax shapes, kept honest. ``model``:
-        the serve's variant (default: the engine's model)."""
+        the serve's variant (default: the engine's model). ``enc_len``: the
+        encoder-decoder's frames (its cross-attention rows)."""
         model = self.model if model is None else model
-        key = ("serve_step", slots, cache_len, paged_geom, t, self._spec_kind(model))
+        key = ("serve_step", slots, cache_len, paged_geom, t, enc_len, self._spec_kind(model))
         if key not in self._meter_cache:
             cfg = model.cfg
             if paged_geom is None:
-                struct = kv_cache.cache_zeros(cfg, slots, cache_len, device="meta")
+                struct = kv_cache.cache_zeros(cfg, slots, cache_len, device="meta",
+                                              enc_len=enc_len)
             else:
                 struct = kv_cache.paged_cache_zeros(cfg, slots, cache_len,
                                                     *paged_geom, device="meta")
             step_in = {"token": torch.zeros((slots, t), dtype=torch.long,
                                             device="meta")}
+            if cfg.rope_type == "mrope":
+                step_in["positions"] = torch.zeros((3, slots, t), dtype=torch.int32,
+                                                   device="meta")
             fn = model.decode_step if t == 1 else model.verify_step
             with telemetry.collect() as acc:
                 fn(
@@ -498,35 +540,46 @@ class Engine:
         return self._kernel_models[key]
 
     def _serve_state(self, kernel: str, slots: int, cache_len: int,
-                     paged_geom, softmax_kind: Optional[str] = None) -> DecodeState:
+                     paged_geom, softmax_kind: Optional[str] = None,
+                     enc_len: int = 0) -> DecodeState:
         """The serve decode step of one shape — (kernel, softmax variant,
-        slots, cache_len, block geometry, int8 pool) — over its own cache, reset here to
+        slots, cache_len, block geometry, int8 pool, encoder frames) — over
+        its own cache, reset here to
         ``*_cache_zeros``, and one packed int64 input buffer [3, slots]:
-        each slot's token, position and EOS flag. Slots decode together at
+        each slot's token, position and EOS flag. An M-RoPE model's three
+        [3, slots, 1] position streams are built from the position row
+        inside the step (text-only decode: all three sit at it, as the
+        reference's serve step), so a replayed graph reads each step's.
+        The encoder-decoder's cache holds each slot's cross K/V, written at
+        admission. Slots decode together at
         their own positions and sample per slot (:func:`sample_slots`, with
         each request's generator); EOS masking runs per slot. Free slots ride
         along parked at ``cache_len`` (their writes are dropped) with no
         generator, and their outputs are ignored. The step gives [2, slots]
         int32 (tokens and EOS flags) and the last logits [slots, V]."""
         cfg, dev = self.model.cfg, self.model.device
-        key = ("serve", kernel, softmax_kind, slots, cache_len, paged_geom, cfg.kv_quant)
+        key = ("serve", kernel, softmax_kind, slots, cache_len, paged_geom, cfg.kv_quant,
+               enc_len)
         st = self._decode_states.get(key)
         if st is not None:
             st.reset_cache()
             return st
         if paged_geom is None:
-            cache = kv_cache.cache_zeros(cfg, slots, cache_len, device=dev)
+            cache = kv_cache.cache_zeros(cfg, slots, cache_len, device=dev, enc_len=enc_len)
         else:
             cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom,
                                                device=dev)
+        mrope = cfg.rope_type == "mrope"
         inputs = torch.zeros((3, slots), dtype=torch.long, device=dev)
         model = self._kernel_model(kernel, softmax_kind)
         params, sample = self.params, self.sample
         eos_id, pad = self.eos_id, self.pad_id
 
         def decode():
-            logits, _ = model.decode_step(params, cache, {"token": inputs[0][:, None]},
-                                          inputs[1])
+            batch = {"token": inputs[0][:, None]}
+            if mrope:
+                batch["positions"] = inputs[1].to(torch.int32)[None, :, None].expand(3, -1, 1)
+            logits, _ = model.decode_step(params, cache, batch, inputs[1])
             return logits[:, -1]
 
         def post(last, generators):
@@ -681,12 +734,43 @@ class Engine:
         paged, block_size = opt.paged, opt.block_size
         prefill_chunk = opt.prefill_chunk
         speculative, draft_k = opt.speculative, opt.draft_k
-        reqs = list(requests)
-        if not reqs:
-            return ServeReport([], 0, 0.0, slots, opt.cache_len or 0, None)
         smx_kind = opt.softmax_kind
         model = self._variant_model(smx_kind)
         cfg, dev = model.cfg, model.device
+        if cfg.family == "encdec":
+            off = [n for n, v in (
+                ("paged", paged), ("prefix_share", opt.prefix_share),
+                ("speculative", speculative),
+                ("prefill_chunk", prefill_chunk is not None),
+                ("kernel", opt.kernel != "jnp"),
+                ("mesh/shards", opt.mesh is not None or opt.shards is not None),
+            ) if v]
+            if off:
+                raise NotImplementedError(
+                    "encdec serving covers the contiguous single-device "
+                    "executor (cross K/V is slot-resident in the cache "
+                    f"pytree); unsupported option(s): {', '.join(off)}")
+        if cfg.rope_type == "mrope" and (speculative or opt.prefix_share):
+            raise NotImplementedError(
+                "mrope serving covers plain and paged decode; speculative "
+                "verify and prefix sharing need scalar-position rope "
+                "(Model.verify_step / prefill_tail)")
+        reqs = list(requests)
+        if not reqs:
+            return ServeReport([], 0, 0.0, slots, opt.cache_len or 0, None)
+        enc_len = 0
+        if cfg.family == "encdec":
+            # cross-attention is mask-free, so every request must share one
+            # frame geometry: padding a shorter clip would change its rows
+            shapes = {None if r.frames is None else tuple(np.asarray(r.frames).shape)
+                      for r in reqs}
+            if None in shapes or len(shapes) != 1:
+                raise ValueError(
+                    "encdec serving needs every request to carry encoder "
+                    "frames of one shared [enc_len, d_model] shape "
+                    f"(cross-attention is mask-free); got {sorted(shapes, key=str)}")
+            enc_len = next(iter(shapes))[0]
+        mrope = cfg.rope_type == "mrope"
         if opt.kernel != "jnp":
             self._kernel_model(opt.kernel, smx_kind)    # rejects a non-Alg.-1 kind
         if cfg.family == "hybrid" and cfg.kv_quant:
@@ -697,9 +781,10 @@ class Engine:
                 "a dict key mismatch; paged: KeyError 'k_scale'); the port raises "
                 "here instead (generate runs, with bf16 rings)")
         # dense and MoE commit a chunked prompt piece by piece; the recurrent
-        # families accrue the same budget and prefill whole once it covers
-        # the prompt (the reference's staged branch)
-        chunkable = cfg.family in ("dense", "moe")
+        # families and M-RoPE (no tail prefill) accrue the same budget and
+        # prefill whole once it covers the prompt (the reference's staged
+        # branch)
+        chunkable = cfg.family in ("dense", "moe") and not mrope
         # SSM state and window rings summarise the whole prefix: nothing to share
         shareable = opt.prefix_share and chunkable
         params = self.params
@@ -743,10 +828,10 @@ class Engine:
             proposer.begin(slots, C, opt.kernel, block_size if paged else None)
             state = self._spec_state(opt.kernel, slots, C, geom, draft_k, smx_kind)
         else:
-            state = self._serve_state(opt.kernel, slots, C, geom, smx_kind)
+            state = self._serve_state(opt.kernel, slots, C, geom, smx_kind, enc_len)
         cache = state.cache
         replays0 = 0 if state.graph is None else state.graph.replays
-        step_cost = (self._meter_serve_step(slots, C, geom, model=model)
+        step_cost = (self._meter_serve_step(slots, C, geom, model=model, enc_len=enc_len)
                      if opt.report_cost and not speculative else None)
         verify_cost = (self._meter_serve_step(slots, C, geom, t=draft_k + 1, model=model)
                        if opt.report_cost and speculative else None)
@@ -775,6 +860,19 @@ class Engine:
         def tokens_of(req: Request, lo: int, hi: int):
             return {"tokens": torch.as_tensor(
                 np.asarray(req.prompt[None, lo:hi], np.int64), device=dev)}
+
+        def prompt_batch(req: Request, hi: int):
+            """The inputs of a prefill of prompt positions [0, hi): the
+            tokens and the family's extra stream, as the eager reference's
+            ``extra_inputs``: the encoder frames, or M-RoPE's text-only
+            streams (all three along the token axis)."""
+            b = tokens_of(req, 0, hi)
+            if cfg.family == "encdec":
+                b["frames"] = torch.as_tensor(np.asarray(req.frames)[None], device=dev)
+            elif mrope:
+                b["positions"] = torch.arange(hi, dtype=torch.int32, device=dev).expand(
+                    3, 1, hi)
+            return b
 
         def finish(slot: int) -> None:
             st = sched.release(slot)
@@ -859,7 +957,7 @@ class Engine:
             id_arr = np.asarray(adm["ids"], np.int64)
             if c0 == 0:
                 logits, slot_cache = model.prefill(
-                    params, tokens_of(req, 0, c1), cache_len=C)
+                    params, prompt_batch(req, c1), cache_len=C)
             else:
                 prefix = kv_cache.paged_prefix_view(
                     cache, id_arr[:-(-c0 // bs)], c0)
@@ -889,7 +987,7 @@ class Engine:
             into the slot's stripe."""
             if c0 == 0:
                 logits, slot_cache = model.prefill(
-                    params, tokens_of(req, 0, c1), cache_len=C)
+                    params, prompt_batch(req, c1), cache_len=C)
                 if attr is not None:
                     attr.record_request(req.rid, self._meter_prefill(c1, C, model))
             else:
@@ -908,12 +1006,12 @@ class Engine:
             """Prefill a whole prompt into the slot's stripe of the
             contiguous cache. Returns its last logits."""
             P = req.prompt_len
-            logits, slot_cache = model.prefill(params, tokens_of(req, 0, P), cache_len=C)
+            logits, slot_cache = model.prefill(params, prompt_batch(req, P), cache_len=C)
             kv_cache.insert_slot(cache, slot_cache, slot)
             counts["prefill"] += P
             counts["step"] += P
             if attr is not None:
-                attr.record_request(req.rid, self._meter_prefill(P, C, model))
+                attr.record_request(req.rid, self._meter_prefill(P, C, model, enc_len))
             return logits
 
         def activate(slot: int, req: Request, logits) -> None:

@@ -28,11 +28,32 @@ and no CPU path reaches the capture.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.models.kv_cache import tree_leaves
+
+
+@contextlib.contextmanager
+def capture(graph):
+    """``torch.cuda.graph(graph)`` with Python's cyclic garbage collector
+    held off until the capture ends. A collection inside the capture can
+    free a dead reference cycle that holds an earlier ``CUDAGraph`` (an
+    engine whose method was replaced by a closure over it, say); its
+    destructor destroys the graph, a call the capture forbids, which
+    invalidates the capture, and the next launch reports it (cuBLAS:
+    EXECUTION_FAILED)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepGraph:
@@ -64,7 +85,7 @@ class StepGraph:
             first = self.fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capture(graph):
             self.out = self.fn()
         self.graph = graph
         return first

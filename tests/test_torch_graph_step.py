@@ -21,13 +21,15 @@ the graph wrapper does around the capture.
   fresh engine's, and the reset cache equals ``*_cache_zeros``.
 * Launch counters count launches only: nothing under capture
   (``kernels.count_launch``); ``StepGraph`` over stub CUDA calls warms up,
-  captures once, counts its replays and refuses moved storage.
+  captures once, counts its replays and refuses moved storage; the
+  garbage collector is held off inside the capture.
 * Prefill products on the card are padded to ``PREFILL_MIN_ROWS`` rows
   (chunked == whole there); the padded product equals the plain one.
 """
 
 import contextlib
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -381,6 +383,37 @@ def test_step_graph_over_stub_cuda_calls(monkeypatch):
     with pytest.raises(RuntimeError, match="moved"):
         g()
     assert g.replays == 3
+
+
+def test_step_graph_captures_with_the_collector_held_off(monkeypatch):
+    """The garbage collector does not run inside a capture (a dead cycle
+    holding an earlier graph would be destroyed there and invalidate it):
+    it is off while the step is captured, on for the warm-up and after the
+    capture, also after one that raised."""
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, **kw: contextlib.nullcontext())
+    seen = []
+
+    def body(fail=False):
+        seen.append(gc.isenabled())
+        if fail and len(seen) == 2:
+            raise RuntimeError("capture failed")
+        return torch.zeros(1)
+
+    assert gc.isenabled()
+    graphs.StepGraph(body, [])()
+    assert seen == [True, False] and gc.isenabled()
+    seen.clear()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.StepGraph(lambda: body(fail=True), [])()
+    assert seen == [True, False] and gc.isenabled()
 
 
 # ------------------------------------------------------------ prefill row padding

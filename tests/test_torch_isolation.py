@@ -37,6 +37,7 @@ def test_imports_with_jax_blocked():
             "import repro_torch.configs.deepseek_v2_236b, repro_torch.configs.deepseek_7b\n"
             "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
             "import repro_torch.configs.mamba2_780m, repro_torch.configs.hymba_1_5b\n"
+            "import repro_torch.configs.whisper_base, repro_torch.configs.qwen2_vl_7b\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src")}, timeout=120)

@@ -131,8 +131,8 @@ def test_cache_zeros_layout():
 
 
 def test_unported_arch_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        get_config("whisper-base")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
+        get_config("qwen2.5-32b")
 
 
 def test_init_is_seeded():
