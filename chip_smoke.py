@@ -31,9 +31,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and the idle share); the same model with the plain torch Alg. 1
    (``int``) must give bitwise equal tokens and last logits; then the smoke
    config on the card against the same weights on the CPU; then llama2-7b
-   (32 layers, d_model 4096, 6.74 B parameters) through the same graphed
-   generate at batch 4, prompt 512, 32 new tokens: K1 32 x 32 = 1024, the
-   same checks and times, and the peak memory;
+   at full width and half depth (16 of its 32 layers, d_model 4096:
+   ``LLAMA_LAYERS``) through the same graphed generate at batch 4, prompt
+   512, 32 new tokens: K1 16 x 32 = 512, the same checks and times, and the
+   peak memory;
 5. K2 (the fused paged decode, each row split over CTAs) against its plain
    PyTorch version at the serve path's decode shape and its verify shape
    (T 5, phase 14), the reference's paged-kernel matrix and long rows
@@ -194,12 +195,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     requests: K4 4 x steps at (1, 128), K2 never, (b)'s plain-serve checks
     and control (K4 leaving out the first page);
 17. the recurrent families (item 11's SSM and hybrid bullets) at full
-    width and full depth, seeded bf16 weights, prompts on the SSD chunk
-    grid: (a) mamba2-780m (48 SSD layers, no attention, so no kernel) and
-    (b) hymba-1.5b (32 layers: 3 global on K1 / K2, 29 window layers on
-    rings of 1024 keys) through the graphed ``Engine.generate(mode=
-    "fused")`` at batch 4, 256 new tokens after prompts of 256 and 1280: K1
-    0 and 32 x 256 launches, every decoded logit row within
+    width and half depth (``REC_LAYERS``), seeded bf16 weights, prompts on
+    the SSD chunk grid: (a) mamba2-780m (24 of its 48 SSD layers, no
+    attention, so no kernel) and (b) hymba-1.5b (16 of its 32 layers: 3
+    global on K1 / K2, 13 window layers on rings of 1024 keys) through the
+    graphed ``Engine.generate(mode="fused")`` at batch 4, 256 new tokens
+    after prompts of 256 and 1280: K1 0 and 16 x 256 launches, every
+    decoded logit row within
     ``REC_GEN_TOL`` of ``Model.train_logits`` over the sequence, hymba's
     ring positions as the decoded positions put them, over the first 32
     steps graph == op by op bitwise (tokens, last logits, state bytes) ==
@@ -207,7 +209,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     beside the bytes bound, peak memory; (c) hymba-1.5b serving an
     8-request trace (prompts 192 and 256, 16-64 new tokens) with phase 6's
     options through phase 6's checks (``serve_phase``): nothing shared, K2
-    3 x steps all at (1, 5), K1 29 x steps + 32 x 8, graph == op by op
+    3 x steps all at (1, 5), K1 13 x steps + 16 x 8, graph == op by op
     bitwise on 1 request, greedy tokens == jnp and eager but at near ties,
     served logits within the ``HYMBA_*`` limits of a teacher-forced pass
     and a control (K2 leaving out each sequence's first page) failing them,
@@ -217,7 +219,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     of blocks and stripes bitwise, the serve equal to the plain serve
     bitwise (tokens, every logit row); (e) both served speculatively
     (n-gram drafts of 4), one replay a round: equal to the plain serve
-    bitwise, hymba's K2 at (5, 25) 3 x rounds and K1 32 x 8 + 29 x 5 x
+    bitwise, hymba's K2 at (5, 25) 3 x rounds and K1 16 x 8 + 13 x 5 x
     rounds, acceptance and ms a round of a warm serve;
 18. the encoder-decoder and M-RoPE families (item 11's last bullets) at
     full width, seeded bf16 weights: (a) whisper-base (6 encoder and 6
@@ -231,17 +233,38 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     == ``int_pallas`` bitwise, every served logit within the ``WHISPER_*``
     limits of a teacher-forced ``_encdec_logits`` pass, warm serves timed
     graphed and op by op, and its smoke config card vs CPU; (b)
-    qwen2-vl-7b (28 layers, d_model 3584, GQA 28/4, M-RoPE sections 16 /
-    24 / 24, QKV biases drawn non-zero) through phase 4's graphed generate
-    at batch 4, prompt 512, 32 new tokens (K1 28 x 32, ``int`` ==
+    qwen2-vl-7b at full width and half depth (14 of its 28 layers,
+    ``QWEN_LAYERS``; d_model 3584, GQA 28/4, M-RoPE sections 16 / 24 / 24,
+    QKV biases drawn non-zero) through phase 4's graphed generate
+    at batch 4, prompt 512, 32 new tokens (K1 14 x 32, ``int`` ==
     ``int_pallas`` bitwise), then phase 6's trace cut to 8 requests (16-32
     new tokens) served paged from the bf16 pool with ``kernel="pallas"``
-    and no prefix sharing through phase 6's checks (``serve_phase``: K2 28
+    and no prefix sharing through phase 6's checks (``serve_phase``: K2 14
     x steps at (1, 7), phase 6's limits, graph == op by op on 1
     request, a control failing the limits), and a prefill whose three
     position streams differ (an image block, then text) on its smoke
     config, card against CPU;
-19. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+19. training (item 13): (a) full-width, full-depth olmo-1b (1.18 B
+    parameters) from f32 master weights, bf16 compute, every layer
+    rematerialised, ``int``, the train launcher's AdamW at lr 1e-3, 8 steps on one
+    repeated batch of 8 x 512 tokens: the loss finite and falling by
+    ``TRAIN_LOSS_DROP``, every query / key projection's gradient exactly
+    zero under ``int`` with a finite non-zero global norm and non-zero
+    under ``int_ste``; ms a step, tokens/s, the AdamW update alone, peak
+    memory; (b) the smoke train step on the card against the CPU in f32
+    (loss, every gradient and updated leaf within ``TRAIN_CARD_CPU_*``),
+    microbatches=2 against 1 within ``TRAIN_MICRO_*`` and the compressed
+    payload plus residual bitwise the gradients plus the old residual;
+    (c) a checkpoint of full-width olmo-1b at 1 layer after 2 steps,
+    restored bitwise (params, m, v, step) and the next step bitwise the
+    live state's under ``torch.use_deterministic_algorithms``, bytes and
+    seconds; (d) ``repro_torch.launch.serve`` in-process at full width
+    with ``--warm-steps 8`` (trained against fp), then served paged with
+    ``--kernel pallas``: K1 16 a prefill, K2 16 a decode step (the
+    wrappers' count for steps run op by op, each captured graph's replays
+    times its calls a replay in a device trace for the rest), no leaked
+    blocks;
+20. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry), the card line, and the result line ``{"ok": true, "device":
     {...}}`` last.
 
@@ -267,8 +290,9 @@ phase 14's checks (the rollback, the logit and token checks) on its first
 8 requests served op by op through the gather path against two faults
 of the verify step (``commit_staged`` leaving the last rejected position
 uncleared, ``verify_mask`` letting query i see position i + 1), then
-phase 17's checks against three faults of the recurrent paths
-(``commit_staged`` restoring the recurrent snapshot one step late,
+phase 17's checks against four faults of the recurrent paths (the SSM
+decode step without its D skip, which only ``REC_GEN_TOL`` can catch,
+``commit_staged`` restoring the recurrent snapshot one step late,
 ``attn_decode_ring`` writing slot (pos + 1) % W, ``swap_write`` restoring
 a stripe into another slot), then phase 18's checks against three faults
 (M-RoPE's sections rotated on the card, each whisper slot decoding with its
@@ -2096,6 +2120,15 @@ def smoke_card_vs_cpu(arch, make_batch):
     return err, bool(np.array_equal(on_gpu.tokens, on_cpu.tokens))
 
 
+# llama2-7b's depth in phase 4, and qwen2-vl-7b's in phase 18: half of
+# each model's (32, 28), at full width, to keep the whole run inside its
+# time on slower hosts once phase 19 was added (PERF.md §6, training and
+# checkpoints: the run took 1147 s on one host with both at full depth;
+# each phase's seconds before and after in one call). Every launch count
+# and check follows the config.
+LLAMA_LAYERS, QWEN_LAYERS = 16, 14
+
+
 def phase4_main_path():
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
@@ -2131,7 +2164,7 @@ def phase4_main_path():
           f"boundary may quantize differently)", flush=True)
 
     # llama2-7b, the paper's own model, at full width through the same path
-    lcfg = get_config("llama2-7b", softmax=SoftmaxSpec("int_pallas"))
+    lcfg = get_config("llama2-7b", softmax=SoftmaxSpec("int_pallas"), n_layers=LLAMA_LAYERS)
     lmodel = Model(lcfg)
     lparams = lmodel.init(torch.Generator("cuda").manual_seed(0))
     lprompts = SyntheticCorpus(lcfg.vocab, seed=1234).sample(batch, prompt_len,
@@ -2278,7 +2311,7 @@ def teacher_forced(label, model, params, reqs, tokens, rows, tol, rms_tol):
              "decode_max": decode, "rms": (sq / n) ** 0.5}
     print(f"  teacher-forced logits, {label}: max |diff| {first:.4g} at the first step "
           f"(prefill or tail prefill), {decode:.4g} at decode steps, RMS {stats['rms']:.4g} "
-          f"(limits {tol}, RMS {rms_tol})", flush=True)
+          f"(limits {tol:.4g}, RMS {rms_tol:.4g})", flush=True)
     return stats
 
 
@@ -4675,13 +4708,18 @@ def phase16_moe():
 
 # ----------------------------------------------------------------- phase 17
 
-# The recurrent families at full width and full depth (item 11's SSM and
-# hybrid bullets): mamba2-780m (48 SSD layers, no attention: no kernel) and
-# hymba-1.5b (32 layers of attention + SSM heads; 3 global layers paged
-# through K2 at GQA 25/5, D 64; 29 window layers decoding from rings of
-# 1024 keys through K1). Prompts stay on the SSD chunk grid (at most 256
+# The recurrent families at full width (item 11's SSM and hybrid bullets):
+# mamba2-780m (SSD layers, no attention: no kernel) and hymba-1.5b (layers
+# of attention + SSM heads; 3 global layers paged through K2 at GQA 25/5, D
+# 64; the window layers decoding from rings of 1024 keys through K1). Prompts stay on the SSD chunk grid (at most 256
 # tokens, or a multiple of 256: ``ssm.ssd_chunked``'s rule).
 REC_ARCHS = ("mamba2-780m", "hymba-1.5b")
+# Depth on the card: half of each model's (48 SSD layers, 32 hybrid layers),
+# at full width, to make room in the run's time for phase 19 (PERF.md §6,
+# training and checkpoints: the phase's seconds before and after, in one
+# call). hymba-1.5b at 16 layers keeps its 3 global layers (0, 8, 15) and
+# 13 window layers; every launch count and check follows the config.
+REC_LAYERS = {"mamba2-780m": 24, "hymba-1.5b": 16}
 REC_BATCH, REC_MAX_NEW, REC_OP_STEPS = 4, 256, 32
 REC_PROMPT = {"mamba2-780m": 256, "hymba-1.5b": 1280}
 REC_TRACE = dict(prefix_len=128, suffix_lens=(64, 128), max_new_range=(16, 64), seed=0,
@@ -4696,22 +4734,25 @@ REC_POOL_REQUESTS = 3
 # the SSM state in f32 one token at a time and reads the window from a
 # ring, the forward runs the chunked SSD scan (bf16 products within a
 # chunk) and the window mask over positions; hymba also by the GEMM shapes
-# of a 4-row step against a 1536-row forward. On the H100 the runs read
-# max 0.410, RMS 0.0671 (mamba2-780m: 48 layers of f32 recurrence against
-# bf16 chunk products) and max 0.227, RMS 0.0340 (hymba-1.5b); the limits
-# are 1.3 times those floors (PERF.md, phase 17). In f32 on the CPU the
-# two sides agree within 1e-5 (tests/test_torch_hybrid.py).
-REC_GEN_TOL = {"mamba2-780m": (0.55, 0.088), "hymba-1.5b": (0.3, 0.045)}
+# of a 4-row step against a 1536-row forward. On the H100 at REC_LAYERS'
+# depth every run read max 0.2681, RMS 0.04359 (mamba2-780m: 24 layers of
+# f32 recurrence against bf16 chunk products) and max 0.1553, RMS 0.0258
+# (hymba-1.5b); each limit is 1.3 times its floor (PERF.md, phase 17). The
+# control (REC_FAULTS: the decode step without its D skip) must fail them.
+# In f32 on the CPU the two sides agree within 1e-5
+# (tests/test_torch_hybrid.py).
+REC_GEN_TOL = {"mamba2-780m": (1.3 * 0.2681, 1.3 * 0.04359),
+               "hymba-1.5b": (1.3 * 0.1553, 1.3 * 0.0258)}
 
 
 def rec_model(arch, kind="int_pallas"):
-    """Full-width, full-depth ``arch`` with seeded random bf16 weights on the
-    card, softmax ``kind``."""
+    """Full-width ``arch`` at REC_LAYERS' depth with seeded random bf16
+    weights on the card, softmax ``kind``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
     from repro_torch.models.model import Model
 
-    model = Model(get_config(arch, softmax=SoftmaxSpec(kind)))
+    model = Model(get_config(arch, softmax=SoftmaxSpec(kind), n_layers=REC_LAYERS[arch]))
     return model, model.init(torch.Generator("cuda").manual_seed(0))
 
 
@@ -4822,7 +4863,7 @@ def recurrent_generate(model, params, prompts):
     del got, ref, d, rows.rows
     print(f"  {label}: decoded logits against Model.train_logits over the {p + REC_MAX_NEW}"
           f"-token sequences: max |diff| {tf['max']:.4g} (first step {tf['first_step_max']:.4g}"
-          f"), RMS {tf['rms']:.4g} (limits {tol}, RMS {rms_tol})", flush=True)
+          f"), RMS {tf['rms']:.4g} (limits {tol:.4g}, RMS {rms_tol:.4g})", flush=True)
     # graph == op by op == eager over the first REC_OP_STEPS steps
     g32 = Engine(model, params, max_new=REC_OP_STEPS)
     o32 = op_by_op(Engine(model, params, max_new=REC_OP_STEPS))
@@ -4883,16 +4924,16 @@ def recurrent_generate(model, params, prompts):
 # hymba-1.5b's serve (c) against a teacher-forced pass and, step by step,
 # pallas against jnp: phase 6's rules with the floors this model reads on
 # the H100, where the window layers' rings and the SSM recurrence add
-# roundings olmo-1b's serve does not have. The largest sound readings over
-# the runs in PERF.md (phase 17), each limit at least 1.3 times its own:
-# a logit against the forward max 0.2422 (the jnp serve), RMS 0.04207 (a
-# per-request eager generate); pallas against jnp step by step max 0.1758,
-# RMS 0.02216. The control (K2 leaving out each sequence's first page)
-# read max 2.662-3.201, RMS 0.4353-0.4386.
-HYMBA_LOGIT_TOL = 0.32
-HYMBA_LOGIT_RMS_TOL = 0.055
-HYMBA_ALIGNED_TOL = 0.25
-HYMBA_ALIGNED_RMS_TOL = 0.029
+# roundings olmo-1b's serve does not have. The largest sound readings at
+# REC_LAYERS' depth, the same in every run (PERF.md, phase 17), each limit
+# 1.3 times its own: a logit against the forward max 0.1777 (the pallas
+# serve), RMS 0.03221 (a per-request eager generate); pallas against jnp
+# step by step max 0.1172, RMS 0.0165. The control (K2 leaving out each
+# sequence's first page) reads max 2.352, RMS 0.3856.
+HYMBA_LOGIT_TOL = 1.3 * 0.1777
+HYMBA_LOGIT_RMS_TOL = 1.3 * 0.03221
+HYMBA_ALIGNED_TOL = 1.3 * 0.1172
+HYMBA_ALIGNED_RMS_TOL = 1.3 * 0.0165
 
 
 def swap_round_trip_nested(cfg, num_blocks, slots=8, C=1024, bs=16):
@@ -4995,7 +5036,7 @@ def recurrent_spec(model, params, reqs, kernel, plain, plain_rows):
     """(e) The speculative serve (n-gram drafts of SPEC_K), graphed, each
     round one replay: tokens and every served logit row bitwise equal to the
     plain serve's; launches K2 3 x rounds, every call at (SPEC_K + 1, 5 x
-    (SPEC_K + 1)) (hymba), K1 32 x requests + 29 x (SPEC_K + 1) x rounds
+    (SPEC_K + 1)) (hymba), K1 n_layers x requests + n_window x (SPEC_K + 1) x rounds
     (each window layer's ring scan), none for mamba2; one replay a round
     after the first; acceptance, and ms a round of a warm serve
     (``spec_timing``) beside the plain serve's warm graphed timing where
@@ -5077,7 +5118,7 @@ def rec_plain(model, params, reqs, kernel):
 
 
 def phase17_recurrent():
-    """The recurrent families at full width and depth (phase 17): (a)
+    """The recurrent families at full width, REC_LAYERS deep (phase 17): (a)
     mamba2-780m generate, (b) hymba-1.5b generate, (c) hymba-1.5b serve
     through K2 (D 64, GQA 25/5) and K1, (d) both chunked and preempting,
     (e) both served speculatively. Every gate is checked at the end."""
@@ -5089,7 +5130,7 @@ def phase17_recurrent():
     for arch in REC_ARCHS:
         model, params = rec_model(arch)
         cfg = model.cfg
-        print(f"recurrent: {cfg.name} full width and depth ({cfg.param_count() / 1e9:.3f} B "
+        print(f"recurrent: {cfg.name} full width ({cfg.param_count() / 1e9:.3f} B "
               f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.ssm_nheads} SSM "
               f"heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}"
               + (f", attention {cfg.n_heads} / {cfg.n_kv_heads} heads x {cfg.d_head}, window "
@@ -5355,14 +5396,25 @@ def qwen_distinct_streams():
             "failing_checks": [] if ok else ["distinct_streams_card_vs_cpu"]}
 
 
+# qwen2-vl-7b's serve at QWEN_LAYERS' depth against the teacher-forced pass
+# and pallas against jnp step by step: phase 6's rules at 1.3 times the
+# floors every run read on the H100 (PERF.md, phase 18): a logit max
+# 0.07812 (the pallas serve), RMS 0.01262 (the pallas serve); aligned max
+# 0.07031, RMS 0.01152. The control (K2 leaving out each sequence's first
+# page) reads max 0.8525, RMS 0.1093.
+QWEN_LOGIT_TOL, QWEN_LOGIT_RMS_TOL = 1.3 * 0.07812, 1.3 * 0.01262
+QWEN_ALIGNED_TOL, QWEN_ALIGNED_RMS_TOL = 1.3 * 0.07031, 1.3 * 0.01152
+
+
 def qwen_model():
-    """Full-width qwen2-vl-7b, seeded bf16 weights on the card, its QKV
-    biases drawn N(0, QWEN_BIAS_STD)."""
+    """Full-width qwen2-vl-7b at QWEN_LAYERS' depth, seeded bf16 weights on
+    the card, its QKV biases drawn N(0, QWEN_BIAS_STD)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
     from repro_torch.models.model import Model
 
-    model = Model(get_config("qwen2-vl-7b", softmax=SoftmaxSpec("int_pallas")))
+    model = Model(get_config("qwen2-vl-7b", softmax=SoftmaxSpec("int_pallas"),
+                             n_layers=QWEN_LAYERS))
     params = model.init(torch.Generator("cuda").manual_seed(0))
     g = torch.Generator("cuda").manual_seed(1)
     attn = params["stack"]["layers"]["attn"]
@@ -5385,7 +5437,7 @@ def phase18_encdec_mrope():
     """The encoder-decoder and M-RoPE families (item 11's last bullets) at
     full width: (a) whisper-base serving (``whisper_serve``) and its smoke
     config on the card against the CPU; (b) qwen2-vl-7b through the graphed
-    generate (phase 4's checks, K1 28 x 32; int == int_pallas bitwise),
+    generate (phase 4's checks, K1 14 x 32; int == int_pallas bitwise),
     served from the bf16 pool through K2 at GQA 28/4 (``serve_phase``:
     phase 6's checks and limits, graph == op by op on 1 request,
     a control failing the limits), and the distinct-streams prefill, card
@@ -5454,8 +5506,8 @@ def phase18_encdec_mrope():
     reqs = qwen_trace(cfg.vocab)
     out["qwen2-vl-7b serve"] = serve_phase(
         "qwen2-vl-7b", reqs, ServeOptions(**QWEN_OPTIONS), fused=paged_ops.paged_attention_rows,
-        eager_n=1, logit_tol=LOGIT_TOL, logit_rms_tol=LOGIT_RMS_TOL,
-        aligned_tol=LOGIT_TOL, aligned_rms_tol=ALIGNED_RMS_TOL,
+        eager_n=1, logit_tol=QWEN_LOGIT_TOL, logit_rms_tol=QWEN_LOGIT_RMS_TOL,
+        aligned_tol=QWEN_ALIGNED_TOL, aligned_rms_tol=QWEN_ALIGNED_RMS_TOL,
         max_new=max(r.max_new for r in reqs), model=model, params=params, control=True)
     del model, params
     torch.cuda.empty_cache()
@@ -5828,9 +5880,21 @@ def _stripe_to_other_slot(swap_write):
     return write
 
 
+def _d_skip_dropped(ssm_decode):
+    """A decode step without the SSM's D skip (y = C . state alone); the
+    forward pass keeps it, so only REC_GEN_TOL can see it."""
+    def decode(p, x_in, cache, cfg, ctx):
+        return ssm_decode(dict(p, D=torch.zeros_like(p["D"])), x_in, cache, cfg, ctx)
+    return decode
+
+
 # Known faults of the recurrent paths, patched into the port for a run:
-# (module, attribute, wrapper of the original, the runs that read it).
+# (module or modules, attribute, wrapper of the original, the runs that
+# read it).
 REC_FAULTS = {
+    "the SSM decode step drops its D skip": (
+        ("repro_torch.models.transformer", "repro_torch.models.hybrid"), "ssm_decode",
+        _d_skip_dropped, "generate"),
     "commit_staged selects the recurrent snapshot one step late": (
         "repro_torch.models.kv_cache", "commit_staged", _select_one_late, "spec"),
     "attn_decode_ring writes slot (pos + 1) % W": (
@@ -5858,8 +5922,10 @@ def _rec_serve_logits(model, params, reqs):
 
 
 def phase17_fault_control():
-    """Phase 17's checks against the three faults of REC_FAULTS, each run
-    with the fault patched in: the speculative serves of both models
+    """Phase 17's checks against the four faults of REC_FAULTS, each run
+    with the fault patched in: both models' generate against the forward
+    pass (``recurrent_generate``; the D skip, which only REC_GEN_TOL can
+    catch, so it must be caught there), the speculative serves of both models
     (``recurrent_spec``: equal to the plain serve, launches, widths), hymba's
     generate (``recurrent_generate``: the logits against the forward pass,
     the ring positions, graph == op by op, int == int_pallas) and its
@@ -5882,11 +5948,17 @@ def phase17_fault_control():
         for fault, (mod, attr, wrap, run) in REC_FAULTS.items():
             if run == "ring" and not cfg.uses_attention:
                 continue
-            m = importlib.import_module(mod)
-            sound = getattr(m, attr)
-            setattr(m, attr, wrap(sound))
+            mods = [importlib.import_module(m) for m in
+                    (mod if isinstance(mod, tuple) else (mod,))]
+            sound = [getattr(m, attr) for m in mods]
+            for m, f in zip(mods, sound):
+                setattr(m, attr, wrap(f))
             try:
-                if run == "spec":
+                if run == "generate":
+                    caught = recurrent_generate(model, params, prompts)["failing_checks"]
+                    check({"logit_max", "logit_rms"} & set(caught),
+                          f"phase 17 fault control: {arch}, {fault} passes REC_GEN_TOL")
+                elif run == "spec":
                     caught = recurrent_spec(model, params, reqs, kernel, plain,
                                             plain_rows)["failing_checks"]
                 elif run == "ring":
@@ -5896,7 +5968,8 @@ def phase17_fault_control():
                     caught = recurrent_chunked_preempt(model, params, creqs, kernel, plain,
                                                        plain_rows)["failing_checks"]
             finally:
-                setattr(m, attr, sound)
+                for m, f in zip(mods, sound):
+                    setattr(m, attr, f)
             results[f"{arch}, {fault}"] = caught
             print(f"phase 17, {arch}, {fault}: caught by {caught}", flush=True)
             check(caught, f"phase 17 fault control: {arch}, {fault} caught by no check")
@@ -6280,6 +6353,386 @@ class _OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+# ----------------------------------------------------------------- phase 19
+
+# Training (item 13): full-width, full-depth olmo-1b from f32 master
+# weights, bf16 compute, every layer rematerialised (cfg.remat "full"),
+# Alg. 1 at BEST (``int``), the train launcher's AdamW and schedule at
+# ``--steps 8 --lr 1e-3`` (cosine over TRAIN_STEPS steps, warmup 1) on one
+# SyntheticCorpus batch repeated. At the launcher's default lr 1e-2 the
+# full-width loss rose (11.25 -> 13.94 by step 4, 11.58 at step 8 on the
+# H100), and so does the reference's: at 1 layer on the CPU both packages
+# spike at steps 4-5, and at 1e-3 both fall to 0.03 by step 4 and stay
+# there (``python tests/test_torch_training.py``; PERF.md §6, training
+# and checkpoints).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 8, 1e-3
+# The loss must fall by at least this many nats over the TRAIN_STEPS steps
+# on the repeated batch.
+TRAIN_LOSS_DROP = 1.0
+# The smoke config's train step on the card against the CPU, both in f32
+# (no TF32), from the same weights, as tests/test_torch_training.py holds
+# the port against the reference: the loss within 1e-5 relative, each
+# gradient leaf within 1e-4 in relative L2 norm (cuBLAS and the CPU sum in
+# other orders; an Alg.-1 code may move at an ulp), each updated leaf
+# within 2.2 lr at most (Adam's first step is sign-like: an entry whose
+# gradient is near zero may step the other way) and 2e-5 in mean.
+TRAIN_CARD_CPU_LOSS, TRAIN_CARD_CPU_GRAD = 1e-5, 1e-4
+TRAIN_CARD_CPU_UPD_LR, TRAIN_CARD_CPU_UPD_MEAN = 2.2, 2e-5
+# microbatches=2 against 1 on the card: the two halves' gradients averaged
+# against the whole batch's, 1e-5 in relative L2 norm per leaf; the loss
+# 1e-6 relative.
+TRAIN_MICRO_GRAD, TRAIN_MICRO_LOSS = 1e-5, 1e-6
+# The serve launcher's run: olmo-1b at full width, warm-trained
+# TRAIN_WARM_STEPS steps against fp, then served through K1 and K2.
+TRAIN_WARM_STEPS, TRAIN_WARM_REQUESTS = 8, 4
+TRAIN_WARM_ARGS = ["--arch", "olmo-1b", "--no-smoke", "--softmax", "int_pallas",
+                   "--warm-steps", str(TRAIN_WARM_STEPS), "--continuous", "--paged",
+                   "--kernel", "pallas", "--requests", str(TRAIN_WARM_REQUESTS),
+                   "--max-new", "8"]
+
+
+def _qk_leaves(tree):
+    """(path, tensor) of every query / key projection weight of a params
+    (or gradient) tree."""
+    return [(k, v) for k, v in _named_leaves(tree) if k.endswith(("wq/w", "wk/w"))]
+
+
+def _train_leaves(state):
+    """(path, tensor) of every leaf of a TrainState: params, moments, step."""
+    return ([("params/" + k, v) for k, v in _named_leaves(state.params)]
+            + [("opt/m/" + k, v) for k, v in _named_leaves(state.opt.m)]
+            + [("opt/v/" + k, v) for k, v in _named_leaves(state.opt.v)]
+            + [("opt/step", state.opt.step)])
+
+
+def train_full_width():
+    """(a): TRAIN_STEPS steps of full-width olmo-1b on one repeated batch.
+    Gates: the loss finite every step and falling by TRAIN_LOSS_DROP; the
+    final params' gradients under ``int`` exactly zero on every query and
+    key projection and their global norm finite and > 0; under ``int_ste``
+    (the STE backward) those leaves non-zero. Times: ms a step (median of
+    the steps after the first, host clock around synchronized steps),
+    tokens/s, the AdamW update alone, peak memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import AdamW, cosine_schedule, global_norm
+    from repro_torch.training.step import init_state, make_grad_fn, make_train_step, to_device
+
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int"))
+    check(cfg.remat == "full", f"olmo-1b remat {cfg.remat!r}")
+    model = Model(cfg)                                   # bf16 compute on the card
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, max(TRAIN_STEPS // 10, 1), TRAIN_STEPS))
+    step = make_train_step(model, opt)
+    batch = to_device(SyntheticCorpus(cfg.vocab, seed=1234).batch(TRAIN_BATCH, TRAIN_SEQ,
+                                                                  seed=0), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, opt, torch.Generator("cuda").manual_seed(0))
+    masters = {str(v.dtype) for _, v in _named_leaves(state.params)}
+    losses, gnorms, walls = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(walls[1:])
+    print(f"  training {cfg.name} full width and depth ({cfg.param_count() / 1e9:.3f} B "
+          f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}), master weights "
+          f"{sorted(masters)}, compute bf16, remat {cfg.remat}, softmax int, AdamW lr "
+          f"{TRAIN_LR:g} cosine over {TRAIN_STEPS} steps, batch {TRAIN_BATCH} x {TRAIN_SEQ} repeated: "
+          f"losses {[round(v, 4) for v in losses]}, grad norms "
+          f"{[round(v, 4) for v in gnorms]}", flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"training: non-finite loss or grad norm {losses} {gnorms}")
+    check(losses[-1] <= losses[0] - TRAIN_LOSS_DROP,
+          f"training: loss {losses[0]} -> {losses[-1]}, expected a drop of "
+          f">= {TRAIN_LOSS_DROP}")
+    check(masters == {"torch.float32"}, f"training: master weights {masters}")
+
+    # the gradients of the final params: zero on q / k under int, not under the STE
+    grads, _ = make_grad_fn(model)(state.params, batch)
+    qk = _qk_leaves(grads)
+    gn = float(global_norm(grads))
+    zero_qk = all(not bool(v.any()) for _, v in qk)
+    del grads
+    ste = Model(cfg.with_softmax(SoftmaxSpec("int_ste")))
+    grads, _ = make_grad_fn(ste)(state.params, batch)
+    ste_qk = {k: float(v.abs().max()) for k, v in _qk_leaves(grads)}
+    del grads
+    print(f"  training gradients: under int every query / key projection leaf exactly zero "
+          f"{zero_qk} ({[k for k, _ in qk]}), global norm {gn:.6g}; under int_ste their "
+          f"largest |g| {ste_qk}", flush=True)
+    check(len(qk) == 2 and zero_qk, "training: int gives a query / key projection a gradient")
+    check(np.isfinite(gn) and gn > 0, f"training: grad norm {gn}")
+    check(all(v > 0 for v in ste_qk.values()), f"training: int_ste q / k gradients {ste_qk}")
+
+    # the AdamW update alone, on gradients of the step's size and layout
+    grads = state.opt.m
+    upd = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = opt.update(grads, state.opt, state.params)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - t0)
+        del new
+    update_ms = statistics.median(upd) * 1e3
+    # 6 N T: forward and backward products of the N weights a token meets
+    # (the tied embedding's read-out included), at the bf16 peak; the
+    # recomputed forward of remat "full" adds 2 N T on top
+    n_mm = sum(v.numel() for k, v in _named_leaves(state.params) if k.endswith("/w"))
+    flops = 6 * n_mm * tokens
+    rec = {"arch": cfg.name, "params_b": cfg.param_count() / 1e9, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+           "step_walls_s": walls, "ms_per_step": step_s * 1e3, "tok_s": tokens / step_s,
+           "optimizer_update_ms": update_ms, "peak_gib": peak,
+           "model_flops_per_step": flops, "flops_bound_ms": flops / 989e12 * 1e3,
+           "int_qk_grads_zero": zero_qk, "grad_norm_final": gn, "int_ste_qk_max": ste_qk}
+    print(f"  training: {step_s * 1e3:.1f} ms a step (median of steps 2-{TRAIN_STEPS}; "
+          f"first {walls[0] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, AdamW update "
+          f"alone {update_ms:.2f} ms (median of 3), peak device memory {peak:.2f} GiB; 6 N T = "
+          f"{flops:.3e} FLOPs a step, {rec['flops_bound_ms']:.2f} ms at the bf16 peak "
+          f"(989 TFLOP/s), {rec['flops_bound_ms'] / (step_s * 1e3) * 100:.1f} % of it "
+          f"({card_line()})", flush=True)
+    del state, grads, model, ste
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_card_vs_cpu():
+    """(b): the smoke config's train step on the card against the CPU, f32,
+    from the same weights: loss, every gradient leaf and every updated leaf
+    within the TRAIN_CARD_CPU_* bounds; microbatches=2 against 1 on the card
+    within TRAIN_MICRO_*; the compression's payload and residual adding up
+    to the gradients and the old residual bitwise on the card."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models.model import Model
+    from repro_torch.training.grad_compression import compress, decompress, init_error_feedback
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.step import TrainState, make_grad_fn, make_train_step
+
+    scfg = smoke_config("olmo-1b", softmax=SoftmaxSpec("int"))
+    models = {"cpu": Model(scfg, dtype=torch.float32, device="cpu"),
+              "cuda": Model(scfg, dtype=torch.float32)}
+    params = models["cpu"].init(torch.Generator("cpu").manual_seed(0), dtype=torch.float32)
+    params = {"cpu": params, "cuda": _tree_to(params, "cuda")}
+    batch = SyntheticCorpus(scfg.vocab, seed=1234).batch(4, 64, seed=1)
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, 1, TRAIN_STEPS))
+    lr = float(opt.lr(torch.tensor(1, dtype=torch.int32)))
+    grads, mets, new = {}, {}, {}
+    for dev, m in models.items():
+        grads[dev], mets[dev] = make_grad_fn(m)(params[dev], batch)
+        p = params[dev]
+        new[dev], _ = make_train_step(m, opt)(TrainState(p, opt.init(p), None), batch)
+    loss_rel = abs(float(mets["cuda"]["loss"]) / float(mets["cpu"]["loss"]) - 1)
+    g_rel, upd = {}, {}
+    for (k, c), (_, g) in zip(_named_leaves(grads["cpu"]), _named_leaves(grads["cuda"])):
+        g = g.cpu()
+        g_rel[k] = (0.0 if not c.any() and not g.any()
+                    else float(torch.linalg.norm(g - c) / torch.linalg.norm(c)))
+    for (k, c), (_, g) in zip(_named_leaves(new["cpu"].params), _named_leaves(new["cuda"].params)):
+        d = (g.cpu() - c).abs()
+        upd[k] = (float(d.max()), float(d.mean()))
+    worst_g = max(g_rel.items(), key=lambda kv: kv[1])
+    worst_u = max(upd.items(), key=lambda kv: kv[1][0])
+    print(f"  training, smoke {scfg.name} f32 card vs CPU, one step: loss {float(mets['cpu']['loss']):.7f} "
+          f"(card rel diff {loss_rel:.2e}, bound {TRAIN_CARD_CPU_LOSS}); worst gradient leaf "
+          f"{worst_g[0]} {worst_g[1]:.2e} in relative norm (bound {TRAIN_CARD_CPU_GRAD}); worst "
+          f"updated leaf {worst_u[0]} max {worst_u[1][0]:.2e} (bound {TRAIN_CARD_CPU_UPD_LR} x lr "
+          f"{lr:.0e}), mean {max(v[1] for v in upd.values()):.2e} (bound "
+          f"{TRAIN_CARD_CPU_UPD_MEAN})", flush=True)
+    check(loss_rel <= TRAIN_CARD_CPU_LOSS, f"training card vs CPU: loss {loss_rel}")
+    check(worst_g[1] <= TRAIN_CARD_CPU_GRAD, f"training card vs CPU: gradient {worst_g}")
+    check(all(mx <= TRAIN_CARD_CPU_UPD_LR * lr and mn <= TRAIN_CARD_CPU_UPD_MEAN
+              for mx, mn in upd.values()), f"training card vs CPU: updates {upd}")
+
+    g2, m2 = make_grad_fn(models["cuda"], microbatches=2)(params["cuda"], batch)
+    micro = max(float(torch.linalg.norm(b - a) / max(torch.linalg.norm(a), 1e-30))
+                for (_, a), (_, b) in zip(_named_leaves(grads["cuda"]), _named_leaves(g2)))
+    micro_loss = abs(float(m2["loss"]) / float(mets["cuda"]["loss"]) - 1)
+    ef = compress(grads["cuda"], init_error_feedback(grads["cuda"]))[1]   # a residual
+    payload, new_e = compress(g2, ef)
+    sums = all(torch.equal(p + e, g + r) for (_, p), (_, e), (_, g), (_, r) in zip(
+        _named_leaves(decompress(payload)), _named_leaves(new_e), _named_leaves(g2),
+        _named_leaves(ef)))
+    print(f"  training on the card: microbatches=2 against 1, worst gradient leaf "
+          f"{micro:.2e} in relative norm (bound {TRAIN_MICRO_GRAD}), loss {micro_loss:.2e} "
+          f"(bound {TRAIN_MICRO_LOSS}); grad_compress: payload.float() + new residual == "
+          f"g + residual bitwise on every leaf: {sums}", flush=True)
+    check(micro <= TRAIN_MICRO_GRAD and micro_loss <= TRAIN_MICRO_LOSS,
+          f"training: microbatches {micro}, {micro_loss}")
+    check(sums, "training: compressed payload + residual != gradients + residual")
+    return {"loss_rel": loss_rel, "worst_grad_rel": worst_g, "updates": upd,
+            "micro_grad_rel": micro, "micro_loss_rel": micro_loss, "compress_bitwise": sums}
+
+
+def train_checkpoint_round_trip():
+    """(c): olmo-1b at full width and 1 layer, 2 steps, saved into a
+    temporary directory under build/ (removed after); every restored leaf
+    (params, m, v, step) bitwise the saved one, and the step after the
+    restore bitwise the step from the live state, both under
+    torch.use_deterministic_algorithms (the embedding's gather accumulates
+    its gradient by index). Prints the bytes written and the seconds."""
+    import tempfile
+    import warnings
+
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.step import init_state, make_train_step, to_device
+
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int"), n_layers=1)
+    model = Model(cfg)
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, 1, TRAIN_STEPS))
+    step = make_train_step(model, opt)
+    batch = to_device(SyntheticCorpus(cfg.vocab, seed=1234).batch(TRAIN_BATCH, TRAIN_SEQ,
+                                                                  seed=2), "cuda")
+    was = torch.are_deterministic_algorithms_enabled()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with warnings.catch_warnings():
+        # cuBLAS has no flagged deterministic mode without a workspace setting
+        # made before the process starts; on one stream it repeats its bits
+        warnings.filterwarnings("ignore", message=".*Deterministic behavior.*")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            state = init_state(model, opt, torch.Generator("cuda").manual_seed(0))
+            for _ in range(2):
+                state, _ = step(state, batch)
+            with tempfile.TemporaryDirectory(prefix="ckpt_", dir=BUILD_DIR) as d:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = ckpt.save(d, 2, state)
+                save_s = time.perf_counter() - t0
+                nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+                template = init_state(model, opt, torch.Generator("cuda").manual_seed(1))
+                t0 = time.perf_counter()
+                got, at, _ = ckpt.restore(d, template)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                del template
+            same = {k: bool(torch.equal(a, b)) for (k, a), (_, b) in
+                    zip(_train_leaves(state), _train_leaves(got))}
+            live, _ = step(state, batch)
+            del state
+            back, _ = step(got, batch)
+            resumed = {k: bool(torch.equal(a, b)) for (k, a), (_, b) in
+                       zip(_train_leaves(live), _train_leaves(back))}
+        finally:
+            torch.use_deterministic_algorithms(was)
+    print(f"  checkpoint round trip, {cfg.name} full width, {cfg.n_layers} layer, after 2 steps: "
+          f"{nbytes} B written in {save_s:.2f} s, restored in {restore_s:.2f} s; every leaf "
+          f"bitwise (params, m, v, step) {all(same.values())} over {len(same)} leaves; the "
+          f"step after the restore == the live state's step, bitwise: {all(resumed.values())} "
+          f"({card_line()})", flush=True)
+    check(at == 2 and all(same.values()), f"checkpoint: restored leaves differ {same}")
+    check(all(resumed.values()), f"checkpoint: the resumed step differs {resumed}")
+    del live, back, got, model
+    torch.cuda.empty_cache()
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s, "leaves": len(same),
+            "bitwise": all(same.values()), "resumed_bitwise": all(resumed.values())}
+
+
+def train_warm_serve():
+    """(d): ``python -m repro_torch.launch.serve`` in-process with
+    TRAIN_WARM_ARGS: full-width olmo-1b warm-trained against fp, then served
+    through K1 (prefills) and K2 (paged decode) twice (the launcher's
+    warm-up serve and its reported one). The launch counters are zeroed
+    just before and read just after: K1 n_layers a prefill; K2 n_layers a
+    decode step, the wrappers counting the steps run op by op (each graph's
+    warm-up step) and each captured graph's replays adding the kernel calls
+    of one replay in its device trace (``path_launches``, which gates them
+    at n_layers K2 and nothing else); no other kernel. No leaked blocks,
+    finite tokens in range."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("olmo-1b")
+    reps, engines, orig = [], [], Engine.serve
+
+    def recording(self, *args, **kw):
+        rep = orig(self, *args, **kw)
+        reps.append(rep)
+        engines.append(self)
+        return rep
+
+    Engine.serve = recording
+    zero_counters()
+    t0 = time.perf_counter()
+    try:
+        rep = serve.main(TRAIN_WARM_ARGS)
+    finally:
+        Engine.serve = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = read_counters()
+    n_layers = cfg.n_layers
+    steps = sum(r.steps for r in reps)
+    replays = sum(r.step_replays for r in reps)
+    prefills = sum(len(r.results) for r in reps)
+    want = {k: 0 for k in counted}
+    want["K1"] = n_layers * prefills
+    want["K2"] = n_layers * (steps - replays)
+    print(f"  serve launcher {' '.join(TRAIN_WARM_ARGS)}: {wall:.1f} s (warm training, model "
+          f"build and both serves); serves {len(reps)}, decode steps {steps} ({replays} graph "
+          f"replays), prefills {prefills}; the wrappers' launches {counted} (expected {want}: "
+          f"K1 {n_layers} a prefill, K2 {n_layers} a step run op by op); leaked blocks "
+          f"{rep.leaked_blocks}", flush=True)
+    check(len(reps) == 2 and all(len(r.results) == TRAIN_WARM_REQUESTS for r in reps)
+          and all(e is engines[0] for e in engines), f"warm serve: {len(reps)} serves")
+    check(counted == want and counted["K1"] > 0 and counted["K2"] > 0,
+          f"warm serve: launches {counted}, expected {want}")
+    # the engine is the launcher's own, so every replay of its graphs was
+    # made in this run
+    replayed = replay_counts(engines[0])
+    check(sum(replayed.values()) == replays and replays > 0,
+          f"warm serve: graph replays {replayed}, the reports count {replays}")
+    label = "warm-trained serve olmo-1b"
+    traces = replay_trace(label, replayed_graphs(engines[0], replayed))
+    launches = path_launches(label, counted, replayed, traces,
+                             serve_launches(cfg, "K2", False, counted, 0, 1))
+    check(launches == serve_launches(cfg, "K2", False, launches, prefills, steps),
+          f"warm serve: launches {launches} with the replays, expected K1 {n_layers} a "
+          f"prefill and K2 {n_layers} a step")
+    check(rep.leaked_blocks == 0, f"warm serve: {rep.leaked_blocks} leaked blocks")
+    check(all(all(0 <= t < cfg.vocab for t in r.tokens) for r in rep.results),
+          "warm serve: tokens out of range")
+    return {"wall_s": wall, "serves": len(reps), "steps": steps, "replays": replays,
+            "prefills": prefills, "counted": counted, "launches": launches}
+
+
+def phase19_training():
+    """Training (item 13): (a) full-width olmo-1b training steps, (b) the
+    smoke step card vs CPU, (c) the checkpoint round trip, (d) the serve
+    launcher with --warm-steps. Seconds of each printed."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    out = {}
+    for name, fn in (("train", train_full_width), ("card vs cpu", train_card_vs_cpu),
+                     ("checkpoint", train_checkpoint_round_trip),
+                     ("warm serve", train_warm_serve)):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"  phase 19 ({name}): {out[name]['seconds']:.1f} s", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 19 in {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -6401,6 +6854,10 @@ def main():
                          "serve with 1500-frame requests; qwen2-vl-7b generate, serve on K2 at "
                          "GQA 28/4, distinct position streams)", phase18_encdec_mrope)
     print(f"phases 3-18: {time.perf_counter() - t_all:.1f} s", flush=True)
+    training = timed("phase 19 (training: full-width olmo-1b steps from f32 masters, the smoke "
+                     "step card vs CPU, a full-width checkpoint round trip, the serve launcher "
+                     "with --warm-steps)", phase19_training)
+    print(f"phases 3-19: {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # the kernels line
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
@@ -6424,7 +6881,8 @@ def main():
                       encdec_mrope["whisper-base serve"]["launches"]["K1"],
                   "generate qwen2-vl-7b":
                       encdec_mrope["qwen2-vl-7b generate"]["launches_K1"],
-                  "serve qwen2-vl-7b": encdec_mrope["qwen2-vl-7b serve"]["launches"]["K1"]}
+                  "serve qwen2-vl-7b": encdec_mrope["qwen2-vl-7b serve"]["launches"]["K1"],
+                  "warm-trained serve olmo-1b": training["warm serve"]["launches"]["K1"]}
     kernels = [{
         "name": "int_softmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_softmax.cu",
@@ -6455,7 +6913,9 @@ def main():
                              "spec serve hymba-1.5b":
                                  recurrent["hymba-1.5b spec serve"]["launches"]["K2"],
                              "serve qwen2-vl-7b":
-                                 encdec_mrope["qwen2-vl-7b serve"]["launches"]["K2"]},
+                                 encdec_mrope["qwen2-vl-7b serve"]["launches"]["K2"],
+                             "warm-trained serve olmo-1b":
+                                 training["warm serve"]["launches"]["K2"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_recs),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -6520,7 +6980,7 @@ def main():
                                 "olmo-1b chunked + preempting": chunked,
                                 "speculative": spec, "variants": variants},
                       "moe": moe, "recurrent": recurrent, "encdec_mrope": encdec_mrope,
-                      "kv_quantize_card_vs_cpu": quantize}), flush=True)
+                      "training": training, "kv_quantize_card_vs_cpu": quantize}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,6 +23,13 @@ compute dtype, where the reference casts what it reads), the dense
 ``enc_stack`` and ``enc_final_norm``, and ``dec_stack`` with its
 ``norm1`` / ``self`` / ``norm_x`` / ``cross`` / ``norm2`` / ``mlp``
 subtrees. Qwen2-VL's QKV biases are dense biases (``"b"``).
+
+With ``dtype=torch.float32`` the weights stay the reference's f32 values:
+the master weights training takes (the forward casts them to the compute
+dtype at each use, as the reference does). ``train_state_from_numpy``
+carries a whole reference ``TrainState`` over (params, AdamW moments and
+step, the compression residual), and ``cast_weights`` turns master
+weights into a serving tree.
 """
 
 from __future__ import annotations
@@ -30,11 +37,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.step import TrainState
+
+# the leaves the reference casts to the compute dtype where it reads them
+_WEIGHTS = ("w", "b", "pos_embed")
+
 
 def params_from_numpy(tree, cfg, device, dtype: torch.dtype = torch.bfloat16):
     """Nested dict of numpy arrays (reference layout) -> nested dict of
-    tensors on ``device`` for ``repro_torch.models.model.Model(cfg, dtype)``.
-    Raises on a leaf or a stack segment the port does not know."""
+    tensors on ``device`` for ``repro_torch.models.model.Model(cfg)``: the
+    weights in ``dtype`` (the model's compute dtype for serving; f32 for
+    master weights), the rest f32. Raises on a leaf or a stack segment the
+    port does not know."""
     if cfg.family == "encdec":
         top = {"embed", "final_norm", "head", "pos_embed", "enc_stack", "enc_final_norm",
                "dec_stack"}
@@ -54,7 +69,29 @@ def params_from_numpy(tree, cfg, device, dtype: torch.dtype = torch.bfloat16):
                        "conv_w", "conv_b", "dt_bias", "A_log", "D"):
             raise ValueError(f"unexpected parameter leaf {key!r}")
         arr = np.array(node, dtype=np.float32)  # a writable copy
-        dt = dtype if key in ("w", "b", "pos_embed") else torch.float32
+        dt = dtype if key in _WEIGHTS else torch.float32
         return torch.from_numpy(arr).to(device=device, dtype=dt)
 
     return walk(tree, None)
+
+
+def cast_weights(params, dtype: torch.dtype):
+    """A parameter tree with its weights (the leaves ``params_from_numpy``
+    gives the compute dtype) cast to ``dtype``, the rest as they are:
+    trained f32 master weights -> the tree ``Engine`` serves."""
+    if isinstance(params, dict):
+        return {k: (v.to(dtype) if k in _WEIGHTS and not isinstance(v, dict)
+                    else cast_weights(v, dtype)) for k, v in params.items()}
+    return params
+
+
+def train_state_from_numpy(state, cfg, device) -> TrainState:
+    """The reference's ``TrainState(params, AdamWState(step, m, v),
+    error_fb)`` as numpy leaves (``jax.tree.map(np.asarray, state)``) ->
+    the port's, on ``device``: params, moments and residual in f32, the
+    step an int32 scalar."""
+    params, (step, m, v), ef = state
+    f32 = lambda t: params_from_numpy(t, cfg, device, torch.float32)
+    step = torch.as_tensor(np.array(step, dtype=np.int32), device=device)
+    return TrainState(f32(params), AdamWState(step, f32(m), f32(v)),
+                      None if ef is None else f32(ef))

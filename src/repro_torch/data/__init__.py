@@ -1,1 +1,2 @@
-"""Synthetic data of the port (a copy of the reference's corpus)."""
+"""Data of the port: the synthetic corpus (a copy of the reference's) and
+document packing."""

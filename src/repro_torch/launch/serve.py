@@ -37,6 +37,14 @@ through the same paths; their chunked prefill accrues the budget and
 prefills whole, and neither shares prefixes. A prompt longer than
 ``ssm_chunk`` (256) must be a multiple of it, as in the reference.
 
+The weights: ``--warm-steps N`` (120 by default) trains N AdamW steps
+from seed 0's f32 master weights on the synthetic corpus first (against
+``fp`` when the serving softmax cannot be differentiated: ``int_pallas``,
+``ap_sim``), ``--ckpt-dir DIR`` restores the newest training checkpoint
+there instead (the port's or the reference's), ``--warm-steps 0`` serves
+seed 0's weights as drawn. Trained or restored masters are cast to the
+compute dtype for ``Engine``.
+
 Runs on the card; ``--device cpu`` runs the plain PyTorch path. Flags of
 later slices are accepted and raise with the ROADMAP.md item that ports them.
 """
@@ -52,21 +60,22 @@ import torch
 
 from repro_torch.backends import get_backend
 from repro_torch.backends.registry import available_backends
+from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.convert import cast_weights
 from repro_torch.core.precision import PrecisionConfig
-from repro_torch.core.softmax_variants import SoftmaxSpec
+from repro_torch.core.softmax_variants import SoftmaxSpec, spec_backend
 from repro_torch.data.synthetic import SyntheticCorpus
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.options import ServeOptions
 from repro_torch.serving.sampler import available_samplers
 from repro_torch.serving.scheduler import random_trace
+from repro_torch.training.optimizer import AdamW, constant_schedule, cosine_schedule
+from repro_torch.training.step import init_state, make_train_step
 
 # flag -> (value that means "unset", ROADMAP.md item of the slice that ports it)
 LATER_SLICES = {
-    "ckpt_dir": (None, "Queue 1 item 13 (training and checkpoints)"),
-    "warm_steps": (0, "Queue 1 item 13 (training: warm steps); pass "
-                      "--warm-steps 0 to serve seeded weights"),
     "shards": (0, "Queue 1 item 14 (tensor-parallel serving)"),
 }
 
@@ -155,9 +164,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, kv_quant=True,
                                   kv_quant_scheme=args.kv_quant_scheme)
     model = Model(cfg, device=args.device)
-    params = model.init(torch.Generator(model.device).manual_seed(0))
-    print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters from seed 0 "
-          f"on {model.device}")
+    corpus = SyntheticCorpus(cfg.vocab, seed=1234)
+    params = serving_params(model, args, corpus)
 
     sampler_kw = {}
     if args.sampler == "temperature":
@@ -168,7 +176,6 @@ def main(argv=None):
                  eos_id=args.eos_id, **sampler_kw)
     if args.continuous:
         return serve_trace(eng, args, serve_options)
-    corpus = SyntheticCorpus(cfg.vocab, seed=1234)
     prompts = corpus.sample(args.batch, args.prompt_len, seed=777)[:, :args.prompt_len]
     mode = "eager" if args.eager else "fused"
     # warm-up: kernel build, library init, the memoized AP cost meter
@@ -188,6 +195,33 @@ def main(argv=None):
     else:
         print("softmax AP cost: n/a (unmetered fp backend)")
     return res
+
+
+def serving_params(model: Model, args, corpus: SyntheticCorpus):
+    """The weights ``Engine`` serves, in the model's compute dtype: restored
+    from ``--ckpt-dir``, warm-trained ``--warm-steps`` steps, or seed 0's
+    as drawn. Training runs against ``fp`` when the serving softmax cannot
+    be differentiated, as the reference's launcher does."""
+    cfg, gen = model.cfg, torch.Generator(model.device).manual_seed(0)
+    print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters on {model.device}")
+    if not (args.ckpt_dir or args.warm_steps):
+        print("serving seed 0's weights as drawn")
+        return model.init(gen)
+    train_model = model if spec_backend(cfg.softmax).differentiable else Model(
+        cfg.with_softmax(SoftmaxSpec("fp")), device=model.device)
+    if args.ckpt_dir:
+        opt = AdamW(lr=constant_schedule(1e-3))
+        state, step, _ = ckpt.restore(args.ckpt_dir, init_state(train_model, opt, gen))
+        print(f"restored step {step} from {args.ckpt_dir}")
+    else:
+        opt = AdamW(lr=cosine_schedule(1e-2, 20, args.warm_steps))
+        state = init_state(train_model, opt, gen)
+        step_fn = make_train_step(train_model, opt)
+        for i in range(args.warm_steps):
+            state, met = step_fn(state, corpus.batch(16, 64, seed=i))
+        print(f"warm-trained {args.warm_steps} steps "
+              f"(softmax {train_model.cfg.softmax.kind}), loss={float(met['loss']):.3f}")
+    return cast_weights(state.params, model.ctx.dtype)
 
 
 def serve_trace(eng: Engine, args, serve_options: ServeOptions):

@@ -2,11 +2,13 @@
 ``src/repro/models/layers.py``).
 
 Parameters are nested dicts of tensors in the reference's tree layout
-(``convert.params_from_numpy`` maps one onto the other). The reference keeps
-f32 parameters and casts each to the compute dtype where it is used
-(``ctx.cast(p["w"])``); the port stores weight matrices already in the
-compute dtype, which gives the same values at every use. Norm parameters
-stay f32 because the reference reads them in f32.
+(``convert.params_from_numpy`` maps one onto the other). Every weight read
+casts to the compute dtype where the reference casts (``ctx.cast(p["w"])``),
+so a tree of f32 master weights (training) computes in the compute dtype,
+and under autograd each use's cotangent comes back to f32 before the uses
+are summed, as in JAX. A serving tree stores its weights already in the
+compute dtype, where the cast is the tensor itself: no op, the same bits.
+Norm parameters stay f32 because the reference reads them in f32.
 """
 
 from __future__ import annotations
@@ -49,9 +51,9 @@ def dense_apply(p, x, ctx: Ctx, min_rows: int = 0):
     """``x @ w (+ b)``, padded to ``max(ctx.min_rows, min_rows)`` rows
     (``_rows_matmul``); the bias (Qwen2-style QKV biases) added to the
     product in the compute dtype, as the reference."""
-    y = _rows_matmul(x, p["w"], max(ctx.min_rows, min_rows))
+    y = _rows_matmul(x, ctx.cast(p["w"]), max(ctx.min_rows, min_rows))
     if "b" in p:
-        y = y + p["b"]
+        y = y + ctx.cast(p["b"])
     return y
 
 
@@ -87,12 +89,13 @@ def norm_apply(p, x, kind: str, ctx: Ctx, eps: float = 1e-5):
 
 
 def embed_apply(p, tokens, ctx: Ctx):
-    return p["w"][tokens]
+    """The rows of ``tokens``, cast after the gather as the reference's."""
+    return ctx.cast(p["w"][tokens])
 
 
 def embed_logits(p, x, ctx: Ctx, min_rows: int = 0):
     """Tied read-out: x @ E^T, padded to ``min_rows`` rows (``_rows_matmul``)."""
-    return _rows_matmul(x, p["w"].T, min_rows)
+    return _rows_matmul(x, ctx.cast(p["w"]).T, min_rows)
 
 
 _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}

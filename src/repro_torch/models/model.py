@@ -163,16 +163,22 @@ class Model:
 
     # ------------------------------------------------------------------ init
 
-    def init(self, generator: Optional[torch.Generator] = None):
+    def init(self, generator: Optional[torch.Generator] = None,
+             dtype: Optional[torch.dtype] = None):
         """Random parameters with the reference's init distributions (normal,
         std 0.02 for the embedding and 1/sqrt(d_in) for each dense layer and
         expert matrix), drawn from ``generator`` (on the model's device;
-        seed 0 when None). Weight matrices are stored in the compute dtype,
-        norm parameters in f32; expert matrices are drawn one layer at a
-        time (a stacked f32 draw of dbrx-132b's ``gate`` alone would take
-        16.9 GB). The torch and JAX generators differ, so parity tests load
-        the reference's parameters through ``convert.params_from_numpy``."""
-        cfg, dev, dt = self.cfg, self.device, self.ctx.dtype
+        seed 0 when None). Weight matrices are stored in ``dtype``: the
+        compute dtype when None (serving), f32 for training's master weights,
+        which the forward casts at each use as the reference does; each is
+        drawn in f32 and then cast, so a compute-dtype tree equals the f32
+        tree cast. Norm parameters are f32; expert matrices are drawn one
+        layer at a time (a stacked f32 draw of dbrx-132b's ``gate`` alone
+        would take 16.9 GB). The torch and JAX generators differ, so parity
+        tests load the reference's parameters through
+        ``convert.params_from_numpy``."""
+        cfg, dev = self.cfg, self.device
+        dt = self.ctx.dtype if dtype is None else dtype
         g = generator
         if g is None and dev.type != "meta":
             g = torch.Generator(dev).manual_seed(0)
@@ -414,8 +420,9 @@ class Model:
         x = self._dec_embed(p, tokens, 0)
         positions = positions_for(tokens.shape, device=tokens.device)
         sp = p["dec_stack"]
+        block = tfm.remat(tfm.dec_block_apply, cfg.remat, sp)
         for i in telemetry.scan_range(tfm.n_stacked(sp)):
-            x = tfm.dec_block_apply(tfm.layer_params(sp, i), x, enc, cfg, ctx, positions)
+            x = block(tfm.layer_params(sp, i), x, enc, cfg, ctx, positions)
         return self._head(p, x)
 
     def _encdec_prefill(self, p, batch, cache_len: int):

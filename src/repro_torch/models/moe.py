@@ -97,14 +97,14 @@ def _route(p, x, cfg, ctx: Ctx):
     return c, target, w_flat, aux
 
 
-def _experts_ffn(p, buf, cfg):
+def _experts_ffn(p, buf, cfg, ctx: Ctx):
     """The expert GLU over buf [E, R, d] (R = B * C rows an expert):
     act(buf @ gate) * (buf @ up) @ down, each a ``torch.bmm`` over E at its
     own R rows (``ctx.min_rows`` pads dense products only: a decode step
     and a verify block both run these at C = 4)."""
-    gate = torch.bmm(buf, p["gate"]["w"])
-    up = torch.bmm(buf, p["up"]["w"])
-    return torch.bmm(act_fn(cfg.act)(gate) * up, p["down"]["w"])
+    gate = torch.bmm(buf, ctx.cast(p["gate"]["w"]))
+    up = torch.bmm(buf, ctx.cast(p["up"]["w"]))
+    return torch.bmm(act_fn(cfg.act)(gate) * up, ctx.cast(p["down"]["w"]))
 
 
 def moe_apply(p, x, cfg, ctx: Ctx):
@@ -125,7 +125,7 @@ def moe_apply(p, x, cfg, ctx: Ctx):
     buf = torch.zeros((b * rows, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, index, x[:, :, None].expand(b, s, k, d).reshape(-1, d))
     buf = buf.view(b, rows, d)[:, :e * c].reshape(b, e, c, d)
-    out = _experts_ffn(p, buf.transpose(0, 1).reshape(e, b * c, d), cfg)
+    out = _experts_ffn(p, buf.transpose(0, 1).reshape(e, b * c, d), cfg, ctx)
     out = out.reshape(e, b, c, d).transpose(0, 1).reshape(b, e * c, d)
     out = F.pad(out, (0, 0, 0, 1)).reshape(b * rows, d)   # sentinel row reads 0
     y_rep = out.index_select(0, index).reshape(b, s, k, d)

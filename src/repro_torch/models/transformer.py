@@ -25,7 +25,13 @@ which ``kv_cache.commit_staged`` resolves.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.backends import telemetry
 from repro_torch.models.attention import (
@@ -40,7 +46,7 @@ from repro_torch.models.attention import (
     mask_positions,
     project_qkv,
 )
-from repro_torch.models.kv_cache import tree_map
+from repro_torch.models.kv_cache import tree_leaves, tree_map
 from repro_torch.models.hybrid import (
     fuse_paths, hybrid_block_apply, hybrid_block_decode, hybrid_block_verify,
 )
@@ -291,14 +297,57 @@ def dec_block_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
 
 # ----------------------------------------------------------------- layer loops
 
+# the products "dots" keeps: plain matmuls (a [.., d] x [d, f] product runs
+# as aten.mm), not the batched ones (the attention einsums, the experts)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+def _remat_contexts(policy: str):
+    """(forward, recompute) contexts of a rematerialised layer: the
+    recomputation in the backward records no AP cost a second time."""
+    if policy == "dots":
+        fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
+        return fwd, _entered(rec, telemetry.repeat(0))
+    return contextlib.nullcontext(), telemetry.repeat(0)
+
+
+def remat(fn, policy: str, params):
+    """``fn`` (one layer) rematerialised as ``cfg.remat`` says, the
+    reference's ``jax.checkpoint`` of a scanned layer, while gradients are
+    taken through ``params``: "full" keeps only the layer's inputs for the
+    backward, "dots" also the outputs of its plain matmuls (JAX's
+    ``dots_with_no_batch_dims_saveable``), "none" keeps everything.
+    Without gradients (inference, serving) ``fn`` runs as it is."""
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    if policy == "none" or not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in tree_leaves(params)):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=functools.partial(_remat_contexts, policy))
+
 
 def stack_apply(params, x, cfg, ctx: Ctx, positions, kind: str = "dense",
                 attn_kind: str = "causal"):
-    """Returns (x, the layers' summed aux loss)."""
+    """Returns (x, the layers' summed aux loss); each layer rematerialised
+    under ``cfg.remat`` while gradients are taken (:func:`remat`)."""
+    block = remat(block_apply, cfg.remat, params)
     aux = 0.0
     for i in telemetry.scan_range(n_stacked(params)):
-        x, a = block_apply(layer_params(params, i), x, cfg, ctx, positions, kind,
-                           attn_kind)
+        x, a = block(layer_params(params, i), x, cfg, ctx, positions, kind, attn_kind)
         aux = aux + a
     return x, aux
 

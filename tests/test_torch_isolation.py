@@ -38,6 +38,11 @@ def test_imports_with_jax_blocked():
             "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
             "import repro_torch.configs.mamba2_780m, repro_torch.configs.hymba_1_5b\n"
             "import repro_torch.configs.whisper_base, repro_torch.configs.qwen2_vl_7b\n"
+            "import repro_torch.training.step, repro_torch.training.loss\n"
+            "import repro_torch.training.optimizer, repro_torch.training.grad_compression\n"
+            "import repro_torch.checkpoint.checkpointer, repro_torch.checkpoint.manager\n"
+            "import repro_torch.data.packing, repro_torch.distributed.straggler\n"
+            "import repro_torch.launch.train\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src")}, timeout=120)
@@ -55,13 +60,23 @@ def test_entry_points_default_to_the_card():
         serve.main(["--arch", "olmo-1b", "--warm-steps", "0"])
 
 
-@pytest.mark.parametrize("flag", [["--warm-steps", "5"],
-                                  ["--ckpt-dir", "x"], ["--shards", "2"],
+@pytest.mark.parametrize("flag", [["--shards", "2"],
                                   ["--continuous", "--paged", "--preemption", "--shards", "2"]])
 def test_later_slice_flags_name_roadmap_item(flag):
+    """``--shards`` (item 14) raises before anything is trained or restored."""
     args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu"] + flag
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve.main(args)
+
+
+def test_item_13_flags_no_longer_raise(tmp_path, capsys):
+    """``--warm-steps`` trains and ``--ckpt-dir`` goes to the checkpoint:
+    an empty directory holds none to restore."""
+    args = ["--arch", "olmo-1b", "--device", "cpu", "--max-new", "2", "--batch", "1"]
+    serve.main(args + ["--warm-steps", "1"])
+    assert "warm-trained 1 steps" in capsys.readouterr().out
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        serve.main(args + ["--ckpt-dir", str(tmp_path)])
 
 
 def test_serve_softmax_flag_runs(capsys):
