@@ -27,10 +27,17 @@ import time
 # phase -> (the chip_smoke.py function, the kernels it launches)
 PHASES = {
     "4": ("phase4_main_path", ["int_softmax"]),
+    "13": ("phase13_chunked_preempt", ["int_softmax", "paged_attention", "paged_attention_mla"]),
+    "14": ("phase14_speculative", ["int_softmax", "paged_attention", "paged_attention_mla"]),
     "17": ("phase17_recurrent", ["int_softmax", "paged_attention"]),
     "18": ("phase18_encdec_mrope", ["int_softmax", "paged_attention"]),
     "19": ("phase19_training", ["int_softmax", "paged_attention"]),
+    "20": ("phase20_tensor_parallel", ["int_softmax", "paged_attention", "paged_attention_mla"]),
+    "13-faults": ("phase13_fault_control", ["int_softmax", "paged_attention"]),
+    "14-faults": ("phase14_fault_control", ["int_softmax", "paged_attention",
+                                            "paged_attention_mla"]),
     "17-faults": ("phase17_fault_control", ["int_softmax", "paged_attention"]),
+    "20-faults": ("phase20_fault_control", ["int_softmax", "paged_attention"]),
 }
 
 

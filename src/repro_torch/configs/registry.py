@@ -1,15 +1,17 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke presets
 (port of ``src/repro/configs/registry.py``; same configs, same shrink
-rules). An architecture the port cannot run yet raises and names its
-ROADMAP.md item.
+rules). Every reference architecture is registered.
 
-The MoE family's full depth does not fit one card: dbrx-132b's 40 layers
-are about 264 GB of bf16 weights and deepseek-v2-236b's 60 about 472 GB,
-so on the H100 both run at full width with their depth cut
-(``get_config(name, n_layers=4)``); full depth waits for ROADMAP.md Queue
-1 item 14 (tensor-parallel serving). The SSM and hybrid families
-(mamba2-780m, hymba-1.5b), the encoder-decoder (whisper-base) and the
-M-RoPE backbone (qwen2-vl-7b) run at full width and full depth."""
+qwen2.5-32b (64 layers, 32.76 B parameters: 65.5 GB of bf16 weights) fits
+the H100's 80 GB with about 18 GiB left for its pool, so it serves on one
+card, single-device or tensor-parallel with its shards on that card. The
+MoE family's full depth does not fit one card: dbrx-132b's 40 layers are
+about 264 GB of bf16 weights and deepseek-v2-236b's 60 about 472 GB, so on
+the H100 both run at full width with their depth cut (``get_config(name,
+n_layers=4)``); full depth waits for a process per card and the MoE family's
+expert parallelism (ROADMAP.md Queue 1 items 21 and 22). The SSM and hybrid families (mamba2-780m, hymba-1.5b), the
+encoder-decoder (whisper-base) and the M-RoPE backbone (qwen2-vl-7b) run
+at full width and full depth."""
 
 from __future__ import annotations
 
@@ -31,21 +33,12 @@ ARCHS = {
     "hymba-1.5b": "hymba_1_5b",
     "whisper-base": "whisper_base",
     "qwen2-vl-7b": "qwen2_vl_7b",
-}
-
-# reference architectures not ported yet -> the ROADMAP.md item that ports them
-NOT_PORTED = {
-    "qwen2.5-32b": "Queue 1 item 14 (tensor-parallel serving: 32B does not "
-                   "fit one card)",
+    "qwen2.5-32b": "qwen2_5_32b",
 }
 
 
 def get_config(name: str, softmax: Optional[SoftmaxSpec] = None,
                **overrides) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet: ROADMAP.md "
-            f"{NOT_PORTED[name]}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")

@@ -1,2 +1,3 @@
-"""Host-side policies of long runs (ports of ``src/repro/distributed``);
-the multi-device layouts are ROADMAP.md Queue 1 item 14."""
+"""Meshes, collectives and host-side policies of long runs (ports of
+``src/repro/distributed``): the sharding rules, collectives over per-shard
+tensors, elastic mesh planning and straggler detection."""

@@ -2,7 +2,8 @@
 of ``src/repro/distributed/straggler.py``: host-side and framework-agnostic).
 On one card the launcher passes no ``remesh_fn``, so a "remesh"
 recommendation checkpoints and reports the request, as the reference does
-without one; elastic re-meshing is ROADMAP.md Queue 1 item 14.
+without one; re-meshing a running job is ROADMAP.md Queue 1 item 23
+(``distributed/elastic.py`` plans the mesh).
 
 At 1000+ nodes the common failure mode is not a crash but a *slow* chip/host
 (thermal throttle, failing HBM, noisy neighbor on DCN). Because every step is

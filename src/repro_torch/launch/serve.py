@@ -45,8 +45,12 @@ there instead (the port's or the reference's), ``--warm-steps 0`` serves
 seed 0's weights as drawn. Trained or restored masters are cast to the
 compute dtype for ``Engine``.
 
-Runs on the card; ``--device cpu`` runs the plain PyTorch path. Flags of
-later slices are accepted and raise with the ROADMAP.md item that ports them.
+``--shards N`` (with ``--continuous``) serves tensor-parallel over N
+shards: the first N visible devices, as the reference's launcher (which
+checks jax's devices), or with ``--shards-on-one-device`` all N on the
+model's device (the CPU, or one card).
+
+Runs on the card; ``--device cpu`` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from repro_torch.convert import cast_weights
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.softmax_variants import SoftmaxSpec, spec_backend
 from repro_torch.data.synthetic import SyntheticCorpus
+from repro_torch.launch.mesh import SHARDS_ON_ONE_DEVICE, make_serving_mesh, visible_devices
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.options import ServeOptions
@@ -73,12 +78,6 @@ from repro_torch.serving.sampler import available_samplers
 from repro_torch.serving.scheduler import random_trace
 from repro_torch.training.optimizer import AdamW, constant_schedule, cosine_schedule
 from repro_torch.training.step import init_state, make_train_step
-
-# flag -> (value that means "unset", ROADMAP.md item of the slice that ports it)
-LATER_SLICES = {
-    "shards": (0, "Queue 1 item 14 (tensor-parallel serving)"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -118,7 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft-k", type=int, default=4,
                     help="--speculative: draft tokens per verify round")
     ap.add_argument("--kernel", default="jnp", choices=("jnp", "pallas"))
-    ap.add_argument("--shards", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="--continuous: tensor-parallel serving over N shards "
+                         "(the first N visible devices)")
+    ap.add_argument("--shards-on-one-device", action="store_true",
+                    help="--shards: put every shard on the model's device")
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--preemption", action="store_true")
     ap.add_argument("--kv-quant", action="store_true")
@@ -132,11 +135,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, (unset, item) in LATER_SLICES.items():
-        if getattr(args, flag) != unset:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to repro_torch yet: "
-                f"ROADMAP.md {item}")
+    if args.shards and not args.continuous:
+        ap.error("--shards requires --continuous (it configures Engine.serve)")
+    if args.shards and not args.shards_on_one_device:
+        kind = torch.device(args.device or "cuda").type
+        seen = len(visible_devices(kind))
+        if seen < args.shards:
+            ap.error(f"--shards {args.shards} needs {args.shards} devices but torch sees "
+                     f"{seen} ({kind}); {SHARDS_ON_ONE_DEVICE}")
     if args.prefill_chunk is not None and not args.continuous:
         ap.error("--prefill-chunk requires --continuous (it paces "
                  "Engine.serve admissions)")
@@ -174,6 +180,11 @@ def main(argv=None):
         sampler_kw = {"p": args.top_p, "temp": args.temp}
     eng = Engine(model, params, max_new=args.max_new, sampler=args.sampler,
                  eos_id=args.eos_id, **sampler_kw)
+    if args.shards:
+        serve_options = dataclasses.replace(
+            serve_options, shards=None if args.shards_on_one_device else args.shards,
+            mesh=(make_serving_mesh(args.shards, [model.device] * args.shards)
+                  if args.shards_on_one_device else None))
     if args.continuous:
         return serve_trace(eng, args, serve_options)
     prompts = corpus.sample(args.batch, args.prompt_len, seed=777)[:, :args.prompt_len]
@@ -240,9 +251,11 @@ def serve_trace(eng: Engine, args, serve_options: ServeOptions):
                   f"tok, shared {rep.shared_prefill_tokens})" if rep.paged else "")
     spec_note = (f", speculative k={rep.draft_k} (acceptance {rep.acceptance_rate:.2f})"
                  if rep.speculative else "")
+    shard_note = (f", {args.shards} shards{' on one device' * args.shards_on_one_device}"
+                  if args.shards else "")
     print(f"{args.policy} serving: {len(reqs)} requests / {args.slots} slots, "
           f"{gen} tokens in {rep.steps} decode steps, {rep.wall_s * 1e3:.1f} ms "
-          f"({gen / rep.wall_s:.0f} tok/s){paged_note}{spec_note}")
+          f"({gen / rep.wall_s:.0f} tok/s){paged_note}{spec_note}{shard_note}")
     print(f"request latency p50={np.percentile(lat, 50) * 1e3:.1f} ms "
           f"p99={np.percentile(lat, 99) * 1e3:.1f} ms")
     if args.prefill_chunk is not None or args.preemption:

@@ -8,8 +8,8 @@ card, with periodic checkpoints and auto-resume (port of
 Run again with the same ``--ckpt-dir`` to resume from its newest
 checkpoint; the checkpoints are the reference's format (either package
 restores the other's). Runs on the card; ``--device cpu`` runs the plain
-PyTorch path. ``--production-mesh`` raises: meshes are ROADMAP.md Queue 1
-item 14.
+PyTorch path. ``--production-mesh`` raises: sharded training is ROADMAP.md
+Queue 1 item 23.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def main(argv=None):
     if args.production_mesh:
         raise NotImplementedError(
             "--production-mesh is not ported to repro_torch yet: ROADMAP.md Queue 1 "
-            "item 14 (tensor-parallel meshes)")
+            "item 23 (sharded training)")
     spec = (SoftmaxSpec(args.softmax, PrecisionConfig(M=args.M, N=args.N))
             if args.softmax == "int" else SoftmaxSpec(args.softmax))
     cfg = (smoke_config(args.arch, softmax=spec) if args.smoke

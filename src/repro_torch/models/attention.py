@@ -42,6 +42,15 @@ def mask_positions(positions, cfg):
     return positions[0] if cfg.rope_type == "mrope" else positions
 
 
+def out_proj(p, out, ctx: Ctx):
+    """The output projection ``wo`` of the heads' output [B, S, H * Dv]. A
+    tensor-parallel shard's attention params hold no ``wo``: it is
+    row-parallel, applied once the shards' heads are gathered
+    (``models/tensor_parallel.py``, the reference's ``_collect_heads``), so
+    the shard's heads come back as they are."""
+    return dense_apply(p["wo"], out, ctx) if "wo" in p else out
+
+
 def project_qkv(p, x, cfg, ctx: Ctx, positions):
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -124,7 +133,7 @@ def attn_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "causal"):
     q, k, v = project_qkv(p, x, cfg, ctx, positions)
     pos = mask_positions(positions, cfg)
     out = attend_chunked(q, k, v, pos, pos, kind, cfg, ctx, smx=p.get("smx"))
-    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+    return out_proj(p, out.reshape(b, s, -1), ctx)
 
 
 def attn_cross(p, x, enc_k, enc_v, cfg, ctx: Ctx):
@@ -134,7 +143,7 @@ def attn_cross(p, x, enc_k, enc_v, cfg, ctx: Ctx):
     b, s, _ = x.shape
     q = dense_apply(p["wq"], x, ctx).reshape(b, s, cfg.n_heads, cfg.d_head)
     out = attend(q, enc_k, enc_v, None, cfg, ctx, smx=p.get("smx"))
-    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+    return out_proj(p, out.reshape(b, s, -1), ctx)
 
 
 def cross_kv(p, enc_out, cfg, ctx: Ctx):
@@ -378,7 +387,7 @@ def _attend_paged_fused(p, q, cache, positions, cfg, ctx: Ctx, kind, backend):
         window=cfg.window if kind == "window" else 0,
         k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
         scores_dtype=_SCORE_DTYPES[cfg.scores_dtype])
-    return dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
+    return out_proj(p, out.reshape(b, t, -1), ctx)
 
 
 def _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind):
@@ -411,7 +420,7 @@ def _attn_decode_paged(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, kind):
                        device=x.device)
     mask = valid[:, None, :].expand(b, 1, l_max)
     out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx, smx=p.get("smx"))
-    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx), cache
+    return out_proj(p, out.reshape(b, s, -1), ctx), cache
 
 
 def attn_prefill_tail(p, x, prefix_k, prefix_v, cfg, ctx: Ctx, positions,
@@ -443,7 +452,7 @@ def attn_prefill_tail(p, x, prefix_k, prefix_v, cfg, ctx: Ctx, positions,
     kv_pos = torch.arange(prefix_len + t, dtype=torch.int32,
                           device=x.device)[None, :]
     out = attend_chunked(q, k, v, positions, kv_pos, "causal", cfg, ctx, smx=p.get("smx"))
-    y = dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
+    y = out_proj(p, out.reshape(b, t, -1), ctx)
     return y, tail
 
 
@@ -470,7 +479,7 @@ def attn_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
                        device=x.device)
     mask = valid[:, None, :].expand(b, 1, l_max)
     out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx, smx=p.get("smx"))
-    y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+    y = out_proj(p, out.reshape(b, s, -1), ctx)
     return y, new_cache
 
 
@@ -513,7 +522,7 @@ def attn_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions,
             v = kv_dequantize(v, cache["v_scale"], ctx.dtype)
     mask = verify_mask(k.shape[1], positions, window)
     out = attend(q, ctx.cast(k), ctx.cast(v), mask, cfg, ctx, smx=p.get("smx"))
-    return dense_apply(p["wo"], out.reshape(b, t, -1), ctx), cache
+    return out_proj(p, out.reshape(b, t, -1), ctx), cache
 
 
 def _ring_write(cache, k_new, v_new, cache_pos):
@@ -562,7 +571,7 @@ def attn_decode_ring(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, window: i
     mask = valid[:, None, :].expand(b, 1, pos_buf.shape[1])
     out = attend(q, ctx.cast(cache["k"]), ctx.cast(cache["v"]), mask, cfg, ctx,
                  smx=p.get("smx"))
-    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx), cache
+    return out_proj(p, out.reshape(b, s, -1), ctx), cache
 
 
 def attn_verify_ring(p, x, cache, cache_pos, cfg, ctx: Ctx, positions, window: int):

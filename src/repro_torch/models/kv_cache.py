@@ -43,9 +43,12 @@ rows.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from repro_torch.distributed.collectives import Shards
 from repro_torch.models.attention import _block_target, _put_rows, _write_target, block_positions
 from repro_torch.models.hybrid import full_attn_layer_ids
 
@@ -155,23 +158,88 @@ def paged_cache_zeros(cfg, slots: int, cache_len: int, block_size: int,
                              device)
 
 
+def _axes_tree(struct, axes_for):
+    return tree_map(lambda s: axes_for(tuple(s.shape)), struct)
+
+
+def serve_cache_axes(cfg, slots: int, cache_len: int):
+    """Logical axes tree matching ``cache_zeros`` for the tensor-parallel
+    serve path (the reference's shape rules): contiguous per-slot caches
+    shard by kv-heads (dense/GQA) or the latent dim (MLA), never by
+    sequence; ring and SSM leaves are replicated."""
+    def axes_for(shape):
+        rank = len(shape)
+        if rank == 5 and shape[3] == cfg.n_kv_heads:   # [L,S,C,KV,Dh]
+            return ("stacked", "batch", None, "kv_heads", None)
+        if rank == 4 and shape[-1] == cfg.n_kv_heads and cfg.kv_quant:   # scales
+            return ("stacked", "batch", None, "kv_heads")
+        if rank == 4 and cfg.attention == "mla" and shape[-1] == cfg.kv_lora_rank:
+            return ("stacked", "batch", None, "latent")
+        return ("stacked", "batch") + (None,) * (rank - 2)
+
+    return _axes_tree(cache_zeros(cfg, slots, cache_len, device="meta"), axes_for)
+
+
+def paged_cache_axes(cfg, slots: int, cache_len: int, block_size: int, num_blocks: int):
+    """Logical axes tree matching ``paged_cache_zeros`` for tensor-parallel
+    serving (the reference's shape rules): pool leaves partition by
+    kv-heads (dense/GQA) or the MLA latent dim, while block tables, the
+    rope-key pool and rings stay replicated."""
+    def axes_for(shape):
+        rank = len(shape)
+        if rank == 5 and shape[3] == cfg.n_kv_heads:   # pool [L,NB,BS,KV,Dh]
+            return ("stacked", None, None, "kv_heads", None)
+        if rank == 4 and shape[-1] == cfg.n_kv_heads and cfg.kv_quant:   # scales
+            return ("stacked", None, None, "kv_heads")
+        if rank == 4 and cfg.attention == "mla" and shape[-1] == cfg.kv_lora_rank:
+            return ("stacked", None, None, "latent")
+        return ("stacked",) + (None,) * (rank - 1)     # tables, k_rope, rings
+
+    return _axes_tree(paged_cache_zeros(cfg, slots, cache_len, block_size, num_blocks,
+                                        device="meta"), axes_for)
+
+
 def tree_leaves(tree):
-    """The tensors of a cache tree, in key order."""
+    """The tensors of a cache tree (or of every shard's, in shard order), in
+    key order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, Shards):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
 def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return Shards(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def per_shard(fn):
+    """``fn(cache, ...)`` on a tensor-parallel cache (a ``Shards`` list of
+    per-shard caches): run for every shard, each with its own element of
+    every ``Shards`` argument (prefill values, swap payloads) and the rest
+    as given; the results in a ``Shards`` list. A plain cache runs ``fn``
+    as it is. Host bookkeeping (tables rows, block ids) is the same for
+    every shard, so each shard's table stays equal to the others'."""
+    @functools.wraps(fn)
+    def run(cache, *args, **kw):
+        if not isinstance(cache, Shards):
+            return fn(cache, *args, **kw)
+        pick = lambda a, i: a[i] if isinstance(a, Shards) else a
+        return Shards(fn(c, *(pick(a, i) for a in args),
+                         **{k: pick(v, i) for k, v in kw.items()})
+                      for i, c in enumerate(cache))
+    return run
 
 
 def _paged(node) -> bool:
     return isinstance(node, dict) and "table" in node
 
 
+@per_shard
 def insert_slot(cache, values, slot: int):
     """Write a batch-1 prefill cache ``values`` (every leaf [L, 1, ...])
     into ``slot``'s stripe of a CONTIGUOUS cache, in place (the reference
@@ -221,6 +289,7 @@ def _scatter_pools(node, values, slot: int, table_row, pb, offs, t0: int, t1: in
             node[k][:, ib, io] = vals.to(node[k].dtype)
 
 
+@per_shard
 def paged_scatter(cache, values, slot: int, table_row, pb, offs, t0: int,
                   t1: int):
     """Install one request's prefilled entries into the paged cache, in
@@ -256,6 +325,7 @@ def _paged_nodes(tree):
     return []
 
 
+@per_shard
 def paged_copy_block(cache, src: int, dst: int):
     """Copy pool block ``src`` to ``dst`` on every pool leaf, in place (the
     device half of the allocator's copy-on-write handshake). Tables and
@@ -266,6 +336,7 @@ def paged_copy_block(cache, src: int, dst: int):
     return cache
 
 
+@per_shard
 def paged_prefix_view(cache, ids, s: int):
     """The shared-prefix entries (each pool leaf as [L, 1, s, ...]) gathered from
     pool blocks ``ids`` (host ints): the tail-only prefill input. A copy,
@@ -285,6 +356,7 @@ def paged_prefix_view(cache, ids, s: int):
     return out
 
 
+@per_shard
 def slot_scatter(cache, values, slot: int, dst: int, t0: int, t1: int):
     """Commit one chunk of prefilled entries into a CONTIGUOUS slot-batched
     cache, in place: positions ``[t0, t1)`` of ``values`` (each leaf [L, 1,
@@ -300,6 +372,7 @@ def slot_scatter(cache, values, slot: int, dst: int, t0: int, t1: int):
     return cache
 
 
+@per_shard
 def slot_prefix_view(cache, slot: int, s: int):
     """The first ``s`` committed positions of one slot's CONTIGUOUS cache as
     [L, 1, s, ...]: the prefix input of the next ``prefill_tail`` chunk. A
@@ -307,6 +380,7 @@ def slot_prefix_view(cache, slot: int, s: int):
     return tree_map(lambda leaf: leaf[:, slot:slot + 1, :s].clone(), cache)
 
 
+@per_shard
 def swap_read(cache, slot: int, ids):
     """Snapshot one slot's paged state for preemption swap-out, as CPU
     tensors: the contents of pool blocks ``ids`` (host ints; the blocks not
@@ -333,6 +407,7 @@ def swap_read(cache, slot: int, ids):
     return walk(cache)
 
 
+@per_shard
 def swap_write(cache, payload, slot: int, ids, table_row):
     """Restore a :func:`swap_read` payload on resume, in place: the copied
     blocks land in the freshly allocated pool blocks ``ids`` (host ints),

@@ -108,8 +108,13 @@ def act_fn(name: str):
 
 
 def mlp_apply(p, x, act: str, ctx: Ctx):
-    """Gated (GLU) MLP: act(x @ gate) * (x @ up) @ down."""
+    """Gated (GLU) MLP: act(x @ gate) * (x @ up) @ down. A tensor-parallel
+    shard's params hold no ``down`` (row-parallel: applied once the shards'
+    hidden columns are gathered, ``models/tensor_parallel.py``), so its
+    hidden comes back as it is."""
     h = act_fn(act)(dense_apply(p["gate"], x, ctx)) * dense_apply(p["up"], x, ctx)
+    if "down" not in p:
+        return h
     return dense_apply(p["down"], h, ctx, ctx.step_min_rows)
 
 

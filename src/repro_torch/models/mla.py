@@ -27,8 +27,8 @@ from repro_torch.backends import telemetry
 from repro_torch.core.softmax_variants import spec_backend
 from repro_torch.kernels.paged_attention.ref import mla_pv, mla_scores
 from repro_torch.models.attention import (
-    _put, _write_target, attend_chunked, cache_write, cache_write_block, paged_gather,
-    valid_upto, verify_mask,
+    _put, _write_target, attend_chunked, cache_write, cache_write_block, out_proj,
+    paged_gather, valid_upto, verify_mask,
 )
 from repro_torch.models.layers import Ctx, apply_rope, dense_apply, norm_apply
 
@@ -81,7 +81,7 @@ def _attend_latents(p, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos, kind, cfg,
     k = torch.cat([k_nope, k_rope.expand(b, s_kv, h, dr)], -1)
     q = torch.cat([q_nope, q_rope], -1)
     out = attend_chunked(q, k, v, q_pos, kv_pos, kind, cfg, ctx, (dn + dr) ** -0.5)
-    return dense_apply(p["wo"], out.reshape(b, t, -1), ctx)
+    return out_proj(p, out.reshape(b, t, -1), ctx)
 
 
 def mla_apply(p, x, cfg, ctx: Ctx, positions, kind: str = "causal"):
@@ -130,35 +130,68 @@ def mla_prefill_tail(p, x, prefix_c, prefix_kr, cfg, ctx: Ctx, positions,
     return y, {"c_kv": c_t, "k_rope": kr_t[:, :, 0]}
 
 
+def mla_write(cache, c_new, kr_new, cache_pos, positions, block: bool = False):
+    """Write the new latents ``c_new`` [B, T, r] and rope keys ``kr_new``
+    [B, T, 1, dr] into the latent cache, in place: at ``cache_pos`` (a
+    decode step, T 1) or, ``block``, at ``positions`` [B, T] (a verify
+    block), contiguous or through the block table. A tensor-parallel shard
+    writes its part of the rank (``models/tensor_parallel.py``)."""
+    b, t = c_new.shape[:2]
+    if "table" in cache:
+        # one target for both leaves: they share the block geometry
+        target, lands = _write_target(cache["table"], positions if block else cache_pos,
+                                      *cache["c_kv"].shape[:2])
+        _put(cache["c_kv"], target, lands, c_new.reshape(b * t, -1))
+        _put(cache["k_rope"], target, lands, kr_new.reshape(b * t, -1))
+    elif block:
+        cache_write_block(cache["c_kv"], c_new, cache_pos)
+        cache_write_block(cache["k_rope"], kr_new[:, :, 0], cache_pos)
+    else:
+        cache_write(cache["c_kv"], c_new, cache_pos)
+        cache_write(cache["k_rope"], kr_new[:, :, 0], cache_pos)
+
+
+def mla_read(p, q_nope, q_rope, cache, cache_pos, positions, cfg, ctx: Ctx,
+             block: bool = False):
+    """Absorbed attention of the queries [B, T, H, ...] over the latent
+    cache (whole rank: a tensor-parallel step passes the shards' gathered
+    pools), through W_uv and the output projection: K4 on a paged cache
+    when the backend sets ``fused_paged_decode``, else over the gathered
+    logical cache, masked as the decode step (``cache_pos``) or, ``block``,
+    as each query of a verify block (``positions`` [B, T])."""
+    b, s = q_nope.shape[:2]
+    if "table" in cache:
+        table = cache["table"]
+        backend = spec_backend(cfg.softmax)
+        if getattr(backend, "fused_paged_decode", False):
+            if block:
+                pos = positions.to(torch.int32)
+            elif isinstance(cache_pos, int):
+                pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=q_nope.device)
+            else:
+                pos = cache_pos.to(torch.int32).expand(b)[:, None]
+            return _mla_attend_paged_fused(p, q_nope, q_rope, cache, pos, cfg, ctx,
+                                           backend, b, s)
+        c_kv = paged_gather(cache["c_kv"], table)
+        k_rope = paged_gather(cache["k_rope"], table)
+    else:
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    if block:
+        mask = verify_mask(c_kv.shape[1], positions)
+    else:
+        mask = valid_upto(c_kv.shape[1], cache_pos, device=q_nope.device)[:, None, :]
+    return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg, ctx, b, s)
+
+
 def mla_decode(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
     """Absorbed single-token decode against the latent cache {"c_kv" [B, L,
     r], "k_rope" [B, L, dr]} or, with a block table present, the paged pool
     {"c_kv" [NB, BS, r], "k_rope" [NB, BS, dr], "table" [B, n_logical]};
     written in place. ``cache_pos``: int, 0-d or per-row [B] tensor."""
-    b, s, _ = x.shape  # s == 1
     q_nope, q_rope = _queries(p, x, cfg, ctx, positions)
     c_new, kr_new = _latents(p, x, cfg, ctx, positions)
-    if "table" in cache:
-        table = cache["table"]
-        # one target for both leaves: they share the block geometry
-        target, lands = _write_target(table, cache_pos, *cache["c_kv"].shape[:2])
-        _put(cache["c_kv"], target, lands, c_new[:, 0])
-        _put(cache["k_rope"], target, lands, kr_new[:, 0, 0])
-        backend = spec_backend(cfg.softmax)
-        if getattr(backend, "fused_paged_decode", False):
-            if isinstance(cache_pos, int):
-                pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
-            else:
-                pos = cache_pos.to(torch.int32).expand(b)[:, None]
-            return _mla_attend_paged_fused(p, q_nope, q_rope, cache, pos, cfg,
-                                           ctx, backend, b, s), cache
-        c_kv = paged_gather(cache["c_kv"], table)
-        k_rope = paged_gather(cache["k_rope"], table)
-    else:
-        c_kv = cache_write(cache["c_kv"], c_new, cache_pos)
-        k_rope = cache_write(cache["k_rope"], kr_new[:, :, 0], cache_pos)
-    mask = valid_upto(c_kv.shape[1], cache_pos, device=x.device)[:, None, :]
-    return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg, ctx, b, s), cache
+    mla_write(cache, c_new, kr_new, cache_pos, positions)
+    return mla_read(p, q_nope, q_rope, cache, cache_pos, positions, cfg, ctx), cache
 
 
 def mla_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
@@ -170,26 +203,11 @@ def mla_verify(p, x, cache, cache_pos, cfg, ctx: Ctx, positions):
     goes to K4 with T * H query rows when the backend sets
     ``fused_paged_decode``. Rejected tail entries are cleared by
     ``Model.verify_commit``."""
-    b, t, _ = x.shape
     q_nope, q_rope = _queries(p, x, cfg, ctx, positions)
     c_new, kr_new = _latents(p, x, cfg, ctx, positions)
-    if "table" in cache:
-        table = cache["table"]
-        target, lands = _write_target(table, positions, *cache["c_kv"].shape[:2])
-        _put(cache["c_kv"], target, lands, c_new.reshape(b * t, -1))
-        _put(cache["k_rope"], target, lands, kr_new.reshape(b * t, -1))
-        backend = spec_backend(cfg.softmax)
-        if getattr(backend, "fused_paged_decode", False):
-            return _mla_attend_paged_fused(p, q_nope, q_rope, cache,
-                                           positions.to(torch.int32), cfg, ctx,
-                                           backend, b, t), cache
-        c_kv = paged_gather(cache["c_kv"], table)
-        k_rope = paged_gather(cache["k_rope"], table)
-    else:
-        c_kv = cache_write_block(cache["c_kv"], c_new, cache_pos)
-        k_rope = cache_write_block(cache["k_rope"], kr_new[:, :, 0], cache_pos)
-    mask = verify_mask(c_kv.shape[1], positions)
-    return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg, ctx, b, t), cache
+    mla_write(cache, c_new, kr_new, cache_pos, positions, block=True)
+    return mla_read(p, q_nope, q_rope, cache, cache_pos, positions, cfg, ctx,
+                    block=True), cache
 
 
 def _absorb_queries(p, q_nope, cfg, ctx: Ctx):
@@ -206,7 +224,7 @@ def _mla_output(p, o_lat, cfg, ctx: Ctx, b, s):
     h, dv = cfg.n_heads, cfg.v_head_dim
     wuv = ctx.cast(p["wuv"]["w"]).reshape(cfg.kv_lora_rank, h, dv)
     out = torch.einsum("bqhr,rhd->bqhd", o_lat, wuv)
-    return dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+    return out_proj(p, out.reshape(b, s, -1), ctx)
 
 
 def _mla_attend_paged_fused(p, q_nope, q_rope, cache, positions, cfg, ctx: Ctx,

@@ -37,6 +37,12 @@ after a sinusoid table added to the frames), ``enc_final_norm`` and
 cache is {"self", "cross"}, the cross K/V computed once in prefill. As in
 the reference, neither the encoder-decoder nor M-RoPE has a tail prefill
 or a verify step: both raise.
+
+Tensor-parallel serving passes a ``Shards`` list of per-shard parameter
+trees (``serving.sharded.shard_params``) and per-shard caches: prefill,
+tail prefill, decode and verify then run the shard-local forward of
+``models/tensor_parallel.py`` (the dense family). ``param_axes`` gives the
+reference's logical axes of every parameter, which that placement reads.
 """
 
 from __future__ import annotations
@@ -52,7 +58,9 @@ from repro_torch.backends import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.softmax_variants import spec_backend
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import Shards
 from repro_torch.models import kv_cache
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import block_positions
 from repro_torch.models.layers import (
@@ -129,6 +137,51 @@ def _sinusoid(length: int, d: int):
     table[:, 0::2] = np.sin(pos * div)
     table[:, 1::2] = np.cos(pos * div)
     return table
+
+
+# the logical axes of each parameter leaf, as the reference's ``*_init``
+# label them (``Model.param_axes``): dense weights by the name of their
+# dense, inside a stacked layer after the leading "stacked"
+_DENSE_AXES = {
+    "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"), "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "embed"), "wdq": ("embed", "kv_lora"), "wuq": ("kv_lora", "heads"),
+    "wdkv": ("embed", "kv_lora"), "wkr": ("embed", None), "wuk": ("kv_lora", "heads"),
+    "wuv": ("kv_lora", "heads"), "gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+    "down": ("mlp", "embed"), "router": ("embed", "experts"),
+    "in_proj": ("embed", "heads"), "out_proj": ("heads", "embed"),
+}
+_EXPERT_AXES = {"gate": ("experts", "embed", "expert_mlp"),
+                "up": ("experts", "embed", "expert_mlp"),
+                "down": ("experts", "expert_mlp", "embed")}
+_SSM_AXES = {"conv_w": (None, "heads"), "conv_b": ("heads",), "dt_bias": ("heads",),
+             "A_log": ("heads",), "D": ("heads",), "beta": (None,), "gamma": (None,)}
+
+
+def _leaf_axes(path, ndim: int):
+    """The reference's logical axes of the parameter at ``path`` (its keys)
+    with ``ndim`` dimensions."""
+    top = path[0]
+    if top == "embed":
+        return ("vocab", "embed")
+    if top == "head":
+        return ("embed", "vocab")
+    if top == "pos_embed":
+        return (None, "embed")
+    if top in ("final_norm", "enc_final_norm"):
+        return ("embed",)
+    inner = path[2:] if top == "stack" else path[1:]
+    leaf, parent = inner[-1], inner[-2] if len(inner) > 1 else None
+    if any("norm" in k for k in inner[:-1]):
+        ax = ("embed",)
+    elif leaf in _SSM_AXES:
+        ax = _SSM_AXES[leaf]
+    elif parent in _EXPERT_AXES and ndim == 4:
+        ax = _EXPERT_AXES[parent]
+    elif parent in _DENSE_AXES:
+        ax = _DENSE_AXES[parent] if leaf == "w" else _DENSE_AXES[parent][-1:]
+    else:
+        raise ValueError(f"no logical axes for parameter {'/'.join(path)}")
+    return ("stacked",) + ax
 
 
 def _no_tail_or_verify(cfg, what: str):
@@ -302,6 +355,20 @@ class Model:
         else:
             p["stack"] = {"layers": block(cfg.n_layers, "dense")}
         return p
+
+    def param_axes(self):
+        """The reference's logical axes of every parameter (``Model.
+        param_axes``: a tree of tuples beside the parameter tree), from the
+        tree ``init`` builds on the meta device: nothing is allocated at any
+        scale."""
+        meta = Model(self.cfg, self.ctx.dtype, device="meta").init()
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                return {k: walk(v, path + (k,)) for k, v in node.items()}
+            return _leaf_axes(path, node.ndim)
+
+        return walk(meta, ())
 
     # -------------------------------------------------------------- pieces
 
@@ -479,6 +546,8 @@ class Model:
         return self._head(p, x), aux
 
     def prefill(self, p, batch, cache_len: int):
+        if isinstance(p, Shards):
+            return tp.prefill(self, p, batch, cache_len)
         if self.cfg.family == "encdec":
             return self._encdec_prefill(p, batch, cache_len)
         tokens = batch["tokens"]
@@ -509,6 +578,8 @@ class Model:
                 "tail-only prefill covers the dense/moe (incl. MLA) families: the "
                 f"{self.cfg.family} family's recurrent state summarises the whole "
                 "prefix, so it always prefills in full (as the reference)")
+        if isinstance(p, Shards):
+            return tp.prefill_tail(self, p, batch, prefix, prefix_len)
         tokens = batch["tokens"]
         x = self._embed(p, tokens)
         positions = positions_for(tokens.shape, device=tokens.device) + prefix_len
@@ -539,6 +610,8 @@ class Model:
                                    device=token.device)
         else:
             positions = cache_pos.to(torch.int32).reshape(-1, 1).expand(b, 1)
+        if isinstance(p, Shards):
+            return tp.decode_step(self, p, cache, batch, cache_pos, positions)
         if self.cfg.family == "encdec":
             return self._encdec_decode(p, cache, token, cache_pos, positions)
         x = self._embed(p, token, batch)
@@ -560,6 +633,8 @@ class Model:
         window rings) are per-token snapshots [L, T, B, ...], the cache
         itself stepped to the block's last token."""
         _no_tail_or_verify(self.cfg, "verify_step")
+        if isinstance(p, Shards):
+            return tp.verify_step(self, p, cache, batch, cache_pos)
         token = batch["token"]
         b, t = token.shape
         positions = block_positions(cache_pos, b, t, token.device)
@@ -580,4 +655,6 @@ class Model:
         copied into ``cache`` (the cache the verify step ran on; required
         when the staged tree holds snapshots). Returns the cache
         (``kv_cache.commit_staged``)."""
+        if isinstance(staged, Shards):
+            return tp.verify_commit(staged, n_accept, cache_pos, t)
         return kv_cache.commit_staged(staged, n_accept, cache_pos, t, into=cache)

@@ -113,7 +113,7 @@ def moe_apply(p, x, cfg, ctx: Ctx):
     if impl == "a2a":
         raise NotImplementedError(
             "moe_impl 'a2a' (per-segment capacity, an all-to-all layout over "
-            "devices) is not ported: ROADMAP.md Queue 1 item 14")
+            "devices) is not ported: ROADMAP.md Queue 1 item 22")
     if impl not in _IMPLS:
         raise ValueError(f"unknown moe_impl {impl!r}")
     b, s, d = x.shape

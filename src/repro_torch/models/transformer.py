@@ -44,6 +44,7 @@ from repro_torch.models.attention import (
     cross_kv,
     kv_fake_quant,
     mask_positions,
+    out_proj,
     project_qkv,
 )
 from repro_torch.models.kv_cache import tree_leaves, tree_map
@@ -146,7 +147,7 @@ def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int, kind: str = "ca
     if kind == "window":
         out = attend_chunked(q, k, v, positions, positions, "window", cfg, ctx,
                              smx=p.get("smx"))
-        y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+        y = out_proj(p, out.reshape(b, s, -1), ctx)
         w_cap = min(cfg.window, cache_len)
         lo = max(0, s - w_cap)
         slots = torch.arange(lo, s, device=x.device) % w_cap
@@ -167,7 +168,7 @@ def attn_prefill(p, x, cfg, ctx: Ctx, positions, cache_len: int, kind: str = "ca
         leaves = {"k": k, "v": v}
     out = attend_chunked(q, k, v, positions, positions, "causal", cfg, ctx,
                          smx=p.get("smx"))
-    y = dense_apply(p["wo"], out.reshape(b, s, -1), ctx)
+    y = out_proj(p, out.reshape(b, s, -1), ctx)
     cache = {}
     for name, t in leaves.items():
         buf = torch.zeros((b, cache_len) + t.shape[2:], dtype=t.dtype,

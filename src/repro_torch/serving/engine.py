@@ -52,8 +52,10 @@ from admission on. M-RoPE (qwen2-vl-7b) serves plain and paged decode,
 text only (the three position streams on the token axis), without
 speculative rounds or prefix sharing, and prefills chunked prompts whole.
 Both raise for the options the reference refuses, with its messages.
-Tensor parallelism is a later slice (ROADMAP.md Queue 1 item 14);
-``ServeOptions`` raises for it.
+``mesh`` / ``shards=N`` serve tensor-parallel (``serving/sharded.py``):
+the dense family's heads (MLA: its latent rank) and the paged pool split
+over N shards, driven from this process on one device
+(``models/tensor_parallel.py``), with the single-device serve's tokens.
 
 Fixed storage: the decode step of ``generate`` and of ``serve`` runs over
 a cache and input buffers kept on the engine per step shape (for serve:
@@ -223,6 +225,7 @@ class Engine:
         self._kernel_models: dict = {}   # decode kernel -> Model variant
         self._last_alloc: Optional[BlockAllocator] = None  # pool of the last paged serve
         self._decode_states: dict = {}   # step shape -> DecodeState
+        self._mesh_params: dict = {}     # mesh -> every shard's parameter tree
         # decode steps as CUDA-graph replays on the card; False runs them op
         # by op (the comparison the tests and chip_smoke.py make)
         self._cuda_graphs = True
@@ -539,9 +542,44 @@ class Engine:
                 base.cfg.with_softmax(var), dtype=base.ctx.dtype, device=base.device)
         return self._kernel_models[key]
 
+    def _sharded_params(self, mesh):
+        """Every shard's parameter tree for ``mesh``, placed once per mesh
+        (``serving.sharded.shard_params`` under the serving rules) and
+        shared by every softmax variant and kernel."""
+        if mesh not in self._mesh_params:
+            from repro_torch.serving.sharded import shard_params
+
+            self._mesh_params[mesh] = shard_params(self.params, self.model.param_axes(),
+                                                   self._serving_rules(), mesh)
+        return self._mesh_params[mesh]
+
+    def _serving_rules(self):
+        from repro_torch.distributed.sharding import ShardingRules, serving_rules
+
+        return serving_rules(ShardingRules(self.model.cfg.sharding_overrides))
+
+    def _step_cache(self, cfg, slots: int, cache_len: int, paged_geom, enc_len: int = 0,
+                    mesh=None):
+        """A zeroed decode cache of one step shape: contiguous or paged;
+        under a mesh placed to the serving layout as the reference's
+        (``serving.sharded.place_cache``: a ``Shards`` list, each shard its
+        kv-heads or latent rank and its own table)."""
+        dev = self.model.device
+        if paged_geom is None:
+            cache = kv_cache.cache_zeros(cfg, slots, cache_len, device=dev, enc_len=enc_len)
+        else:
+            cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom, device=dev)
+        if mesh is None:
+            return cache
+        from repro_torch.serving.sharded import place_cache
+
+        axes = (kv_cache.serve_cache_axes(cfg, slots, cache_len) if paged_geom is None
+                else kv_cache.paged_cache_axes(cfg, slots, cache_len, *paged_geom))
+        return place_cache(cache, axes, self._serving_rules(), mesh)
+
     def _serve_state(self, kernel: str, slots: int, cache_len: int,
                      paged_geom, softmax_kind: Optional[str] = None,
-                     enc_len: int = 0) -> DecodeState:
+                     enc_len: int = 0, mesh=None) -> DecodeState:
         """The serve decode step of one shape — (kernel, softmax variant,
         slots, cache_len, block geometry, int8 pool, encoder frames) — over
         its own cache, reset here to
@@ -556,23 +594,22 @@ class Engine:
         each request's generator); EOS masking runs per slot. Free slots ride
         along parked at ``cache_len`` (their writes are dropped) with no
         generator, and their outputs are ignored. The step gives [2, slots]
-        int32 (tokens and EOS flags) and the last logits [slots, V]."""
+        int32 (tokens and EOS flags) and the last logits [slots, V]. Under
+        a ``mesh`` the step runs every shard over its own cache (one graph
+        on the card)."""
         cfg, dev = self.model.cfg, self.model.device
         key = ("serve", kernel, softmax_kind, slots, cache_len, paged_geom, cfg.kv_quant,
-               enc_len)
+               enc_len, mesh)
         st = self._decode_states.get(key)
         if st is not None:
             st.reset_cache()
             return st
-        if paged_geom is None:
-            cache = kv_cache.cache_zeros(cfg, slots, cache_len, device=dev, enc_len=enc_len)
-        else:
-            cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom,
-                                               device=dev)
+        cache = self._step_cache(cfg, slots, cache_len, paged_geom, enc_len, mesh)
         mrope = cfg.rope_type == "mrope"
         inputs = torch.zeros((3, slots), dtype=torch.long, device=dev)
         model = self._kernel_model(kernel, softmax_kind)
-        params, sample = self.params, self.sample
+        params = self.params if mesh is None else self._sharded_params(mesh)
+        sample = self.sample
         eos_id, pad = self.eos_id, self.pad_id
 
         def decode():
@@ -592,7 +629,7 @@ class Engine:
         return st
 
     def _spec_state(self, kernel: str, slots: int, cache_len: int, paged_geom,
-                    k: int, softmax_kind: Optional[str] = None) -> DecodeState:
+                    k: int, softmax_kind: Optional[str] = None, mesh=None) -> DecodeState:
         """The speculative verify round of one shape — (kernel, softmax
         variant, slots, cache_len, block geometry, int8 pool, draft depth
         ``k``) — over its
@@ -608,19 +645,17 @@ class Engine:
         emitted tokens, pad-filled, then n_emit) and the block's logits
         [slots, k + 1, V]."""
         cfg, dev = self.model.cfg, self.model.device
-        key = ("spec", kernel, softmax_kind, slots, cache_len, paged_geom, cfg.kv_quant, k)
+        key = ("spec", kernel, softmax_kind, slots, cache_len, paged_geom, cfg.kv_quant, k,
+               mesh)
         st = self._decode_states.get(key)
         if st is not None:
             st.reset_cache()
             return st
-        if paged_geom is None:
-            cache = kv_cache.cache_zeros(cfg, slots, cache_len, device=dev)
-        else:
-            cache = kv_cache.paged_cache_zeros(cfg, slots, cache_len, *paged_geom,
-                                               device=dev)
+        cache = self._step_cache(cfg, slots, cache_len, paged_geom, mesh=mesh)
         inputs = torch.zeros((slots, k + 2), dtype=torch.long, device=dev)
         model = self._kernel_model(kernel, softmax_kind)
-        params, t = self.params, k + 1
+        params = self.params if mesh is None else self._sharded_params(mesh)
+        t = k + 1
         verify = make_spec_verifier(self._sampler_kind,
                                     pad_id=0 if self.pad_id is None else self.pad_id,
                                     **self._sampler_kw)
@@ -678,6 +713,32 @@ class Engine:
             self._proposers[key] = (proposer, opt.draft_model, opt.draft_params)
         return proposer
 
+    def _serving_mesh(self, opt: ServeOptions, cfg):
+        """The serve's mesh, validated (None: single-device). ``shards=N``
+        takes the first N visible devices of the model's kind, and raises
+        when there are fewer: several shards go on one device only when the
+        caller's mesh puts them there."""
+        mesh = opt.mesh
+        if opt.shards is not None and mesh is None:
+            from repro_torch.launch.mesh import make_serving_mesh, visible_devices
+
+            mesh = make_serving_mesh(opt.shards, visible_devices(self.model.device.type))
+        if mesh is None:
+            return None
+        from repro_torch.serving.sharded import validate_serving_mesh
+
+        validate_serving_mesh(cfg, mesh)
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "tensor-parallel serving of the MoE family shards its experts across "
+                "cards (the reference's expert parallelism and its 'a2a' dispatch): "
+                "ROADMAP.md Queue 1 item 22")
+        if len({str(d) for d in mesh.device_list()}) != 1:
+            from repro_torch.models.tensor_parallel import ONE_DEVICE
+
+            raise NotImplementedError(ONE_DEVICE)
+        return mesh
+
     @torch.no_grad()
     def serve(self, requests: Sequence[Request],
               options: Optional[ServeOptions] = None) -> ServeReport:
@@ -728,7 +789,22 @@ class Engine:
         ``softmax_kind`` serves the trace under another registered softmax
         (``_variant_model``: the engine's config with the kind swapped, the
         engine's params), metered by that backend; ``kernel="pallas"``
-        rejects a kind that is not Alg. 1."""
+        rejects a kind that is not Alg. 1.
+
+        ``mesh`` (or ``shards=N``, which builds a 1-D
+        :func:`repro_torch.launch.mesh.make_serving_mesh` over the visible
+        devices of the model's kind) serves tensor-parallel: attention heads
+        (the latent rank for MLA) and the paged pool split over the mesh's
+        ``"model"`` axis, each shard holding its heads' slice of every block
+        while block tables and the allocator stay replicated or on the
+        host. Parameters are placed once per mesh; each decode step and
+        verify round is still one step (one graph on the card) over every
+        shard. Shard counts that do not divide the heads (or the rank)
+        raise up front (``serving.sharded.validate_serving_shards``); the
+        tokens equal the single-device serve's, and it composes with paged,
+        prefix sharing, chunked prefill, preemption, speculative rounds and
+        ``kernel="pallas"``. Several shards share a device only when the
+        mesh says so (``make_serving_mesh(n, devices=[dev] * n)``)."""
         opt = ServeOptions() if options is None else options
         slots, policy = opt.slots, opt.policy
         paged, block_size = opt.paged, opt.block_size
@@ -787,12 +863,13 @@ class Engine:
         chunkable = cfg.family in ("dense", "moe") and not mrope
         # SSM state and window rings summarise the whole prefix: nothing to share
         shareable = opt.prefix_share and chunkable
-        params = self.params
         need = max(r.prompt_len + r.max_new for r in reqs)
         C = need if opt.cache_len is None else opt.cache_len
         if cfg.family == "hybrid":
             # prefill builds window-capacity rings; the slot buffers must match
             C = max(C, cfg.window)
+        mesh = self._serving_mesh(opt, cfg)
+        params = self.params if mesh is None else self._sharded_params(mesh)
         alloc = None
         num_blocks = opt.num_blocks
         if paged:
@@ -826,9 +903,9 @@ class Engine:
         if speculative:
             proposer = self._proposer(opt)
             proposer.begin(slots, C, opt.kernel, block_size if paged else None)
-            state = self._spec_state(opt.kernel, slots, C, geom, draft_k, smx_kind)
+            state = self._spec_state(opt.kernel, slots, C, geom, draft_k, smx_kind, mesh)
         else:
-            state = self._serve_state(opt.kernel, slots, C, geom, smx_kind, enc_len)
+            state = self._serve_state(opt.kernel, slots, C, geom, smx_kind, enc_len, mesh)
         cache = state.cache
         replays0 = 0 if state.graph is None else state.graph.replays
         step_cost = (self._meter_serve_step(slots, C, geom, model=model, enc_len=enc_len)

@@ -7,9 +7,8 @@ cross-field checks).
                                                   prefix_share=True,
                                                   kernel="pallas"))
 
-Options that belong to later slices of the port raise
-``NotImplementedError`` at construction and name their ROADMAP.md item, so
-a configuration the port cannot serve fails before a model is in sight.
+Every option of the reference is ported; ``mesh`` / ``shards`` serve
+tensor-parallel (``serving/sharded.py``).
 """
 
 from __future__ import annotations
@@ -90,7 +89,3 @@ class ServeOptions:
                 raise ValueError(
                     f"unknown softmax_kind {self.softmax_kind!r}; registered "
                     f"backends: {', '.join(names)}")
-        if self.mesh is not None or self.shards is not None:
-            raise NotImplementedError(
-                "ServeOptions.mesh/shards is not ported to repro_torch yet: "
-                "ROADMAP.md Queue 1 item 14 (tensor-parallel serving)")

@@ -42,7 +42,11 @@ def test_imports_with_jax_blocked():
             "import repro_torch.training.optimizer, repro_torch.training.grad_compression\n"
             "import repro_torch.checkpoint.checkpointer, repro_torch.checkpoint.manager\n"
             "import repro_torch.data.packing, repro_torch.distributed.straggler\n"
-            "import repro_torch.launch.train\n"
+            "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+            "import repro_torch.serving.sharded, repro_torch.models.tensor_parallel\n"
+            "import repro_torch.distributed.sharding, repro_torch.distributed.collectives\n"
+            "import repro_torch.distributed.elastic, repro_torch.data.sharding\n"
+            "import repro_torch.configs.qwen2_5_32b\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src")}, timeout=120)
@@ -62,11 +66,18 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("flag", [["--shards", "2"],
                                   ["--continuous", "--paged", "--preemption", "--shards", "2"]])
-def test_later_slice_flags_name_roadmap_item(flag):
-    """``--shards`` (item 14) raises before anything is trained or restored."""
+def test_later_slice_flags_name_roadmap_item(flag, capsys):
+    """``--shards`` (ported: tensor-parallel serving) is a usage error before
+    anything is trained or restored when it cannot run as asked: without
+    ``--continuous``, or with more shards than visible devices and no
+    ``--shards-on-one-device`` (the error names that flag: no shard goes
+    on a shared device unasked)."""
     args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu"] + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(SystemExit):
         serve.main(args)
+    err = capsys.readouterr().err
+    assert ("requires --continuous" in err if "--continuous" not in flag
+            else "--shards-on-one-device" in err)
 
 
 def test_item_13_flags_no_longer_raise(tmp_path, capsys):
@@ -92,11 +103,15 @@ def test_serve_softmax_flag_runs(capsys):
                     "--serve-softmax", "fp"])
 
 
-def test_speculative_with_shards_still_names_item_14():
+def test_speculative_with_shards_still_names_item_14(capsys):
+    """Speculative serving over shards (item 14, ported) runs from the
+    launcher with the shards on the CPU."""
     args = ["--arch", "olmo-1b", "--warm-steps", "0", "--device", "cpu", "--continuous",
-            "--paged", "--speculative", "--shards", "2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-        serve.main(args)
+            "--paged", "--speculative", "--shards", "2", "--shards-on-one-device",
+            "--requests", "3", "--max-new", "4"]
+    rep = serve.main(args)
+    assert rep.speculative and len(rep.results) == 3
+    assert "2 shards on one device" in capsys.readouterr().out
 
 
 def test_launcher_speculative_serve_prints_draft_verify_split(capsys):

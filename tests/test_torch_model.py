@@ -131,8 +131,13 @@ def test_cache_zeros_layout():
 
 
 def test_unported_arch_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-        get_config("qwen2.5-32b")
+    """No reference architecture is left unported: qwen2.5-32b, the last one,
+    resolves (its fields are held against the reference's in
+    ``test_torch_sharded_serving.py``), and a name outside the registry
+    raises with the list of the available ones."""
+    assert get_config("qwen2.5-32b").n_layers == 64
+    with pytest.raises(KeyError, match="available"):
+        get_config("qwen3-1t")
 
 
 def test_init_is_seeded():

@@ -12,7 +12,7 @@ expert), f32 on both sides, the reference's own ``moe_init`` parameters.
   order; the outputs are O(1)), the combine weights within 1e-6, aux within
   1e-6; also at ``capacity_factor=0.25``, where assignments drop.
 * ``capacity()`` over a range of group sizes; ``scatter_combine`` and
-  ``expert_tp`` equal to ``gather``; ``a2a`` raises naming item 14.
+  ``expert_tp`` equal to ``gather``; ``a2a`` raises naming item 22.
 """
 
 import dataclasses
@@ -135,8 +135,10 @@ def test_reference_impls_agree_with_the_port(layer):
 
 
 def test_a2a_names_item_14(layer):
+    """``"a2a"`` raises naming the MoE expert-parallel item (22), which took
+    it over from item 14 (tensor-parallel serving, done)."""
     _, tcfg, _, tp, x = layer
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 22"):
         tmoe.moe_apply(tp, torch.from_numpy(x), dataclasses.replace(tcfg, moe_impl="a2a"),
                        Ctx(dtype=torch.float32))
 

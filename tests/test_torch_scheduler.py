@@ -8,9 +8,9 @@
   traces, both policies, with and without a resource gate;
 * ``prefix_keys`` and every trace generator are byte-equal, and the JSON
   round trip gives the same trace;
-* ``ServeOptions`` validates as the reference does, options of later
-  slices raise naming their ROADMAP.md item, and chunked prefill and
-  preemption construct and run through the launcher.
+* ``ServeOptions`` validates and constructs as the reference does (the
+  tensor-parallel ``mesh`` / ``shards`` included), and chunked prefill
+  and preemption construct and run through the launcher.
 """
 
 import dataclasses
@@ -161,12 +161,13 @@ def test_serve_options_validation_matches_reference(kw):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(shards=2), "item 14"),
-])
-def test_later_slice_options_name_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        topt.ServeOptions(**kw)
+@pytest.mark.parametrize("kw", [dict(shards=2), dict(shards=4), dict(mesh="a mesh"),
+                                dict(shards=2, paged=True, kernel="pallas")])
+def test_mesh_and_shards_options_construct_as_reference(kw):
+    """``mesh`` / ``shards`` (tensor-parallel serving) construct as the
+    reference's, every field equal; the engine validates the mesh."""
+    assert dataclasses.asdict(topt.ServeOptions(**kw)) == \
+        dataclasses.asdict(jopt.ServeOptions(**kw))
 
 
 def test_softmax_kind_option_constructs():

@@ -60,7 +60,9 @@ def test_train_launcher_resumes_a_reference_checkpoint(tmp_path, capsys):
 
 
 def test_train_launcher_production_mesh_names_item_14():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
+    """``--production-mesh`` raises naming the sharded-training item (23),
+    which took it over from item 14 (tensor-parallel serving, done)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 23"):
         train.main(TRAIN + ["--steps", "1", "--production-mesh"])
 
 
