@@ -285,7 +285,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     at each n; (c) minicpm3-4b at 8 of its 62 layers over 2 shards
     through K4 on the gathered latent pool, (b)'s gates against its
     single-device serve;
-21. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
+21. the dry run against the card (item 15): ``launch/dryrun.py``'s cells
+    of phases 4, 6, 19 and 20 on the meta device (on the host, seconds):
+    (a) their argument bytes (parameters and cache, or the train state)
+    equal what the phase allocated, exactly; (b) ``roofline.model_work``'s
+    bound, each path's least time (a serve step's over the live keys of
+    the step its graph replays), at most ``ROOFLINE_SHARE_LIMIT`` of the
+    measured time (a replayed decode step's device span; the train step's
+    wall), printed as the path's roofline share with the card's line;
+    (c) the peak control: olmo-1b's decode step at batch 4 and 8 on the
+    card, ``max_memory_allocated`` against the dry run's peak within
+    ``PEAK_SLACK_BYTES``, the doubled batch moving both by the same
+    amount. Every bound this script prints comes from
+    ``repro_torch.launch.roofline`` (the card's rates by name, K1-K4's
+    bounds, the weight-read, decode and 6 N T bounds);
+22. a ``kernels`` JSON line per ported kernel (K2's int8 branch its own
     entry; ``launches_by_path`` with phase 20's paths), the card line, and
     the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -348,20 +362,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Data-sheet HBM rates (bytes/s) by card name, most specific first.
-HBM_RATE = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
-            ("H100", 3.35e12)]
-# Outside the tensor cores the guide's table gives 67 TFLOP/s (f32). K1's
-# int32 work is counted at that rate: the int32 rate is no higher, so this
-# under-states the operation bound, which stays far below the memory bound.
-ALU_RATE = 67e12
-K1_OPS_PER_ELEMENT = 40   # quantize ~6, exp ~16, sum 1, divide + dequant ~17
-# The dots and the PV of K2 and K4 multiply compute-dtype operands and
-# accumulate in f32: tensor-core work for bf16 (the TPU kernels run them on
-# the MXU), counted at the H100's dense bf16 peak from the guide's table;
-# f32 operands are counted outside the tensor cores (no TF32).
-MMA_RATE = {torch.bfloat16: 989e12, torch.float32: ALU_RATE}
-
 
 def check(cond, msg):
     if not cond:
@@ -372,19 +372,6 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def hbm_rate(name: str) -> float:
-    for key, rate in HBM_RATE:
-        if key in name:
-            return rate
-    raise SystemExit(f"FAILED: no data-sheet memory rate for card {name!r}")
-
-
-def ops_ms(mma_flops, dtype, alu_ops) -> float:
-    """Least time of the operations: the products at their operand type's
-    peak and Alg. 1 at ALU_RATE, on separate units, so the larger."""
-    return max(mma_flops / MMA_RATE[dtype], alu_ops / ALU_RATE) * 1e3
 
 
 def _event_ms(fn) -> float:
@@ -543,6 +530,7 @@ def k1_case(label, x, mask, cfg, rate, launch_calls, reps=20):
     record and adds its call to ``launch_calls`` (for ``launch_checks``)."""
     from repro_torch.kernels.int_softmax import ops
     from repro_torch.kernels.int_softmax.ref import int_softmax_ref, int_softmax_split_ref
+    from repro_torch.launch import roofline as rl
 
     plan = ops.launch_plan(x)
     before = ops.int_softmax_rows.launches
@@ -557,9 +545,7 @@ def k1_case(label, x, mask, cfg, rate, launch_calls, reps=20):
         split = int_softmax_split_ref(x, cfg, mask, plan.chunk_cols)
         check(torch.equal(split, want), f"K1 {label}: plain split != plain whole rows")
     rows, cols = x.shape
-    nbytes = rows * cols * (4 + 4 + (1 if mask is not None else 0))
-    bytes_ms = nbytes / rate * 1e3
-    op_ms = ops_ms(0, torch.float32, rows * cols * K1_OPS_PER_ELEMENT)
+    bound = rl.k1_bound(rows, cols, mask is not None, rate)
     kernel = lambda: ops.int_softmax_rows(x, cfg, mask)  # noqa: E731
     plain = lambda: int_softmax_ref(x, cfg, mask)  # noqa: E731
     rec = {"shape": label, "rows": rows, "cols": cols, "masked": mask is not None,
@@ -568,8 +554,7 @@ def k1_case(label, x, mask, cfg, rate, launch_calls, reps=20):
            "cluster": plan.cluster, "chunk_cols": plan.chunk_cols,
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
            "call_ms": call_ms(kernel, reps), "plain_call_ms": call_ms(plain, reps),
-           "bound_ms": max(bytes_ms, op_ms),
-           "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
     print(f"K1 {label:<32} [{rows}, {cols}] M={cfg.M} mask={mask is not None}: "
           f"bitwise equal; device ms: kernel {rec['ms']:.4f}, plain "
           f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}, "
@@ -972,6 +957,7 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import k2_row_group, paged_attention_ref
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.attention import kv_quantize
 
     NB = NB or S * NLOG + 4
@@ -1031,28 +1017,9 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
           f"the exact sum over its own probabilities ({out_units}, in units of the bound)")
     check(out_units["vs_plain"] <= 1, f"K2 {label}: an output is outside the bound of "
           f"the plain version's ({out_units}, in units of the bound; max abs err {err})")
-    # bound: the K and V rows the function needs (keys at or below some
-    # row's position, inside its window, on a live page; int8 pools: a byte
-    # a value and the two f32 scales), q, out, table and positions, each
-    # once; operations: the dot and the PV per needed key and row (at the
-    # operand type's rate) and Alg. 1 per score
-    esz = torch.finfo(dtype).bits // 8
-    tab, ps = table.cpu().numpy(), pos.cpu().numpy()
-    kp = np.arange(l_full)
-    need = kp <= ps[:, :, None]                                    # [S, T, L]
-    if window:
-        need &= kp > ps[:, :, None] - window
-    need &= ((tab >= 0) & (tab < NB))[:, kp // BS][:, None, :]
-    keys_read = int(need.any(axis=1).sum())           # a slot's rows share their keys
-    row_keys = int(need.sum()) * group
-    dv = v.shape[-1]
-    kv_bytes = (D + dv + 8) if quant else (D + dv) * esz
-    out = got[0]
-    nbytes = (keys_read * KV * kv_bytes + (q.numel() + out.numel()) * esz
-              + table.numel() * 4 + pos.numel() * 4)
-    bytes_ms = nbytes / rate * 1e3
-    op_ms = ops_ms(row_keys * KV * (2 * D + 2 * dv), dtype,
-                   row_keys * KV * K1_OPS_PER_ELEMENT)
+    bound = rl.k2_bound(q, k, v, table, pos, group=group, window=window,
+                                quant=bool(quant), dtype=dtype, rate=rate)
+    keys_read = bound["keys_read"]
     kernel = lambda: ops.paged_attention_rows(q, k, v, table, pos, BEST, **kw)  # noqa: E731
     plain = lambda: paged_attention_ref(q, k, v, table, pos, BEST, **kw)  # noqa: E731
     n_chunks = sum(len(c) for c in chunks)
@@ -1068,8 +1035,8 @@ def k2_case(label, gen, rate, *, S, KV, group, T=1, D=128, BS=16, NLOG=36,
            "outputs_differing": res["outputs_differing"], "repeat_bitwise": True,
            "score_bound_units": worst, "output_bound_units": out_units,
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
-           "call_ms": call_ms(kernel, 20), "bound_ms": max(bytes_ms, op_ms),
-           "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
+           "call_ms": call_ms(kernel, 20), "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"]}
     print(f"K2 {label:<34} S={S} KV={KV} rows={rows} D={D} BS={BS} NLOG={NLOG} "
           f"w={window} {rec['dtype']}, pools {rec['pools']}, chunks of {cp} pages, rows in "
           f"groups of {rg} ({rec['live_ctas']} CTAs): Alg. 1 on own scores bitwise; repeat "
@@ -1292,8 +1259,9 @@ def k3_case(label, rate, launch_calls, *, B, H, KV, Sq, Skv, D, causal=True, win
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.int_attention import ops
     from repro_torch.kernels.int_attention.ref import (
-        attention_mask, int_attention_ref, k3_plan, k3_smem_bytes, k3_tiles,
+        int_attention_ref, k3_plan, k3_smem_bytes, k3_tiles,
     )
+    from repro_torch.launch import roofline as rl
 
     cfg = cfg or BEST
     gen = torch.Generator("cuda").manual_seed(seed)
@@ -1342,17 +1310,9 @@ def k3_case(label, rate, launch_calls, *, B, H, KV, Sq, Skv, D, causal=True, win
               "than a quarter of a bf16 ulp from the exactly rounded dot (limit 1 %)")
     check(out_units["pv_vs_exact"] <= 1 and out_units["vs_plain"] <= 1, f"K3 {label}: an "
           f"output is outside its bound ({out_units}, in units of the bound)")
-    out = got[0]
     del got, want_sc, want_pr
-    # bound: q, k, v read once and the f32 out written once; operations: the
-    # dot and the PV per valid (row, key) at the operand type's rate, Alg. 1
-    # per valid score
-    mask = attention_mask(Sq, Skv, causal, window, device=dev)
-    esz = torch.finfo(dtype).bits // 8
-    pairs = (Sq * Skv if mask is None else int(mask.sum())) * bh
-    nbytes = (q.numel() + k.numel() + v.numel()) * esz + out.numel() * 4
-    bytes_ms = nbytes / rate * 1e3
-    op_ms = ops_ms(pairs * 4 * D, dtype, pairs * K1_OPS_PER_ELEMENT)
+    bound = rl.k3_bound(q, k, v, causal=causal, window=window, dtype=dtype,
+                                rate=rate)
     kernel = lambda: ops.int_attention_rows(q, k, v, cfg, **kw)  # noqa: E731
     plain = lambda: int_attention_ref(q[None], k[None], v[None], cfg, **kw)  # noqa: E731
     rec = {"shape": label, "B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv, "D": D,
@@ -1364,8 +1324,8 @@ def k3_case(label, rate, launch_calls, *, B, H, KV, Sq, Skv, D, causal=True, win
            "scores_differing": res["scores_differing"], "score_share_differing": share,
            "score_bound_units": worst, "output_bound_units": out_units,
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
-           "call_ms": call_ms(kernel, 10), "bound_ms": max(bytes_ms, op_ms),
-           "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
+           "call_ms": call_ms(kernel, 10), "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"]}
     print(f"K3 {label:<34} B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} D={D} causal={causal} "
           f"w={window} {rec['dtype']} M={cfg.M}: plan q tile {plan.q_tile} x key tile "
           f"{plan.k_tile} ({rec['ctas']} CTAs, {rec['key_tiles_visited']} key tiles, {smem} B "
@@ -1613,6 +1573,7 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
     from repro_torch.core.precision import BEST
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import K4_TILE_ROWS, paged_attention_mla_ref
+    from repro_torch.launch import roofline as rl
 
     NB = NB or S * NLOG + 4
     l_full = NLOG * BS
@@ -1666,21 +1627,9 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
           f"the exact sum over its own probabilities ({out_units}, in units of the bound)")
     check(out_units["vs_plain"] <= 1, f"K4 {label}: an output is outside the bound of "
           f"the plain version's ({out_units}, in units of the bound; max abs err {err})")
-    # bound: the latent and rope rows the function needs (keys at or below
-    # some row's position, on a live page), the queries, out, table and
-    # positions, each once; operations: both dots and the PV per needed
-    # (row, key) at the operand type's rate, and Alg. 1
-    esz = torch.finfo(dtype).bits // 8
-    kpos = torch.arange(l_full, device="cuda")
-    live = ((kpos <= pos.repeat_interleave(H, dim=1)[:, :, None])
-            & ((table >= 0) & (table < NB))[:, kpos // BS][:, None, :])
-    keys_read = int(live.any(dim=1).sum())                     # a slot's rows share keys
-    row_keys = int(live.sum())
-    out = got[0]
-    nbytes = (keys_read * (R + DR) * esz + (q_lat.numel() + q_rope.numel() + out.numel())
-              * esz + table.numel() * 4 + pos.numel() * 4)
-    bytes_ms = nbytes / rate * 1e3
-    op_ms = ops_ms(row_keys * (2 * (R + DR) + 2 * R), dtype, row_keys * K1_OPS_PER_ELEMENT)
+    bound = rl.k4_bound(q_lat, q_rope, c, kr, table, pos, heads=H, dtype=dtype,
+                                rate=rate)
+    keys_read = bound["keys_read"]
     kernel = lambda: ops.paged_attention_mla_rows(*args, scale=scale)  # noqa: E731
     plain = lambda: paged_attention_mla_ref(*args, scale=scale)  # noqa: E731
     tiles, groups = -(-rows // K4_TILE_ROWS), -(-R // 64)
@@ -1696,8 +1645,8 @@ def k4_case(label, gen, rate, *, S, H, T=1, R=256, DR=32, BS=16, NLOG=34, NB=Non
            "score_share_differing": share,
            "score_bound_units": worst, "output_bound_units": out_units,
            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
-           "call_ms": call_ms(kernel, 20), "bound_ms": max(bytes_ms, op_ms),
-           "bound_by": "bytes" if bytes_ms >= op_ms else "operations"}
+           "call_ms": call_ms(kernel, 20), "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"]}
     print(f"K4 {label:<34} S={S} H={H} T={T} R={R} DR={DR} BS={BS} NLOG={NLOG} "
           f"{rec['dtype']}, chunks of {cp} pages ({rec['live_ctas']} CTAs, PV "
           f"{rec['pv_ctas']}): Alg. 1 on own scores bitwise; repeat bitwise; "
@@ -1819,25 +1768,19 @@ def op_by_op(eng):
     return eng
 
 
-def _named_leaves(tree, prefix=""):
-    """(path, tensor) of every leaf of a (nested) cache tree, or of every
-    shard's (a list: the shard's index first)."""
-    if isinstance(tree, dict):
-        return [nl for k, v in tree.items() for nl in _named_leaves(v, f"{prefix}{k}/")]
-    if isinstance(tree, list):
-        return [nl for i, v in enumerate(tree) for nl in _named_leaves(v, f"{prefix}{i}/")]
-    return [(prefix[:-1], tree)]
-
-
 def caches_equal(a, b) -> dict:
     """Leaf -> bitwise equal, over two decode states' caches (nested: the
     leaf's path)."""
+    from repro_torch.launch import roofline as rl
+
     return {k: bool(torch.equal(x, y))
-            for (k, x), (_, y) in zip(_named_leaves(a.cache), _named_leaves(b.cache))}
+            for (k, x), (_, y) in zip(rl.named_leaves(a.cache), rl.named_leaves(b.cache))}
 
 
 def cache_bytes(st) -> int:
-    return sum(v.numel() * v.element_size() for _, v in _named_leaves(st.cache))
+    from repro_torch.launch import roofline as rl
+
+    return rl.tree_bytes(st.cache)
 
 
 def rows_equal(rows_a, rows_b) -> int:
@@ -2002,6 +1945,7 @@ def graphed_generate(label, model, params, prompts, max_new, rounds, eager_mode=
     a replayed step, one capture, graph faster than op by op. ``extra``:
     the family's further prefill inputs (M-RoPE's positions) of every
     call."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.serving.engine import Engine
 
     extra = extra or {}
@@ -2120,6 +2064,9 @@ def graphed_generate(label, model, params, prompts, max_new, rounds, eager_mode=
           f"{label}: graph {step_ms['graph']} ms per step not below op by op "
           f"{step_ms['op by op']}")
     (rec["trace"],) = traces.values()
+    rec["param_bytes"] = rl.tree_bytes(params)
+    rec["cache_bytes"] = cache_bytes(sg)
+    rec["cache_len"] = prompt_len + max_new
     return rec, g
 
 
@@ -2595,6 +2542,7 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
 
@@ -2626,6 +2574,15 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
     torch.cuda.reset_peak_memory_stats()
     with KernelWidths() as widths:
         rep, counted, rows_pallas, first_s, replayed = counted_serve(eng_r, reqs, opts, rec)
+    # what the checked serve allocated: its parameters and its step's pool;
+    # the live keys of each slot in the step its graph replays (the last)
+    st = [s for k, s in eng_r._decode_states.items()
+          if k[:2] == ("serve", "pallas") and k[4] == rep.cache_len][-1]
+    alloc = {"param_bytes": rl.tree_bytes(params), "pool_bytes": cache_bytes(st),
+             "cache_len": rep.cache_len, "num_blocks": eng_r._last_alloc.num_blocks,
+             "slots": opts.slots, "block_size": opts.block_size,
+             "step_keys": rl.live_keys(st.cache, st.buffers[0][1])}
+    del st
     PLAIN_SERVES[arch, kv_quant] = {"rep": rep, "rows": rows_pallas}
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec.rows = {}
@@ -2769,7 +2726,7 @@ def serve_phase(arch, reqs, opts, *, fused, eager_n, logit_tol, logit_rms_tol,
           f"2 engines x the kernels pallas and jnp = 4)", flush=True)
     check(captures == 4, f"{cfg.name}: {captures} graphs for 4 step shapes")
     (trace,) = traces.values()
-    return {"arch": arch, "kv_pool": "int8 (absmax)" if kv_quant else "bf16",
+    return {"arch": arch, "kv_pool": "int8 (absmax)" if kv_quant else "bf16", **alloc,
             "launches": n, "kernel_widths": w, "steps": rep.steps, "ties": ties,
             "teacher_forced_logits": logit_checks, "aligned_logits": aligned,
             "control": ctrl, "int8_vs_bf16_model_logits": to_bf16,
@@ -4209,18 +4166,6 @@ def moe_model(arch):
     return model, params
 
 
-def weight_read_bound_ms(params) -> float:
-    """A decode step reads every weight once but the embedding table (it
-    reads B rows of it): those bytes at the card's HBM rate."""
-    def nbytes(tree):
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        return tree.numel() * tree.element_size()
-
-    rest = {k: v for k, v in params.items() if k != "embed"}
-    return nbytes(rest) / hbm_rate(torch.cuda.get_device_name(0)) * 1e3
-
-
 class RouteDrops:
     """While active, counts the assignments each MoE routing call drops
     (``moe._route``'s targets at the sentinel row E * C), all of them, and,
@@ -4424,6 +4369,7 @@ def moe_generate(model, params):
     == eager bitwise), then the plain Alg. 1 (``int``) bitwise equal."""
     from repro_torch.core.softmax_variants import SoftmaxSpec
     from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
 
@@ -4437,7 +4383,7 @@ def moe_generate(model, params):
                      max_new=max_new).generate(prompts, mode="fused")
     same = (np.array_equal(res_int.tokens, res.tokens)
             and torch.equal(res_int.logits, res.logits))
-    bound = weight_read_bound_ms(params)
+    bound = rl.weight_read_bound_ms(params, rl.hbm_rate(torch.cuda.get_device_name(0)))
     print(f"  {cfg.name} generate: int_pallas vs int (plain Alg. 1) on the card, tokens and "
           f"last logits bitwise equal: {same}; {rec['ms_per_step']['graph']:.3f} ms per "
           f"decode step graphed ({rec['ms_per_step']['op by op']:.3f} op by op) against a "
@@ -4461,6 +4407,7 @@ def moe_serve(model, params, reqs, fused, group):
     rows)."""
     import dataclasses
 
+    from repro_torch.launch import roofline as rl
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.options import ServeOptions
 
@@ -4541,7 +4488,7 @@ def moe_serve(model, params, reqs, fused, group):
     warm = timed.serve(reqs, dataclasses.replace(opts, report_cost=False))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    bound = weight_read_bound_ms(params)
+    bound = rl.weight_read_bound_ms(params, rl.hbm_rate(torch.cuda.get_device_name(0)))
     (trace,) = traces.values()
     print(f"  {arch} serve, warm graphed: {wall * 1e3 / warm.steps:.3f} ms per step "
           f"({warm.steps} steps, prefills included; one replayed step's device span "
@@ -4765,7 +4712,6 @@ def phase16_moe():
     return out
 
 
-
 # ----------------------------------------------------------------- phase 17
 
 # The recurrent families at full width (item 11's SSM and hybrid bullets):
@@ -4828,23 +4774,6 @@ class _BatchRows:
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def decode_bound_ms(params, cache) -> float:
-    """A decode step's bytes bound: every weight but the embedding read once,
-    and the decode state (SSM state and conv tail, window rings, the
-    prefix's K/V) read once and its SSM state written once, at the card's
-    HBM rate."""
-    def nbytes(tree):
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        return tree.numel() * tree.element_size()
-
-    state = sum(v.numel() * v.element_size() for k, v in _named_leaves(cache)
-                if k.endswith("state"))
-    rest = {k: v for k, v in params.items() if k != "embed"}
-    return (nbytes(rest) + nbytes(cache) + state) / hbm_rate(
-        torch.cuda.get_device_name(0)) * 1e3
-
-
 def ring_positions_match(cfg, st_cache, last: int) -> bool:
     """hymba: the positions the decode steps left in every window layer's
     ring, bitwise against the ring of a sequence decoded through position
@@ -4872,6 +4801,7 @@ def recurrent_generate(model, params, prompts):
     (tokens, last logits); ms a step of a warm graphed generate of those
     steps beside the bytes bound, peak memory. Returns the record."""
     from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Engine
 
@@ -4901,7 +4831,7 @@ def recurrent_generate(model, params, prompts):
         print(f"  {label}: every window layer's ring after {REC_MAX_NEW - 1} decode steps "
               f"holds, in slot i, the latest position <= {last} that is i mod "
               f"{cfg.window}: {ring}", flush=True)
-    bound = decode_bound_ms(params, st.cache)
+    bound = rl.decode_bound_ms(params, st.cache, rl.hbm_rate(torch.cuda.get_device_name(0)))
     per_replay = {k: 0 for k in counted}
     per_replay["K1"] = attn
     traces = replay_trace(label, replayed_graphs(eng, replayed))
@@ -5002,12 +4932,13 @@ def swap_round_trip_nested(cfg, num_blocks, slots=8, C=1024, bs=16):
     zeroed between (another occupant), the blocks restored into other ids;
     every restored block and stripe equal to the original, every other
     slot's stripes untouched, the table row as given."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.models import kv_cache
 
     slot = 2
     cache = kv_cache.paged_cache_zeros(cfg, slots, C, bs, num_blocks, device="cuda")
     g = torch.Generator("cuda").manual_seed(13)
-    for _, leaf in _named_leaves(cache):
+    for _, leaf in rl.named_leaves(cache):
         if leaf.dtype == torch.int32:
             if leaf.dim() == 3 and leaf.shape[-1] != C // bs:      # ring positions
                 leaf.copy_(torch.randint(-1, 4096, leaf.shape, generator=g, device="cuda",
@@ -5022,13 +4953,13 @@ def swap_round_trip_nested(cfg, num_blocks, slots=8, C=1024, bs=16):
     pools = kv_cache._paged_nodes(cache)
     before_blocks = [{k: v[:, ids].clone() for k, v in node.items() if k != "table"}
                      for node in pools]
-    stripes = [(k, v) for k, v in _named_leaves(cache)
+    stripes = [(k, v) for k, v in rl.named_leaves(cache)
                if not k.split("/")[-1] in ("table",) and not any(
                    v is node[q] for node in pools for q in node)]
     before_slot = {k: v[:, slot].clone() for k, v in stripes}
     before_rest = {k: torch.cat([v[:, :slot], v[:, slot + 1:]], 1).clone() for k, v in stripes}
     payload = kv_cache.swap_read(cache, slot, ids)
-    host = all(v.device.type == "cpu" for _, v in _named_leaves(payload))
+    host = all(v.device.type == "cpu" for _, v in rl.named_leaves(payload))
     for _, v in stripes:
         v[:, slot].zero_()
     kv_cache.swap_write(cache, payload, slot, new_ids, row)
@@ -5041,7 +4972,7 @@ def swap_round_trip_nested(cfg, num_blocks, slots=8, C=1024, bs=16):
             torch.cat([v[:, :slot], v[:, slot + 1:]], 1), before_rest[k]))
     table = all(bool((node["table"][:, slot].cpu() == torch.from_numpy(row)).all())
                 for node in pools)
-    nbytes = sum(v.numel() * v.element_size() for _, v in _named_leaves(payload))
+    nbytes = sum(v.numel() * v.element_size() for _, v in rl.named_leaves(payload))
     ok = host and table and all(equal.values())
     print(f"  swap round trip, {cfg.name} paged cache of {num_blocks} blocks: {len(ids)} blocks "
           f"and slot {slot}'s stripes ({nbytes} B) to the host and back (blocks into other "
@@ -5921,10 +5852,11 @@ def _ring_write_one_late(ring_write):
 
 
 def _stripe_leaves(cache):
+    from repro_torch.launch import roofline as rl
     from repro_torch.models import kv_cache
 
     pools = [id(v) for node in kv_cache._paged_nodes(cache) for v in node.values()]
-    return [v for _, v in _named_leaves(cache) if id(v) not in pools]
+    return [v for _, v in rl.named_leaves(cache) if id(v) not in pools]
 
 
 def _stripe_to_other_slot(swap_write):
@@ -6457,14 +6389,18 @@ TRAIN_WARM_ARGS = ["--arch", "olmo-1b", "--no-smoke", "--softmax", "int_pallas",
 def _qk_leaves(tree):
     """(path, tensor) of every query / key projection weight of a params
     (or gradient) tree."""
-    return [(k, v) for k, v in _named_leaves(tree) if k.endswith(("wq/w", "wk/w"))]
+    from repro_torch.launch import roofline as rl
+
+    return [(k, v) for k, v in rl.named_leaves(tree) if k.endswith(("wq/w", "wk/w"))]
 
 
 def _train_leaves(state):
     """(path, tensor) of every leaf of a TrainState: params, moments, step."""
-    return ([("params/" + k, v) for k, v in _named_leaves(state.params)]
-            + [("opt/m/" + k, v) for k, v in _named_leaves(state.opt.m)]
-            + [("opt/v/" + k, v) for k, v in _named_leaves(state.opt.v)]
+    from repro_torch.launch import roofline as rl
+
+    return ([("params/" + k, v) for k, v in rl.named_leaves(state.params)]
+            + [("opt/m/" + k, v) for k, v in rl.named_leaves(state.opt.m)]
+            + [("opt/v/" + k, v) for k, v in rl.named_leaves(state.opt.v)]
             + [("opt/step", state.opt.step)])
 
 
@@ -6479,6 +6415,7 @@ def train_full_width():
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
     from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.model import Model
     from repro_torch.training.optimizer import AdamW, cosine_schedule, global_norm
     from repro_torch.training.step import init_state, make_grad_fn, make_train_step, to_device
@@ -6493,7 +6430,7 @@ def train_full_width():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = init_state(model, opt, torch.Generator("cuda").manual_seed(0))
-    masters = {str(v.dtype) for _, v in _named_leaves(state.params)}
+    masters = {str(v.dtype) for _, v in rl.named_leaves(state.params)}
     losses, gnorms, walls = [], [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -6547,22 +6484,23 @@ def train_full_width():
         upd.append(time.perf_counter() - t0)
         del new
     update_ms = statistics.median(upd) * 1e3
-    # 6 N T: forward and backward products of the N weights a token meets
-    # (the tied embedding's read-out included), at the bf16 peak; the
-    # recomputed forward of remat "full" adds 2 N T on top
-    n_mm = sum(v.numel() for k, v in _named_leaves(state.params) if k.endswith("/w"))
-    flops = 6 * n_mm * tokens
+    # 6 N T (roofline.train_6nt): forward and backward products of the N
+    # weights a token meets, at the bf16 peak; the recomputed forward of
+    # remat "full" adds 2 N T on top
+    flops, flops_ms = rl.train_6nt(state.params, tokens)
     rec = {"arch": cfg.name, "params_b": cfg.param_count() / 1e9, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
            "step_walls_s": walls, "ms_per_step": step_s * 1e3, "tok_s": tokens / step_s,
            "optimizer_update_ms": update_ms, "peak_gib": peak,
-           "model_flops_per_step": flops, "flops_bound_ms": flops / 989e12 * 1e3,
-           "int_qk_grads_zero": zero_qk, "grad_norm_final": gn, "int_ste_qk_max": ste_qk}
+           "model_flops_per_step": flops, "flops_bound_ms": flops_ms,
+           "int_qk_grads_zero": zero_qk, "grad_norm_final": gn, "int_ste_qk_max": ste_qk,
+           "state_bytes": rl.tree_bytes(state), "remat": cfg.remat}
     print(f"  training: {step_s * 1e3:.1f} ms a step (median of steps 2-{TRAIN_STEPS}; "
           f"first {walls[0] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, AdamW update "
           f"alone {update_ms:.2f} ms (median of 3), peak device memory {peak:.2f} GiB; 6 N T = "
           f"{flops:.3e} FLOPs a step, {rec['flops_bound_ms']:.2f} ms at the bf16 peak "
-          f"(989 TFLOP/s), {rec['flops_bound_ms'] / (step_s * 1e3) * 100:.1f} % of it "
+          f"({rl.PEAK_FLOPS / 1e12:.0f} TFLOP/s), "
+          f"{rec['flops_bound_ms'] / (step_s * 1e3) * 100:.1f} % of it "
           f"({card_line()})", flush=True)
     del state, grads, model, ste
     torch.cuda.empty_cache()
@@ -6578,6 +6516,7 @@ def train_card_vs_cpu():
     from repro_torch.configs.registry import smoke_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
     from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.model import Model
     from repro_torch.training.grad_compression import compress, decompress, init_error_feedback
     from repro_torch.training.optimizer import AdamW, cosine_schedule
@@ -6598,11 +6537,12 @@ def train_card_vs_cpu():
         new[dev], _ = make_train_step(m, opt)(TrainState(p, opt.init(p), None), batch)
     loss_rel = abs(float(mets["cuda"]["loss"]) / float(mets["cpu"]["loss"]) - 1)
     g_rel, upd = {}, {}
-    for (k, c), (_, g) in zip(_named_leaves(grads["cpu"]), _named_leaves(grads["cuda"])):
+    for (k, c), (_, g) in zip(rl.named_leaves(grads["cpu"]), rl.named_leaves(grads["cuda"])):
         g = g.cpu()
         g_rel[k] = (0.0 if not c.any() and not g.any()
                     else float(torch.linalg.norm(g - c) / torch.linalg.norm(c)))
-    for (k, c), (_, g) in zip(_named_leaves(new["cpu"].params), _named_leaves(new["cuda"].params)):
+    for (k, c), (_, g) in zip(rl.named_leaves(new["cpu"].params),
+                              rl.named_leaves(new["cuda"].params)):
         d = (g.cpu() - c).abs()
         upd[k] = (float(d.max()), float(d.mean()))
     worst_g = max(g_rel.items(), key=lambda kv: kv[1])
@@ -6620,13 +6560,13 @@ def train_card_vs_cpu():
 
     g2, m2 = make_grad_fn(models["cuda"], microbatches=2)(params["cuda"], batch)
     micro = max(float(torch.linalg.norm(b - a) / max(torch.linalg.norm(a), 1e-30))
-                for (_, a), (_, b) in zip(_named_leaves(grads["cuda"]), _named_leaves(g2)))
+                for (_, a), (_, b) in zip(rl.named_leaves(grads["cuda"]), rl.named_leaves(g2)))
     micro_loss = abs(float(m2["loss"]) / float(mets["cuda"]["loss"]) - 1)
     ef = compress(grads["cuda"], init_error_feedback(grads["cuda"]))[1]   # a residual
     payload, new_e = compress(g2, ef)
     sums = all(torch.equal(p + e, g + r) for (_, p), (_, e), (_, g), (_, r) in zip(
-        _named_leaves(decompress(payload)), _named_leaves(new_e), _named_leaves(g2),
-        _named_leaves(ef)))
+        rl.named_leaves(decompress(payload)), rl.named_leaves(new_e), rl.named_leaves(g2),
+        rl.named_leaves(ef)))
     print(f"  training on the card: microbatches=2 against 1, worst gradient leaf "
           f"{micro:.2e} in relative norm (bound {TRAIN_MICRO_GRAD}), loss {micro_loss:.2e} "
           f"(bound {TRAIN_MICRO_LOSS}); grad_compress: payload.float() + new residual == "
@@ -6883,10 +6823,11 @@ def _layers_of(params, n):
 def _shard_pool_bytes(eng, st, opts, rep, n):
     """Each shard's cache bytes in a serve's step state against
     ``pool_report``'s ``per_device_bytes`` for the serve's geometry."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.serving.sharded import pool_report
 
     caches = st.cache if n > 1 else [st.cache]
-    got = [sum(t.numel() * t.element_size() for _, t in _named_leaves(c)) for c in caches]
+    got = [sum(t.numel() * t.element_size() for _, t in rl.named_leaves(c)) for c in caches]
     want = pool_report(st.model.cfg, opts.slots, rep.cache_len, opts.block_size,
                        eng._last_alloc.num_blocks, n)
     return {"per_shard_bytes": got, "per_device_bytes": want["per_device_bytes"],
@@ -6910,6 +6851,7 @@ def tp_serve(label, model, params, reqs, opts, n, name, base=None, timed=True):
     graph (a profiler session per run costs more than the runs)."""
     import dataclasses
 
+    from repro_torch.launch import roofline as rl
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving.engine import Engine
 
@@ -6941,7 +6883,11 @@ def tp_serve(label, model, params, reqs, opts, n, name, base=None, timed=True):
     pool = _shard_pool_bytes(eng, st, opts, rep, n)
     out = {"label": label, "shards": n, "layers": L, "kv_pool": "int8" if int8 else "bf16",
            "steps": rep.steps, "expected_launches": want, "kernel_widths": w, "pool": pool,
-           "leaked_blocks": rep.leaked_blocks, "first_serve_s": first_s, "peak_gib": peak}
+           "leaked_blocks": rep.leaked_blocks, "first_serve_s": first_s, "peak_gib": peak,
+           "cache_len": rep.cache_len, "num_blocks": eng._last_alloc.num_blocks,
+           "slots": opts.slots, "block_size": opts.block_size, "pool_bytes": cache_bytes(st),
+           "param_bytes": rl.tree_bytes(params) if n == 1 else None,
+           "step_keys": rl.live_keys(st.cache, st.buffers[0][1]) if n == 1 else None}
     print(f"{label}: {rep.steps} decode steps, {len(reqs)} requests, cache_len "
           f"{rep.cache_len}, prefill {rep.prefill_tokens} + shared "
           f"{rep.shared_prefill_tokens} tokens, leaked blocks {rep.leaked_blocks}; {name} "
@@ -7083,6 +7029,7 @@ def phase20_tensor_parallel():
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.model import Model
     from repro_torch.serving.options import ServeOptions
 
@@ -7098,7 +7045,7 @@ def phase20_tensor_parallel():
     print(f"qwen2.5-32b full width and depth ({cfg.param_count() / 1e9:.3f} B parameters, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, "
           f"QKV biases, untied head), seeded bf16 weights "
-          f"({sum(v.numel() * v.element_size() for _, v in _named_leaves(params)) / 2**30:.2f}"
+          f"({sum(v.numel() * v.element_size() for _, v in rl.named_leaves(params)) / 2**30:.2f}"
           f" GiB, drawn in {time.perf_counter() - t0:.1f} s), softmax int_pallas; phase 6's "
           f"trace cut to "
           f"{len(reqs)} requests ({sum(r.max_new for r in reqs)} tokens) with phase 6's "
@@ -7217,6 +7164,166 @@ def phase20_fault_control():
     return results
 
 
+# ----------------------------------------------------------------- phase 21
+
+# The dry run's peak (live storages on the meta device) against
+# torch.cuda.max_memory_allocated() over one decode step of the same cell
+# on the card, from the allocations before its parameters: the caching
+# allocator rounds each block up to a multiple of 512 B (a few dozen blocks
+# live here: olmo-1b's 24 parameter leaves, 2 cache leaves, the step's
+# temporaries), and the plain K1 the meta cell runs keeps other
+# temporaries than the kernel, under 1 MiB at these shapes; cuBLAS's
+# workspace was allocated by the products of earlier phases and is in
+# neither. So the two may differ by at most PEAK_SLACK_BYTES.
+PEAK_SLACK_BYTES = 4 * 2**20
+# A path's model_work bound above this share of its measured time means
+# the count is wrong (a lower bound cannot exceed the time it bounds).
+ROOFLINE_SHARE_LIMIT = 1.05
+# the peak control: olmo-1b's decode step at phase 4's cache length, at
+# this batch and at twice it
+PEAK_BATCH = 4
+
+
+def _dry(arch, shape, softmax, keys=None):
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.launch.dryrun import run_cell
+
+    return run_cell(arch, shape, "card", softmax=SoftmaxSpec(softmax), keys=keys)
+
+
+def dryrun_peak_control(card):
+    """(c): one decode step of olmo-1b (int_pallas, K1) at PEAK_BATCH and
+    twice it, op by op on the card, its max_memory_allocated over the
+    allocations before the parameters, against the dry run's peak_bytes of
+    the same cell; the doubled batch must move both, by amounts within
+    the same limit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.softmax_variants import SoftmaxSpec
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.models import kv_cache
+    from repro_torch.models.model import Model
+
+    cfg = get_config("olmo-1b", softmax=SoftmaxSpec("int_pallas"))
+    cache_len = 544
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    out = {}
+    for b in (PEAK_BATCH, 2 * PEAK_BATCH):
+        dry = _dry("olmo-1b", ShapeSpec(f"peak control b{b}", "decode", cache_len, b),
+                   "int_pallas")
+        cache = kv_cache.cache_zeros(cfg, b, cache_len, device="cuda")
+        token = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+        pos = torch.full((), 512, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits = model.decode_step(params, cache, {"token": token}, pos)[0]
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        check(bool(torch.isfinite(logits).all()), f"peak control b{b}: non-finite logits")
+        del logits, cache, token, pos
+        torch.cuda.empty_cache()
+        predicted = dry["memory"]["peak_bytes"]
+        limit = PEAK_SLACK_BYTES
+        out[b] = {"predicted_peak_bytes": predicted, "measured_peak_bytes": measured,
+                  "difference": measured - predicted, "limit": limit,
+                  "argument_bytes": dry["memory"]["argument_bytes"]}
+        print(f"  dry run vs card, peak of olmo-1b's decode step at batch {b}, cache "
+              f"{cache_len}: predicted {predicted} B (dry run, arguments "
+              f"{dry['memory']['argument_bytes']} B), measured {measured} B "
+              f"(max_memory_allocated over the allocations before the parameters), "
+              f"difference {measured - predicted:+d} B (limit {limit}) ({card})",
+              flush=True)
+        check(abs(measured - predicted) <= limit,
+              f"peak control b{b}: measured {measured} B vs predicted {predicted} B")
+    del params, model
+    torch.cuda.empty_cache()
+    lo, hi = out[PEAK_BATCH], out[2 * PEAK_BATCH]
+    moved = {"predicted": hi["predicted_peak_bytes"] - lo["predicted_peak_bytes"],
+             "measured": hi["measured_peak_bytes"] - lo["measured_peak_bytes"]}
+    print(f"  the control (twice the batch) moved the predicted peak by {moved['predicted']} B "
+          f"and the measured by {moved['measured']} B", flush=True)
+    check(moved["predicted"] > 0 and moved["measured"] > 0,
+          f"peak control: twice the batch moved the peaks by {moved}")
+    check(abs(moved["measured"] - moved["predicted"]) <= lo["limit"],
+          f"peak control: the doubled batch moved the peaks by {moved}")
+    return {"by_batch": out, "moved": moved}
+
+
+def phase21_dryrun_vs_card(generated, served, training, tp):
+    """The dry run (``launch/dryrun.py`` on the meta device, on the host)
+    of the cells earlier phases ran, against what they allocated and took:
+    (a) its argument bytes (parameters and cache, or train state) equal the
+    bytes the phase allocated, exactly; (b) ``roofline.model_work``'s
+    bound, the least work of the step (a serve step: over the live keys of
+    the step its graph replays; the generate: the mean of its steps), is
+    at most ROOFLINE_SHARE_LIMIT of the measured time (one replayed decode
+    step's device span; the train step's median wall); (c) the peak
+    control (``dryrun_peak_control``); (d) each path's roofline share,
+    bound over measured, printed with the card's line."""
+    from repro_torch.launch.specs import ShapeSpec
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    q = tp["runs"]["qwen2.5-32b"]
+    tr = training["train"]
+    paths = [
+        ("olmo-1b generate (phase 4)", "olmo-1b", "int_pallas",
+         ShapeSpec("phase 4 generate", "generate", generated["cache_len"],
+                   generated["batch"], max_new=generated["max_new"]),
+         {"params": generated["param_bytes"], "cache": generated["cache_bytes"]}, None,
+         generated["trace"]["span_ms"], "a replayed decode step's device span"),
+        ("olmo-1b serve step, bf16 pool (phase 6)", "olmo-1b", "int_pallas",
+         ShapeSpec("phase 6 serve step", "decode", served["cache_len"], served["slots"],
+                   paged=(served["block_size"], served["num_blocks"])),
+         {"params": served["param_bytes"], "cache": served["pool_bytes"]},
+         served["step_keys"], served["step_trace"]["span_ms"],
+         "a replayed serve step's device span"),
+        ("olmo-1b train step (phase 19)", "olmo-1b", "int",
+         ShapeSpec("phase 19 train step", "train", tr["seq"], tr["batch"]),
+         {"state": tr["state_bytes"]}, None, tr["ms_per_step"], "the median step's wall"),
+        ("qwen2.5-32b serve step, 64 layers, single-device (phase 20)", "qwen2.5-32b",
+         "int_pallas", ShapeSpec("phase 20 serve step", "decode", q["cache_len"], q["slots"],
+                                 paged=(q["block_size"], q["num_blocks"])),
+         {"params": q["param_bytes"], "cache": q["pool_bytes"]}, q["step_keys"],
+         q["step_trace"]["span_ms"], "a replayed serve step's device span"),
+    ]
+    out = {}
+    for label, arch, smx, shape, allocated, keys, measured_ms, what in paths:
+        t0 = time.perf_counter()
+        dry = _dry(arch, shape, smx, keys)
+        by_name = dry["memory"]["argument_bytes_by_name"]
+        got = {k: by_name[k] for k in allocated}
+        work = dry["model_work"]
+        bound_ms = work["bound_s"] / work["steps"] * 1e3
+        share = bound_ms / measured_ms
+        out[label] = {"dry_run_s": time.perf_counter() - t0, "argument_bytes": by_name,
+                      "allocated_bytes": allocated, "model_work": work,
+                      "bound_ms": bound_ms, "measured_ms": measured_ms, "measured": what,
+                      "roofline_share": share, "live_keys": keys,
+                      "flops_per_device": dry["flops_per_device"],
+                      "bytes_per_device": dry["bytes_per_device"],
+                      "peak_bytes": dry["memory"]["peak_bytes"]}
+        print(f"  dry run vs card, {label}: argument bytes {got} (dry run) vs {allocated} "
+              f"(allocated by the phase); model_work bound {bound_ms:.4f} ms a step "
+              f"({work['dominant']}: {work['flops'] / work['steps']:.4g} FLOPs, "
+              f"{work['bytes'] / work['steps']:.4g} B{f'; live keys {keys}' if keys else ''}) "
+              f"against {measured_ms:.4f} ms ({what}): roofline share {share * 100:.2f} %; "
+              f"dry run {out[label]['dry_run_s']:.1f} s, counted "
+              f"{dry['flops_per_device']:.4g} FLOPs (model_work's figure for the port's code "
+              f"{work['impl_flops']:.4g}), {dry['bytes_per_device']:.4g} B unfused, peak "
+              f"{dry['memory']['peak_bytes']} B ({card})", flush=True)
+        check(got == allocated, f"{label}: the dry run's arguments {got} != the allocation "
+              f"{allocated}")
+        check(share <= ROOFLINE_SHARE_LIMIT, f"{label}: model_work's bound {bound_ms} ms is "
+              f"{share:.2%} of the measured {measured_ms} ms")
+    out["peak control"] = dryrun_peak_control(card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 21 in {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -7235,6 +7342,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
+    from repro_torch.launch import roofline as rl
 
     # phase 1: environment
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
@@ -7244,7 +7352,7 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, nvcc: {nvcc}", flush=True)
     print(card, flush=True)
-    rate = hbm_rate(name)
+    rate = rl.hbm_rate(name)
 
     if fault_mode:
         build.build(["int_softmax", "paged_attention", "paged_attention_mla"])
@@ -7338,6 +7446,10 @@ def main():
                f"card; at {TP_LAYERS} layers over 2 and 4 shards on cuda:0 from bf16 and int8 "
                "pools; minicpm3-4b over 2 shards on K4)", phase20_tensor_parallel)
     print(f"phases 3-20: {time.perf_counter() - t_all:.1f} s", flush=True)
+    dry = timed("phase 21 (the dry run against the card: phases 4, 6, 19 and 20's cells on "
+                "the meta device against their allocations and times; the peak control)",
+                phase21_dryrun_vs_card, generated, served, training, tp)
+    print(f"phases 3-21: {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # the kernels line
     main_rec = next(r for r in recs if r["shape"] == "prefill (main path)")
@@ -7469,6 +7581,7 @@ def main():
                                 "speculative": spec, "variants": variants},
                       "moe": moe, "recurrent": recurrent, "encdec_mrope": encdec_mrope,
                       "training": training, "tensor_parallel": tp,
+                      "dry_run_vs_card": dry,
                       "kv_quantize_card_vs_cpu": quantize}, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

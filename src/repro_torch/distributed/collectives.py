@@ -12,9 +12,40 @@ in a fixed order (shard 0 first), as a tree of pairwise adds would not.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+
+# the open ``count_collectives`` records (none: the calls record nothing)
+_RECORDS: list = []
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """While open, every collective call adds its operand bytes and one
+    call to a record ``{kind: {"calls", "operand_bytes", "per_shard_bytes"}}``
+    (kinds ``all_gather``, ``psum``, ``reduce_scatter_mean``): the bytes of
+    every shard's operands, and of shard 0's, which is what one device of
+    a process-per-device mesh would send. Yields the record. It changes no
+    result; with none open a call costs one list test."""
+    rec: dict = {}
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _record(kind: str, xs) -> None:
+    if not _RECORDS:
+        return
+    sizes = [x.numel() * x.element_size() for x in xs]
+    for rec in _RECORDS:
+        r = rec.setdefault(kind, {"calls": 0, "operand_bytes": 0, "per_shard_bytes": 0})
+        r["calls"] += 1
+        r["operand_bytes"] += sum(sizes)
+        r["per_shard_bytes"] += sizes[0]
 
 
 class Shards(list):
@@ -26,6 +57,7 @@ class Shards(list):
 def all_gather(xs: Sequence[torch.Tensor], dim: int = 0, device=None) -> torch.Tensor:
     """The shards' tensors concatenated along ``dim`` in shard order (the
     reference's tiled ``all_gather``), on ``device`` (default: shard 0's)."""
+    _record("all_gather", xs)
     device = xs[0].device if device is None else device
     return torch.cat([x.to(device) for x in xs], dim=dim)
 
@@ -35,7 +67,8 @@ def ring_all_gather(xs: Sequence[torch.Tensor], dim: int = 0, device=None) -> to
     return all_gather(xs, dim, device)
 
 
-def _psum(xs, device):
+def _psum(xs, device, kind: str = "psum"):
+    _record(kind, xs)
     device = xs[0].device if device is None else device
     acc = xs[0].to(device)
     for x in xs[1:]:
@@ -66,7 +99,7 @@ def reduce_scatter_mean(xs: Sequence[torch.Tensor], dim: int = 0) -> Shards:
     tensors, divided by the shard count, split along ``dim`` into equal
     tiles, tile i on shard i's device."""
     n = len(xs)
-    total = _psum(xs, None) / n
+    total = _psum(xs, None, "reduce_scatter_mean") / n
     if total.shape[dim] % n:
         raise ValueError(f"dim {dim} of size {total.shape[dim]} does not split into "
                          f"{n} tiles")

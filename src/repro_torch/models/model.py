@@ -123,6 +123,18 @@ PREFILL_MIN_ROWS = 256
 STEP_MIN_ROWS = 64
 
 
+def row_contexts(cfg: ModelConfig, ctx: Ctx, card: bool):
+    """The prefill and the decode / verify step contexts: on the card
+    (``card``) the row padding above and the encoder-decoder's per-slot
+    scores, elsewhere ``ctx`` as it is."""
+    prefill = dataclasses.replace(ctx, min_rows=PREFILL_MIN_ROWS if card else 0)
+    step_rows = STEP_MIN_ROWS if card else 0
+    step = dataclasses.replace(ctx, step_min_rows=step_rows,
+                               min_rows=step_rows if cfg.family == "moe" else 0,
+                               per_row_scores=card and cfg.family == "encdec")
+    return prefill, step
+
+
 def _slice_tree(tree, lo: int, n: int):
     """Layers ``lo .. lo + n`` of a stacked tree, as views."""
     return kv_cache.tree_map(lambda v: v[lo:lo + n], tree)
@@ -204,14 +216,8 @@ class Model:
         self.cfg = cfg
         self.ctx = Ctx(dtype=dtype)
         self.device = resolve_device(device)
-        cuda = self.device.type == "cuda"
-        self.prefill_ctx = dataclasses.replace(
-            self.ctx, min_rows=PREFILL_MIN_ROWS if cuda else 0)
-        step_rows = STEP_MIN_ROWS if cuda else 0
-        self.step_ctx = dataclasses.replace(
-            self.ctx, step_min_rows=step_rows,
-            min_rows=step_rows if cfg.family == "moe" else 0,
-            per_row_scores=cuda and cfg.family == "encdec")
+        self.prefill_ctx, self.step_ctx = row_contexts(cfg, self.ctx,
+                                                       self.device.type == "cuda")
         self._sinusoids: dict = {}   # (encoder length, device) -> its table
 
     # ------------------------------------------------------------------ init
