@@ -196,14 +196,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     those compared); (c) deepseek-v2-236b (MLA at 128 heads, kv_lora 512,
     160 experts top-6, 2 shared, a dense prefix layer) serving (b)'s
     requests: K4 4 x steps at (1, 128), K2 never, (b)'s plain-serve checks
-    and control (K4 leaving out the first page);
+    and control (K4 leaving out the first page); expert parallelism (item
+    22), every shard on cuda:0 (``tp_serve``): (e) (b)'s serve over 2 and
+    4 shards (each shard's K2 at 4 / 2 kv-heads, group 6) and (f) (c)'s
+    over 2 (each shard's K4 at 64 heads on the gathered latent pool), each
+    held against the single-device serve at tier (b) (``MOE_TP_TOL``), its
+    launches n x layers x steps, every step one replay bitwise equal to op
+    by op, each shard's pool bytes ``pool_report``'s, the first request's
+    routed assignments that differ printed; (g) the ``"a2a"`` dispatch:
+    dbrx's MoE layer on (d)'s 512 tokens card against CPU (per-segment
+    slots and drops), a2a == gather bitwise at capacity 16, a2a dropping
+    more than gather at 1.0, the router's column slices' moved assignments
+    printed, and an a2a serve single-device against 2 shards;
 17. the recurrent families (item 11's SSM and hybrid bullets) at full
-    width and half depth (``REC_LAYERS``), seeded bf16 weights, prompts on
-    the SSD chunk grid: (a) mamba2-780m (24 of its 48 SSD layers, no
-    attention, so no kernel) and (b) hymba-1.5b (16 of its 32 layers: 3
-    global on K1 / K2, 13 window layers on rings of 1024 keys) through the
+    width and a quarter depth (``REC_LAYERS``), seeded bf16 weights, prompts
+    on the SSD chunk grid: (a) mamba2-780m (12 of its 48 SSD layers, no
+    attention, so no kernel) and (b) hymba-1.5b (8 of its 32 layers: 3
+    global on K1 / K2, 5 window layers on rings of 1024 keys) through the
     graphed ``Engine.generate(mode="fused")`` at batch 4, 256 new tokens
-    after prompts of 256 and 1280: K1 0 and 16 x 256 launches, every
+    after prompts of 256 and 1280: K1 0 and 8 x 256 launches, every
     decoded logit row within
     ``REC_GEN_TOL`` of ``Model.train_logits`` over the sequence, hymba's
     ring positions as the decoded positions put them, over the first 32
@@ -212,7 +223,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     beside the bytes bound, peak memory; (c) hymba-1.5b serving an
     8-request trace (prompts 192 and 256, 16-64 new tokens) with phase 6's
     options through phase 6's checks (``serve_phase``): nothing shared, K2
-    3 x steps all at (1, 5), K1 13 x steps + 16 x 8, graph == op by op
+    3 x steps all at (1, 5), K1 5 x steps + 8 x 8, graph == op by op
     bitwise on 1 request, greedy tokens == jnp and eager but at near ties,
     served logits within the ``HYMBA_*`` limits of a teacher-forced pass
     and a control (K2 leaving out each sequence's first page) failing them,
@@ -222,7 +233,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     of blocks and stripes bitwise, the serve equal to the plain serve
     bitwise (tokens, every logit row); (e) both served speculatively
     (n-gram drafts of 4), one replay a round: equal to the plain serve
-    bitwise, hymba's K2 at (5, 25) 3 x rounds and K1 16 x 8 + 13 x 5 x
+    bitwise, hymba's K2 at (5, 25) 3 x rounds and K1 8 x 8 + 5 x 5 x
     rounds, acceptance and ms a round of a warm serve;
 18. the encoder-decoder and M-RoPE families (item 11's last bullets) at
     full width, seeded bf16 weights: (a) whisper-base (6 encoder and 6
@@ -274,16 +285,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
     steps (the replays' kernels from the device trace), no leaked blocks,
     the pool's bytes ``pool_report``'s, graph == op by op on its first
     request, peak memory and ms a step; (b) the same weights at 8 layers
-    (``TP_LAYERS``) served single-device and over 2 and 4 shards on cuda:0
+    (``TP_LAYERS``), the trace's first 4 requests (``TP_REQUESTS``), served
+    single-device and over 2 and 4 shards on cuda:0
     (``make_serving_mesh(n, devices=[dev] * n)``) from the bf16 pool, and
     over 4 from the int8 pool: each sharded serve equal to the
     single-device serve of its pool bitwise (tokens and every step-aligned
-    logit row; else tier (b): ``TP_ALIGNED_*``), K1 n x 8 x 8 and K2 n x
+    logit row; else tier (b): ``TP_ALIGNED_*``), K1 n x 8 x 4 and K2 n x
     8 x steps at the unsharded step's group, each shard's pool bytes
     ``pool_report``'s ``per_device_bytes``, one capture, graph == op by op
     on the first request, at most 20 aten ops a replayed step, ms a step
-    at each n; (c) minicpm3-4b at 8 of its 62 layers over 2 shards
-    through K4 on the gathered latent pool, (b)'s gates against its
+    at each n; (c) minicpm3-4b at 8 of its 62 layers, 4 requests, over 2
+    shards through K4 on the gathered latent pool, (b)'s gates against its
     single-device serve;
 21. the dry run against the card (item 15): ``launch/dryrun.py``'s cells
     of phases 4, 6, 19 and 20 on the meta device (on the host, seconds):
@@ -325,7 +337,10 @@ phase 14's checks (the rollback, the logit and token checks) on its first
 8 requests served op by op through the gather path against two faults
 of the verify step (``commit_staged`` leaving the last rejected position
 uncleared, ``verify_mask`` letting query i see position i + 1), then
-phase 17's checks against four faults of the recurrent paths (the SSM
+phase 16's (e) gates against two faults of the MoE shards (the experts'
+outputs gathered in reverse shard order, the last shard's experts giving
+zeros) and (g)'s a2a gates against each segment taking ``capacity()``'s
+slots of the whole sequence, then phase 17's checks against four faults of the recurrent paths (the SSM
 decode step without its D skip, which only ``REC_GEN_TOL`` can catch,
 ``commit_staged`` restoring the recurrent snapshot one step late,
 ``attn_decode_ring`` writing slot (pos + 1) % W, ``swap_write`` restoring
@@ -335,12 +350,13 @@ neighbour's cross K/V, the M-RoPE serve step's positions outside its input
 buffer), then phase 20's (b) gates against two faults of the sharded
 forward (the heads gathered before ``wo`` in reverse shard order, every
 shard's K2 giving zeros for its last kv-head), and prints which checks
-catch each. Phases 13 and 14's controls run at their cut depth.
+catch each. Phases 13, 14 and 17's controls run at their cut depth.
 
-    python3 chip_smoke.py [--fault-control] --only 13,20
+    python3 probes/phase_seconds.py --root . --phases 16 16-faults
 
-runs the listed phases (or their fault controls) alone, after the build:
-a development run, with no kernels line and no result line.
+runs chosen phases (or their fault controls) alone, after the build, and
+prints their seconds: a development run, with no kernels line and no
+result line.
 """
 
 from __future__ import annotations
@@ -1097,6 +1113,11 @@ def phase5_k2(rate):
     recs.append(k2_case("dbrx-132b decode (GQA 48/8)", gen, rate, qpos=qpos, **dbrx))
     recs.append(k2_case("dbrx-132b verify T 5 (GQA 48/8)", gen, rate, T=5,
                         qpos=np.minimum(qpos, 576 - 5), **dbrx))
+    # phase 16 (e)'s sharded dbrx-132b serve: each shard's K2 at its kv-heads
+    # (8 / n), group 6, over its pool slice
+    for n in MOE_TP_SHARDS["dbrx-132b"]:
+        recs.append(k2_case(f"dbrx-132b shard decode, {n} shards (KV {8 // n}, group 6)", gen,
+                            rate, qpos=qpos, **{**dbrx, "KV": 8 // n}))
     # phase 17's hymba-1.5b serve: its 3 global layers at GQA 25/5 (group
     # 5), D 64, over the serve's pool (cache_len 1024: the window) at its
     # decode step and its verify round
@@ -1708,6 +1729,10 @@ def phase7_k4(rate):
     recs.append(k4_case("deepseek-v2-236b serve decode (H 128)", gen, rate, qpos=dpos, **ds))
     recs.append(k4_case("deepseek-v2-236b verify T 5 (640 rows)", gen, rate, T=5,
                         qpos=np.minimum(dpos, 576 - 5), **ds))
+    # phase 16 (f)'s sharded deepseek-v2-236b serve: each shard's K4 at its
+    # 64 heads over the latent pool gathered along the rank
+    recs.append(k4_case("deepseek-v2-236b shard decode, 2 shards (H 64)", gen, rate, qpos=dpos,
+                        **{**ds, "H": 64}))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     return recs
 
@@ -2330,34 +2355,75 @@ def aligned_logits(label, reqs, res_a, res_b, rows_a, rows_b):
     return stats
 
 
+def _near_tie_bound(top: float) -> float:
+    """NEAR_TIE_ULPS bf16 ulps of a logit ``top``."""
+    return NEAR_TIE_ULPS * 2.0 ** (float(np.floor(np.log2(abs(top)))) - 7)
+
+
 def _margin(model, params, tokens):
     """Top logit and top-2 margin of the next-token logits after ``tokens``,
-    by a teacher-forced prefill of the reference's own tokens."""
+    by a teacher-forced prefill of the reference's own tokens; for an MoE
+    model also the router's closest call at the last token over the MoE
+    layers: the smallest margin between its k-th and (k+1)-th router
+    logits in units of its near-tie bound (``_near_tie_bound`` of the k-th
+    logit; below 1: a routing near tie), else None."""
     batch = {"tokens": torch.as_tensor(np.asarray(tokens)[None], dtype=torch.long,
                                        device="cuda")}
     batch.update(text_inputs(model, batch["tokens"]))
-    if model.cfg.family in ("ssm", "hybrid"):
-        # a prompt off the SSD chunk grid: the causal forward pads it
-        logits = full_logits(model, params, batch["tokens"])
-    else:
-        logits, _ = model.prefill(params, batch, cache_len=len(tokens))
+    router = []
+    if model.cfg.family == "moe":
+        from repro_torch.models import moe
+        from repro_torch.models.layers import dense_apply
+
+        route = moe._route
+
+        def traced(p, x, cfg, ctx):
+            logits = dense_apply(p["router"], x, ctx).float()[0, -1]
+            top = torch.sort(logits, descending=True).values
+            kth, nxt = float(top[cfg.moe_top_k - 1]), float(top[cfg.moe_top_k])
+            router.append((kth - nxt) / _near_tie_bound(kth))
+            return route(p, x, cfg, ctx)
+
+        moe._route = traced
+    try:
+        if model.cfg.family in ("ssm", "hybrid"):
+            # a prompt off the SSD chunk grid: the causal forward pads it
+            logits = full_logits(model, params, batch["tokens"])
+        else:
+            logits, _ = model.prefill(params, batch, cache_len=len(tokens))
+    finally:
+        if model.cfg.family == "moe":
+            moe._route = route
     top = torch.topk(logits[0, -1].float(), 2).values
-    return float(top[0]), float(top[0] - top[1])
+    return float(top[0]), float(top[0] - top[1]), (min(router) if router else None)
 
 
 def first_divergence(label, got, want, prompt_len, model, params):
     """None for equal token rows; else the first divergent step with the
     reference's top logit and top-2 margin there, and whether that margin
-    is a near tie (below NEAR_TIE_ULPS bf16 ulps of the top logit)."""
+    is a near tie (below NEAR_TIE_ULPS bf16 ulps of the top logit). For an
+    MoE model a routing near tie at that token counts too: a router whose
+    k-th and (k+1)-th logits lie that close in some MoE layer picks either
+    expert under the rounding a near-tie token sees, and the expert it picks
+    moves that token's FFN output, and so its logits, by O(1)."""
     diff = np.nonzero(np.asarray(got) != np.asarray(want))[0]
     if diff.size == 0:
         return None
     k = int(diff[0])
     check(k >= prompt_len, f"{label}: prompt differs")
-    top, margin = _margin(model, params, want[:k])
-    bound = NEAR_TIE_ULPS * 2.0 ** (float(np.floor(np.log2(abs(top)))) - 7)
-    return {"run": label, "step": k - prompt_len, "margin": margin, "top": top,
-            "near_tie_bound": bound, "near_tie": margin < bound}
+    top, margin, router = _margin(model, params, want[:k])
+    bound = _near_tie_bound(top)
+    out = {"run": label, "step": k - prompt_len, "margin": margin, "top": top,
+           "near_tie_bound": bound, "near_tie": margin < bound}
+    if router is not None:
+        out.update(router_margin_in_bounds=router, logit_near_tie=out["near_tie"],
+                   near_tie=out["near_tie"] or router < 1)
+    if not out["near_tie"] or router is not None:
+        print(f"  divergence, {label}: step {out['step']}, top-2 logit margin {margin:.4g} "
+              f"(near-tie bound {bound:.4g})"
+              + ("" if router is None else f", closest routing call {router:.4g} near-tie "
+                 f"bounds") + f"; near tie: {out['near_tie']}", flush=True)
+    return out
 
 
 def compare_tokens(label, got, want, prompt_len, model, params, ties):
@@ -4404,7 +4470,8 @@ def moe_serve(model, params, reqs, fused, group):
     floor; a control serve, ``fused`` leaving out each sequence's first
     page (``_first_page_left_out``), failing them; a warm graphed serve's
     ms per step beside the weight-read bound. Returns (record, report,
-    rows)."""
+    rows); the record's ``"routes"``: the op-by-op first request's routing
+    calls (``RouteIds``)."""
     import dataclasses
 
     from repro_torch.launch import roofline as rl
@@ -4445,7 +4512,10 @@ def moe_serve(model, params, reqs, fused, group):
         e2 = Engine(model, params, max_new=max_new, sampler=r2)
         if not graphed:
             op_by_op(e2)
-        runs.append((counted_serve(e2, sub, opts, r2)[0], r2.rows, e2))
+        with RouteIds(not graphed) as ids:
+            runs.append((counted_serve(e2, sub, opts, r2)[0], r2.rows, e2))
+    routes = {"calls": ids.calls, "tokens": runs[1][0].results[0].tokens,
+              "prompt_len": sub[0].prompt_len}
     graph_vs_op = serve_graph_vs_op(f"{arch} serve, first {len(sub)} request(s)", sub, *runs)
     del runs
     tol, rms_tol = MOE_LOGIT_TOL[arch], MOE_LOGIT_RMS_TOL[arch]
@@ -4499,7 +4569,7 @@ def moe_serve(model, params, reqs, fused, group):
            "forced_pallas": pallas, "forced_jnp_floor": floor, "forced_control": control,
            "peak_gib": peak,
            "ms_per_step": wall * 1e3 / warm.steps, "weight_read_bound_ms": bound,
-           "step_trace": trace}
+           "step_trace": trace, "routes": routes}
     return out, rep, rows
 
 
@@ -4579,6 +4649,27 @@ def moe_spec(model, params, reqs, plain, plain_rows):
     return out
 
 
+def moe_layer_input(model, params, std):
+    """The input of the first MoE layer's FFN on a 512-token prompt (its
+    norm2 output after the layer's attention) at embedding std ``std``,
+    [1, 512, d] bf16 on the card: (d)'s and (g)'s input."""
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.models.attention import attn_apply
+    from repro_torch.models.layers import norm_apply, positions_for
+    from repro_torch.models.transformer import layer_params
+
+    cfg, ctx = model.cfg, model.prefill_ctx
+    lp = layer_params(params["stack"]["layers"], 0)
+    prompt = SyntheticCorpus(cfg.vocab, seed=1234).sample(1, 512, seed=778)[:, :512]
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")
+    pos = positions_for(tokens.shape, device="cuda")
+    with torch.no_grad():
+        x = params["embed"]["w"][tokens] * (std / MOE_EMBED_STD)
+        h = norm_apply(lp["norm1"], x, cfg.norm, ctx)
+        x = x + attn_apply(lp["attn"], h, cfg, ctx, pos)
+        return norm_apply(lp["norm2"], x, cfg.norm, ctx)
+
+
 def moe_layer_card_vs_cpu(model, params):
     """(d) One full-width MoE layer (dbrx-132b's first) on the card
     against the port's CPU path (bf16, the same weights) on the same bf16
@@ -4591,31 +4682,20 @@ def moe_layer_card_vs_cpu(model, params):
     among those compared (the card's drop path held against the CPU's);
     the output's RMS difference over the tokens routed alike within
     MOE_LAYER_RMS_TOL of the CPU output's RMS."""
-    from repro_torch.data.synthetic import SyntheticCorpus
     from repro_torch.models import moe
-    from repro_torch.models.attention import attn_apply
-    from repro_torch.models.layers import Ctx, norm_apply, positions_for
+    from repro_torch.models.layers import Ctx
     from repro_torch.models.transformer import layer_params
 
     cfg = model.cfg
     k, e = cfg.moe_top_k, cfg.n_experts
     lp = layer_params(params["stack"]["layers"], 0)
-    prompt = SyntheticCorpus(cfg.vocab, seed=1234).sample(1, 512, seed=778)[:, :512]
-    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")
     ctx = model.prefill_ctx
-    pos = positions_for(tokens.shape, device="cuda")
     ffn_cpu = _tree_to(lp["ffn"], "cpu")
     cpu_ctx = Ctx(dtype=torch.bfloat16)
 
-    def layer_input(scale):
-        x = params["embed"]["w"][tokens] * scale
-        h = norm_apply(lp["norm1"], x, cfg.norm, ctx)
-        x = x + attn_apply(lp["attn"], h, cfg, ctx, pos)
-        return norm_apply(lp["norm2"], x, cfg.norm, ctx)
-
     def compare(std):
         with torch.no_grad():
-            h = layer_input(std / MOE_EMBED_STD)
+            h = moe_layer_input(model, params, std)
             y_card, aux_card = moe.moe_apply(lp["ffn"], h, cfg, ctx)
             c, t_card, _, _ = moe._route(lp["ffn"], h, cfg, ctx)
             probs_card = torch.softmax((h @ lp["ffn"]["router"]["w"]).float(), -1)
@@ -4667,11 +4747,284 @@ def moe_layer_card_vs_cpu(model, params):
     return runs
 
 
+# (e)-(g): expert parallelism (ROADMAP item 22). The MoE serves of (b) and
+# (c) over shards on cuda:0 (tp_serve, phase 20's sharded serve), each held
+# against phase 16's single-device serve of the same requests at tier (b):
+# tokens equal but at near ties, the step-aligned logits within
+# MOE_TP_TOL (max, RMS). dbrx-132b over 2 and 4 shards (its 16 experts in
+# blocks of 8 and 4; each shard's K2 at 4 and 2 kv-heads, group 6),
+# deepseek-v2-236b over 2 (80 experts a shard; K4 at 64 heads on the latent
+# pool gathered along the rank). No sharded serve is bitwise on the H100
+# (the attention's column slices and a shard's K2 carry other bits, as in
+# phase 20), and a token near a routing tie then picks another expert: a few
+# large differences beside a small RMS, as phase 16's forced-pass limits
+# read; so a divergence at a routing near tie counts as a near tie too
+# (``first_divergence``). The limits are 1.3 times the largest sound
+# reading on the H100, the same in every run (PERF.md §6, PR 30):
+# dbrx-132b max 1.033 at 2 shards, RMS 0.03991 at 4 (the a2a serve's
+# 0.6211 / 0.02185 under them), deepseek-v2-236b 0.4766 / 0.02562 at 2.
+# The faults of --fault-control read 3.504 / 0.616 (the experts' outputs
+# gathered out of order) and 2.323 / 0.3937 (the last shard's experts
+# giving zeros).
+MOE_TP_SHARDS = {"dbrx-132b": (2, 4), "deepseek-v2-236b": (2,)}
+MOE_TP_TOL = {"dbrx-132b": (1.3 * 1.033, 1.3 * 0.03991),
+              "deepseek-v2-236b": (1.3 * 0.4766, 1.3 * 0.02562)}
+# (g)'s a2a serves, single-device and sharded, on the first requests of the
+# trace (both sides are (g)'s own)
+MOE_A2A_REQUESTS = 4
+# (g): the capacity factors of the a2a checks: at 16 no segment drops (a2a
+# must give gather's outputs), at 1.0 a segment of 128 assignments takes 8
+# a expert (C_seg) where gather's whole prompt takes 128, so the two drop
+# other assignments
+A2A_NO_DROP, A2A_DROPS = 16.0, 1.0
+
+
+class RouteIds:
+    """While ``on``, records the experts of every MoE routing call
+    (``moe._top_k``'s ids, [B, S, k] on the host) in call order. Op by op
+    only: a graph replay calls no Python."""
+
+    def __init__(self, on=True):
+        self.on, self.calls = on, []
+
+    def __enter__(self):
+        if self.on:
+            from repro_torch.models import moe
+
+            self.moe, self.top_k = moe, moe._top_k
+
+            def top_k(probs, k):
+                w, i = self.top_k(probs, k)
+                if probs.device.type != "meta":          # not the AP meter's
+                    self.calls.append(i.cpu())
+                return w, i
+
+            moe._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.moe._top_k = self.top_k
+
+
+def routes_differ(a, b, cfg) -> dict:
+    """Two op-by-op serves of one request (``RouteIds`` calls beside its
+    tokens), their routing compared call by call over the forwards whose
+    inputs were the same: the prefill and the decode steps up to the first
+    step whose token differs (that step's forward included). Returns the
+    routed assignments (a token's expert in ``a``) that ``b``'s token did
+    not route to, of those compared."""
+    moe_layers = cfg.n_layers - cfg.n_dense_prefix
+    ta, tb = np.asarray(a["tokens"]), np.asarray(b["tokens"])
+    diff = np.nonzero(ta != tb)[0]
+    forwards = (int(diff[0]) - a["prompt_len"] + 1) if diff.size else len(a["calls"])
+    n = differ = 0
+    calls = a["calls"][:forwards * moe_layers]
+    for x, y in zip(calls, b["calls"]):
+        member = lambda ids: torch.zeros(ids.shape[:-1] + (cfg.n_experts,),
+                                         dtype=torch.bool).scatter_(-1, ids, True)
+        differ += int((member(x) & ~member(y)).sum())
+        n += x.numel()
+    return {"forwards_compared": min(forwards, len(a["calls"]) // moe_layers),
+            "token_divergence": None if not diff.size else int(diff[0]) - a["prompt_len"],
+            "assignments": n, "differ": differ}
+
+
+def moe_sharded(model, params, reqs, single, name):
+    """(e) / (f): ``reqs`` over each of MOE_TP_SHARDS[arch] shards on cuda:0
+    (``tp_serve``: graphed, K1 n x layers x requests and ``name`` n x
+    layers x steps at (1, the shard's rows), each shard's pool bytes
+    ``pool_report``'s, one capture, the first request graphed == op by op)
+    against ``single``, phase 16's single-device serve of the same
+    requests ((record, report, rows) of ``moe_serve``): tier (b) at
+    MOE_TP_TOL, and the routed assignments of the first request's op-by-op
+    serve that differ from the single-device one's, printed. Returns the
+    runs, their engines kept for ``tp_finish``."""
+    from repro_torch.serving.options import ServeOptions
+
+    cfg = model.cfg
+    arch = cfg.name
+    rec, rep, rows = single
+    base = {"rep": rep, "rows": rows, "params": params}
+    runs = {}
+    for n in MOE_TP_SHARDS[arch]:
+        run = tp_serve(f"{arch} serve, {cfg.n_layers} layers, {n} shards", model, params, reqs,
+                       ServeOptions(**TP_OPTIONS), n, name, base=base, tol=MOE_TP_TOL[arch],
+                       routes=True)
+        run["routes_vs_single_device"] = d = routes_differ(run.pop("routes"), rec["routes"],
+                                                           cfg)
+        print(f"  {arch}, {n} shards: routed assignments of the first request's op-by-op serve "
+              f"that differ from the single-device serve's: {d['differ']} of "
+              f"{d['assignments']} (its prefill and decode steps up to its first token "
+              f"divergence, step {d['token_divergence']}: {d['forwards_compared']} forwards)",
+              flush=True)
+        runs[f"{arch} TP {n}"] = run
+    return runs
+
+
+def a2a_layer(model, params, gate=True, factors=(A2A_NO_DROP, A2A_DROPS)):
+    """(g), the ``"a2a"`` dispatch on the card, on dbrx-132b's first MoE
+    layer and (d)'s 512-token input (16 segments of 128 assignments):
+    (1) card against the port's CPU path (bf16) at capacity A2A_DROPS:
+    expert ids equal over MOE_MARGIN, each assignment's per-segment slot or
+    drop equal wherever no token before it in its segment routed
+    otherwise, dropped assignments among them, the output RMS over the
+    tokens routed alike within MOE_LAYER_RMS_TOL; (2) at A2A_NO_DROP a2a ==
+    gather on the card, bitwise, no drop in either; (3) at A2A_DROPS a2a
+    drops assignments gather keeps and its outputs differ; (4) the router's
+    logits from its expert columns split over 2 and 4 shards and gathered,
+    against the whole product: the routed assignments they would move at
+    the prefill's 512 rows and at a decode step's 8 (printed: the sharded
+    forward runs the router whole, ``models/tensor_parallel.py``).
+    ``factors``: the capacity factors of (2) and (3) to run. Returns the
+    record with its gates; with ``gate`` a failing gate fails."""
+    import dataclasses
+
+    from repro_torch.distributed.collectives import all_gather
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Ctx, dense_apply
+    from repro_torch.models.transformer import layer_params
+
+    cfg = dataclasses.replace(model.cfg, moe_impl="a2a")
+    k, e = cfg.moe_top_k, cfg.n_experts
+    lp = layer_params(params["stack"]["layers"], 0)
+    ctx, cpu_ctx = model.prefill_ctx, Ctx(dtype=torch.bfloat16)
+    h = moe_layer_input(model, params, MOE_EMBED_STD)
+    s = h.shape[1]
+    g, c_seg = moe.groups(dataclasses.replace(cfg, capacity_factor=A2A_DROPS), s)
+    seg = s // g                                        # tokens a segment
+    out = {"tokens": s, "segments": g, "c_seg": c_seg}
+    with torch.no_grad():
+        drops_cfg = dataclasses.replace(cfg, capacity_factor=A2A_DROPS)
+        y_card, _ = moe.moe_apply(lp["ffn"], h, drops_cfg, ctx)
+        c, t_card, _, _ = moe._route(lp["ffn"], h, drops_cfg, ctx)
+        ids_card = moe._top_k(torch.softmax((h @ lp["ffn"]["router"]["w"]).float(), -1),
+                              k)[1].cpu()[0]
+        ffn_cpu, x_cpu = _tree_to(lp["ffn"], "cpu"), h.cpu()
+        y_cpu, _ = moe.moe_apply(ffn_cpu, x_cpu, drops_cfg, cpu_ctx)
+        _, t_cpu, _, _ = moe._route(ffn_cpu, x_cpu, drops_cfg, cpu_ctx)
+        probs_cpu = torch.softmax((x_cpu @ ffn_cpu["router"]["w"]).float(), -1)
+    top = torch.sort(probs_cpu[0], -1, descending=True).values
+    wide = top[:, k - 1] - top[:, k] > MOE_MARGIN
+    ids_cpu = moe._top_k(probs_cpu, k)[1][0]
+    member = lambda ids: torch.zeros((ids.shape[0], e), dtype=torch.int32).scatter_(1, ids, 1)
+    moved = (member(ids_card) != member(ids_cpu)).int().reshape(g, seg, e)
+    differs = (torch.cumsum(moved, 1) > 0).reshape(s, e)  # a token up to here in its segment
+    alike = (ids_card == ids_cpu) & ~differs.gather(1, ids_card)
+    tc, th = t_card.cpu()[0].reshape(-1, k), t_cpu[0].reshape(-1, k)
+    tok_alike = alike.all(-1)
+    d = (y_card.float().cpu()[0] - y_cpu.float()[0])[tok_alike]
+    rms = float(d.pow(2).mean().sqrt()) / float(y_cpu.float()[0][tok_alike].pow(2).mean().sqrt())
+    out["card_vs_cpu"] = {
+        "capacity_factor": A2A_DROPS, "c_seg": c, "under_margin": int((~wide).sum()),
+        "ids_equal_over_margin": bool(torch.equal(ids_card[wide], ids_cpu[wide])),
+        "assignments_compared": int(alike.sum()),
+        "drops_compared": int((th[alike] == e * c).sum()),
+        "drop_share": float((t_cpu == e * c).float().mean()),
+        "slots_equal": bool(torch.equal(tc[alike], th[alike])),
+        "tokens_routed_alike": int(tok_alike.sum()), "max_abs_diff": float(d.abs().max()),
+        "rms_rel": rms}
+    cc = out["card_vs_cpu"]
+    print(f"  {cfg.name} MoE layer under a2a ({g} segments of {seg * k} assignments, C_seg "
+          f"{c} at capacity {A2A_DROPS}), card vs CPU (bf16) on {s} tokens: "
+          f"{cc['drop_share']:.2%} dropped; {cc['under_margin']} tokens under the margin; ids "
+          f"equal over it: {cc['ids_equal_over_margin']}; per-segment slots and drops equal on "
+          f"the {cc['assignments_compared']} assignments routed alike up to them in their "
+          f"segment ({cc['drops_compared']} dropped): {cc['slots_equal']}; output over the "
+          f"{cc['tokens_routed_alike']} tokens routed alike: max |diff| "
+          f"{cc['max_abs_diff']:.4g}, RMS {rms:.4g} of the CPU output's (limit "
+          f"{MOE_LAYER_RMS_TOL})", flush=True)
+    # a2a against gather on the card, without and with drops
+    with torch.no_grad():
+        for factor in factors:
+            ys, drops = {}, {}
+            for impl in ("gather", "a2a"):
+                f_cfg = dataclasses.replace(cfg, moe_impl=impl, capacity_factor=factor)
+                ys[impl] = moe.moe_apply(lp["ffn"], h, f_cfg, ctx)[0]
+                c_i, t_i, _, _ = moe._route(lp["ffn"], h, f_cfg, ctx)
+                drops[impl] = int((t_i == e * c_i).sum())
+            out[f"a2a_vs_gather_cf{factor:g}"] = {
+                "drops": drops, "bitwise": bool(torch.equal(ys["a2a"], ys["gather"])),
+                "max_abs_diff": float((ys["a2a"].float() - ys["gather"].float()).abs().max())}
+            r = out[f"a2a_vs_gather_cf{factor:g}"]
+            print(f"  {cfg.name} MoE layer on the card, capacity {factor:g}: a2a vs gather "
+                  f"drops {drops}, outputs bitwise equal {r['bitwise']}, max |diff| "
+                  f"{r['max_abs_diff']:.4g}", flush=True)
+        # the router from its expert columns split over shards
+        x_step = h[0, :8][:, None]                              # a decode step's 8 rows
+        w = lp["ffn"]["router"]["w"]
+        moved = {}
+        for label, x, c_ in (("prefill 512 rows", h, ctx), ("decode 8 rows", x_step,
+                                                            model.step_ctx)):
+            whole = moe._top_k(torch.softmax(dense_apply({"w": w}, x, c_).float(), -1), k)[1]
+            for n in (2, 4):
+                cols = all_gather([dense_apply({"w": w[:, i * e // n:(i + 1) * e // n]}, x, c_)
+                                   for i in range(n)], -1)
+                ids = moe._top_k(torch.softmax(cols.float(), -1), k)[1]
+                moved[f"{label}, {n} shards"] = int(
+                    (member(ids.reshape(-1, k).cpu()).bool()
+                     & ~member(whole.reshape(-1, k).cpu()).bool()).sum())
+    out["router_column_slices_moved"] = moved
+    print(f"  {cfg.name} router, expert columns split over shards and gathered against the "
+          f"whole product: routed assignments moved {moved} ({card_line()})", flush=True)
+    gates = {"card_vs_cpu": cc["ids_equal_over_margin"] and cc["slots_equal"]
+             and cc["drops_compared"] > 0 and rms <= MOE_LAYER_RMS_TOL}
+    if A2A_NO_DROP in factors:
+        nd = out[f"a2a_vs_gather_cf{A2A_NO_DROP:g}"]
+        gates["a2a_equals_gather_without_drops"] = nd["bitwise"] and not any(
+            nd["drops"].values())
+    if A2A_DROPS in factors:
+        dr = out[f"a2a_vs_gather_cf{A2A_DROPS:g}"]
+        gates["a2a_drops_otherwise"] = (dr["drops"]["a2a"] > dr["drops"]["gather"]
+                                        and dr["max_abs_diff"] > 0)
+    out["gates"] = gates
+    print(f"  {cfg.name} a2a gates: {gates}", flush=True)
+    if gate:
+        check(all(gates.values()), f"{cfg.name} a2a on the card: gates fail: {gates}")
+    return out
+
+
+def a2a_serves(model, params, reqs):
+    """(g)'s serve: the first MOE_A2A_REQUESTS of ``reqs`` under
+    moe_impl="a2a" (the prefills and tails of the trace take the segment
+    path: S * k divisible by 16; a decode step the fallback),
+    single-device and over 2 shards on cuda:0, the
+    sharded serve against the single-device one at tier (b). Returns the
+    two runs (engines kept for ``tp_finish``)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serving.options import ServeOptions
+
+    m = Model(dataclasses.replace(model.cfg, moe_impl="a2a"), device=model.device)
+    reqs = reqs[:MOE_A2A_REQUESTS]
+    lens = sorted({r.prompt_len for r in reqs})
+    print(f"  {m.cfg.name} a2a serve: prompt lengths {lens} route in "
+          f"{[moe.groups(m.cfg, n)[0] for n in lens]} groups (C {[moe.groups(m.cfg, n)[1] for n in lens]}); "
+          f"a decode step in {moe.groups(m.cfg, 1)[0]}", flush=True)
+    opts = ServeOptions(**TP_OPTIONS)
+    one = tp_serve(f"{m.cfg.name} a2a serve, single-device", m, params, reqs, opts, 1, "K2",
+                   timed=False)
+    two = tp_serve(f"{m.cfg.name} a2a serve, 2 shards", m, params, reqs, opts, 2, "K2",
+                   base=one["rec"], timed=False, tol=MOE_TP_TOL[m.cfg.name])
+    return {f"{m.cfg.name} a2a": one, f"{m.cfg.name} a2a TP 2": two}
+
+
+def _tp_done(runs):
+    for run in runs.values():
+        run.pop("rec", None)
+    return runs
+
+
 def phase16_moe():
     """The MoE family at full width, MOE_LAYERS layers (phase 16): (a)
     dbrx-132b generate, (b) dbrx-132b served plain and speculatively
-    (GQA 48/8 on K2), (d) its MoE layer card against CPU, (c)
-    deepseek-v2-236b served (MLA at 128 heads on K4)."""
+    (GQA 48/8 on K2), (d) its MoE layer card against CPU, (e) (b)'s serve
+    over 2 and 4 shards (experts split over them), (g) the a2a dispatch
+    (its layer card against CPU and against gather, a serve over 2 shards);
+    (c) deepseek-v2-236b served (MLA at 128 heads on K4), (f) over 2
+    shards."""
     from repro_torch.configs.registry import get_config
     from repro_torch.serving.scheduler import shared_prefix_trace
 
@@ -4687,12 +5040,19 @@ def phase16_moe():
           f"std {MOE_EMBED_STD}, softmax int_pallas ({card})", flush=True)
     out["dbrx generate"] = moe_generate(model, params)
     reqs = shared_prefix_trace(32, cfg.vocab, **SERVE_TRACE)[:MOE_REQUESTS]
-    rec, plain, rows = moe_serve(model, params, reqs, "K2", cfg.n_heads // cfg.n_kv_heads)
+    single = moe_serve(model, params, reqs, "K2", cfg.n_heads // cfg.n_kv_heads)
+    rec, plain, rows = single
     out["dbrx serve"] = rec
     out["dbrx spec serve"] = moe_spec(model, params, reqs, plain, rows)
-    del plain, rows
     out["dbrx layer card vs cpu"] = moe_layer_card_vs_cpu(model, params)
-    del model, params
+    # (e) expert parallelism over 2 and 4 shards, (g) the a2a dispatch
+    runs = moe_sharded(model, params, reqs, single, "K2")
+    out["dbrx a2a layer"] = a2a_layer(model, params)
+    runs.update(a2a_serves(model, params, reqs))
+    tp_finish("phase 16 (e), (g)", list(runs.values()))
+    out["sharded"] = _tp_done(runs)
+    rec.pop("routes")
+    del model, params, single, plain, rows, runs
     torch.cuda.empty_cache()
     model, params = moe_model("deepseek-v2-236b")
     cfg = model.cfg
@@ -4704,8 +5064,14 @@ def phase16_moe():
           f"d_ff_expert {cfg.d_ff_expert}), bf16 seeded weights, embedding std "
           f"{MOE_EMBED_STD}, softmax int_pallas ({card})", flush=True)
     reqs = shared_prefix_trace(32, cfg.vocab, **SERVE_TRACE)[:MOE_REQUESTS]
-    out["deepseek-v2 serve"] = moe_serve(model, params, reqs, "K4", cfg.n_heads)[0]
-    del model, params
+    single = moe_serve(model, params, reqs, "K4", cfg.n_heads)
+    out["deepseek-v2 serve"] = single[0]
+    # (f) expert parallelism over 2 shards, K4 at 64 heads a shard
+    runs = moe_sharded(model, params, reqs, single, "K4")
+    tp_finish("phase 16 (f)", list(runs.values()))
+    out["sharded"].update(_tp_done(runs))
+    single[0].pop("routes")
+    del model, params, single, runs
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 16 in {out['seconds']:.1f} s ({card})", flush=True)
@@ -4720,12 +5086,13 @@ def phase16_moe():
 # 64; the window layers decoding from rings of 1024 keys through K1). Prompts stay on the SSD chunk grid (at most 256
 # tokens, or a multiple of 256: ``ssm.ssd_chunked``'s rule).
 REC_ARCHS = ("mamba2-780m", "hymba-1.5b")
-# Depth on the card: half of each model's (48 SSD layers, 32 hybrid layers),
-# at full width, to make room in the run's time for phase 19 (PERF.md §6,
-# training and checkpoints: the phase's seconds before and after, in one
-# call). hymba-1.5b at 16 layers keeps its 3 global layers (0, 8, 15) and
-# 13 window layers; every launch count and check follows the config.
-REC_LAYERS = {"mamba2-780m": 24, "hymba-1.5b": 16}
+# Depth on the card: a quarter of each model's (48 SSD layers, 32 hybrid
+# layers), at full width: half since PR 27 made room for phase 19, a
+# quarter since PR 30 for phase 16's sharded serves (PERF.md §6, PR 30:
+# the phase's seconds before and after). hymba-1.5b at 8 layers keeps its
+# 3 global layers (0, 4, 7) and 5 window layers; every launch count and
+# check follows the config.
+REC_LAYERS = {"mamba2-780m": 12, "hymba-1.5b": 8}
 REC_BATCH, REC_MAX_NEW, REC_OP_STEPS = 4, 256, 32
 REC_PROMPT = {"mamba2-780m": 256, "hymba-1.5b": 1280}
 REC_TRACE = dict(prefix_len=128, suffix_lens=(64, 128), max_new_range=(16, 64), seed=0,
@@ -4741,14 +5108,16 @@ REC_POOL_REQUESTS = 3
 # ring, the forward runs the chunked SSD scan (bf16 products within a
 # chunk) and the window mask over positions; hymba also by the GEMM shapes
 # of a 4-row step against a 1536-row forward. On the H100 at REC_LAYERS'
-# depth every run read max 0.2681, RMS 0.04359 (mamba2-780m: 24 layers of
-# f32 recurrence against bf16 chunk products) and max 0.1553, RMS 0.0258
-# (hymba-1.5b); each limit is 1.3 times its floor (PERF.md, phase 17). The
-# control (REC_FAULTS: the decode step without its D skip) must fail them.
+# depth the runs read max 0.1875, RMS 0.02919 (mamba2-780m: 12 layers of
+# f32 recurrence against bf16 chunk products) and max 0.1094, RMS 0.01952
+# (hymba-1.5b); each limit is 1.3 times its floor (PERF.md §6, PR 30; at
+# half depth, PR 25-29: 0.2681 / 0.04359 and 0.1553 / 0.0258). The
+# control (REC_FAULTS: the decode step without its D skip) must fail them:
+# at this depth it reads 6.891 / 1.223 and 6.375 / 1.057.
 # In f32 on the CPU the two sides agree within 1e-5
 # (tests/test_torch_hybrid.py).
-REC_GEN_TOL = {"mamba2-780m": (1.3 * 0.2681, 1.3 * 0.04359),
-               "hymba-1.5b": (1.3 * 0.1553, 1.3 * 0.0258)}
+REC_GEN_TOL = {"mamba2-780m": (1.3 * 0.1875, 1.3 * 0.02919),
+               "hymba-1.5b": (1.3 * 0.1094, 1.3 * 0.01952)}
 
 
 def rec_model(arch, kind="int_pallas"):
@@ -4915,15 +5284,16 @@ def recurrent_generate(model, params, prompts):
 # pallas against jnp: phase 6's rules with the floors this model reads on
 # the H100, where the window layers' rings and the SSM recurrence add
 # roundings olmo-1b's serve does not have. The largest sound readings at
-# REC_LAYERS' depth, the same in every run (PERF.md, phase 17), each limit
-# 1.3 times its own: a logit against the forward max 0.1777 (the pallas
-# serve), RMS 0.03221 (a per-request eager generate); pallas against jnp
-# step by step max 0.1172, RMS 0.0165. The control (K2 leaving out each
-# sequence's first page) reads max 2.352, RMS 0.3856.
-HYMBA_LOGIT_TOL = 1.3 * 0.1777
-HYMBA_LOGIT_RMS_TOL = 1.3 * 0.03221
-HYMBA_ALIGNED_TOL = 1.3 * 0.1172
-HYMBA_ALIGNED_RMS_TOL = 1.3 * 0.0165
+# REC_LAYERS' depth (PERF.md §6, PR 30), each limit 1.3 times its own: a
+# logit against the forward max 0.125 (the pallas and jnp serves' decode
+# steps), RMS 0.02323 (a per-request eager generate); pallas against jnp
+# step by step max 0.09375, RMS 0.01269. The control (K2 leaving out each
+# sequence's first page) reads max 2.085, RMS 0.3344 (at half depth, PR
+# 25-29: limits from 0.1777 / 0.03221 and 0.1172 / 0.0165).
+HYMBA_LOGIT_TOL = 1.3 * 0.125
+HYMBA_LOGIT_RMS_TOL = 1.3 * 0.02323
+HYMBA_ALIGNED_TOL = 1.3 * 0.09375
+HYMBA_ALIGNED_RMS_TOL = 1.3 * 0.01269
 
 
 def swap_round_trip_nested(cfg, num_blocks, slots=8, C=1024, bs=16):
@@ -6753,8 +7123,14 @@ def phase19_training():
 # 16 layers phase 20 took 137.6 s against 87.0 s at 8 in one call, every
 # gate passing there too (max 0.08594, RMS 0.0142, every divergence at a
 # near tie: ``probes/tp_readings.py``); the 51 s would put the whole run
-# past its 1100 s target on the slowest hosts seen.
+# past its 1100 s target on the slowest hosts seen. Since PR 30 (b) and
+# (c) serve the first TP_REQUESTS requests of their traces (room for phase
+# 16's sharded MoE serves, PERF.md §6): every slot of a step runs at the
+# step's full rows whatever is live, and K2 / K4 work per slot, so each of
+# those requests gets the logits it got among 8, and the limits below,
+# read over 8, hold for them.
 QWEN32_REQUESTS = 8
+TP_REQUESTS = 4
 TP_LAYERS = 8
 TP_MLA_LAYERS = 8
 TP_SHARDS = (2, 4)
@@ -6835,7 +7211,8 @@ def _shard_pool_bytes(eng, st, opts, rep, n):
             * opts.block_size, "ok": all(b == want["per_device_bytes"] for b in got)}
 
 
-def tp_serve(label, model, params, reqs, opts, n, name, base=None, timed=True):
+def tp_serve(label, model, params, reqs, opts, n, name, base=None, timed=True,
+             tol=(TP_ALIGNED_TOL, TP_ALIGNED_RMS_TOL), routes=False):
     """One checked serve of ``reqs`` over ``n`` shards on cuda:0 (``n`` 1:
     single-device), graphed: every call of ``name`` (the fused paged
     decode) at (T 1, the unsharded step's group or, for K4, the shard's
@@ -6910,8 +7287,12 @@ def tp_serve(label, model, params, reqs, opts, n, name, base=None, timed=True):
         e2 = Engine(model, params, max_new=max_new, sampler=r2)
         if not graphed:
             op_by_op(e2)
-        rep2, n2, rows2, _, rp2 = counted_serve(e2, sub, opts, r2)
+        with RouteIds(routes and not graphed) as ids:
+            rep2, n2, rows2, _, rp2 = counted_serve(e2, sub, opts, r2)
         runs.append(((rep2, rows2, e2), n2, rp2))
+        if routes and not graphed:
+            out["routes"] = {"calls": ids.calls, "tokens": rep2.results[0].tokens,
+                             "prompt_len": sub[0].prompt_len}
     gvo = serve_graph_vs_op(f"{label}, first {len(sub)} requests", sub, runs[0][0],
                             runs[1][0], gate=False)
     out["captures"] = [len(graph_states(eng))]
@@ -6955,8 +7336,7 @@ def tp_serve(label, model, params, reqs, opts, n, name, base=None, timed=True):
               f"step-aligned logit row): {same}; {len(divs)} divergences "
               f"({sum(d['near_tie'] for d in divs)} at near ties)", flush=True)
         gates["vs_single_device"] = same or (
-            all(d["near_tie"] for d in divs) and al["max"] <= TP_ALIGNED_TOL
-            and al["rms"] <= TP_ALIGNED_RMS_TOL)
+            all(d["near_tie"] for d in divs) and al["max"] <= tol[0] and al["rms"] <= tol[1])
     out["rec"] = {"rep": rep, "rows": rows, "params": params}
     return out
 
@@ -7053,7 +7433,9 @@ def phase20_tensor_parallel():
     runs = out["runs"]
     runs["qwen2.5-32b"] = tp_serve("qwen2.5-32b serve, 64 layers, single-device", model,
                                    params, reqs, opts, 1, "K2", timed=False)
-    # (b): the same weights at TP_LAYERS layers
+    # (b): the same weights at TP_LAYERS layers, the first TP_REQUESTS
+    # requests
+    reqs = reqs[:TP_REQUESTS]
     m_b = Model(dataclasses.replace(cfg, n_layers=TP_LAYERS))
     p_b = _layers_of(params, TP_LAYERS)
     for kv_quant, shards in ((False, TP_SHARDS), (True, (4,))):
@@ -7070,7 +7452,7 @@ def phase20_tensor_parallel():
     mla = Model(get_config("minicpm3-4b", softmax=SoftmaxSpec("int_pallas"),
                            n_layers=TP_MLA_LAYERS))
     p_m = mla.init(torch.Generator("cuda").manual_seed(0))
-    m_reqs = _mla_trace()
+    m_reqs = _mla_trace()[:TP_REQUESTS]
     m_opts = ServeOptions(slots=MLA_SLOTS, paged=True, block_size=MLA_BS, prefix_share=True,
                           kernel="pallas", report_cost=False)
     base = tp_serve(f"minicpm3-4b serve, {TP_MLA_LAYERS} layers, single-device", mla, p_m,
@@ -7119,6 +7501,113 @@ TP_FAULTS = {"heads gathered out of order": ("repro_torch.models.tensor_parallel
                  _last_kv_head_dropped)}
 
 
+def _experts_reversed(collect_experts):
+    """The shards' expert rows gathered in reverse shard order."""
+    def collect(outs):
+        return collect_experts(list(outs)[::-1])
+    return collect
+
+
+def _last_shard_experts_zero(collect_experts):
+    """The last shard's experts giving zeros."""
+    def collect(outs):
+        outs = list(outs)
+        outs[-1] = torch.zeros_like(outs[-1])
+        return collect_experts(outs)
+    return collect
+
+
+def _a2a_whole_group_slots(segment_capacity):
+    """``"a2a"`` at ``capacity()``'s slots of the whole sequence in each
+    segment (a segment of T assignments stands for T * n / k tokens)."""
+    from repro_torch.models import moe
+
+    def slots(cfg, seg_assignments):
+        return moe.capacity(cfg, seg_assignments * cfg.moe_a2a_segments // cfg.moe_top_k)
+    return slots
+
+
+# phase 16's (e) and (g) faults: the serve's gates must catch the first
+# two, (g)'s a2a gates the third
+MOE_TP_FAULTS = {"experts gathered out of order": ("repro_torch.models.tensor_parallel",
+                                                   "_collect_experts", _experts_reversed),
+                 "the last shard's experts give zeros": (
+                     "repro_torch.models.tensor_parallel", "_collect_experts",
+                     _last_shard_experts_zero)}
+A2A_FAULTS = {"a2a at capacity()'s whole-group slots": ("repro_torch.models.moe",
+                                                        "segment_capacity",
+                                                        _a2a_whole_group_slots)}
+
+
+def _patched(table, fault):
+    """Install ``table[fault]``; returns a function that removes it."""
+    import importlib
+
+    mod, attr, wrap = table[fault]
+    mod = importlib.import_module(mod)
+    saved = getattr(mod, attr)
+    setattr(mod, attr, wrap(saved))
+    return lambda: setattr(mod, attr, saved)
+
+
+def phase16_fault_control():
+    """Phase 16's (e) and (g) gates against three faults: dbrx-132b at
+    MOE_LAYERS over 2 shards with the shards' expert rows gathered in
+    reverse shard order, and with the last shard's experts giving zeros,
+    each against the single-device serve (the clean sharded serve must
+    pass every gate, each fault fail one); and (g)'s a2a layer checks
+    with each segment given capacity()'s slots of the whole sequence (the
+    clean checks pass, the fault fails one)."""
+    from repro_torch.serving.options import ServeOptions
+    from repro_torch.serving.scheduler import shared_prefix_trace
+
+    model, params = moe_model("dbrx-132b")
+    reqs = shared_prefix_trace(32, model.cfg.vocab, **SERVE_TRACE)[:MOE_REQUESTS]
+    opts = ServeOptions(**TP_OPTIONS)
+    base = tp_serve(f"phase 16 control, {MOE_LAYERS} layers, single-device", model, params,
+                    reqs, opts, 1, "K2", timed=False)
+    runs = {}
+    for fault in [None] + list(MOE_TP_FAULTS):
+        label = fault or "clean"
+        undo = _patched(MOE_TP_FAULTS, fault) if fault else None
+        try:
+            runs[label] = tp_serve(f"phase 16 control, {label}, 2 shards", model, params, reqs,
+                                   opts, 2, "K2", base=base["rec"], timed=False,
+                                   tol=MOE_TP_TOL["dbrx-132b"])
+        finally:
+            if undo:
+                undo()
+    tp_finish("phase 16 control", [base] + list(runs.values()), gate=False)
+    check(all(base["gates"].values()), f"phase 16 control, single-device: gates fail: "
+          f"{base['gates']}")
+    results = []
+    for label, run in runs.items():
+        failed = [k for k, v in run["gates"].items() if not v]
+        results.append({"run": label, "caught_by": failed, "aligned": run["aligned"],
+                        "divergences": len(run["divergences"])})
+        print(f"  phase 16, {label}: caught by {failed or 'nothing'}", flush=True)
+    for fault in [None] + list(A2A_FAULTS):
+        undo = _patched(A2A_FAULTS, fault) if fault else None
+        try:
+            # the fault's no-drop comparison would take 2048 slots a segment
+            # (45 GB of expert hidden beside the weights): its capacity-1.0
+            # checks alone
+            gates = a2a_layer(model, params, gate=False,
+                              factors=(A2A_DROPS,) if fault else (A2A_NO_DROP, A2A_DROPS))["gates"]
+        finally:
+            if undo:
+                undo()
+        failed = [k for k, v in gates.items() if not v]
+        results.append({"run": f"a2a layer, {fault or 'clean'}", "caught_by": failed})
+        print(f"  phase 16 (g), {fault or 'clean'}: caught by {failed or 'nothing'}",
+              flush=True)
+    clean = [r for r in results if r["run"] in ("clean", "a2a layer, clean")]
+    check(not any(r["caught_by"] for r in clean), f"a clean phase-16 run fails a gate: {clean}")
+    faults = [r for r in results if r not in clean]
+    check(all(r["caught_by"] for r in faults), f"a phase-16 fault passes every gate: {faults}")
+    return results
+
+
 def phase20_fault_control():
     """Phase 20's (b) gates against two faults of the sharded forward: the
     heads gathered before ``wo`` in reverse shard order, and every shard's K2
@@ -7131,7 +7620,7 @@ def phase20_fault_control():
     from repro_torch.serving.options import ServeOptions
 
     model, params = qwen32_model(TP_LAYERS)
-    reqs, opts = qwen32_trace(), ServeOptions(**TP_OPTIONS)
+    reqs, opts = qwen32_trace()[:TP_REQUESTS], ServeOptions(**TP_OPTIONS)
     base = tp_serve(f"phase 20 control, {TP_LAYERS} layers, single-device", model, params,
                     reqs, opts, 1, "K2")
     runs = {}
@@ -7360,7 +7849,8 @@ def main():
         results = {}
         for fn in (k1_fault_control, k2_fault_control, k4_fault_control, k3_fault_control,
                    fault_control, phase13_fault_control, phase14_fault_control,
-                   phase17_fault_control, phase18_fault_control, phase20_fault_control):
+                   phase16_fault_control, phase17_fault_control, phase18_fault_control,
+                   phase20_fault_control):
             t1 = time.perf_counter()
             results[fn.__name__] = fn()
             print(f"{fn.__name__}: {time.perf_counter() - t1:.1f} s", flush=True)
@@ -7429,8 +7919,9 @@ def main():
     variants = timed("phase 15 (the softmax-variant zoo and ap_sim, olmo-1b)",
                      phase15_variants)
     moe = timed("phase 16 (the MoE family: dbrx-132b generate, serve and spec serve on K2 at "
-                "GQA 48/8, its MoE layer card vs CPU; deepseek-v2-236b serve on K4 at 128 "
-                "heads)", phase16_moe)
+                "GQA 48/8, its MoE layer card vs CPU, its serve over 2 and 4 shards, the a2a "
+                "dispatch; deepseek-v2-236b serve on K4 at 128 heads and over 2 shards)",
+                phase16_moe)
     recurrent = timed("phase 17 (the recurrent families: mamba2-780m and hymba-1.5b generate, "
                       "hymba-1.5b serve on K2 at GQA 25/5, D 64 and K1 on its rings; both "
                       "chunked, preempting and speculative)", phase17_recurrent)
@@ -7475,7 +7966,8 @@ def main():
                       encdec_mrope["qwen2-vl-7b generate"]["launches_K1"],
                   "serve qwen2-vl-7b": encdec_mrope["qwen2-vl-7b serve"]["launches"]["K1"],
                   "warm-trained serve olmo-1b": training["warm serve"]["launches"]["K1"],
-                  **{f"serve {k}": v["launches"]["K1"] for k, v in tp["runs"].items()}}
+                  **{f"serve {k}": v["launches"]["K1"] for k, v in tp["runs"].items()},
+                  **{f"serve {k}": v["launches"]["K1"] for k, v in moe["sharded"].items()}}
     kernels = [{
         "name": "int_softmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int_softmax.cu",
@@ -7511,7 +8003,9 @@ def main():
                                  training["warm serve"]["launches"]["K2"],
                              **{f"serve {k}": v["launches"]["K2"]
                                 for k, v in tp["runs"].items() if v["launches"]["K2"]
-                                and v["kv_pool"] == "bf16"}},
+                                and v["kv_pool"] == "bf16"},
+                             **{f"serve {k}": v["launches"]["K2"]
+                                for k, v in moe["sharded"].items() if v["launches"]["K2"]}},
         "max_abs_err": max(r["max_abs_err"] for r in k2_recs),
         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -7567,7 +8061,9 @@ def main():
                              "serve deepseek-v2-236b":
                                  moe["deepseek-v2 serve"]["launches"]["K4"],
                              **{f"serve {k}": v["launches"]["K4"]
-                                for k, v in tp["runs"].items() if v["launches"]["K4"]}},
+                                for k, v in tp["runs"].items() if v["launches"]["K4"]},
+                             **{f"serve {k}": v["launches"]["K4"]
+                                for k, v in moe["sharded"].items() if v["launches"]["K4"]}},
         "max_abs_err": max(r["max_abs_err"] for r in k4_recs),
         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],

@@ -4,6 +4,7 @@ as ``chip_smoke.py`` runs it, in one process on the card:
     python3 probes/phase_seconds.py --root . --phases 19 17
     python3 probes/phase_seconds.py --root build/parent --phases 17
     python3 probes/phase_seconds.py --root . --phases 17-faults   # phase 17's fault control
+    python3 probes/phase_seconds.py --root . --phases 5 7 16 16-faults
 
 ``--root`` is a checkout of the repository (this one, or a parent commit
 unpacked with ``git archive`` into a directory ``.gitignore`` lists): its
@@ -27,8 +28,11 @@ import time
 # phase -> (the chip_smoke.py function, the kernels it launches)
 PHASES = {
     "4": ("phase4_main_path", ["int_softmax"]),
+    "5": ("phase5_k2", ["paged_attention"]),
+    "7": ("phase7_k4", ["paged_attention_mla"]),
     "13": ("phase13_chunked_preempt", ["int_softmax", "paged_attention", "paged_attention_mla"]),
     "14": ("phase14_speculative", ["int_softmax", "paged_attention", "paged_attention_mla"]),
+    "16": ("phase16_moe", ["int_softmax", "paged_attention", "paged_attention_mla"]),
     "17": ("phase17_recurrent", ["int_softmax", "paged_attention"]),
     "18": ("phase18_encdec_mrope", ["int_softmax", "paged_attention"]),
     "19": ("phase19_training", ["int_softmax", "paged_attention"]),
@@ -36,6 +40,7 @@ PHASES = {
     "13-faults": ("phase13_fault_control", ["int_softmax", "paged_attention"]),
     "14-faults": ("phase14_fault_control", ["int_softmax", "paged_attention",
                                             "paged_attention_mla"]),
+    "16-faults": ("phase16_fault_control", ["int_softmax", "paged_attention"]),
     "17-faults": ("phase17_fault_control", ["int_softmax", "paged_attention"]),
     "20-faults": ("phase20_fault_control", ["int_softmax", "paged_attention"]),
 }
@@ -63,10 +68,14 @@ def main():
     build.build(sorted({k for p in args.phases for k in PHASES[p][1]}))
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     seconds = {}
+    from repro_torch.launch import roofline as rl
+
     for p in args.phases:
         fn = getattr(cs, PHASES[p][0])
         t0 = time.perf_counter()
-        fn()
+        # the kernel phases take the card's HBM rate, as chip_smoke.main
+        # passes it
+        fn(rl.hbm_rate(torch.cuda.get_device_name(0))) if p in ("5", "7") else fn()
         seconds[p] = time.perf_counter() - t0
         print(f"phase {p} ({PHASES[p][0]}, {root}): {seconds[p]:.1f} s", flush=True)
     print(cs.card_line(), flush=True)

@@ -8,8 +8,9 @@ card, single-device or tensor-parallel with its shards on that card. The
 MoE family's full depth does not fit one card: dbrx-132b's 40 layers are
 about 264 GB of bf16 weights and deepseek-v2-236b's 60 about 472 GB, so on
 the H100 both run at full width with their depth cut (``get_config(name,
-n_layers=4)``); full depth waits for a process per card and the MoE family's
-expert parallelism (ROADMAP.md Queue 1 items 21 and 22). The SSM and hybrid families (mamba2-780m, hymba-1.5b), the
+n_layers=4)``), single-device or with their experts split over shards on
+that card; full depth waits for a process per card (ROADMAP.md Queue 1
+item 21). The SSM and hybrid families (mamba2-780m, hymba-1.5b), the
 encoder-decoder (whisper-base) and the M-RoPE backbone (qwen2-vl-7b) run
 at full width and full depth."""
 

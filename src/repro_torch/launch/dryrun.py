@@ -155,6 +155,7 @@ def count_cell(cell) -> dict:
                     if id(_storage(t)) not in arg_ids
                     and id(_storage(t)) not in counter.other)
     return {"flops": float(fc.get_total_flops() - counter.other_flops),
+            "flops_all_shards": float(fc.get_total_flops()),
             "bytes": float(counter.bytes), "aten_ops": counter.ops,
             "collectives": coll, "argument_bytes_by_name": arg_bytes,
             "output_bytes": out_bytes,
@@ -211,6 +212,9 @@ def run_cell(arch: str, shape, mesh="card", remat: str = "full",
         "build_s": build_s,
         "count_s": got["count_s"],
         "flops_per_device": flops_pd,
+        # every model shard's products of this device's batch: one device's
+        # whole step where the model is not split (model_work's impl_flops)
+        "flops_model_axis": got["flops_all_shards"] * steps,
         "bytes_per_device": bytes_pd,
         "bytes_note": ("unfused: every aten op's operand and result bytes (views "
                        "move nothing); model_work.bytes is the least a step moves"),

@@ -15,11 +15,12 @@ wrote them for XLA on the TPU mesh:
 ``--mesh card`` counts every variant for one H100; on ``single`` (the
 default, as the reference's) a cell the port cannot shard prints its skip.
 A variant the port runs with the same code as another says so beside its
-numbers: the MoE dispatch variants (``moe_impl="scatter_combine"`` /
-``"expert_tp"``) are the gather code on one device, sharding rule
-overrides place nothing on one card, and bf16 parameters are the port's
-serving weights already; ``"a2a"`` raises (ROADMAP.md Queue 1 item 22)
-and prints that. A variant whose counts equal an earlier one's names it,
+numbers: the MoE dispatch variant ``moe_impl="scatter_combine"`` is the
+gather code (``"expert_tp"`` too on one card; on a model axis it splits
+every expert's hidden), sharding rule overrides place nothing on one card,
+and bf16 parameters are the port's serving weights already. ``"a2a"``
+runs its own code (``models/moe.py``: capacity per token segment) and is
+counted as any variant. A variant whose counts equal an earlier one's names it,
 so no delta of zero goes unexplained. Each variant's result lands in
 ``<out>/<mesh>/<arch>__<shape>__<name>.json``; every run counts afresh
 (a cell takes seconds) and never reads a result back.
@@ -201,28 +202,29 @@ PLAN += [
 ]
 
 # moe_impl values the port runs with the gather code (models/moe.py: on one
-# device they compute the same function, which the reference's tests hold)
+# device they compute the same function, which the reference's tests hold;
+# on a model axis "expert_tp" places and splits its experts by ``mlp``)
 SAME_AS_GATHER = ("scatter_combine", "expert_tp")
 
 
 def same_code(kw: dict, mesh: str, kind: str):
     """(why, the arguments it runs with) for a variant the port runs as
-    another: the MoE dispatch variants as moe_impl="gather", sharding rule
-    overrides on one card as without them, and bf16 parameters outside
-    training as the port's serving weights are already; (None, kw)
-    otherwise."""
+    another: the MoE dispatch variants as moe_impl="gather" ("expert_tp"
+    on the card only), sharding rule overrides on one card as without
+    them, and bf16 parameters outside training as the port's serving
+    weights are already; (None, kw) otherwise."""
     why, run = [], dict(kw)
     if kind != "train" and kw.get("params_dtype") == torch.bfloat16:
         run.pop("params_dtype")
         why.append("the port's serving weights are bf16 already")
     cfg = dict(kw.get("cfg_overrides", {}))
     impl = cfg.get("moe_impl")
-    if impl in SAME_AS_GATHER:
+    if impl in SAME_AS_GATHER and (impl != "expert_tp" or mesh == "card"):
         cfg.pop("moe_impl")
         run.pop("cfg_overrides")
         if cfg:
             run["cfg_overrides"] = cfg
-        why.append(f"moe_impl={impl!r} runs the gather code on one device (models/moe.py)")
+        why.append(f"moe_impl={impl!r} runs the gather code (models/moe.py)")
     if mesh == "card" and kw.get("rules_overrides"):
         run.pop("rules_overrides")
         why.append(f"sharding rules {kw['rules_overrides']} place nothing on one card")

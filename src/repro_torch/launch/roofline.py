@@ -374,14 +374,16 @@ def _glu(pr: _Products, rows: int, d: int, f: int, tail: bool = True):
 
 def _moe(pr: _Products, cfg, b: int, t: int, least: bool):
     """The router, the experts (least: each row through its top-k experts;
-    the port: every expert over its capacity rows, ``moe.capacity``) and
-    the shared experts."""
-    from repro_torch.models.moe import capacity
+    the port: every expert over its slots, G x C a sequence, ``moe.groups``:
+    C, or under ``"a2a"`` C_seg in each of its segments) and the shared
+    experts."""
+    from repro_torch.models.moe import groups
 
     d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     rows = b * t
     pr.add(2 * rows * d * e, 2)                                       # router
-    expert_rows = rows * cfg.moe_top_k if least else e * b * capacity(cfg, t)
+    g, c = groups(cfg, t)
+    expert_rows = rows * cfg.moe_top_k if least else e * b * g * c
     for _ in range(3):
         pr.add(2 * expert_rows * d * f, 2, batched=True)              # the experts
     if cfg.n_shared_experts:

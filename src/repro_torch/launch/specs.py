@@ -311,9 +311,6 @@ def _check_model_axis(cfg: ModelConfig, shape: ShapeSpec, n: int) -> None:
     if shape.kind == "train":
         raise Skip("training on a model axis is not ported: ROADMAP.md Queue 1 item 23 "
                    "(sharded training; launch/train.py --production-mesh raises)")
-    if cfg.family == "moe":
-        raise Skip("the MoE family on a model axis (expert parallelism) is not ported: "
-                   "ROADMAP.md Queue 1 item 22")
     from repro_torch.serving.sharded import validate_serving_shards
 
     try:

@@ -41,8 +41,9 @@ or a verify step: both raise.
 Tensor-parallel serving passes a ``Shards`` list of per-shard parameter
 trees (``serving.sharded.shard_params``) and per-shard caches: prefill,
 tail prefill, decode and verify then run the shard-local forward of
-``models/tensor_parallel.py`` (the dense family). ``param_axes`` gives the
-reference's logical axes of every parameter, which that placement reads.
+``models/tensor_parallel.py`` (the dense and MoE families). ``param_axes``
+gives the reference's logical axes of every parameter, which that placement
+reads (the expert leaves' per ``moe_impl``).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ from repro_torch.models.layers import (
     Ctx, dense_apply, embed_apply, embed_logits, norm_apply, positions_for,
 )
 from repro_torch.models.mla import mla_dense_shapes
-from repro_torch.models.moe import moe_shapes
+from repro_torch.models.moe import expert_axes, moe_shapes
 
 _LOGIT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -162,16 +163,14 @@ _DENSE_AXES = {
     "down": ("mlp", "embed"), "router": ("embed", "experts"),
     "in_proj": ("embed", "heads"), "out_proj": ("heads", "embed"),
 }
-_EXPERT_AXES = {"gate": ("experts", "embed", "expert_mlp"),
-                "up": ("experts", "embed", "expert_mlp"),
-                "down": ("experts", "expert_mlp", "embed")}
 _SSM_AXES = {"conv_w": (None, "heads"), "conv_b": ("heads",), "dt_bias": ("heads",),
              "A_log": ("heads",), "D": ("heads",), "beta": (None,), "gamma": (None,)}
 
 
-def _leaf_axes(path, ndim: int):
+def _leaf_axes(path, ndim: int, expert: dict):
     """The reference's logical axes of the parameter at ``path`` (its keys)
-    with ``ndim`` dimensions."""
+    with ``ndim`` dimensions; ``expert``: the expert leaves' axes
+    (``moe.expert_axes``)."""
     top = path[0]
     if top == "embed":
         return ("vocab", "embed")
@@ -187,8 +186,8 @@ def _leaf_axes(path, ndim: int):
         ax = ("embed",)
     elif leaf in _SSM_AXES:
         ax = _SSM_AXES[leaf]
-    elif parent in _EXPERT_AXES and ndim == 4:
-        ax = _EXPERT_AXES[parent]
+    elif parent in expert and ndim == 4:
+        ax = expert[parent]
     elif parent in _DENSE_AXES:
         ax = _DENSE_AXES[parent] if leaf == "w" else _DENSE_AXES[parent][-1:]
     else:
@@ -368,11 +367,12 @@ class Model:
         tree ``init`` builds on the meta device: nothing is allocated at any
         scale."""
         meta = Model(self.cfg, self.ctx.dtype, device="meta").init()
+        expert = expert_axes(self.cfg)
 
         def walk(node, path):
             if isinstance(node, dict):
                 return {k: walk(v, path + (k,)) for k, v in node.items()}
-            return _leaf_axes(path, node.ndim)
+            return _leaf_axes(path, node.ndim, expert)
 
         return walk(meta, ())
 

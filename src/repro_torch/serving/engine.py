@@ -728,11 +728,6 @@ class Engine:
         from repro_torch.serving.sharded import validate_serving_mesh
 
         validate_serving_mesh(cfg, mesh)
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "tensor-parallel serving of the MoE family shards its experts across "
-                "cards (the reference's expert parallelism and its 'a2a' dispatch): "
-                "ROADMAP.md Queue 1 item 22")
         if len({str(d) for d in mesh.device_list()}) != 1:
             from repro_torch.models.tensor_parallel import ONE_DEVICE
 

@@ -3,8 +3,9 @@ of ``src/repro/serving/sharded.py``).
 
 ``Engine.serve(mesh=...)`` (or ``shards=N``) runs the continuous-batching
 loop over a 1-D ``("model",)`` mesh (``launch/mesh.py``): attention heads
-(dense/GQA) or the MLA latent rank shard across the axis, and the paged
-block pool partitions with them — each shard holds its heads' slice of
+(dense/GQA) or the MLA latent rank shard across the axis (the MoE family's
+experts too: the reference's expert parallelism, ``experts`` on the model
+axis), and the paged block pool partitions with them — each shard holds its heads' slice of
 every block, so per-shard pool memory drops to ~1/N, while block tables,
 rope keys and the allocator's metadata stay replicated or on the host. The
 allocator never learns about the mesh: block ids mean the same thing on
@@ -130,9 +131,13 @@ def _shard_tree(tree, axes_tree, rules, mesh, split):
 def shard_params(params, axes_tree, rules: ShardingRules, mesh) -> Shards:
     """Every shard's parameter tree: column-parallel weights (q/k/v and
     their biases by heads and kv-heads, gate/up by ``mlp``, the MLA
-    up-projections by heads, an untied head by ``vocab``) sliced on the
-    model axis, row-parallel weights (:func:`_row_parallel`) and norms
-    whole. A slice on the device the weight is on is a view of it, and a
+    up-projections by heads, an untied head by ``vocab``; the MoE router and
+    expert gate/up by ``experts``, or every expert's gate/up by ``mlp`` under
+    ``expert_tp``) sliced on the model axis, row-parallel weights
+    (:func:`_row_parallel`: the expert ``down`` among them) and norms
+    whole; a dimension the shard count does not divide stays whole, as the
+    reference's ``sharding_for`` places it (the shard-local forward then
+    takes each shard's experts from the whole weight). A slice on the device the weight is on is a view of it, and a
     whole weight there is the weight itself, so N shards on one device
     hold each weight once. ``axes_tree`` is ``Model.param_axes()``.
     Returns a ``Shards`` list with ``.devices``."""

@@ -383,6 +383,57 @@ def test_sharded_count_is_shard_zeros_program():
     assert two["memory"]["port_argument_bytes"] < one["memory"]["argument_bytes"]
 
 
+@pytest.mark.parametrize("arch,over,kind", [
+    ("dbrx-132b", {"n_kv_heads": 4}, "decode"), ("deepseek-v2-236b", {}, "decode"),
+    ("dbrx-132b", {"n_kv_heads": 4, "moe_impl": "a2a"}, "prefill"),
+    ("deepseek-v2-236b", {"moe_impl": "expert_tp"}, "prefill"),
+])
+def test_sharded_moe_cell_counts_model_work(arch, over, kind):
+    """An MoE serving cell on a 2 x 2 (data, model) mesh is counted: its
+    products over both model shards equal model_work's figure for the
+    port's code (the experts split over the shards, every expert product
+    once), shard 0's are fewer, and its experts' outputs are gathered.
+    MLA's down-projections from whole weights run on every shard: the
+    query's ``wdq`` (and in prefill the latents' ``wdkv`` / ``wkr``)
+    count once more a layer at 2 shards."""
+    shape = specs.ShapeSpec("k", kind, 64 if kind == "prefill" else 48,
+                            8 if kind == "prefill" else 128)
+    cfg_over = dict(_smoke_overrides(arch), **over)
+    res = dryrun.run_cell(arch, shape, Mesh(None, ("data", "model"), (2, 2)),
+                          cfg_overrides=cfg_over)
+    w = res["model_work"]
+    assert res["model_shards"] == 2 and "skipped" not in res
+    cfg = smoke_config(arch)
+    repeated = 0
+    if cfg.attention == "mla":
+        rows = shape.batch // 2 * (shape.seq if kind == "prefill" else 1)
+        width = cfg.q_lora_rank + (cfg.kv_lora_rank + cfg.qk_rope_dim) * (kind == "prefill")
+        repeated = 2 * rows * cfg.d_model * width * cfg_over["n_layers"]
+    assert res["flops_model_axis"] - repeated == w["impl_flops"] > res["flops_per_device"] > 0
+    _work_parts(w)
+    assert res["collectives"]["all_gather"]["calls"] > 0
+
+
+def test_a2a_cell_counts_its_segment_slots():
+    """``"a2a"`` on the card: the counted products equal model_work's
+    figure, which counts every segment's slots (E x n x C_seg rows a
+    sequence, not gather's E x C); the least work is gather's."""
+    from repro_torch.models.moe import capacity, groups
+
+    over = _smoke_overrides("dbrx-132b")
+    shape = KINDS["prefill"]
+    gather = dryrun.run_cell("dbrx-132b", shape, "card", cfg_overrides=over)
+    a2a = dryrun.run_cell("dbrx-132b", shape, "card",
+                          cfg_overrides=dict(over, moe_impl="a2a"))
+    assert a2a["flops_per_device"] == a2a["model_work"]["impl_flops"]
+    assert a2a["model_work"]["flops"] == gather["model_work"]["flops"]
+    cfg = dataclasses.replace(smoke_config("dbrx-132b"), **dict(over, moe_impl="a2a"))
+    assert groups(cfg, shape.seq) == (16, 4) and 16 * 4 != capacity(cfg, shape.seq)
+    per_row = 3 * 2 * cfg.d_model * cfg.d_ff_expert * cfg.n_experts * shape.batch
+    assert (a2a["flops_per_device"] - gather["flops_per_device"]
+            == per_row * (16 * 4 - capacity(cfg, shape.seq)) * cfg.n_layers)
+
+
 def test_collectives_counter_changes_no_result():
     xs = [torch.arange(6.0).reshape(2, 3), torch.ones(2, 3)]
     plain = all_gather(xs, -1)
@@ -405,7 +456,7 @@ def test_dryrun_cli_counts_a_cell_and_names_skips(tmp_path):
     assert res["flops_per_device"] == res["model_work"]["flops"]   # 128 rows: no padding
     assert res["memory"]["argument_bytes_by_name"]["cache"] == \
         16 * 128 * 32768 * 2 * 16 * 128 * 2
-    for arch, shape, item in (("dbrx-132b", "decode_32k", "item 22"),
+    for arch, shape, item in (("dbrx-132b", "decode_32k", "item 14"),
                               ("olmo-1b", "train_4k", "item 23"),
                               ("qwen2.5-32b", "prefill_32k", "item 14"),
                               ("mamba2-780m", "decode_32k", "item 14")):
@@ -434,11 +485,12 @@ def test_hillclimb_prints_deltas_and_says_what_runs_the_same(tmp_path, monkeypat
     assert "the same counts as baseline" in lines["olmo-1b__decode_32k__moe_scatter_combine"]
     assert "mem=" in lines["olmo-1b__decode_32k__scores_bf16"] and \
         "same program" not in lines["olmo-1b__decode_32k__scores_bf16"]
-    assert "REFUSED" in lines["dbrx-132b__decode_32k__a2a_dispatch"] and \
-        "item 22" in lines["dbrx-132b__decode_32k__a2a_dispatch"]
+    assert "comp=" in lines["dbrx-132b__decode_32k__a2a_dispatch"] and \
+        "REFUSED" not in lines["dbrx-132b__decode_32k__a2a_dispatch"]
     hillclimb.main(["--mesh", "single", "--cell", "dbrx", "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "SKIP" in out and "item 22" in out
+    # dbrx-132b's 8 kv-heads do not split 16 ways: Engine.serve's refusal
+    assert "SKIP" in out and "item 14" in out and "n_kv_heads=8" in out
 
 
 def test_hillclimb_counts_afresh(tmp_path, monkeypatch, capsys):

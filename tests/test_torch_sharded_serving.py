@@ -6,18 +6,23 @@ Shards are ``[torch.device("cpu")] * N``, as the reference's CI simulates N
 host devices. On the CPU the sharded forward is bitwise equal to the
 single-device one in bf16 (prefill, tail-prefill, decode and verify
 logits and every cache byte); in f32 the logits are bitwise but for MLA at
-4 shards, within 1.3 x 1.77e-6 (``F32_TOL``); greedy tokens are equal, and the reference's own contract makes its sharded serve equal to
+4 shards, within 1.3 x 1.77e-6 (``F32_TOL``; deepseek-v2's 1.3 x 3.22e-6); greedy tokens are equal, and the reference's own contract makes its sharded serve equal to
 its single-device serve. Covered: dense (olmo-1b) at 2 and 4 shards, GQA
 (qwen2.5-32b's smoke config with ``n_kv_heads=2``), MLA (minicpm3-4b, its
 latent pool split on the rank), contiguous, prefix sharing, speculative,
 ``kernel="pallas"`` (K2's and K4's plain versions on the CPU), chunked
-prefill with preemption, the int8 pool and M-RoPE. The host-side half
+prefill with preemption, the int8 pool and M-RoPE; the MoE family
+(dbrx-132b with 4 kv-heads, deepseek-v2-236b) at 2 and 4 shards, with
+experts split over the shards, under ``"gather"``, ``"a2a"`` and
+``"expert_tp"`` and with expert counts the shards do not divide, its leaves
+placed where the reference's ``shard_params`` places them. The host-side half
 (validation messages, ``pool_report``, the cache axes, placement) is held
 equal to the reference's; qwen2.5-32b's config and its smoke model's
 prefill and greedy decode against the reference's through ``convert``.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -94,6 +99,7 @@ def _tokens(rep):
     ("olmo-1b", {}, 3), ("olmo-1b", {}, 8), ("qwen2.5-32b", {}, 2),
     ("qwen2.5-32b", {"n_kv_heads": 2}, 4), ("minicpm3-4b", {"kv_lora_rank": 66}, 4),
     ("mamba2-780m", {}, 2), ("hymba-1.5b", {}, 2), ("whisper-base", {}, 2),
+    ("dbrx-132b", {}, 2), ("deepseek-v2-236b", {}, 8),
 ])
 def test_validate_serving_shards_messages_equal_reference(arch, over, n):
     with pytest.raises(ValueError) as want:
@@ -142,6 +148,7 @@ def test_make_serving_mesh_wants_devices_named():
 @pytest.mark.parametrize("arch,over,n", [
     ("olmo-1b", {}, 4), ("qwen2.5-32b", {"n_kv_heads": 2}, 2),
     ("llama2-7b", {"kv_quant": True}, 4), ("minicpm3-4b", {}, 2), ("minicpm3-4b", {}, 4),
+    ("dbrx-132b", {"n_kv_heads": 4}, 4), ("deepseek-v2-236b", {}, 2),
 ])
 def test_pool_report_and_cache_axes_equal_reference(arch, over, n):
     jcfg = dataclasses.replace(jsmoke(arch), **over)
@@ -219,6 +226,63 @@ def test_shard_params_slices_columns_and_shares_the_rest():
         assert torch.equal(sp[i]["head"]["w"], eng.params["head"]["w"].chunk(2, 1)[i])
 
 
+@pytest.mark.parametrize("arch,over,n", [
+    ("dbrx-132b", {"n_kv_heads": 4}, 2), ("dbrx-132b", {"n_kv_heads": 4}, 4),
+    ("deepseek-v2-236b", {}, 2), ("deepseek-v2-236b", {"moe_impl": "expert_tp"}, 4),
+    ("dbrx-132b", {"n_kv_heads": 4, "n_experts": 6}, 4),
+])
+def test_moe_placement_equals_reference_axes(arch, over, n, monkeypatch):
+    """Every MoE leaf split where the reference's ``shard_params`` places
+    it under ``serving_rules``: the router and the expert gate / up by
+    ``experts`` (EP) or every expert's hidden by ``mlp`` (``expert_tp``),
+    the shared experts by ``mlp``; row-parallel ``down`` whole; an expert
+    count the shards do not divide whole, as ``sharding_for`` drops the
+    axis. Each split leaf is its chunk of the whole weight; the reference
+    accepts every such shard count (``validate_serving_shards``)."""
+    from repro.distributed.sharding import ShardingRules as JRules, serving_rules as jrules
+    from repro.launch import specs as jspecs
+    import types
+
+    monkeypatch.setattr(jspecs, "NamedSharding", lambda mesh, spec: tuple(spec))
+    jcfg = dataclasses.replace(jsmoke(arch), **over)
+    cfg = dataclasses.replace(smoke_config(arch), **over)
+    jsh.validate_serving_shards(jcfg, n)
+    sharded.validate_serving_shards(cfg, n)
+    m = Model(cfg, device="cpu")
+    p = m.init(torch.Generator("cpu").manual_seed(0))
+    axes = m.param_axes()
+    assert axes == JModel(jcfg).param_axes()
+    sp = sharded.shard_params(p, axes, serving_rules(ShardingRules(cfg.sharding_overrides)),
+                              _mesh(n))
+    ref_rules = jrules(JRules(jcfg.sharding_overrides))
+    mesh = types.SimpleNamespace(axis_names=("model",), devices=np.empty((n,), object))
+    split = 0
+
+    def walk(w, ax, path):
+        nonlocal split
+        if isinstance(w, dict):
+            for k in w:
+                walk(w[k], ax[k], path + (k,))
+            return
+        if jsh._row_parallel(ax, ref_rules):
+            ax = (None,) * len(ax)
+        spec = jspecs.sharding_for(tuple(w.shape), ax, mesh, ref_rules)
+        dims = [i for i, part in enumerate(spec) if part == "model"]
+        for i, t in enumerate(sp):
+            got = t["stack"]["layers"]["ffn"]
+            for k in path:
+                got = got[k]
+            if dims:
+                assert torch.equal(got, w.chunk(n, dims[0])[i]), path
+                split += 1
+            else:
+                assert got is w, path
+
+    walk(p["stack"]["layers"]["ffn"], axes["stack"]["layers"]["ffn"], ())
+    uneven = cfg.n_experts % n
+    assert split == (0 if uneven else n * (5 if cfg.n_shared_experts else 3))
+
+
 def test_qwen2_5_32b_config_matches_reference():
     """The last reference architecture: every field the reference's, 32.76 B
     parameters, QKV biases and an untied head."""
@@ -268,24 +332,51 @@ def test_qwen2_5_32b_smoke_prefill_and_decode_match_reference():
 # the limit is 1.3x that reading. bf16, the serving dtype, is bitwise
 # everywhere, and so are the shards' tokens in both
 F32_TOL = 1.3 * 1.77e-6
+# deepseek-v2-236b's smoke model (MLA at 4 heads, as minicpm3-4b's) at 4
+# shards in f32: the same one-head score einsum, whose decode logits read
+# 3.22e-6 off the single-device step (2.74e-6 under "a2a"); its 2-shard
+# cases and every bf16 case are bitwise. The limit is 1.3x the reading
+MLA_MOE_F32_TOL = 1.3 * 3.22e-6
 
 
-def _same(a, b, dtype):
+def _same(a, b, dtype, tol=F32_TOL):
     if dtype == torch.bfloat16:
         assert torch.equal(a, b)
     else:
-        assert (a - b).abs().max().item() <= F32_TOL
+        assert (a - b).abs().max().item() <= tol
+
+
+# the MoE smoke configs: dbrx-132b's keeps 1 kv-head of its 4 heads (8 of
+# 48), which no shard count splits, so it takes 4 (GQA group 1; the
+# kv-head split is the dense family's, covered above at group 2)
+DBRX = {"n_kv_heads": 4}
+MOE_FORWARD = [
+    ("dbrx-132b", DBRX, 2), ("dbrx-132b", DBRX, 4), ("deepseek-v2-236b", {}, 2),
+    ("deepseek-v2-236b", {}, 4),
+    ("dbrx-132b", dict(DBRX, moe_impl="a2a", moe_a2a_segments=4), 2),
+    ("deepseek-v2-236b", {"moe_impl": "a2a", "moe_a2a_segments": 4}, 4),
+    ("dbrx-132b", dict(DBRX, moe_impl="expert_tp"), 4),
+    ("deepseek-v2-236b", {"moe_impl": "expert_tp"}, 2),
+    ("dbrx-132b", dict(DBRX, n_experts=6), 4), ("deepseek-v2-236b", {"n_experts": 5}, 2),
+]
 
 
 @pytest.mark.parametrize("arch,over,n", [
     ("olmo-1b", {}, 4), ("qwen2.5-32b", {"n_kv_heads": 2}, 2), ("minicpm3-4b", {}, 2),
     ("minicpm3-4b", {}, 4), ("llama2-7b", {"kv_quant": True}, 4),
-])
+] + MOE_FORWARD)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sharded_forward_is_bitwise(arch, over, n, dtype):
     """Prefill, tail prefill, a paged decode step and a verify block over
-    the shards give the single-device logits and cache bytes exactly."""
+    the shards give the single-device logits and cache bytes exactly (in
+    f32, MLA at 4 shards within its limit above). The MoE cases: both
+    families at 2 and 4 shards, under "a2a" (4 segments: the 12-token
+    prefill and the 4-token tail take the segment path, the decode step
+    and the 3-token block the fallback) and "expert_tp", and expert counts
+    the shard count does not divide (blocks of 2, 2, 2, 0 and 3, 2)."""
     _, eng = _engine(arch, **over)
+    tol = MLA_MOE_F32_TOL if arch == "deepseek-v2-236b" and n == 4 else F32_TOL
+    same = functools.partial(_same, dtype=dtype, tol=tol)
     m, p, cfg = eng.model, eng.params, eng.model.cfg
     if dtype == torch.bfloat16:
         m = Model(cfg, dtype=dtype, device="cpu")
@@ -296,7 +387,7 @@ def test_sharded_forward_is_bitwise(arch, over, n, dtype):
     toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (1, 12)))
     l1, c1 = m.prefill(p, {"tokens": toks}, 32)
     l2, c2 = m.prefill(sp, {"tokens": toks}, 32)
-    _same(l1, l2, dtype)
+    same(l1, l2)
     geom = (2, 32, 4, 24)
     pc = kv_cache.paged_cache_zeros(cfg, *geom, device="cpu")
     axes = kv_cache.paged_cache_axes(cfg, *geom)
@@ -309,20 +400,20 @@ def test_sharded_forward_is_bitwise(arch, over, n, dtype):
         pc, row[:2], 8), 8)
     t2, _ = m.prefill_tail(sp, {"tokens": toks[:, 8:]}, kv_cache.paged_prefix_view(
         pcs, row[:2], 8), 8)
-    _same(t1, t2, dtype)
+    same(t1, t2)
     pos = torch.tensor([12, 32], dtype=torch.int32)
     tok = {"token": toks[:, -1:].repeat(2, 1)}
     d1, _ = m.decode_step(p, pc, tok, pos)
     d2, _ = m.decode_step(sp, pcs, tok, pos)
-    _same(d1, d2, dtype)
+    same(d1, d2)
     block = {"token": toks[:, 3:6].repeat(2, 1)}
     v1, st1 = m.verify_step(p, pc, block, pos + 1)
     v2, st2 = m.verify_step(sp, pcs, block, pos + 1)
-    _same(v1, v2, dtype)
+    same(v1, v2)
     n_acc = torch.tensor([1, 0])
     m.verify_commit(st1, n_acc, pos + 1, 3, pc)
     m.verify_commit(st2, n_acc, pos + 1, 3, pcs)
-    _same(v1, v2, dtype)
+    same(v1, v2)
     placed = sharded.place_cache(pc, axes, rules, mesh)
     for a, b in zip(placed, pcs):
         assert all(torch.equal(a[k], b[k]) for k in a)
@@ -335,6 +426,8 @@ def test_sharded_forward_is_bitwise(arch, over, n, dtype):
     ("olmo-1b", {}, 2, 0), ("olmo-1b", {}, 4, 0),
     ("qwen2.5-32b", {"n_kv_heads": 2}, 2, 1),
     ("minicpm3-4b", {}, 2, 2), ("minicpm3-4b", {}, 4, 2),
+    ("dbrx-132b", DBRX, 2, 3), ("dbrx-132b", DBRX, 4, 3),
+    ("deepseek-v2-236b", {}, 2, 1), ("deepseek-v2-236b", {}, 4, 1),
 ])
 def test_sharded_paged_serve_equals_single_device_and_reference(arch, over, shards, seed):
     """The reference's parity matrix (tests/test_sharded_serving.py): the
@@ -353,7 +446,8 @@ def test_sharded_paged_serve_equals_single_device_and_reference(arch, over, shar
 
 @pytest.mark.parametrize("case", ["contiguous", "prefix_share", "speculative", "pallas",
                                   "chunked_preempt", "int8_pallas", "mla_spec_pallas",
-                                  "mla_chunked", "mrope"])
+                                  "mla_chunked", "mrope", "moe_pallas", "moe_mla_pallas",
+                                  "moe_a2a", "moe_expert_tp", "moe_uneven_spec"])
 def test_sharded_serve_composes(case):
     """Every serving option composes with shards, as in the reference's
     matrix: tokens equal the port's single-device serve's and the
@@ -377,6 +471,19 @@ def test_sharded_serve_composes(case):
                         dict(paged=True, prefix_share=True, prefill_chunk=4)),
         "mrope": ("qwen2-vl-7b", {"n_kv_heads": 2}, 2, "random",
                   dict(paged=True, kernel="pallas")),
+        # the MoE family: K2 / K4's plain versions per shard, "a2a" (4
+        # segments, so prompts of 4 and 8 tokens take the segment path),
+        # "expert_tp", and 6 experts over 4 shards under speculative rounds
+        "moe_pallas": ("dbrx-132b", DBRX, 4, "shared",
+                       dict(paged=True, prefix_share=True, kernel="pallas")),
+        "moe_mla_pallas": ("deepseek-v2-236b", {}, 4, "random",
+                           dict(paged=True, kernel="pallas")),
+        "moe_a2a": ("dbrx-132b", dict(DBRX, moe_impl="a2a", moe_a2a_segments=4), 2,
+                    "random", dict(paged=True, kernel="pallas")),
+        "moe_expert_tp": ("deepseek-v2-236b", {"moe_impl": "expert_tp"}, 2, "random",
+                          dict(paged=True, kernel="pallas")),
+        "moe_uneven_spec": ("dbrx-132b", dict(DBRX, n_experts=6), 4, "random",
+                            dict(paged=True, speculative=True, draft_k=3)),
     }[case]
     jeng, eng = _engine(arch, **over)
     vocab = eng.model.cfg.vocab
@@ -449,8 +556,6 @@ def test_check_sharded_consistency_report():
 
 
 @pytest.mark.parametrize("arch,over,opts,exc,match", [
-    ("dbrx-132b", {"n_kv_heads": 2}, dict(paged=True), NotImplementedError,
-     "ROADMAP.md Queue 1 item 22"),
     ("mamba2-780m", {}, dict(paged=True), ValueError, "family 'ssm' decodes through"),
     ("hymba-1.5b", {}, dict(paged=True), ValueError, "family 'hybrid' decodes through"),
     ("whisper-base", {}, dict(), NotImplementedError,
